@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of FF-RAFT on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port on one NVIDIA card and check it: FF-RAFT
+and FF-FlowFormer inference.
 
     python3 chip_smoke.py
 
@@ -8,12 +9,17 @@ Phases (any failure raises and exits non-zero; no result is printed):
 1. Print the card's name and power limit (nvidia-smi) and build the CUDA
    kernels from `focusflow_official_tpu_torch/kernels/csrc/` (one nvcc per
    source, in parallel), printing the build time.
-2. For each kernel, at the shapes the main path gives it: the largest
+2. For each kernel, at the shapes the two paths give it: the largest
    |kernel - plain PyTorch version| against a stated tolerance, the
    kernel's median time over CUDA events, the plain version's time, the
    time of one PyTorch yardstick call, and the least time the card could
-   take (bytes over 3.35 TB/s or operations over the type's peak). One
-   JSON line per kernel.
+   take (bytes over 3.35 TB/s or operations over the type's peak; the
+   attentions' operations at the bf16 tensor-core peak). One JSON line per
+   kernel and shape: A-C2 at the FF-RAFT shapes, then A (one level), B
+   (K = 81), E (small-kv attention) and F (7x7 window attention) at every
+   distinct FF-FlowFormer shape (E: the Twins GSAs at both stages, the
+   vertical global layer, the perceiver's input and self-attention, the
+   decoder; F: the Twins LSAs at both stages, the vertical local layer).
 3. FF-RAFT end to end through `FlowPredictor`: a 1024x436 frame pair and
    keypoint masks, B=1, 12 iterations, bf16, the trained fixture weights.
    The flow must be finite, recover the known constant shift (interior
@@ -21,7 +27,15 @@ Phases (any failure raises and exits non-zero; no result is printed):
    (mean |diff| < 0.05 max(mean |flow|, 1), median < 0.1 px). Every
    kernel's launch count over one forward must match the path (lookup 12,
    fold 12, instance-norm stats 30, normalize 30). Prints ms per frame pair.
-4. A `{"kernels": [...]}` line, then the last line
+4. FF-FlowFormer end to end through `FlowPredictor`, the same way: a
+   textured 1024x436 frame and its (3, -2) px shift, B=1, 12 refinements,
+   bf16, the trained fixture (`trained_smoke_ff.npz`, encoder_depth 1), the
+   same three gates against a full-size f32 CPU run, and the launch counts
+   (lookup 12, fold 24, attention 23, window attention 9).
+5. FF-FlowFormer at the shipped depth (encoder_depth 3) on weights drawn
+   from a seeded `torch.Generator`: finite flow, attention 27 and window
+   attention 11 launches, ms per pair and device busy ms. Timing only.
+6. A `{"kernels": [...]}` line, then the last line
    `{"ok": true, "device": {...}}`.
 
 f32 matmuls and convolutions run in full f32 here (TF32 off), so the f32
@@ -40,6 +54,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "trained_smoke.npz")
+FIXTURE_FF = os.path.join(ROOT, "tests", "fixtures", "trained_smoke_ff.npz")
 OUT_DIR = os.path.join(ROOT, "build")  # gitignored
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -94,12 +109,98 @@ def _check(name: str, err: float, tol: float) -> None:
         raise AssertionError(f"{name}: max |kernel - plain| = {err} > {tol}")
 
 
-def kernel_phase(torch, dev):
+def _library_ms(torch, fn):
+    """The yardstick's time, or None (and why) where the library call
+    refuses these inputs; a yardstick is not part of the port."""
+    try:
+        return _time_ms(torch, fn), None
+    except Exception as e:  # noqa: BLE001 - reported, not fatal
+        return None, f"{type(e).__name__}: {str(e)[:200]}"
+
+
+def _lookup_row(torch, levels, coords, r: int, label: str) -> dict:
+    """Kernel A against its plain version at these levels and coords,
+    timed beside F.grid_sample, with its bound. `out` is the kernel's."""
+    import torch.nn.functional as F
+
+    from focusflow_official_tpu_torch.kernels import lookup as kl
+
+    dev = coords.device
+    b, h1, w1, _ = coords.shape
+    q = b * h1 * w1
+    got = kl.lookup(levels, coords, r)
+    want = kl.lookup_plain(levels, coords, r)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    # the same f32 products and sums in the same order: rounding only
+    tol = 1e-5 * (1.0 + float(want.abs().max()))
+    _check(label, err, tol)
+    ms = _time_ms(torch, lambda: kl.lookup(levels, coords, r))
+    plain_ms = _time_ms(torch, lambda: kl.lookup_plain(levels, coords, r), reps=10)
+    # yardstick: grid_sample per level over (Q, 1, H_l, W_l) images with a
+    # (Q, 9, 9, 2) window grid (f32 levels: bf16 grid_sample is not assumed)
+    k = 2 * r + 1
+    d = torch.arange(-r, r + 1, device=dev, dtype=torch.float32)
+    win = torch.stack(torch.meshgrid(d, d, indexing="ij"), -1)  # (k, k, 2)
+    lv32 = [lv.float().reshape(q, 1, *lv.shape[2:]) for lv in levels]
+    grids = []
+    for i, lv in enumerate(lv32):
+        hl, wl = lv.shape[2:]
+        c = coords.reshape(q, 1, 1, 2) / 2 ** i + win
+        grids.append(torch.stack([2 * c[..., 0] / (wl - 1) - 1,
+                                  2 * c[..., 1] / (hl - 1) - 1], -1))
+    lib_ms, lib_err = _library_ms(torch, lambda: [
+        F.grid_sample(lv, gr, align_corners=True) for lv, gr in zip(lv32, grids)])
+    del lv32, grids
+    # bytes: output, coords, and each query's in-bounds (K+1)^2 patch taps
+    taps = 0
+    for i, lv in enumerate(levels):
+        hl, wl = lv.shape[2:]
+        c = coords.reshape(q, 2) / 2 ** i
+        x0 = torch.floor(c[:, 0]) - r
+        y0 = torch.floor(c[:, 1]) - r
+        nx = (torch.minimum(x0 + k, torch.tensor(wl - 1.0, device=dev))
+              - torch.maximum(x0, torch.tensor(0.0, device=dev)) + 1).clamp(min=0)
+        ny = (torch.minimum(y0 + k, torch.tensor(hl - 1.0, device=dev))
+              - torch.maximum(y0, torch.tensor(0.0, device=dev)) + 1).clamp(min=0)
+        taps += int((nx * ny).sum())
+    nbytes = got.numel() * 4 + coords.numel() * 4 + taps * levels[0].element_size()
+    flops = got.numel() * 11  # 4 weights, 4 tap products, 3 adds per output
+    bound, by = _bound_ms(nbytes, flops, PEAK_F32)
+    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                library_error=lib_err, out=got)
+
+
+def _fold_row(torch, a, w, bias, label: str) -> dict:
+    """Kernel B against its plain version, timed beside F.linear."""
     import torch.nn.functional as F
 
     from focusflow_official_tpu_torch.kernels import fold as kf
+
+    out = kf.fold(a, w, bias)
+    ref = kf.fold_plain(a, w, bias)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    # f32 sums in another order, then one bf16 rounding: one bf16 ulp
+    tol = 2.0 ** -7 * max(1.0, float(ref.float().abs().max()))
+    _check(label, err, tol)
+    ms = _time_ms(torch, lambda: kf.fold(a, w, bias))
+    plain_ms = _time_ms(torch, lambda: kf.fold_plain(a, w, bias))
+    lib_ms, lib_err = _library_ms(torch, lambda: F.linear(a, w, bias))
+    (m_, k_), n_ = a.shape, w.shape[0]
+    bound, by = _bound_ms((m_ * k_ + n_ * k_ + n_ + m_ * n_) * a.element_size(),
+                          2.0 * m_ * n_ * k_, PEAK_BF16)
+    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                library_error=lib_err)
+
+
+def kernel_phase(torch, dev):
+    """A, B, C1 and C2 at the FF-RAFT shapes -> one result per kernel."""
+    import torch.nn.functional as F
+
     from focusflow_official_tpu_torch.kernels import instance_norm as kin
-    from focusflow_official_tpu_torch.kernels import lookup as kl
     from focusflow_official_tpu_torch.compat.weights import load_npz
     from focusflow_official_tpu_torch.ops.coords import coords_grid
     from focusflow_official_tpu_torch.ops.corr import corr_pyramid
@@ -116,51 +217,12 @@ def kernel_phase(torch, dev):
     del corr0
     flow = torch.randn((1, h1, w1, 2), generator=g, device=dev) * 8
     coords = (coords_grid(1, h1, w1, device=dev) + flow).contiguous()
-    got = kl.lookup(levels, coords, r)
-    want = kl.lookup_plain(levels, coords, r)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    # the same f32 products and sums in the same order: rounding only
-    tol = 1e-5 * (1.0 + float(want.abs().max()))
-    _check("lookup", err, tol)
-    ms = _time_ms(torch, lambda: kl.lookup(levels, coords, r))
-    plain_ms = _time_ms(torch, lambda: kl.lookup_plain(levels, coords, r), reps=10)
-    # yardstick: grid_sample per level over (Q, 1, H_l, W_l) images with a
-    # (Q, 9, 9, 2) window grid (f32 levels: bf16 grid_sample is not assumed)
-    k = 2 * r + 1
-    d = torch.arange(-r, r + 1, device=dev, dtype=torch.float32)
-    win = torch.stack(torch.meshgrid(d, d, indexing="ij"), -1)  # (k, k, 2)
-    lv32 = [lv.float().reshape(q, 1, *lv.shape[2:]) for lv in levels]
-    grids = []
-    for i, lv in enumerate(lv32):
-        hl, wl = lv.shape[2:]
-        c = coords.reshape(q, 1, 1, 2) / 2 ** i + win
-        grids.append(torch.stack([2 * c[..., 0] / (wl - 1) - 1,
-                                  2 * c[..., 1] / (hl - 1) - 1], -1))
-    lib_ms = _time_ms(torch, lambda: [
-        F.grid_sample(lv, gr, align_corners=True) for lv, gr in zip(lv32, grids)])
-    del lv32, grids
-    # bytes: output, coords, and each query's in-bounds (K+1)^2 patch taps
-    taps = 0
-    for i, lv in enumerate(levels):
-        hl, wl = lv.shape[2:]
-        c = coords.reshape(q, 2) / 2 ** i
-        x0 = torch.floor(c[:, 0]) - r
-        y0 = torch.floor(c[:, 1]) - r
-        nx = (torch.minimum(x0 + k, torch.tensor(wl - 1.0, device=dev))
-              - torch.maximum(x0, torch.tensor(0.0, device=dev)) + 1).clamp(min=0)
-        ny = (torch.minimum(y0 + k, torch.tensor(hl - 1.0, device=dev))
-              - torch.maximum(y0, torch.tensor(0.0, device=dev)) + 1).clamp(min=0)
-        taps += int((nx * ny).sum())
-    nbytes = got.numel() * 4 + coords.numel() * 4 + taps * 2
-    flops = got.numel() * 11  # 4 weights, 4 tap products, 3 adds per output
-    bound, by = _bound_ms(nbytes, flops, PEAK_F32)
+    row = _lookup_row(torch, levels, coords, r, "lookup")
+    got = row.pop("out")
     results.append(dict(
         name="lookup", route="cuda",
         source="focusflow_official_tpu_torch/kernels/csrc/lookup.cu",
-        replaces="focusflow_official_tpu/ops/pallas_lookup.py:70",
-        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-        bound_by=by, library_ms=lib_ms,
+        replaces="focusflow_official_tpu/ops/pallas_lookup.py:70", **row,
         library="F.grid_sample x4 levels (f32)",
         shape=f"levels {[tuple(lv.shape) for lv in levels]} bf16, Q={q}"))
     _emit(results[-1])
@@ -171,28 +233,14 @@ def kernel_phase(torch, dev):
     wc = wc.to(dev, bf16).contiguous()
     bc = sd["flow_net.update_block.encoder.convc1.bias"].to(dev, bf16)
     a = got.reshape(q, 324).to(bf16)
-    out = kf.fold(a, wc, bc)
-    ref = kf.fold_plain(a, wc, bc)
-    torch.cuda.synchronize()
-    err = float((out.float() - ref.float()).abs().max())
-    # f32 sums in another order, then one bf16 rounding: one bf16 ulp
-    tol = 2.0 ** -7 * max(1.0, float(ref.float().abs().max()))
-    _check("fold", err, tol)
-    ms = _time_ms(torch, lambda: kf.fold(a, wc, bc))
-    plain_ms = _time_ms(torch, lambda: kf.fold_plain(a, wc, bc))
-    lib_ms = _time_ms(torch, lambda: F.linear(a, wc, bc))
-    m_, n_, k_ = q, 256, 324
-    bound, by = _bound_ms((m_ * k_ + n_ * k_ + n_ + m_ * n_) * 2,
-                          2.0 * m_ * n_ * k_, PEAK_BF16)
+    row = _fold_row(torch, a, wc, bc, "fold")
     results.append(dict(
         name="fold", route="cuda",
         source="focusflow_official_tpu_torch/kernels/csrc/fold.cu",
-        replaces="focusflow_official_tpu/kernels/fold.py:51",
-        max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-        bound_by=by, library_ms=lib_ms, library="F.linear (bf16)",
-        shape="(7040, 324) @ (256, 324).T bf16"))
+        replaces="focusflow_official_tpu/kernels/fold.py:51", **row,
+        library="F.linear (bf16)", shape="(7040, 324) @ (256, 324).T bf16"))
     _emit(results[-1])
-    del levels, got, want, a, out, ref
+    del levels, got, a
 
     # ---- C1, C2: instance norm at the fnet's three shapes (both frames)
     shapes = [(2, 220, 512, 64), (2, 110, 256, 96), (2, 55, 128, 128)]
@@ -251,6 +299,152 @@ def kernel_phase(torch, dev):
     return results
 
 
+def _attention_row(torch, g, dev, b, n, m, c, heads, label) -> dict:
+    """Kernel E on random bf16 q (B, N, C), k, v (B, M, C) against its plain
+    version, timed beside F.scaled_dot_product_attention on (B, heads, N,
+    d) views of the same tensors."""
+    import torch.nn.functional as F
+
+    from focusflow_official_tpu_torch.kernels import attention as ka
+
+    bf16 = torch.bfloat16
+    q = torch.randn((b, n, c), generator=g, device=dev).to(bf16)
+    k = torch.randn((b, m, c), generator=g, device=dev).to(bf16)
+    v = torch.randn((b, m, c), generator=g, device=dev).to(bf16)
+    d = c // heads
+    scale = d ** -0.5
+    got = ka.small_kv_attention(q, k, v, heads, scale)
+    want = ka.small_kv_attention_plain(q, k, v, heads, scale)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    # both take f32 scores, softmax and sums from the same bf16 inputs, in
+    # other orders, and round once to bf16: one bf16 ulp
+    tol = 2.0 ** -7 * max(1.0, float(want.float().abs().max()))
+    _check(label, err, tol)
+    ms = _time_ms(torch, lambda: ka.small_kv_attention(q, k, v, heads, scale))
+    plain_ms = _time_ms(torch, lambda: ka.small_kv_attention_plain(
+        q, k, v, heads, scale), reps=10)
+    qh, kh, vh = (t.view(b, -1, heads, d).transpose(1, 2) for t in (q, k, v))
+    lib_ms, lib_err = _library_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, scale=scale))
+    nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * 2
+    bound, by = _bound_ms(nbytes, 2.0 * b * heads * n * m * 2 * d, PEAK_BF16)
+    return dict(shape=f"q ({b}, {n}, {c}) x kv ({b}, {m}, {c}), {heads} heads, "
+                      "bf16", label=label,
+                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms, library_error=lib_err)
+
+
+def _window_row(torch, g, dev, b, hp, wp, c, heads, label) -> dict:
+    """Kernel F on random bf16 (B, Hp, Wp, C) q, k, v against its plain
+    version, timed beside F.scaled_dot_product_attention on the window-
+    partitioned (B*nwin, heads, 49, d) tensors (partitioned before the
+    timed window; a second time includes the partition and the merge)."""
+    import torch.nn.functional as F
+
+    from focusflow_official_tpu_torch.kernels import window_attention as kw
+
+    bf16, ws = torch.bfloat16, 7
+    q, k, v = (torch.randn((b, hp, wp, c), generator=g, device=dev).to(bf16)
+               for _ in range(3))
+    d = c // heads
+    scale = d ** -0.5
+    got = kw.window_attention(q, k, v, ws, heads, scale)
+    want = kw.window_attention_plain(q, k, v, ws, heads, scale)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = 2.0 ** -7 * max(1.0, float(want.float().abs().max()))  # one bf16 ulp
+    _check(label, err, tol)
+    ms = _time_ms(torch, lambda: kw.window_attention(q, k, v, ws, heads, scale))
+    plain_ms = _time_ms(torch, lambda: kw.window_attention_plain(
+        q, k, v, ws, heads, scale), reps=10)
+    nh, nw = hp // ws, wp // ws
+
+    def part(t):
+        t = t.view(b, nh, ws, nw, ws, heads, d).permute(0, 1, 3, 5, 2, 4, 6)
+        return t.reshape(b * nh * nw, heads, ws * ws, d)
+
+    def sdpa_merged():
+        o = F.scaled_dot_product_attention(part(q), part(k), part(v), scale=scale)
+        o = o.view(b, nh, nw, heads, ws, ws, d).permute(0, 1, 4, 2, 5, 3, 6)
+        return o.reshape(b, hp, wp, c)
+
+    qw, kw_, vw = part(q), part(k), part(v)
+    lib_ms, lib_err = _library_ms(torch, lambda: F.scaled_dot_product_attention(
+        qw, kw_, vw, scale=scale))
+    lib_full_ms, _ = _library_ms(torch, sdpa_merged)
+    nwin = b * nh * nw
+    bound, by = _bound_ms(4 * q.numel() * 2,
+                          2.0 * nwin * heads * (ws * ws) ** 2 * 2 * d, PEAK_BF16)
+    return dict(shape=f"({b}, {hp}, {wp}, {c}), {heads} heads, bf16", label=label,
+                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms, library_error=lib_err,
+                library_with_partition_ms=lib_full_ms)
+
+
+def ff_kernel_phase(torch, dev) -> dict:
+    """A (one level), B (K = 81), E and F at the FF-FlowFormer shapes at
+    1024x436 (a 55x128 cost grid, Q = 7040) -> {kernel: [rows]}."""
+    from focusflow_official_tpu_torch.compat.weights import load_npz
+    from focusflow_official_tpu_torch.ops.coords import coords_grid
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    bf16 = torch.bfloat16
+    h1, w1, r = 55, 128, 4
+    q = h1 * w1
+    rows = {"lookup": [], "fold": [], "attention": [], "window_attention": []}
+
+    # A: one level, the (1, Q, 55, 128) cost maps in bf16
+    level = torch.randn((1, q, h1, w1), generator=g, device=dev).to(bf16)
+    flow = torch.randn((1, h1, w1, 2), generator=g, device=dev) * 8
+    coords = (coords_grid(1, h1, w1, device=dev) + flow).contiguous()
+    row = _lookup_row(torch, [level], coords, r, "lookup (FlowFormer)")
+    window = row.pop("out").reshape(q, 81).to(bf16)
+    rows["lookup"].append(dict(row, shape=f"1 level (1, {q}, {h1}, {w1}) bf16",
+                               library="F.grid_sample x1 level (f32)"))
+    _emit(dict(kernel="lookup", path="ff_flowformer", **rows["lookup"][-1]))
+    del level
+
+    # B: the flow-token encoder (81 -> 64) and convc1's window half (81 -> 256)
+    sd = load_npz(FIXTURE_FF)
+    w0 = sd["memory_decoder.flow_token_encoder_0.weight"].reshape(64, 81)
+    b0 = sd["memory_decoder.flow_token_encoder_0.bias"]
+    wc = sd["memory_decoder.update_block.encoder.convc1.weight"].reshape(256, 145)[:, 64:]
+    bc = sd["memory_decoder.update_block.encoder.convc1.bias"]
+    for n_, w_, b_ in ((64, w0, b0), (256, wc, bc)):
+        w_ = w_.to(dev, bf16).contiguous()
+        b_ = b_.to(dev, bf16)
+        row = _fold_row(torch, window, w_, b_, f"fold 81->{n_}")
+        rows["fold"].append(dict(row, shape=f"({q}, 81) @ ({n_}, 81).T bf16",
+                                 library="F.linear (bf16)"))
+        _emit(dict(kernel="fold", path="ff_flowformer", **rows["fold"][-1]))
+
+    # E: Twins GSA at both stages (the feature towers take both frames, the
+    # context towers B = 1), the vertical global layer, the perceiver's
+    # input layer, the latent self-attention, the decoder's cross-attend
+    for b, n, m, c, heads, label in (
+            (2, 28160, 448, 128, 4, "attention twins stage 1"),
+            (1, 28160, 448, 128, 4, "attention twins stage 1, context"),
+            (2, 7040, 448, 256, 8, "attention twins stage 2"),
+            (8, 7168, 448, 128, 8, "attention vertical global"),
+            (q, 8, 112, 128, 8, "attention input layer"),
+            (q, 8, 8, 128, 8, "attention latent self"),
+            (q, 1, 8, 64, 8, "attention decoder")):
+        rows["attention"].append(_attention_row(torch, g, dev, b, n, m, c, heads, label))
+        _emit(dict(kernel="attention", path="ff_flowformer", **rows["attention"][-1]))
+
+    # F: Twins LSA at both stages (feature towers), the vertical local layer
+    for b, hp, wp, c, heads, label in (
+            (2, 112, 259, 128, 4, "window twins stage 1"),
+            (2, 56, 133, 256, 8, "window twins stage 2"),
+            (8, 56, 133, 128, 8, "window vertical local")):
+        rows["window_attention"].append(
+            _window_row(torch, g, dev, b, hp, wp, c, heads, label))
+        _emit(dict(kernel="window_attention", path="ff_flowformer",
+                   **rows["window_attention"][-1]))
+    return rows
+
+
 def _shift_inputs(h: int, w: int, seed: int = 0):
     """White-noise frame, its copy shifted by (3, -2), sparse masks."""
     rng = np.random.RandomState(seed)
@@ -263,19 +457,24 @@ def _shift_inputs(h: int, w: int, seed: int = 0):
 
 
 _PORT_KERNELS = ("lookup_kernel", "fold_kernel", "stats_partial",
-                 "stats_finish", "normalize<")
+                 "stats_finish", "normalize<", "attn_tiled", "attn_direct",
+                 "window_attn")
 
 
 def _category(name: str) -> str:
     if any(k in name for k in _PORT_KERNELS):
-        return "port kernels (A, B, C1, C2)"
+        return "port kernels (A, B, C1, C2, E, F)"
     if name.startswith("Memcpy") or name.startswith("Memset"):
         return "host<->device copies"
-    if "fprop" in name or "conv" in name.lower() or "cutlass" in name:
+    if "fprop" in name or "conv" in name.lower():
         return "convolutions (cuDNN)"
-    if "gemm" in name:
+    if "gemm" in name or "cutlass" in name or "nvjet" in name:
         return "matmuls (cuBLAS, cuDNN gemm)"
-    return "elementwise, casts, cat, reductions"
+    if "layer_norm" in name:
+        return "layer norm"
+    if "copy" in name.lower():
+        return "copies and casts (contiguous, dtype, cat)"
+    return "elementwise, softmax, reductions"
 
 
 def _device_breakdown(torch, prof, wall_ms: float) -> dict:
@@ -308,32 +507,23 @@ def _device_breakdown(torch, prof, wall_ms: float) -> dict:
                         sorted(by_name.items(), key=lambda kv: -kv[1])[:12]])
 
 
-def end_to_end_phase(torch, card: str):
-    from focusflow_official_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from focusflow_official_tpu_torch.models import FFRaftConfig
-    from focusflow_official_tpu_torch.predict import FlowPredictor
+def _drive(torch, p, inputs, want: dict, profile_name: str):
+    """Warm up, then one forward of the path with every launch count set
+    to 0 just before and read just after (it must equal `want`), then ten
+    timed calls and one profiled call. Returns (flow (H, W, 2) of the
+    counted forward, counts, median ms, all ms, device breakdown)."""
+    from torch.profiler import ProfilerActivity, profile
 
-    cfg = FFRaftConfig(fusion="parallel", fusion_type="1x1conv",
-                       fuse_cnet=True, iters=ITERS)
-    inputs, (dx, dy) = _shift_inputs(H, W)
-    p = FlowPredictor(cfg, FIXTURE, device="cuda", dtype=torch.bfloat16)
+    from focusflow_official_tpu_torch.kernels import launch_counts, reset_launch_counts
+
     p(*inputs)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
-
     reset_launch_counts()
-    flow = p(*inputs)  # one forward of the main path
+    flow = p(*inputs)[0]  # one forward of the path
     counts = dict(launch_counts)
-    want = {"lookup": ITERS, "fold": ITERS, "in_stats": 30, "in_normalize": 30}
+    want = {name: want.get(name, 0) for name in counts}
     if counts != want:
-        raise AssertionError(f"launches per forward {counts} != {want}")
-
-    flow = flow[0]
-    if flow.shape != (H, W, 2) or not np.isfinite(flow).all():
-        raise AssertionError(f"flow {flow.shape} not finite or not ({H}, {W}, 2)")
-    epe = float(np.sqrt(((flow[8:-8, 8:-8] - np.array([dx, dy])) ** 2)
-                        .sum(-1)).mean())
-    if not epe < 6.0:
-        raise AssertionError(f"interior EPE {epe} >= 6 px")
+        raise AssertionError(f"{profile_name}: launches per forward {counts} != {want}")
 
     times = []
     for _ in range(10):
@@ -341,9 +531,6 @@ def end_to_end_phase(torch, card: str):
         t0 = time.perf_counter()
         p(*inputs)  # returns numpy: ends in a device sync
         times.append((time.perf_counter() - t0) * 1e3)
-    ms = float(np.median(times))
-
-    from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -351,13 +538,23 @@ def end_to_end_phase(torch, card: str):
         profiled_ms = (time.perf_counter() - t0) * 1e3
     breakdown = _device_breakdown(torch, prof, profiled_ms)
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "chip_smoke_profile.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"{profile_name}.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=60))
+    return flow, counts, float(np.median(times)), times, breakdown
 
+
+def _gates(torch, flow, shift, cpu_predictor, inputs) -> dict:
+    """Finite flow of the input's size, interior EPE < 6 px on the known
+    shift, and agreement with the f32 CPU run on the same inputs."""
+    if flow.shape != (H, W, 2) or not np.isfinite(flow).all():
+        raise AssertionError(f"flow {flow.shape} not finite or not ({H}, {W}, 2)")
+    epe = float(np.sqrt(((flow[8:-8, 8:-8] - np.array(shift)) ** 2)
+                        .sum(-1)).mean())
+    if not epe < 6.0:
+        raise AssertionError(f"interior EPE {epe} >= 6 px")
     t0 = time.perf_counter()
-    p_cpu = FlowPredictor(cfg, FIXTURE, device="cpu", dtype=torch.float32)
-    flow_cpu = p_cpu(*inputs)[0]
+    flow_cpu = cpu_predictor(*inputs)[0]
     cpu_s = time.perf_counter() - t0
     diff = np.abs(flow - flow_cpu)
     mag = float(np.abs(flow_cpu).mean())
@@ -365,16 +562,181 @@ def end_to_end_phase(torch, card: str):
             and float(np.median(diff)) < 0.1):
         raise AssertionError(f"bf16 card vs f32 CPU: mean {diff.mean()}, "
                              f"median {np.median(diff)}, |flow| {mag}")
-    res = dict(phase="end_to_end", card=card, shape=[1, H, W], iters=ITERS,
-               dtype="bfloat16", ms_per_pair=ms, pairs_per_s=1e3 / ms,
-               ms_all=times, profile=breakdown, launches=counts,
-               epe_interior=epe, vs_cpu_f32_mean_abs=float(diff.mean()),
-               vs_cpu_f32_median_abs=float(np.median(diff)),
-               vs_cpu_f32_max_abs=float(diff.max()), cpu_f32_mean_abs_flow=mag,
-               cpu_f32_seconds=cpu_s,
-               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
-    _emit(res)
+    return dict(epe_interior=epe, mean_abs_flow=float(np.abs(flow).mean()),
+                vs_cpu_f32_mean_abs=float(diff.mean()),
+                vs_cpu_f32_median_abs=float(np.median(diff)),
+                vs_cpu_f32_max_abs=float(diff.max()), cpu_f32_mean_abs_flow=mag,
+                cpu_f32_seconds=cpu_s)
+
+
+def end_to_end_phase(torch, card: str):
+    from focusflow_official_tpu_torch.models import FFRaftConfig
+    from focusflow_official_tpu_torch.predict import FlowPredictor
+
+    cfg = FFRaftConfig(fusion="parallel", fusion_type="1x1conv",
+                       fuse_cnet=True, iters=ITERS)
+    inputs, shift = _shift_inputs(H, W)
+    p = FlowPredictor(cfg, FIXTURE, device="cuda", dtype=torch.bfloat16)
+    want = {"lookup": ITERS, "fold": ITERS, "in_stats": 30, "in_normalize": 30}
+    flow, counts, ms, times, breakdown = _drive(torch, p, inputs, want,
+                                                "chip_smoke_profile")
+    gates = _gates(torch, flow, shift, FlowPredictor(
+        cfg, FIXTURE, device="cpu", dtype=torch.float32), inputs)
+    _emit(dict(phase="end_to_end", model="ff_raft", card=card, shape=[1, H, W],
+               iters=ITERS, dtype="bfloat16", ms_per_pair=ms, pairs_per_s=1e3 / ms,
+               ms_all=times, profile=breakdown, launches=counts, **gates,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
     return counts
+
+
+def _textured_inputs(h: int, w: int, seed: int = 0):
+    """Band-limited noise (three Gaussian blurs of white noise), its copy
+    shifted by (3, -2), 3% keypoint masks: the trained FlowFormer gates'
+    probe, at this size."""
+    from scipy.ndimage import gaussian_filter
+
+    rng = np.random.RandomState(seed)
+    base = rng.rand(h, w, 3).astype(np.float32)
+    img1 = np.zeros_like(base)
+    for sigma, gain in ((1.5, 1.0), (5.0, 2.0), (12.0, 4.0)):
+        img1 += gain * gaussian_filter(base, (sigma, sigma, 0), mode="mirror")
+    img1 -= img1.min()
+    img1 *= 255.0 / max(img1.max(), 1e-6)
+    dx, dy = 3, -2
+    img2 = np.roll(np.roll(img1, dy, 0), dx, 1)
+    m1 = ((rng.rand(h, w, 1) > 0.97) * 255).astype(np.float32)
+    m2 = ((rng.rand(h, w, 1) > 0.97) * 255).astype(np.float32)
+    return (img1[None], img2[None], m1[None], m2[None]), (dx, dy)
+
+
+def _ff_launches(encoder_depth: int, iters: int) -> dict:
+    """Launches of one FF-FlowFormer forward: E in the 8 Twins GSAs (two
+    stages of the context's and the features' image and mask towers), the
+    perceiver's input layer, each latent self-attention and vertical global
+    layer and each decoder step; F in the 8 Twins LSAs and each vertical
+    local layer; A once and B twice a decoder step."""
+    return {"attention": 8 + 1 + 2 * encoder_depth + iters,
+            "window_attention": 8 + encoder_depth,
+            "lookup": iters, "fold": 2 * iters}
+
+
+def ff_end_to_end_phase(torch, card: str):
+    from focusflow_official_tpu_torch.models import FlowFormerConfig
+    from focusflow_official_tpu_torch.predict import FlowPredictor
+
+    cfg = FlowFormerConfig(encoder_depth=1, decoder_depth=ITERS)
+    inputs, shift = _textured_inputs(H, W)
+    p = FlowPredictor(cfg, FIXTURE_FF, device="cuda", dtype=torch.bfloat16)
+    flow, counts, ms, times, breakdown = _drive(
+        torch, p, inputs, _ff_launches(1, ITERS), "chip_smoke_profile_ff")
+    gates = _gates(torch, flow, shift, FlowPredictor(
+        cfg, FIXTURE_FF, device="cpu", dtype=torch.float32), inputs)
+    _emit(dict(phase="end_to_end", model="ff_flowformer", card=card,
+               shape=[1, H, W], encoder_depth=1, iters=ITERS, dtype="bfloat16",
+               ms_per_pair=ms, pairs_per_s=1e3 / ms, ms_all=times,
+               profile=breakdown, launches=counts, **gates,
+               cpu_f32_size="full frame",
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
+    return counts
+
+
+def _random_ff_weights(torch, path: str, encoder_depth: int, seed: int = 0) -> None:
+    """Flat flax-named weights of the fixture's shapes, with the latent
+    layers repeated to `encoder_depth`, drawn from a seeded
+    torch.Generator: kernels ~ N(0, 1/fan_in), LayerNorm scales
+    ~ 1 + N(0, 0.1), every other leaf ~ N(0, 0.1). Saved as .npz."""
+    g = torch.Generator().manual_seed(seed)
+    shapes = {}
+    with np.load(FIXTURE_FF) as raw:
+        for k in raw.files:
+            if "encoder_layers_0/" in k:  # latent and vertical layers
+                for i in range(encoder_depth):
+                    shapes[k.replace("encoder_layers_0/", f"encoder_layers_{i}/")] = (
+                        raw[k].shape)
+            else:
+                shapes[k] = raw[k].shape
+    flat = {}
+    for k in sorted(shapes):
+        shape, leaf = shapes[k], k.rsplit("/", 1)[1]
+        t = torch.randn(shape, generator=g)
+        if leaf == "kernel":
+            t = t / float(np.sqrt(np.prod(shape[:-1])))
+        elif leaf == "scale":
+            t = 1 + 0.1 * t
+        else:
+            t = 0.1 * t
+        flat[k] = t.numpy()
+    np.savez(path, **flat)
+
+
+def ff_shipped_depth_phase(torch, card: str):
+    """The shipped encoder_depth 3 on seeded random weights: timing only."""
+    from focusflow_official_tpu_torch.models import FlowFormerConfig
+    from focusflow_official_tpu_torch.predict import FlowPredictor
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "ff_random_depth3.npz")
+    _random_ff_weights(torch, path, 3)
+    inputs, _ = _textured_inputs(H, W)
+    p = FlowPredictor(FlowFormerConfig(encoder_depth=3, decoder_depth=ITERS), path,
+                      device="cuda", dtype=torch.bfloat16)
+    flow, counts, ms, times, breakdown = _drive(
+        torch, p, inputs, _ff_launches(3, ITERS), "chip_smoke_profile_ff_depth3")
+    if flow.shape != (H, W, 2) or not np.isfinite(flow).all():
+        raise AssertionError(f"depth-3 flow {flow.shape} not finite")
+    _emit(dict(phase="shipped_depth", model="ff_flowformer", card=card,
+               shape=[1, H, W], encoder_depth=3, iters=ITERS, dtype="bfloat16",
+               weights="seeded torch.Generator", ms_per_pair=ms,
+               pairs_per_s=1e3 / ms, ms_all=times, profile=breakdown,
+               launches=counts, mean_abs_flow=float(np.abs(flow).mean())))
+    return counts
+
+
+def _worst(rows: list) -> dict:
+    """The max_abs_err and tol of the shape whose error is the largest
+    share of its own tolerance."""
+    r = max(rows, key=lambda r_: r_["max_abs_err"] / r_["tol"])
+    return dict(max_abs_err=r["max_abs_err"], tol=r["tol"])
+
+
+def _kernel_table(raft: list, ff_rows: dict, raft_counts: dict, ff_counts: dict,
+                  card: str) -> list:
+    """One entry per kernel: the headline shape's times (the FF-RAFT shape
+    for A-C2, the first FlowFormer shape for E and F), the error and
+    tolerance of its worst shape, every shape under `per_shape` with its
+    own tolerance, and `launches` summed over the two paths' counted
+    forwards (`launches_by_path` splits them)."""
+    table = []
+    for kr in raft:
+        rows = ff_rows.get(kr["name"], [])
+        if rows:
+            head = {k: kr[k] for k in ("shape", "max_abs_err", "tol", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms")}
+            kr["per_shape"] = [dict(head, path="ff_raft")] + [
+                dict(r, path="ff_flowformer") for r in rows]
+            kr.update(_worst(kr["per_shape"]))
+        table.append(kr)
+    for name, src, replaces, lib in (
+            ("attention", "attention.cu", "focusflow_official_tpu/kernels/attention.py:51",
+             "F.scaled_dot_product_attention on (B, heads, N, d) views"),
+            ("window_attention", "window_attention.cu",
+             "focusflow_official_tpu/kernels/window_attention.py:56",
+             "F.scaled_dot_product_attention on (B*nwin, heads, 49, d), "
+             "partition outside the timed window")):
+        rows = ff_rows[name]
+        top = rows[0]
+        table.append(dict(
+            name=name, route="cuda", source=f"focusflow_official_tpu_torch/kernels/csrc/{src}",
+            replaces=replaces, **_worst(rows), ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+            bound_by=top["bound_by"], library_ms=top["library_ms"], library=lib,
+            shape=top["shape"], per_shape=[dict(r, path="ff_flowformer") for r in rows]))
+    for kr in table:
+        by_path = {"ff_raft": raft_counts.get(kr["name"], 0),
+                   "ff_flowformer": ff_counts.get(kr["name"], 0)}
+        kr["launches"] = sum(by_path.values())
+        kr["launches_by_path"] = by_path
+        kr["card"] = card
+    return table
 
 
 def main() -> int:
@@ -388,6 +750,7 @@ def main() -> int:
     # full f32 for the f32 comparisons: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     card = _card_line()
     print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
@@ -402,12 +765,18 @@ def main() -> int:
     _emit(dict(phase="build", seconds=build_s, ptxas=regs))
 
     dev = torch.device("cuda", 0)
-    kernels = kernel_phase(torch, dev)
-    counts = end_to_end_phase(torch, card)
+    raft_kernels = kernel_phase(torch, dev)
+    ff_rows = ff_kernel_phase(torch, dev)
+    torch.cuda.empty_cache()
+    raft_counts = end_to_end_phase(torch, card)
+    ff_counts = ff_end_to_end_phase(torch, card)
+    ff_shipped_depth_phase(torch, card)
+    kernels = _kernel_table(raft_kernels, ff_rows, raft_counts, ff_counts, card)
     for kr in kernels:
-        kr["launches"] = counts[kr["name"]]
-        kr["card"] = card
+        if kr["launches"] == 0:
+            raise AssertionError(f"{kr['name']}: no launch on either path")
 
+    _emit(dict(phase="total", seconds=time.perf_counter() - t_start))
     _emit({"kernels": kernels})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

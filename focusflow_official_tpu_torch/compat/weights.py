@@ -7,9 +7,13 @@ Keys are '/'-joined flax paths such as
 module names, so a path maps to a key by:
 
 - dropping the collection and the `update_step` scan scope;
-- renaming the leaf: conv `kernel` -> `weight`, transposed from
-  (kh, kw, I, O) to (O, I, kh, kw); norm `scale` -> `weight`; batch-stat
-  `mean` / `var` -> `running_mean` / `running_var`.
+- renaming the leaf: `kernel` -> `weight`, a conv's (kh, kw, I, O) (a
+  depthwise conv's (kh, kw, 1, C)) transposed to (O, I, kh, kw), a dense
+  layer's (I, O) to (O, I); norm `scale` -> `weight`; batch-stat `mean` /
+  `var` -> `running_mean` / `running_var`; free parameters
+  (`latent_tokens`, `gamma`, `pos_emb_rel_*`) keep their names.
+
+An unknown leaf raises `KeyError`.
 """
 
 from __future__ import annotations
@@ -19,7 +23,10 @@ from typing import Mapping
 import numpy as np
 import torch
 
-_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+                 **{n: n for n in ("latent_tokens", "gamma", "pos_emb_rel_height",
+                                   "pos_emb_rel_width")}}
+_KERNEL_PERMUTE = {4: (3, 2, 0, 1), 2: (1, 0)}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -35,7 +42,10 @@ def params_from_jax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
             raise KeyError(f"unmapped flax variable {key!r}")
         t = torch.from_numpy(np.array(arr, np.float32))
         if leaf == "kernel":
-            t = t.permute(3, 2, 0, 1)
+            if t.dim() not in _KERNEL_PERMUTE:
+                raise KeyError(f"{t.dim()}-D kernel {key!r}: expected a conv "
+                               "(4-D) or a dense layer (2-D)")
+            t = t.permute(_KERNEL_PERMUTE[t.dim()])
         sd[".".join(path + [names[leaf]])] = t.contiguous()
     return sd
 

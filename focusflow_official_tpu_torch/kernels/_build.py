@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` exports plain C functions (pointers, ints and a
 stream; each returns a `cudaError_t`). It is compiled for Hopper
 (`sm_90a`) into `build/kernels/<name>-<hash>.so` at the repo root, the
-hash being that of the source, so an edited source is rebuilt and an
-unchanged one is loaded as it is. `build_all()` starts one nvcc per source
-at once and waits for all of them.
+hash being that of the source and the shared headers (`csrc/*.cuh`), so
+an edited source is rebuilt and an unchanged one is loaded as it is.
+`build_all()` starts one nvcc per source at once and waits for all of
+them.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("lookup", "fold", "instance_norm")
+SOURCES = ("lookup", "fold", "instance_norm", "attention", "window_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -38,6 +39,7 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

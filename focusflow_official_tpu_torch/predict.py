@@ -1,10 +1,14 @@
 """User-facing inference: config + weights -> flow.
 
-    from focusflow_official_tpu_torch.models import FFRaftConfig
+    from focusflow_official_tpu_torch.models import FFRaftConfig, FlowFormerConfig
     from focusflow_official_tpu_torch.predict import FlowPredictor
     p = FlowPredictor(FFRaftConfig(fuse_cnet=True), "weights.npz",
                       dtype=torch.bfloat16)
     flow = p(img1, img2, mask1, mask2)   # (H, W, 2) float32 numpy
+    p = FlowPredictor(FlowFormerConfig(encoder_depth=1), "weights_ff.npz")
+
+The config's type picks the model: `FFRaftConfig` -> FF-RAFT,
+`FlowFormerConfig` -> FF-FlowFormer.
 
 Frames are padded (replicate) to a multiple of 8, run through the
 test-mode forward and unpadded. Inputs are HWC or NHWC, uint8 or float,
@@ -21,7 +25,8 @@ import torch
 from torch import nn
 
 from .compat.weights import load_npz
-from .models.config import FFRaftConfig
+from .models.config import FFRaftConfig, FlowFormerConfig
+from .models.ff_flowformer import FFFlowFormer
 from .models.ff_raft import DTYPES, FFRaft, compute_dtype
 from .ops.padding import InputPadder
 
@@ -50,7 +55,7 @@ class FlowPredictor:
     default `cfg.compute_dtype`. Runs on `device` ("cuda" unless the
     caller asks for "cpu")."""
 
-    def __init__(self, cfg: FFRaftConfig, weights_npz: str, *,
+    def __init__(self, cfg: FFRaftConfig | FlowFormerConfig, weights_npz: str, *,
                  device="cuda", dtype: Optional[torch.dtype] = None):
         if dtype is not None:
             if dtype not in _DTYPE_NAMES:
@@ -58,13 +63,18 @@ class FlowPredictor:
             cfg = dataclasses.replace(cfg, compute_dtype=_DTYPE_NAMES[dtype])
         self.cfg = cfg
         self.device = torch.device(device)
-        model = FFRaft(cfg)
+        if not isinstance(cfg, (FFRaftConfig, FlowFormerConfig)):
+            raise TypeError(f"expected FFRaftConfig or FlowFormerConfig, got {cfg!r}")
+        model = FFRaft(cfg) if isinstance(cfg, FFRaftConfig) else FFFlowFormer(cfg)
         model.load_state_dict(load_npz(weights_npz), strict=True)
         model.to(self.device).eval()
-        # convs run in the compute type; norms keep f32 stats and cast at use
+        # convs and dense layers run in the compute type; norms and free
+        # parameters stay f32 and cast at use
         for m in model.modules():
             if isinstance(m, nn.Conv2d):
                 m.to(compute_dtype(cfg), memory_format=torch.channels_last)
+            elif isinstance(m, nn.Linear):
+                m.to(compute_dtype(cfg))
         self.model = model
 
     @torch.inference_mode()

@@ -14,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+from focusflow_official_tpu_torch.kernels import attention as ka
 from focusflow_official_tpu_torch.kernels import fold as kf
 from focusflow_official_tpu_torch.kernels import instance_norm as kin
 from focusflow_official_tpu_torch.kernels import launch_counts
 from focusflow_official_tpu_torch.kernels import lookup as kl
+from focusflow_official_tpu_torch.kernels import window_attention as kw
 from focusflow_official_tpu_torch.ops.corr import corr_pyramid
 
 pytestmark = pytest.mark.cuda
@@ -46,9 +48,24 @@ def test_lookup_kernel(dev, dtype, h1, w1):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lookup_kernel_one_level(dev, dtype):
+    """The FlowFormer decoder's lookup: one level, the cost maps of a
+    (h1, w1) grid against themselves."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    h1, w1 = 11, 16
+    level = torch.randn((1, h1 * w1, h1, w1), generator=g, device=dev).to(dtype)
+    coords = torch.rand((1, h1, w1, 2), generator=g, device=dev) * 24 - 4
+    got = kl.lookup([level], coords, 4)
+    assert got.shape == (1, h1, w1, 81)
+    torch.testing.assert_close(got, kl.lookup_plain([level], coords, 4),
+                               rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("m,n,k", [(7040, 256, 324), (100, 70, 33)])
+@pytest.mark.parametrize("m,n,k", [(7040, 256, 324), (100, 70, 33),
+                                   (704, 64, 81), (704, 256, 81)])
 def test_fold_kernel(dev, dtype, tol, m, n, k):
     g = torch.Generator(device=dev).manual_seed(2)
     a = torch.randn((m, k), generator=g, device=dev).to(dtype)
@@ -75,6 +92,53 @@ def test_instance_norm_kernels(dev, dtype, shape):
                                    rtol=0, atol=0)
 
 
+# bf16: both sides take f32 scores and sums from the same bf16 inputs and
+# round once to bf16 at the end: one bf16 ulp of outputs of size ~1
+_ATTN_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
+             torch.bfloat16: dict(rtol=1e-2, atol=2e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,m,c,cv,heads", [
+    (2, 300, 448, 128, 128, 4),  # query tiles, Twins-like 448 keys
+    (3, 200, 45, 64, 64, 8),     # query tiles, ragged N and M
+    (2, 100, 30, 256, 128, 8),   # query tiles, v narrower (d 32, dv 16)
+    (50, 8, 112, 128, 128, 8),   # many batch entries: the input layer
+    (70, 1, 8, 64, 64, 8),       # the decoder's cross-attend
+    (6, 8, 20, 128, 64, 8),      # many batch entries, v narrower
+])
+def test_attention_kernel(dev, dtype, b, n, m, c, cv, heads):
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((b, n, c), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, m, c), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, m, cv), generator=g, device=dev).to(dtype)
+    scale = (c // heads) ** -0.5
+    before = launch_counts["attention"]
+    got = ka.small_kv_attention(q, k, v, heads, scale)
+    assert launch_counts["attention"] == before + 1
+    assert got.shape == (b, n, cv) and got.dtype == dtype
+    want = ka.small_kv_attention_plain(q, k, v, heads, scale)
+    torch.testing.assert_close(got.float(), want.float(), **_ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hp,wp,c,heads", [
+    (2, 14, 259, 128, 4),  # odd width, 37 windows a row (Twins stage 1)
+    (8, 14, 133, 128, 8),  # the vertical local layer's widths
+    (1, 7, 7, 32, 2),      # a single window
+])
+def test_window_attention_kernel(dev, dtype, b, hp, wp, c, heads):
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = (torch.randn((b, hp, wp, c), generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    scale = (c // heads) ** -0.5
+    before = launch_counts["window_attention"]
+    got = kw.window_attention(q, k, v, 7, heads, scale)
+    assert launch_counts["window_attention"] == before + 1
+    want = kw.window_attention_plain(q, k, v, 7, heads, scale)
+    torch.testing.assert_close(got.float(), want.float(), **_ATTN_TOL[dtype])
+
+
 def test_wrappers_reject_strided_input(dev):
     x = torch.randn((1, 8, 8, 16), device=dev).permute(0, 2, 1, 3)
     with pytest.raises(ValueError):
@@ -82,6 +146,15 @@ def test_wrappers_reject_strided_input(dev):
     a = torch.randn((16, 8), device=dev)
     with pytest.raises(ValueError):
         kf.fold(a.t(), torch.randn((4, 16), device=dev), torch.randn(4, device=dev))
+    q = torch.randn((2, 16, 64), device=dev)
+    with pytest.raises(ValueError):
+        ka.small_kv_attention(q.transpose(0, 1), q, q, 4, 0.25)
+    with pytest.raises(ValueError):  # head width 12 is not built
+        ka.small_kv_attention(q[..., :48].contiguous(), q[..., :48].contiguous(),
+                              q[..., :48].contiguous(), 4, 0.25)
+    x = torch.randn((1, 14, 14, 64), device=dev)
+    with pytest.raises(ValueError):
+        kw.window_attention(x.transpose(1, 2), x, x, 7, 4, 0.25)
 
 
 def test_predictor_on_card_matches_cpu(dev):
@@ -100,8 +173,30 @@ def test_predictor_on_card_matches_cpu(dev):
     m1 = ((rng.rand(96, 128, 1) > 0.97) * 255).astype(np.float32)
     m2 = ((rng.rand(96, 128, 1) > 0.97) * 255).astype(np.float32)
     cfg = FFRaftConfig(fuse_cnet=True)
+    raft_kernels = ("lookup", "fold", "in_stats", "in_normalize")
     before = dict(launch_counts)
     on_card = FlowPredictor(cfg, fixture, device=dev)(i1, i2, m1, m2)
-    assert all(launch_counts[k] > before[k] for k in before)
+    assert all(launch_counts[k] > before[k] for k in raft_kernels)
     on_cpu = FlowPredictor(cfg, fixture, device="cpu")(i1, i2, m1, m2)
+    assert float(np.abs(on_card - on_cpu).max()) <= 1e-2
+
+
+def test_flowformer_predictor_on_card_matches_cpu(dev):
+    """FF-FlowFormer on the card (kernels A, B, E and F launched) against
+    the same f32 forward on the CPU, at 64x96 with 4 refinements. f32 on
+    both sides, sums in other orders: 1e-2 px, the port's parity bound."""
+    from focusflow_official_tpu_torch.models import FlowFormerConfig
+    from focusflow_official_tpu_torch.predict import FlowPredictor
+
+    fixture = os.path.join(os.path.dirname(__file__), "fixtures",
+                           "trained_smoke_ff.npz")
+    rng = np.random.RandomState(1)
+    i1 = (rng.rand(64, 96, 3) * 255).astype(np.float32)
+    i2 = np.roll(np.roll(i1, -2, 0), 3, 1)
+    cfg = FlowFormerConfig(encoder_depth=1, decoder_depth=4)
+    before = dict(launch_counts)
+    on_card = FlowPredictor(cfg, fixture, device=dev)(i1, i2)
+    for name in ("lookup", "fold", "attention", "window_attention"):
+        assert launch_counts[name] > before[name], name
+    on_cpu = FlowPredictor(cfg, fixture, device="cpu")(i1, i2)
     assert float(np.abs(on_card - on_cpu).max()) <= 1e-2

@@ -90,7 +90,13 @@ def test_port_imports_no_jax():
     code = ("import sys, focusflow_official_tpu_torch.predict, "
             "focusflow_official_tpu_torch.kernels.lookup, "
             "focusflow_official_tpu_torch.kernels.fold, "
-            "focusflow_official_tpu_torch.kernels.instance_norm\n"
+            "focusflow_official_tpu_torch.kernels.instance_norm, "
+            "focusflow_official_tpu_torch.kernels.attention, "
+            "focusflow_official_tpu_torch.kernels.window_attention, "
+            "focusflow_official_tpu_torch.nn.twins, "
+            "focusflow_official_tpu_torch.nn.latent_cost, "
+            "focusflow_official_tpu_torch.nn.gma, "
+            "focusflow_official_tpu_torch.models.ff_flowformer\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'focusflow_official_tpu'))\n"
             "assert not bad, bad\n")
