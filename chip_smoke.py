@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one NVIDIA card and check it: FF-RAFT
-and FF-FlowFormer inference.
+"""Drive the PyTorch/CUDA port on one NVIDIA card and check it: FF-RAFT,
+FF-FlowFormer and FF-PWCNet inference.
 
     python3 chip_smoke.py
 
@@ -15,18 +15,22 @@ Phases (any failure raises and exits non-zero; no result is printed):
    time of one PyTorch yardstick call, and the least time the card could
    take (bytes over 3.35 TB/s or operations over the type's peak; the
    attentions' operations at the bf16 tensor-core peak). One JSON line per
-   kernel and shape: A-C2 at the FF-RAFT shapes, then A (one level), B
+   kernel and shape: A-C2 and the fused lookup + convc1 at the FF-RAFT
+   shapes (the fused kernel also beside A then B), then A (one level), B
    (K = 81), E (small-kv attention) and F (7x7 window attention) at every
    distinct FF-FlowFormer shape (E: the Twins GSAs at both stages, the
    vertical global layer, the perceiver's input and self-attention, the
-   decoder; F: the Twins LSAs at both stages, the vertical local layer).
+   decoder; F: the Twins LSAs at both stages, the vertical local layer),
+   then D (local correlation) at FF-PWCNet's five decoder levels in bf16
+   and at one of them in f32.
 3. FF-RAFT end to end through `FlowPredictor`: a 1024x436 frame pair and
    keypoint masks, B=1, 12 iterations, bf16, the trained fixture weights.
    The flow must be finite, recover the known constant shift (interior
    EPE < 6 px) and track the port's f32 run on the CPU on the same inputs
    (mean |diff| < 0.05 max(mean |flow|, 1), median < 0.1 px). Every
-   kernel's launch count over one forward must match the path (lookup 12,
-   fold 12, instance-norm stats 30, normalize 30). Prints ms per frame pair.
+   kernel's launch count over one forward must match the path (the fused
+   lookup + convc1 12, instance-norm stats 30, normalize 30, A and B 0).
+   Prints ms per frame pair.
 4. FF-FlowFormer end to end through `FlowPredictor`, the same way: a
    textured 1024x436 frame and its (3, -2) px shift, B=1, 12 refinements,
    bf16, the trained fixture (`trained_smoke_ff.npz`, encoder_depth 1), the
@@ -35,7 +39,13 @@ Phases (any failure raises and exits non-zero; no result is printed):
 5. FF-FlowFormer at the shipped depth (encoder_depth 3) on weights drawn
    from a seeded `torch.Generator`: finite flow, attention 27 and window
    attention 11 launches, ms per pair and device busy ms. Timing only.
-6. A `{"kernels": [...]}` line, then the last line
+6. FF-PWCNet end to end through `FlowPredictor`: the same textured pair,
+   raw 0-255 inputs resized to 1024x448 inside, B=1, bf16, the trained
+   fixture (`trained_smoke_pwc.npz`). Finite flow that tracks the f32 CPU
+   run within the same bounds, and exactly 5 launches of D. No shift gate:
+   this fixture predicts about the zero-flow baseline on any probe, so the
+   agreement with the f32 run carries correctness.
+7. A `{"kernels": [...]}` line, then the last line
    `{"ok": true, "device": {...}}`.
 
 f32 matmuls and convolutions run in full f32 here (TF32 off), so the f32
@@ -45,6 +55,7 @@ comparisons are not blurred by TF32's 10-bit mantissa. Needs one card.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -55,6 +66,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "trained_smoke.npz")
 FIXTURE_FF = os.path.join(ROOT, "tests", "fixtures", "trained_smoke_ff.npz")
+FIXTURE_PWC = os.path.join(ROOT, "tests", "fixtures", "trained_smoke_pwc.npz")
 OUT_DIR = os.path.join(ROOT, "build")  # gitignored
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -99,9 +111,16 @@ def _time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
 
 
 def _bound_ms(nbytes: float, flops: float, peak: float):
+    """The larger of bytes over the memory rate and operations over their
+    peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values (8 significant bits) at magnitude x > 0."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
 def _check(name: str, err: float, tol: float) -> None:
@@ -118,28 +137,14 @@ def _library_ms(torch, fn):
         return None, f"{type(e).__name__}: {str(e)[:200]}"
 
 
-def _lookup_row(torch, levels, coords, r: int, label: str) -> dict:
-    """Kernel A against its plain version at these levels and coords,
-    timed beside F.grid_sample, with its bound. `out` is the kernel's."""
+def _grid_sample_yardstick(torch, levels, coords, r: int):
+    """A call that looks the windows up with F.grid_sample, one call per
+    level over (Q, 1, H_l, W_l) images with a (Q, 9, 9, 2) window grid
+    (f32 levels: bf16 grid_sample is not assumed) -> list of (Q, 1, 9, 9)."""
     import torch.nn.functional as F
 
-    from focusflow_official_tpu_torch.kernels import lookup as kl
-
     dev = coords.device
-    b, h1, w1, _ = coords.shape
-    q = b * h1 * w1
-    got = kl.lookup(levels, coords, r)
-    want = kl.lookup_plain(levels, coords, r)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    # the same f32 products and sums in the same order: rounding only
-    tol = 1e-5 * (1.0 + float(want.abs().max()))
-    _check(label, err, tol)
-    ms = _time_ms(torch, lambda: kl.lookup(levels, coords, r))
-    plain_ms = _time_ms(torch, lambda: kl.lookup_plain(levels, coords, r), reps=10)
-    # yardstick: grid_sample per level over (Q, 1, H_l, W_l) images with a
-    # (Q, 9, 9, 2) window grid (f32 levels: bf16 grid_sample is not assumed)
-    k = 2 * r + 1
+    q = coords.shape[0] * coords.shape[1] * coords.shape[2]
     d = torch.arange(-r, r + 1, device=dev, dtype=torch.float32)
     win = torch.stack(torch.meshgrid(d, d, indexing="ij"), -1)  # (k, k, 2)
     lv32 = [lv.float().reshape(q, 1, *lv.shape[2:]) for lv in levels]
@@ -149,10 +154,16 @@ def _lookup_row(torch, levels, coords, r: int, label: str) -> dict:
         c = coords.reshape(q, 1, 1, 2) / 2 ** i + win
         grids.append(torch.stack([2 * c[..., 0] / (wl - 1) - 1,
                                   2 * c[..., 1] / (hl - 1) - 1], -1))
-    lib_ms, lib_err = _library_ms(torch, lambda: [
-        F.grid_sample(lv, gr, align_corners=True) for lv, gr in zip(lv32, grids)])
-    del lv32, grids
-    # bytes: output, coords, and each query's in-bounds (K+1)^2 patch taps
+    return lambda: [F.grid_sample(lv, gr, align_corners=True)
+                    for lv, gr in zip(lv32, grids)]
+
+
+def _tap_count(torch, levels, coords, r: int) -> int:
+    """The values of the levels that these coords' windows touch: each
+    query's in-bounds (K+1)^2 patch, summed over queries and levels."""
+    dev = coords.device
+    k = 2 * r + 1
+    q = coords.shape[0] * coords.shape[1] * coords.shape[2]
     taps = 0
     for i, lv in enumerate(levels):
         hl, wl = lv.shape[2:]
@@ -164,7 +175,28 @@ def _lookup_row(torch, levels, coords, r: int, label: str) -> dict:
         ny = (torch.minimum(y0 + k, torch.tensor(hl - 1.0, device=dev))
               - torch.maximum(y0, torch.tensor(0.0, device=dev)) + 1).clamp(min=0)
         taps += int((nx * ny).sum())
-    nbytes = got.numel() * 4 + coords.numel() * 4 + taps * levels[0].element_size()
+    return taps
+
+
+def _lookup_row(torch, levels, coords, r: int, label: str) -> dict:
+    """Kernel A against its plain version at these levels and coords,
+    timed beside F.grid_sample, with its bound. `out` is the kernel's."""
+    from focusflow_official_tpu_torch.kernels import lookup as kl
+
+    got = kl.lookup(levels, coords, r)
+    want = kl.lookup_plain(levels, coords, r)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    # the same f32 products and sums in the same order: rounding only
+    tol = 1e-5 * (1.0 + float(want.abs().max()))
+    _check(label, err, tol)
+    ms = _time_ms(torch, lambda: kl.lookup(levels, coords, r))
+    plain_ms = _time_ms(torch, lambda: kl.lookup_plain(levels, coords, r), reps=10)
+    sample = _grid_sample_yardstick(torch, levels, coords, r)
+    lib_ms, lib_err = _library_ms(torch, sample)
+    del sample
+    nbytes = (got.numel() * 4 + coords.numel() * 4
+              + _tap_count(torch, levels, coords, r) * levels[0].element_size())
     flops = got.numel() * 11  # 4 weights, 4 tap products, 3 adds per output
     bound, by = _bound_ms(nbytes, flops, PEAK_F32)
     return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
@@ -196,8 +228,110 @@ def _fold_row(torch, a, w, bias, label: str) -> dict:
                 library_error=lib_err)
 
 
+def _lookup_fold_row(torch, levels, coords, r: int, w, bias, label: str) -> dict:
+    """The fused lookup + convc1 against its plain version (lookup_plain
+    then fold_plain) and against kernel A then kernel B, timed beside both
+    and beside F.grid_sample per level then F.linear."""
+    import torch.nn.functional as F
+
+    from focusflow_official_tpu_torch.kernels import fold as kf
+    from focusflow_official_tpu_torch.kernels import lookup as kl
+    from focusflow_official_tpu_torch.kernels import lookup_fold as klf
+
+    b, h1, w1, _ = coords.shape
+    q = b * h1 * w1
+    n_, k_ = w.shape
+
+    def two_step():
+        window = kl.lookup(levels, coords, r).reshape(q, k_).to(w.dtype)
+        return kf.fold(window, w, bias)
+
+    got = klf.lookup_fold(levels, coords, r, w, bias)
+    want = klf.lookup_fold_plain(levels, coords, r, w, bias)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    # as B: f32 sums in another order, then one bf16 rounding: one bf16 ulp
+    tol = 2.0 ** -7 * max(1.0, float(want.float().abs().max()))
+    _check(label, err, tol)
+    err2 = float((got.float().reshape(q, n_) - two_step().float()).abs().max())
+    _check(f"{label} vs lookup then fold", err2, tol)
+    ms = _time_ms(torch, lambda: klf.lookup_fold(levels, coords, r, w, bias))
+    two_step_ms = _time_ms(torch, two_step)
+    plain_ms = _time_ms(torch, lambda: klf.lookup_fold_plain(levels, coords, r, w, bias),
+                        reps=10)
+    sample = _grid_sample_yardstick(torch, levels, coords, r)
+
+    def library():
+        window = torch.cat([o.reshape(q, -1) for o in sample()], -1)
+        return F.linear(window.to(w.dtype), w, bias)
+
+    lib_ms, lib_err = _library_ms(torch, library)
+    del sample
+    es = w.element_size()
+    nbytes = (_tap_count(torch, levels, coords, r) * levels[0].element_size()
+              + coords.numel() * 4 + (n_ * k_ + n_ + q * n_) * es)
+    # the window's 11 f32 operations a value, then the product at the bf16
+    # tensor-core peak as for B: two kinds of operations, one after the other
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (q * k_ * 11 / PEAK_F32 + 2.0 * q * n_ * k_ / PEAK_BF16) * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return dict(max_abs_err=err, tol=tol, vs_lookup_then_fold_max_abs=err2, ms=ms,
+                lookup_then_fold_ms=two_step_ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=lib_ms, library_error=lib_err)
+
+
+# FF-PWCNet's decoder levels 6 to 2 at 1024x448: (B, H, W, C)
+PWC_LEVELS = ((1, 7, 16, 196), (1, 14, 32, 128), (1, 28, 64, 96),
+              (1, 56, 128, 64), (1, 112, 256, 32))
+
+
+def _local_corr_row(torch, g, dev, shape, dtype, label: str) -> dict:
+    """Kernel D on random (B, H, W, C) maps against its plain version. No
+    single PyTorch call computes this function, so there is no yardstick."""
+    from focusflow_official_tpu_torch.kernels import local_corr as klc
+
+    r = 4
+    f1 = torch.randn(shape, generator=g, device=dev).to(dtype)
+    f2 = torch.randn(shape, generator=g, device=dev).to(dtype)
+    got = klc.local_corr(f1, f2, r)
+    want = klc.local_corr_plain(f1, f2, r)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if dtype == torch.float32:
+        # f32 sums of C products in another order
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+    else:
+        # the same f32 sums rounded once: one bf16 ulp of the largest output
+        tol = _bf16_ulp(float(want.float().abs().max()))
+    _check(label, err, tol)
+    ms = _time_ms(torch, lambda: klc.local_corr(f1, f2, r))
+    plain_ms = _time_ms(torch, lambda: klc.local_corr_plain(f1, f2, r), reps=10)
+    es = f1.element_size()
+    bound, by = _bound_ms((2 * f1.numel() + got.numel()) * es, 2.0 * got.numel() * shape[3],
+                          PEAK_F32 if dtype == torch.float32 else PEAK_BF16)
+    return dict(shape=f"{tuple(shape)} x2 -> 81, {str(dtype).split('.')[1]}",
+                label=label, max_abs_err=err, tol=tol, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
+                library="none: no single PyTorch call computes it")
+
+
+def pwc_kernel_phase(torch, dev) -> list:
+    """D at FF-PWCNet's five decoder levels in bf16 and at level 4 in f32."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    rows = []
+    for lvl, shape in zip((6, 5, 4, 3, 2), PWC_LEVELS):
+        rows.append(_local_corr_row(torch, g, dev, shape, torch.bfloat16,
+                                    f"local_corr level {lvl}"))
+        _emit(dict(kernel="local_corr", path="ff_pwcnet", **rows[-1]))
+    rows.append(_local_corr_row(torch, g, dev, PWC_LEVELS[2], torch.float32,
+                                "local_corr level 4, f32"))
+    _emit(dict(kernel="local_corr", path="ff_pwcnet", **rows[-1]))
+    return rows
+
+
 def kernel_phase(torch, dev):
-    """A, B, C1 and C2 at the FF-RAFT shapes -> one result per kernel."""
+    """A, B, the fused lookup + convc1, C1 and C2 at the FF-RAFT shapes ->
+    one result per kernel."""
     import torch.nn.functional as F
 
     from focusflow_official_tpu_torch.kernels import instance_norm as kin
@@ -239,6 +373,16 @@ def kernel_phase(torch, dev):
         source="focusflow_official_tpu_torch/kernels/csrc/fold.cu",
         replaces="focusflow_official_tpu/kernels/fold.py:51", **row,
         library="F.linear (bf16)", shape="(7040, 324) @ (256, 324).T bf16"))
+    _emit(results[-1])
+
+    # ---- the fused lookup + convc1: the same pyramid, coords and weights
+    row = _lookup_fold_row(torch, levels, coords, r, wc, bc, "lookup_fold")
+    results.append(dict(
+        name="lookup_fold", route="cuda",
+        source="focusflow_official_tpu_torch/kernels/csrc/lookup_fold.cu",
+        replaces="focusflow_official_tpu/kernels/stage2.py:64", **row,
+        library="F.grid_sample x4 levels (f32), cat, F.linear (bf16)",
+        shape=f"4 levels bf16, Q={q}, (256, 324) weight -> ({q}, 256) bf16"))
     _emit(results[-1])
     del levels, got, a
 
@@ -456,14 +600,14 @@ def _shift_inputs(h: int, w: int, seed: int = 0):
     return (i1, i2, m1, m2), (dx, dy)
 
 
-_PORT_KERNELS = ("lookup_kernel", "fold_kernel", "stats_partial",
-                 "stats_finish", "normalize<", "attn_tiled", "attn_direct",
-                 "window_attn")
+_PORT_KERNELS = ("lookup_kernel", "fold_kernel", "lookup_fold_kernel",
+                 "stats_partial", "stats_finish", "normalize<", "local_corr_kernel",
+                 "attn_tiled", "attn_direct", "window_attn")
 
 
 def _category(name: str) -> str:
     if any(k in name for k in _PORT_KERNELS):
-        return "port kernels (A, B, C1, C2, E, F)"
+        return "port kernels (A-F, lookup_fold)"
     if name.startswith("Memcpy") or name.startswith("Memset"):
         return "host<->device copies"
     if "fprop" in name or "conv" in name.lower():
@@ -546,13 +690,16 @@ def _drive(torch, p, inputs, want: dict, profile_name: str):
 
 def _gates(torch, flow, shift, cpu_predictor, inputs) -> dict:
     """Finite flow of the input's size, interior EPE < 6 px on the known
-    shift, and agreement with the f32 CPU run on the same inputs."""
+    shift (skipped where `shift` is None: a fixture that does not solve
+    the probe), and agreement with the f32 CPU run on the same inputs."""
     if flow.shape != (H, W, 2) or not np.isfinite(flow).all():
         raise AssertionError(f"flow {flow.shape} not finite or not ({H}, {W}, 2)")
-    epe = float(np.sqrt(((flow[8:-8, 8:-8] - np.array(shift)) ** 2)
-                        .sum(-1)).mean())
-    if not epe < 6.0:
-        raise AssertionError(f"interior EPE {epe} >= 6 px")
+    epe = None
+    if shift is not None:
+        epe = float(np.sqrt(((flow[8:-8, 8:-8] - np.array(shift)) ** 2)
+                            .sum(-1)).mean())
+        if not epe < 6.0:
+            raise AssertionError(f"interior EPE {epe} >= 6 px")
     t0 = time.perf_counter()
     flow_cpu = cpu_predictor(*inputs)[0]
     cpu_s = time.perf_counter() - t0
@@ -577,7 +724,7 @@ def end_to_end_phase(torch, card: str):
                        fuse_cnet=True, iters=ITERS)
     inputs, shift = _shift_inputs(H, W)
     p = FlowPredictor(cfg, FIXTURE, device="cuda", dtype=torch.bfloat16)
-    want = {"lookup": ITERS, "fold": ITERS, "in_stats": 30, "in_normalize": 30}
+    want = {"lookup_fold": ITERS, "in_stats": 30, "in_normalize": 30}
     flow, counts, ms, times, breakdown = _drive(torch, p, inputs, want,
                                                 "chip_smoke_profile")
     gates = _gates(torch, flow, shift, FlowPredictor(
@@ -635,6 +782,27 @@ def ff_end_to_end_phase(torch, card: str):
                shape=[1, H, W], encoder_depth=1, iters=ITERS, dtype="bfloat16",
                ms_per_pair=ms, pairs_per_s=1e3 / ms, ms_all=times,
                profile=breakdown, launches=counts, **gates,
+               cpu_f32_size="full frame",
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
+    return counts
+
+
+def pwc_end_to_end_phase(torch, card: str):
+    """FF-PWCNet: 1024x436 padded to 1024x440, resized to 1024x448 inside,
+    raw 0-255 inputs, one launch of D at each of the five decoder levels."""
+    from focusflow_official_tpu_torch.models import FFPWCNetConfig
+    from focusflow_official_tpu_torch.predict import FlowPredictor
+
+    cfg = FFPWCNetConfig(fusion="parallel", fusion_type="1x1conv")
+    inputs, _ = _textured_inputs(H, W)
+    p = FlowPredictor(cfg, FIXTURE_PWC, device="cuda", dtype=torch.bfloat16)
+    flow, counts, ms, times, breakdown = _drive(
+        torch, p, inputs, {"local_corr": 5}, "chip_smoke_profile_pwc")
+    gates = _gates(torch, flow, None, FlowPredictor(
+        cfg, FIXTURE_PWC, device="cpu", dtype=torch.float32), inputs)
+    _emit(dict(phase="end_to_end", model="ff_pwcnet", card=card, shape=[1, H, W],
+               dtype="bfloat16", ms_per_pair=ms, pairs_per_s=1e3 / ms,
+               ms_all=times, profile=breakdown, launches=counts, **gates,
                cpu_f32_size="full frame",
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
     return counts
@@ -699,13 +867,14 @@ def _worst(rows: list) -> dict:
     return dict(max_abs_err=r["max_abs_err"], tol=r["tol"])
 
 
-def _kernel_table(raft: list, ff_rows: dict, raft_counts: dict, ff_counts: dict,
+def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, counts: dict,
                   card: str) -> list:
     """One entry per kernel: the headline shape's times (the FF-RAFT shape
-    for A-C2, the first FlowFormer shape for E and F), the error and
-    tolerance of its worst shape, every shape under `per_shape` with its
-    own tolerance, and `launches` summed over the two paths' counted
-    forwards (`launches_by_path` splits them)."""
+    for A-C2 and the fused lookup + convc1, the first FlowFormer shape for
+    E and F, PWC level 2 for D), the error and tolerance of its worst
+    shape, every shape under `per_shape` with its own tolerance, and
+    `launches` summed over the paths' counted forwards (`counts`: path ->
+    launch counts; `launches_by_path` splits them)."""
     table = []
     for kr in raft:
         rows = ff_rows.get(kr["name"], [])
@@ -730,9 +899,16 @@ def _kernel_table(raft: list, ff_rows: dict, raft_counts: dict, ff_counts: dict,
             replaces=replaces, **_worst(rows), ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], library_ms=top["library_ms"], library=lib,
             shape=top["shape"], per_shape=[dict(r, path="ff_flowformer") for r in rows]))
+    top = pwc_rows[4]  # level 2, the largest
+    table.append(dict(
+        name="local_corr", route="cuda",
+        source="focusflow_official_tpu_torch/kernels/csrc/local_corr.cu",
+        replaces="focusflow_official_tpu/ops/pallas_local_corr.py:46", **_worst(pwc_rows),
+        ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+        bound_by=top["bound_by"], library_ms=None, library=top["library"],
+        shape=top["shape"], per_shape=[dict(r, path="ff_pwcnet") for r in pwc_rows]))
     for kr in table:
-        by_path = {"ff_raft": raft_counts.get(kr["name"], 0),
-                   "ff_flowformer": ff_counts.get(kr["name"], 0)}
+        by_path = {path: c.get(kr["name"], 0) for path, c in counts.items()}
         kr["launches"] = sum(by_path.values())
         kr["launches_by_path"] = by_path
         kr["card"] = card
@@ -767,14 +943,16 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     raft_kernels = kernel_phase(torch, dev)
     ff_rows = ff_kernel_phase(torch, dev)
+    pwc_rows = pwc_kernel_phase(torch, dev)
     torch.cuda.empty_cache()
-    raft_counts = end_to_end_phase(torch, card)
-    ff_counts = ff_end_to_end_phase(torch, card)
+    counts = {"ff_raft": end_to_end_phase(torch, card),
+              "ff_flowformer": ff_end_to_end_phase(torch, card)}
     ff_shipped_depth_phase(torch, card)
-    kernels = _kernel_table(raft_kernels, ff_rows, raft_counts, ff_counts, card)
+    counts["ff_pwcnet"] = pwc_end_to_end_phase(torch, card)
+    kernels = _kernel_table(raft_kernels, ff_rows, pwc_rows, counts, card)
     for kr in kernels:
         if kr["launches"] == 0:
-            raise AssertionError(f"{kr['name']}: no launch on either path")
+            raise AssertionError(f"{kr['name']}: no launch on any path")
 
     _emit(dict(phase="total", seconds=time.perf_counter() - t_start))
     _emit({"kernels": kernels})

@@ -8,8 +8,8 @@ run can show which kernels carried it.
 from __future__ import annotations
 
 launch_counts: dict[str, int] = {
-    "lookup": 0, "fold": 0, "in_stats": 0, "in_normalize": 0,
-    "attention": 0, "window_attention": 0}
+    "lookup": 0, "fold": 0, "lookup_fold": 0, "in_stats": 0, "in_normalize": 0,
+    "local_corr": 0, "attention": 0, "window_attention": 0}
 
 
 def reset_launch_counts() -> None:

@@ -13,24 +13,21 @@
 // 1.17 GFLOP against ~8 MB moved in bf16, well under the card's ~295
 // FLOP/byte balance point. Design: 64x64 output tiles, 16-deep K slices
 // staged in shared memory as f32, each of 256 threads accumulating a 4x4
-// sub-tile in registers with plain FMA. Tensor cores (mma.sync / wgmma)
-// and fusing this product into the lookup kernel are later work.
+// sub-tile in registers with plain FMA (`fold.cuh`, shared with
+// `lookup_fold.cu`, which runs this product on a window it keeps in shared
+// memory). Tensor cores (mma.sync / wgmma) are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "fold.cuh"
 
 namespace {
 
 constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
 constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+using ffconv::to_f;
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -71,10 +68,7 @@ fold_kernel(const T* __restrict__ a, const T* __restrict__ w, const T* __restric
       for (int i = 0; i < TM; ++i) av[i] = As[kk][ty + 16 * i];
 #pragma unroll
       for (int j = 0; j < TN; ++j) wv[j] = Ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+      fffold::fma_outer<TM, TN>(acc, av, wv);
     }
     __syncthreads();
   }
@@ -86,7 +80,7 @@ fold_kernel(const T* __restrict__ a, const T* __restrict__ w, const T* __restric
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx + 16 * j;
-      if (n < N) out[(long long)m * N + n] = from_f<T>(acc[i][j] + to_f(bias[n]));
+      if (n < N) out[(long long)m * N + n] = fffold::biased<T>(acc[i][j], bias[n]);
     }
   }
 }

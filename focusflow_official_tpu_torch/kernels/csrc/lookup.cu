@@ -18,22 +18,17 @@
 // so the taps a query needs are ~100 values per level, read through L1/L2.
 // Design: threads of a block cover consecutive channels of consecutive
 // queries, so the output stores are fully coalesced and the neighbouring
-// threads of one query hit the same patch rows in cache. A later kernel
-// folds convc1 into this one so the 324-wide window never reaches HBM.
+// threads of one query hit the same patch rows in cache. The per-value
+// arithmetic lives in `lookup.cuh`, shared with `lookup_fold.cu`, which
+// applies convc1 in the same launch so the window never reaches HBM.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "lookup.cuh"
 
 namespace {
 
-struct Levels {
-  const void* ptr[4];
-  int h[4];
-  int w[4];
-};
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+using fflookup::Levels;
 
 template <typename T>
 __global__ void lookup_kernel(Levels lv, int num_levels, const float* __restrict__ coords,
@@ -49,29 +44,7 @@ __global__ void lookup_kernel(Levels lv, int num_levels, const float* __restrict
   const int wi = c - l * k2;
   const int ix = wi / k;  // x-offset: slow axis (reference quirk)
   const int iy = wi - ix * k;
-
-  const float inv_scale = 1.0f / (float)(1 << l);  // exact: a power of two
-  const float x = coords[2 * bq] * inv_scale + (float)(ix - radius);
-  const float y = coords[2 * bq + 1] * inv_scale + (float)(iy - radius);
-  const float x0f = floorf(x);
-  const float y0f = floorf(y);
-  const float wx = x - x0f;
-  const float wy = y - y0f;
-  const int x0 = (int)x0f;
-  const int y0 = (int)y0f;
-
-  const int H = lv.h[l];
-  const int W = lv.w[l];
-  const T* base = reinterpret_cast<const T*>(lv.ptr[l]) + bq * (long long)H * W;
-  auto tap = [&](int xi, int yi, float wgt) -> float {
-    if (xi < 0 || xi > W - 1 || yi < 0 || yi > H - 1) return 0.0f;
-    return __fmul_rn(to_f(base[(long long)yi * W + xi]), wgt);
-  };
-  float v = tap(x0, y0, __fmul_rn(1.0f - wx, 1.0f - wy));
-  v = __fadd_rn(v, tap(x0 + 1, y0, __fmul_rn(wx, 1.0f - wy)));
-  v = __fadd_rn(v, tap(x0, y0 + 1, __fmul_rn(1.0f - wx, wy)));
-  v = __fadd_rn(v, tap(x0 + 1, y0 + 1, __fmul_rn(wx, wy)));
-  out[t] = v;
+  out[t] = fflookup::window_value<T>(lv, coords, bq, l, ix, iy, radius);
 }
 
 }  // namespace

@@ -1,0 +1,90 @@
+"""The window lookup and convc1 in one launch (`csrc/lookup_fold.cu`).
+
+out[b, y, x] = convc1(window(b, y, x)): the L*(2r+1)^2 bilinear window of
+kernel A (taps summed in f32, then rounded to the compute type), times the
+(O, L*(2r+1)^2) convc1 weight with f32 accumulation, plus the bias in f32,
+emitted in the compute type. The window stays in shared memory.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence
+
+import torch
+
+from . import _build, launch_counts
+from .fold import fold_plain
+from .lookup import lookup_plain
+
+_c = ctypes.c_void_p
+_i = ctypes.c_int
+
+
+@functools.cache
+def _lib():
+    lib = _build.load("lookup_fold")
+    lib.ff_lookup_fold.argtypes = [_c, _c, _c, _c] + [_i] * 9 + [
+        _c, _c, _c, _c, ctypes.c_longlong, _i, _i, _i, _c]
+    lib.ff_lookup_fold.restype = _i
+    return lib
+
+
+def lookup_fold_plain(levels: Sequence[torch.Tensor], coords: torch.Tensor,
+                      radius: int, weight: torch.Tensor,
+                      bias: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: `fold_plain(lookup_plain(...))`, the window
+    cast to the weight's type between the two."""
+    b, h, w, _ = coords.shape
+    window = lookup_plain(levels, coords, radius)
+    out = fold_plain(window.reshape(b * h * w, -1).to(weight.dtype), weight, bias)
+    return out.reshape(b, h, w, -1)
+
+
+def lookup_fold(levels: Sequence[torch.Tensor], coords: torch.Tensor, radius: int,
+                weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """levels: up to 4 (B, H*W, H_l, W_l) volumes; coords: (B, H, W, 2) f32
+    level-0 (x, y); weight: (O, L*(2r+1)^2); bias: (O,). Levels, weight and
+    bias share one type (bf16 or f32) -> (B, H, W, O) in that type."""
+    if coords.device.type == "cpu":
+        return lookup_fold_plain(levels, coords, radius, weight, bias)
+    if coords.device.type != "cuda":
+        raise ValueError(f"lookup_fold: unsupported device {coords.device}")
+    b, h1, w1, two = coords.shape
+    q = h1 * w1
+    nl = len(levels)
+    if two != 2 or coords.dtype != torch.float32 or not coords.is_contiguous():
+        raise ValueError("lookup_fold: coords must be contiguous f32 (B, H, W, 2)")
+    if not 1 <= nl <= 4:
+        raise ValueError(f"lookup_fold: 1 to 4 levels, got {nl}")
+    dt = weight.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"lookup_fold: bf16 or f32, got {dt}")
+    dims = []
+    for lv in levels:
+        if (lv.device != coords.device or lv.dtype != dt or lv.dim() != 4
+                or lv.shape[:2] != (b, q) or not lv.is_contiguous()):
+            raise ValueError(
+                f"lookup_fold: level {tuple(lv.shape)} {lv.dtype} {lv.device} "
+                f"does not fit coords {tuple(coords.shape)} and {dt} weights "
+                "(contiguous (B, Q, H, W))")
+        dims += [lv.shape[2], lv.shape[3]]
+    k = nl * (2 * radius + 1) ** 2
+    n = weight.shape[0]
+    for t, shape in ((weight, (n, k)), (bias, (n,))):
+        if (t.device != coords.device or t.dtype != dt
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f"lookup_fold: expected contiguous {shape} {dt} on "
+                f"{coords.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    out = torch.empty((b, h1, w1, n), dtype=dt, device=coords.device)
+    ptrs = [lv.data_ptr() for lv in levels] + [0] * (4 - nl)
+    dims += [0] * (8 - len(dims))
+    err = _lib().ff_lookup_fold(
+        *ptrs, *dims, nl, coords.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), b * q, radius, n, int(dt == torch.bfloat16),
+        torch.cuda.current_stream(coords.device).cuda_stream)
+    _build.check(err, "ff_lookup_fold")
+    launch_counts["lookup_fold"] += 1
+    return out

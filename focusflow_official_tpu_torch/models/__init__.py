@@ -1,7 +1,10 @@
-"""FF-RAFT and FF-FlowFormer models, configurations and mask preparation."""
+"""FF-RAFT, FF-PWCNet and FF-FlowFormer models, configurations and mask
+preparation."""
 
-from .config import FFRaftConfig, FlowFormerConfig
+from .config import FFPWCNetConfig, FFRaftConfig, FlowFormerConfig
 from .ff_flowformer import FFFlowFormer
+from .ff_pwcnet import FFPWCNet, PWCNet
 from .ff_raft import FFRaft, RAFT
 
-__all__ = ["FFRaftConfig", "FlowFormerConfig", "FFFlowFormer", "FFRaft", "RAFT"]
+__all__ = ["FFPWCNetConfig", "FFRaftConfig", "FlowFormerConfig", "FFFlowFormer",
+           "FFPWCNet", "PWCNet", "FFRaft", "RAFT"]

@@ -2,6 +2,7 @@
 inference paths read.
 
 - `FFRaftConfig`: the MODEL and TRAIN mask sections of FF-RAFT;
+- `FFPWCNetConfig`: what FF-PWCNet reads of the same two sections;
 - `FlowFormerConfig`: the fields of FF-FlowFormer's `latentcostformer`
   block (`config/ff_chairs.yaml:41-76` in the reference) that the ported
   variant leaves free, with the JAX package's defaults, which equal that
@@ -25,6 +26,23 @@ class FFRaftConfig:
 
     # TRAIN section (mask handling)
     mask_modal: str = "point"  # 'point'|'neighborE'|'neighborG'|'context'|'frame'
+    mask_channel: int = 3
+    mask_dilate: int = 31
+    kernel_size: int = 31
+    kernel_sigma: float = 5.0
+
+    compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
+
+
+@dataclasses.dataclass(frozen=True)
+class FFPWCNetConfig:
+    """FF-PWCNet (`fusion='parallel'`) or the vanilla PWC-Net (`fusion=None`,
+    which reads only `compute_dtype`)."""
+
+    fusion: Optional[str] = "parallel"
+    fusion_type: str = "1x1conv"  # '1x1conv' | '1x1conv-unidirection'
+
+    mask_modal: str = "point"
     mask_channel: int = 3
     mask_dilate: int = 31
     kernel_size: int = 31

@@ -3,9 +3,10 @@ Encoder, in test mode.
 
 The feature encoder runs once over both frames batched together (exact
 for the instance-norm fnet); the all-pairs volume and its 4-level pyramid
-are built once; then `iters` refinement steps each look up the radius-4
-window (kernel A) and run the update block (convc1 as kernel B). Only the
-final low-resolution flow is convex-upsampled.
+are built once; then `iters` refinement steps each run the update block,
+whose motion encoder looks up the radius-4 window and applies convc1 in
+one kernel (`kernels/lookup_fold.py`). Only the final low-resolution flow
+is convex-upsampled.
 
 This slice covers `fusion='parallel'`, `fuse_cnet=True`, the full-width
 model (`small=False`) and the `1x1conv` fusion units.
@@ -21,7 +22,7 @@ from torch import nn
 from ..nn.cce import BasicParallelFusionLayer
 from ..nn.update import BasicUpdateBlock
 from ..ops.coords import coords_grid
-from ..ops.corr import all_pairs_corr, corr_pyramid, lookup_corr_pyramid
+from ..ops.corr import all_pairs_corr, corr_pyramid
 from ..ops.upsample import convex_upsample
 from .config import FFRaftConfig
 from .mask_modal import init_mask
@@ -76,10 +77,10 @@ class RAFT(nn.Module):
         coords1 = coords0.clone()
         up_mask = None
         for it in range(iters):
-            corr = lookup_corr_pyramid(levels, coords1, self.corr_radius)
             flow = (coords1 - coords0).to(dtype)
             net, up_mask, delta = self.update_block(
-                net, inp, corr, flow, mask_needed=it == iters - 1)
+                net, inp, levels, coords1.contiguous(), flow,
+                mask_needed=it == iters - 1)
             coords1 = coords1 + delta.float()
 
         flow_lr = coords1 - coords0

@@ -3,18 +3,20 @@ upsample-mask head.
 
 Inside the refinement loop the hidden state, context and features are
 NCHW-indexed (`channels_last` on the card). convc1 is a 1x1 conv over the
-324 looked-up window channels; it runs as kernel B on the (B*H*W, 324)
-NHWC rows that the lookup emits.
+324 looked-up window channels and the window's only consumer, so the
+motion encoder takes the pyramid and the coordinates and runs the lookup
+and convc1 as one kernel (`kernels/lookup_fold.py`); the window never
+reaches device memory.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
-from ..kernels.fold import fold
+from ..kernels.lookup_fold import lookup_fold
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -24,6 +26,7 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 class BasicMotionEncoder(nn.Module):
     def __init__(self, corr_levels: int = 4, corr_radius: int = 4):
         super().__init__()
+        self.corr_radius = corr_radius
         cor_planes = corr_levels * (2 * corr_radius + 1) ** 2
         self.convc1 = nn.Conv2d(cor_planes, 256, 1)
         self.convc2 = nn.Conv2d(256, 192, 3, 1, 1)
@@ -31,13 +34,15 @@ class BasicMotionEncoder(nn.Module):
         self.convf2 = nn.Conv2d(128, 64, 3, 1, 1)
         self.conv = nn.Conv2d(64 + 192, 128 - 2, 3, 1, 1)
 
-    def forward(self, flow: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
-        """flow: (B, H, W, 2), corr: (B, H, W, 324) NHWC -> (B, 128, H, W)."""
-        b, h, w, cp = corr.shape
+    def forward(self, flow: torch.Tensor, levels: Sequence[torch.Tensor],
+                coords: torch.Tensor) -> torch.Tensor:
+        """flow: (B, H, W, 2) NHWC; levels: the correlation pyramid,
+        (B, H*W, H_l, W_l) each, in convc1's type; coords: (B, H, W, 2) f32
+        level-0 (x, y) -> (B, 128, H, W)."""
         wc = self.convc1.weight
-        cor = fold(corr.reshape(b * h * w, cp).to(wc.dtype),
-                   wc.reshape(wc.shape[0], cp), self.convc1.bias)
-        cor = torch.relu(_nchw(cor.reshape(b, h, w, -1)))
+        cor = lookup_fold(levels, coords, self.corr_radius,
+                          wc.reshape(wc.shape[0], -1), self.convc1.bias)
+        cor = torch.relu(_nchw(cor))
         cor = torch.relu(self.convc2(cor))
         flow = _nchw(flow)
         flo = torch.relu(self.convf1(flow))
@@ -87,13 +92,14 @@ class BasicUpdateBlock(nn.Module):
         self.mask_0 = nn.Conv2d(128, 256, 3, 1, 1)
         self.mask_2 = nn.Conv2d(256, 64 * 9, 1)
 
-    def forward(self, net, inp, corr, flow, mask_needed: bool = True):
-        """net, inp: (B, C, H, W); corr: (B, H, W, 324); flow: (B, H, W, 2).
+    def forward(self, net, inp, levels, coords, flow, mask_needed: bool = True):
+        """net, inp: (B, C, H, W); levels, coords: the correlation pyramid
+        and where to look it up (see `BasicMotionEncoder`); flow: (B, H, W, 2).
 
         Returns (net, up_mask (B, H, W, 576) or None, delta_flow (B, H, W, 2)).
         Test mode needs the upsample mask after the last iteration only, so
         the caller skips the mask head on the others."""
-        motion = self.encoder(flow, corr)
+        motion = self.encoder(flow, levels, coords)
         net = self.gru(net, torch.cat([inp, motion], dim=1))
         delta_flow = self.flow_head(net).permute(0, 2, 3, 1)
         up_mask: Optional[torch.Tensor] = None

@@ -1,4 +1,5 @@
-"""Coordinate grids and the 8x align-corners flow upsampler (NHWC)."""
+"""Coordinate grids, the 8x align-corners flow upsampler and the half-pixel
+bilinear resize (NHWC)."""
 
 from __future__ import annotations
 
@@ -22,3 +23,12 @@ def upflow8(flow: torch.Tensor) -> torch.Tensor:
     up = F.interpolate(flow.permute(0, 3, 1, 2), size=(8 * h, 8 * w),
                        mode="bilinear", align_corners=True)
     return 8.0 * up.permute(0, 2, 3, 1)
+
+
+def resize_bilinear(x: torch.Tensor, new_hw: tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of (B, H, W, C) to (B, nh, nw, C) with half-pixel
+    centres (`align_corners=False`), the source position clamped to the
+    image and no antialiasing when shrinking."""
+    out = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(new_hw),
+                        mode="bilinear", align_corners=False)
+    return out.permute(0, 2, 3, 1)

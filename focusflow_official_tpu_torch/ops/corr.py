@@ -1,21 +1,20 @@
-"""All-pairs correlation volume, its pyramid, and the windowed lookup.
+"""All-pairs correlation volume and its pyramid.
 
 - `all_pairs_corr`: corr[b, q, y, x] = <fmap1[b, q], fmap2[b, y, x]> / sqrt(C),
   one batched matrix product in f32;
 - `corr_pyramid`: 2x2 average pooling with floor semantics over the target
-  axes, computed in f32 and stored in the compute type;
-- `lookup_corr_pyramid`: the bilinear (2r+1)^2 window of every level, in
-  the reference channel order (kernel A on CUDA tensors).
+  axes, computed in f32 and stored in the compute type.
+
+The windowed lookup over the pyramid is `kernels/lookup.py` (kernel A) and,
+with convc1 applied in the same launch, `kernels/lookup_fold.py`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
 
 import torch
 
-from ..kernels.lookup import lookup
 from .pool import avg_pool2x2
 
 
@@ -36,10 +35,3 @@ def corr_pyramid(corr: torch.Tensor, num_levels: int = 4,
     for _ in range(num_levels - 1):
         levels.append(avg_pool2x2(levels[-1]))
     return [lv.to(dtype).contiguous() for lv in levels]
-
-
-def lookup_corr_pyramid(levels: Sequence[torch.Tensor], coords: torch.Tensor,
-                        radius: int = 4) -> torch.Tensor:
-    """coords: (B, H1, W1, 2) level-0 (x, y) -> (B, H1, W1, L*(2r+1)^2) f32,
-    levels fine to coarse, x-offset slowest within a level."""
-    return lookup(levels, coords.contiguous(), radius)

@@ -6,13 +6,16 @@
                       dtype=torch.bfloat16)
     flow = p(img1, img2, mask1, mask2)   # (H, W, 2) float32 numpy
     p = FlowPredictor(FlowFormerConfig(encoder_depth=1), "weights_ff.npz")
+    p = FlowPredictor(FFPWCNetConfig(), "weights_pwc.npz")
 
 The config's type picks the model: `FFRaftConfig` -> FF-RAFT,
-`FlowFormerConfig` -> FF-FlowFormer.
+`FlowFormerConfig` -> FF-FlowFormer, `FFPWCNetConfig` -> FF-PWCNet (the
+vanilla PWC-Net with `fusion=None`).
 
 Frames are padded (replicate) to a multiple of 8, run through the
-test-mode forward and unpadded. Inputs are HWC or NHWC, uint8 or float,
-numpy or torch; masks default to zeros (no keypoint prior).
+test-mode forward and unpadded; FF-PWCNet then resizes to a multiple of 64
+itself and resizes its flow back. Inputs are HWC or NHWC, uint8 or float
+in 0..255, numpy or torch; masks default to zeros (no keypoint prior).
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ import torch
 from torch import nn
 
 from .compat.weights import load_npz
-from .models.config import FFRaftConfig, FlowFormerConfig
+from .models.config import FFPWCNetConfig, FFRaftConfig, FlowFormerConfig
 from .models.ff_flowformer import FFFlowFormer
+from .models.ff_pwcnet import FFPWCNet, PWCNet
 from .models.ff_raft import DTYPES, FFRaft, compute_dtype
 from .ops.padding import InputPadder
 
@@ -55,7 +59,8 @@ class FlowPredictor:
     default `cfg.compute_dtype`. Runs on `device` ("cuda" unless the
     caller asks for "cpu")."""
 
-    def __init__(self, cfg: FFRaftConfig | FlowFormerConfig, weights_npz: str, *,
+    def __init__(self, cfg: FFRaftConfig | FlowFormerConfig | FFPWCNetConfig,
+                 weights_npz: str, *,
                  device="cuda", dtype: Optional[torch.dtype] = None):
         if dtype is not None:
             if dtype not in _DTYPE_NAMES:
@@ -63,15 +68,25 @@ class FlowPredictor:
             cfg = dataclasses.replace(cfg, compute_dtype=_DTYPE_NAMES[dtype])
         self.cfg = cfg
         self.device = torch.device(device)
-        if not isinstance(cfg, (FFRaftConfig, FlowFormerConfig)):
-            raise TypeError(f"expected FFRaftConfig or FlowFormerConfig, got {cfg!r}")
-        model = FFRaft(cfg) if isinstance(cfg, FFRaftConfig) else FFFlowFormer(cfg)
+        # the model, and where the full-resolution flow stands in what its
+        # test-mode forward returns
+        if isinstance(cfg, FFRaftConfig):
+            model, self._flow_at = FFRaft(cfg), 1  # (low-resolution flow, flow)
+        elif isinstance(cfg, FlowFormerConfig):
+            model, self._flow_at = FFFlowFormer(cfg), 1
+        elif isinstance(cfg, FFPWCNetConfig):
+            model = (PWCNet(compute_dtype(cfg)) if cfg.fusion is None
+                     else FFPWCNet(cfg))
+            self._flow_at = 0  # (flow, per-level flows)
+        else:
+            raise TypeError("expected FFRaftConfig, FlowFormerConfig or "
+                            f"FFPWCNetConfig, got {cfg!r}")
         model.load_state_dict(load_npz(weights_npz), strict=True)
         model.to(self.device).eval()
         # convs and dense layers run in the compute type; norms and free
         # parameters stay f32 and cast at use
         for m in model.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 m.to(compute_dtype(cfg), memory_format=torch.channels_last)
             elif isinstance(m, nn.Linear):
                 m.to(compute_dtype(cfg))
@@ -81,9 +96,8 @@ class FlowPredictor:
     def forward(self, image1, image2, mask1, mask2) -> torch.Tensor:
         """NHWC f32 tensors on the device -> (B, H, W, 2) f32 flow there."""
         padder = InputPadder(image1.shape)
-        args = padder.pad(image1, image2, mask1, mask2)
-        _, flow_up = self.model(*args)
-        return padder.unpad(flow_up)
+        out = self.model(*padder.pad(image1, image2, mask1, mask2))
+        return padder.unpad(out[self._flow_at])
 
     def __call__(self, image1, image2, mask1=None, mask2=None) -> np.ndarray:
         """Returns (H, W, 2) float32 for HWC inputs, (B, H, W, 2) for NHWC."""

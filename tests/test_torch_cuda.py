@@ -8,6 +8,7 @@ at small and ragged shapes (the main-path shapes are checked by
 it, and these tests need only the port.)
 """
 
+import math
 import os
 
 import numpy as np
@@ -18,7 +19,9 @@ from focusflow_official_tpu_torch.kernels import attention as ka
 from focusflow_official_tpu_torch.kernels import fold as kf
 from focusflow_official_tpu_torch.kernels import instance_norm as kin
 from focusflow_official_tpu_torch.kernels import launch_counts
+from focusflow_official_tpu_torch.kernels import local_corr as klc
 from focusflow_official_tpu_torch.kernels import lookup as kl
+from focusflow_official_tpu_torch.kernels import lookup_fold as klf
 from focusflow_official_tpu_torch.kernels import window_attention as kw
 from focusflow_official_tpu_torch.ops.corr import corr_pyramid
 
@@ -74,6 +77,79 @@ def test_fold_kernel(dev, dtype, tol, m, n, k):
     torch.testing.assert_close(kf.fold(a, w, b).float(),
                                kf.fold_plain(a, w, b).float(),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h1,w1,nl,n", [
+    (2, 8, 12, 4, 256),   # three whole query tiles, the RAFT widths
+    (1, 10, 14, 4, 70),   # Q = 140: a ragged query tile, ragged outputs
+    (1, 12, 16, 1, 300),  # one level (K = 81: a ragged k slice), two output tiles
+    (1, 9, 11, 2, 64),
+])
+def test_lookup_fold_kernel(dev, dtype, b, h1, w1, nl, n):
+    """The fused kernel against its plain version, and against kernel A
+    then kernel B, which it must equal bit for bit (the same f32 taps, one
+    rounding to the compute type, the same k order)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    levels = corr_pyramid(torch.randn((b, h1 * w1, h1, w1), generator=g,
+                                      device=dev), nl, dtype)
+    coords = torch.rand((b, h1, w1, 2), generator=g, device=dev) * 30 - 10
+    k = nl * 81
+    w = (torch.randn((n, k), generator=g, device=dev) * 0.1).to(dtype)
+    bias = torch.randn((n,), generator=g, device=dev).to(dtype)
+    before = dict(launch_counts)
+    got = klf.lookup_fold(levels, coords, 4, w, bias)
+    assert launch_counts["lookup_fold"] == before["lookup_fold"] + 1
+    assert launch_counts["lookup"] == before["lookup"]
+    assert got.shape == (b, h1, w1, n) and got.dtype == dtype
+    want = klf.lookup_fold_plain(levels, coords, 4, w, bias)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2  # as test_fold_kernel
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    window = kl.lookup(levels, coords, 4).reshape(b * h1 * w1, k).to(dtype)
+    two_step = kf.fold(window, w, bias).reshape(b, h1, w1, n)
+    torch.testing.assert_close(got, two_step, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,r", [
+    # how the launch spreads the 2r+1 dy rows depends on the tile count
+    # (8 x 8 pixels a tile) against the card's 132 SMs
+    ((2, 12, 16, 32), 4),    # 8 tiles: one dy row a block
+    ((1, 9, 13, 24), 3),     # odd sizes, radius 3
+    ((1, 7, 16, 196), 4),    # PWC level 6: a frame lower than the window
+    ((1, 20, 27, 6), 4),     # C not a multiple of 4: scalar loads
+    ((2, 17, 23, 12), 2),    # C a multiple of 4, not of 8
+    ((1, 5, 3, 7), 1),       # radius 1, a frame narrower than a tile
+    ((1, 40, 150, 32), 4),   # 95 tiles: two dy groups of 5 and 4 rows
+    ((1, 40, 150, 40), 4),   # the same with a ragged channel chunk (32 + 8)
+    ((1, 56, 100, 32), 4),   # 91 tiles at 7 x 13, still two groups
+    ((1, 28, 64, 96), 4),    # PWC level 4, 32 tiles: groups of 2, 2, 2, 2, 1
+    ((1, 90, 100, 16), 4),   # 156 tiles: all dy rows in one block
+])
+def test_local_corr_kernel(dev, dtype, shape, r):
+    g = torch.Generator(device=dev).manual_seed(8)
+    f1 = torch.randn(shape, generator=g, device=dev).to(dtype)
+    f2 = torch.randn(shape, generator=g, device=dev).to(dtype)
+    before = launch_counts["local_corr"]
+    got = klc.local_corr(f1, f2, r)
+    assert launch_counts["local_corr"] == before + 1
+    assert got.shape == shape[:3] + ((2 * r + 1) ** 2,) and got.dtype == dtype
+    want = klc.local_corr_plain(f1, f2, r)
+    # f32: sums of C products in another order; bf16: the same f32 sums
+    # rounded once, so one bf16 ulp (8 significant bits) of the largest output
+    top = float(want.float().abs().max())
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** (math.floor(math.log2(top)) - 7)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+def test_local_corr_border_is_zero_padding(dev):
+    """Every displacement that leaves f2 must read zero: with f2 all ones
+    and f1 all ones the output counts nothing but in-range pixels."""
+    f = torch.ones((1, 11, 19, 8), device=dev)
+    got = klc.local_corr(f, f, 4)
+    torch.testing.assert_close(got, klc.local_corr_plain(f, f, 4), rtol=0, atol=0)
+    assert float(got[0, 0, 0, 0]) == 0.0 and float(got[0, 0, 0, 40]) == 1.0
+    assert float(got[0, 10, 18, 80]) == 0.0 and float(got[0, 5, 9].min()) == 1.0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -155,11 +231,24 @@ def test_wrappers_reject_strided_input(dev):
     x = torch.randn((1, 14, 14, 64), device=dev)
     with pytest.raises(ValueError):
         kw.window_attention(x.transpose(1, 2), x, x, 7, 4, 0.25)
+    with pytest.raises(ValueError):  # an NCHW tensor viewed as NHWC
+        klc.local_corr(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), x, 4)
+    with pytest.raises(ValueError):  # radius 5 is not built
+        klc.local_corr(x, x, 5)
+    level = torch.randn((1, 16, 4, 4), device=dev)
+    coords = torch.zeros((1, 4, 4, 2), device=dev)
+    w = torch.randn((8, 81), device=dev)
+    with pytest.raises(ValueError):  # a strided weight
+        klf.lookup_fold([level], coords, 4, torch.randn((81, 8), device=dev).t(),
+                        torch.zeros(8, device=dev))
+    with pytest.raises(ValueError):  # levels and weight of two types
+        klf.lookup_fold([level.bfloat16()], coords, 4, w, torch.zeros(8, device=dev))
 
 
 def test_predictor_on_card_matches_cpu(dev):
-    """The whole main path on the card (kernels A, B, C1, C2 launched)
-    against the same f32 forward on the CPU (plain versions), at 96x128.
+    """The whole main path on the card (the fused lookup + convc1, C1 and
+    C2 launched) against the same f32 forward on the CPU (plain versions),
+    at 96x128.
     f32 on both sides, sums in other orders over 12 iterations: 1e-2 px,
     the port's parity bound with the JAX package."""
     from focusflow_official_tpu_torch.models import FFRaftConfig
@@ -173,7 +262,7 @@ def test_predictor_on_card_matches_cpu(dev):
     m1 = ((rng.rand(96, 128, 1) > 0.97) * 255).astype(np.float32)
     m2 = ((rng.rand(96, 128, 1) > 0.97) * 255).astype(np.float32)
     cfg = FFRaftConfig(fuse_cnet=True)
-    raft_kernels = ("lookup", "fold", "in_stats", "in_normalize")
+    raft_kernels = ("lookup_fold", "in_stats", "in_normalize")
     before = dict(launch_counts)
     on_card = FlowPredictor(cfg, fixture, device=dev)(i1, i2, m1, m2)
     assert all(launch_counts[k] > before[k] for k in raft_kernels)
@@ -199,4 +288,28 @@ def test_flowformer_predictor_on_card_matches_cpu(dev):
     for name in ("lookup", "fold", "attention", "window_attention"):
         assert launch_counts[name] > before[name], name
     on_cpu = FlowPredictor(cfg, fixture, device="cpu")(i1, i2)
+    assert float(np.abs(on_card - on_cpu).max()) <= 1e-2
+
+
+def test_pwc_predictor_on_card_matches_cpu(dev):
+    """FF-PWCNet on the card (kernel D launched once a decoder level)
+    against the same f32 forward on the CPU, at 100x150 (resized to
+    128x192 inside). f32 on both sides, sums in other orders through five
+    levels of warps: 1e-2 px, the port's parity bound."""
+    from focusflow_official_tpu_torch.models import FFPWCNetConfig
+    from focusflow_official_tpu_torch.predict import FlowPredictor
+
+    fixture = os.path.join(os.path.dirname(__file__), "fixtures",
+                           "trained_smoke_pwc.npz")
+    rng = np.random.RandomState(2)
+    i1 = (rng.rand(100, 150, 3) * 255).astype(np.float32)
+    i2 = np.roll(np.roll(i1, -2, 0), 3, 1)
+    m1 = ((rng.rand(100, 150, 1) > 0.97) * 255).astype(np.float32)
+    m2 = ((rng.rand(100, 150, 1) > 0.97) * 255).astype(np.float32)
+    cfg = FFPWCNetConfig()
+    before = launch_counts["local_corr"]
+    on_card = FlowPredictor(cfg, fixture, device=dev)(i1, i2, m1, m2)
+    assert launch_counts["local_corr"] == before + 5
+    on_cpu = FlowPredictor(cfg, fixture, device="cpu")(i1, i2, m1, m2)
+    assert on_card.shape == (100, 150, 2)
     assert float(np.abs(on_card - on_cpu).max()) <= 1e-2

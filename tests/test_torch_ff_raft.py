@@ -87,16 +87,16 @@ def test_predictor_recovers_shift():
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, focusflow_official_tpu_torch.predict, "
-            "focusflow_official_tpu_torch.kernels.lookup, "
-            "focusflow_official_tpu_torch.kernels.fold, "
-            "focusflow_official_tpu_torch.kernels.instance_norm, "
-            "focusflow_official_tpu_torch.kernels.attention, "
-            "focusflow_official_tpu_torch.kernels.window_attention, "
-            "focusflow_official_tpu_torch.nn.twins, "
-            "focusflow_official_tpu_torch.nn.latent_cost, "
-            "focusflow_official_tpu_torch.nn.gma, "
-            "focusflow_official_tpu_torch.models.ff_flowformer\n"
+    """Every module of the port, found by walking the package, imports
+    without pulling in jax, flax or the JAX package."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import focusflow_official_tpu_torch as pkg\n"
+            "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+            "pkg.__name__ + '.', onerror=lambda name: (_ for _ in ()).throw("
+            "ImportError(name)))]\n"
+            "assert len(names) >= 30 and pkg.__name__ + '.predict' in names, names\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'focusflow_official_tpu'))\n"
             "assert not bad, bad\n")

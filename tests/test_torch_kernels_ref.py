@@ -73,7 +73,7 @@ def test_lookup_plain_matches_pallas_kernel():
 
 def test_lookup_cpu_wrapper_is_plain():
     _, levels, coords = _pyramid()
-    got = tcorr.lookup_corr_pyramid(levels, _t(coords), R)
+    got = tlookup.lookup(levels, _t(coords), R)
     want = tlookup.lookup_plain(levels, _t(coords), R)
     assert torch.equal(got, want)
 
