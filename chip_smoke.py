@@ -14,15 +14,21 @@ Phases (any failure raises and exits non-zero; no result is printed):
    kernel's median time over CUDA events, the plain version's time, the
    time of one PyTorch yardstick call, and the least time the card could
    take (bytes over 3.35 TB/s or operations over the type's peak; the
-   attentions' operations at the bf16 tensor-core peak). One JSON line per
-   kernel and shape: A-C2 and the fused lookup + convc1 at the FF-RAFT
-   shapes (the fused kernel also beside A then B), then A (one level), B
-   (K = 81), E (small-kv attention) and F (7x7 window attention) at every
-   distinct FF-FlowFormer shape (E: the Twins GSAs at both stages, the
-   vertical global layer, the perceiver's input and self-attention, the
-   decoder; F: the Twins LSAs at both stages, the vertical local layer),
-   then D (local correlation) at FF-PWCNet's five decoder levels in bf16
-   and at one of them in f32.
+   attentions' products at the bf16 tensor-core peak, and as a third term
+   their exponentials, one a score, on 16 special-function lanes a clock an
+   SM). One JSON line per kernel and shape: A-C2 and the fused lookup +
+   convc1 at the FF-RAFT shapes (the fused kernel also beside A then B,
+   and once more in f32, where it must equal them to the bit; B once more
+   in f32), then A (one level), B (K = 81), E (small-kv attention) and F
+   (7x7 window attention) at every distinct FF-FlowFormer shape (E: the
+   Twins GSAs at both stages and batch sizes, the vertical global layer,
+   the perceiver's input and self-attention, the decoder, and one shape in
+   f32; F: the Twins LSAs at both stages and batch sizes, the vertical
+   local layer), then D (local
+   correlation) at FF-PWCNet's five decoder levels in bf16 and at one of
+   them in f32. E's and B's rows say which entry of the kernel ran
+   (`design`: `mma` on the tensor cores, `fma` on the f32 units): every
+   bf16 path shape of B and every tiled one of E must say `mma`.
 3. FF-RAFT end to end through `FlowPredictor`: a 1024x436 frame pair and
    keypoint masks, B=1, 12 iterations, bf16, the trained fixture weights.
    The flow must be finite, recover the known constant shift (interior
@@ -46,7 +52,11 @@ Phases (any failure raises and exits non-zero; no result is printed):
    this fixture predicts about the zero-flow baseline on any probe, so the
    agreement with the f32 run carries correctness.
 7. A `{"kernels": [...]}` line, then the last line
-   `{"ok": true, "device": {...}}`.
+   `{"ok": true, "device": {...}}`. Each wrapper counts a launch under its
+   kernel's name and under a key of the call's shape; phase 2 notes the key
+   of every shape it holds, and the table reads each shape's launches from
+   the counted forwards of phases 3 to 6 by that key, with launches x (ms -
+   bound). A path that launched a shape which phase 2 does not hold fails.
 
 f32 matmuls and convolutions run in full f32 here (TF32 off), so the f32
 comparisons are not blurred by TF32's 10-bit mantissa. Needs one card.
@@ -54,6 +64,7 @@ comparisons are not blurred by TF32's 10-bit mantissa. Needs one card.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -72,6 +83,7 @@ OUT_DIR = os.path.join(ROOT, "build")  # gitignored
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32 = 67e12  # f32 outside the tensor cores
 PEAK_BF16 = 989e12  # bf16 tensor cores, dense
+SFU_LANES = 16  # special-function results (one exponential each) a clock an SM
 
 H, W, ITERS = 436, 1024, 12
 
@@ -85,6 +97,31 @@ def _card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+@functools.cache
+def _exp_per_s(torch) -> float:
+    """Exponentials a second the card's special-function units can start:
+    SMs x 16 a clock x the card's highest SM clock (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    mhz = float(out.strip().splitlines()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * SFU_LANES * mhz * 1e6
+
+
+def _attention_bound(torch, nbytes: float, flops: float, scores: float,
+                     peak: float = PEAK_BF16) -> dict:
+    """An attention's bound: bytes, its two products at their type's peak
+    (bf16: the tensor cores), or one exponential a score, whichever takes
+    longest. `bound_by` keeps to bytes or operations; `bound_term` names
+    the term."""
+    bound, by = _bound_ms(nbytes, flops, peak)
+    term = "bytes" if by == "bytes" else "products"
+    t_exp = scores / _exp_per_s(torch) * 1e3
+    if t_exp > bound:
+        bound, by, term = t_exp, "operations", "exponentials"
+    return dict(bound_ms=bound, bound_by=by, bound_term=term, exp_bound_ms=t_exp)
 
 
 def _time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
@@ -126,6 +163,19 @@ def _bf16_ulp(x: float) -> float:
 def _check(name: str, err: float, tol: float) -> None:
     if not np.isfinite(err) or err > tol:
         raise AssertionError(f"{name}: max |kernel - plain| = {err} > {tol}")
+
+
+def _launch_key(fn):
+    """Call `fn`, which launches one kernel once -> (its result, the (name,
+    *shape) key that the wrapper counted the launch under). The counted
+    forwards are split by the same keys, so a row's launches are read from
+    the run and not worked out beside it."""
+    from focusflow_official_tpu_torch.kernels import launch_shapes, reset_launch_counts
+
+    reset_launch_counts()
+    out = fn()
+    (key,) = launch_shapes
+    return out, key
 
 
 def _library_ms(torch, fn):
@@ -183,7 +233,7 @@ def _lookup_row(torch, levels, coords, r: int, label: str) -> dict:
     timed beside F.grid_sample, with its bound. `out` is the kernel's."""
     from focusflow_official_tpu_torch.kernels import lookup as kl
 
-    got = kl.lookup(levels, coords, r)
+    got, key = _launch_key(lambda: kl.lookup(levels, coords, r))
     want = kl.lookup_plain(levels, coords, r)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
@@ -199,32 +249,39 @@ def _lookup_row(torch, levels, coords, r: int, label: str) -> dict:
               + _tap_count(torch, levels, coords, r) * levels[0].element_size())
     flops = got.numel() * 11  # 4 weights, 4 tap products, 3 adds per output
     bound, by = _bound_ms(nbytes, flops, PEAK_F32)
-    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+    return dict(key=key, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, library_ms=lib_ms,
                 library_error=lib_err, out=got)
 
 
-def _fold_row(torch, a, w, bias, label: str) -> dict:
-    """Kernel B against its plain version, timed beside F.linear."""
+def _fold_row(torch, a, w, bias, label: str, design: str) -> dict:
+    """Kernel B against its plain version, timed beside F.linear. `design`
+    is the entry these inputs must run: `mma` for bf16, `fma` for f32."""
     import torch.nn.functional as F
 
     from focusflow_official_tpu_torch.kernels import fold as kf
 
-    out = kf.fold(a, w, bias)
+    ran = kf.design(a)
+    if ran != design:
+        raise AssertionError(f"{label}: ran the {ran} entry, not {design}")
+    out, key = _launch_key(lambda: kf.fold(a, w, bias))
     ref = kf.fold_plain(a, w, bias)
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
-    # f32 sums in another order, then one bf16 rounding: one bf16 ulp
-    tol = 2.0 ** -7 * max(1.0, float(ref.float().abs().max()))
+    top = max(1.0, float(ref.float().abs().max()))
+    # f32 sums of K products in another order (bf16 x bf16 products are
+    # exact in f32 on either entry); in bf16 then one rounding: one bf16 ulp
+    tol = (1e-4 if a.dtype == torch.float32 else 2.0 ** -7) * top
     _check(label, err, tol)
     ms = _time_ms(torch, lambda: kf.fold(a, w, bias))
     plain_ms = _time_ms(torch, lambda: kf.fold_plain(a, w, bias))
     lib_ms, lib_err = _library_ms(torch, lambda: F.linear(a, w, bias))
     (m_, k_), n_ = a.shape, w.shape[0]
     bound, by = _bound_ms((m_ * k_ + n_ * k_ + n_ + m_ * n_) * a.element_size(),
-                          2.0 * m_ * n_ * k_, PEAK_BF16)
-    return dict(max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by, library_ms=lib_ms,
+                          2.0 * m_ * n_ * k_,
+                          PEAK_F32 if a.dtype == torch.float32 else PEAK_BF16)
+    return dict(key=key, design=ran, max_abs_err=err, tol=tol, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms,
                 library_error=lib_err)
 
 
@@ -246,15 +303,21 @@ def _lookup_fold_row(torch, levels, coords, r: int, w, bias, label: str) -> dict
         window = kl.lookup(levels, coords, r).reshape(q, k_).to(w.dtype)
         return kf.fold(window, w, bias)
 
-    got = klf.lookup_fold(levels, coords, r, w, bias)
+    got, key = _launch_key(lambda: klf.lookup_fold(levels, coords, r, w, bias))
     want = klf.lookup_fold_plain(levels, coords, r, w, bias)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    # as B: f32 sums in another order, then one bf16 rounding: one bf16 ulp
-    tol = 2.0 ** -7 * max(1.0, float(want.float().abs().max()))
+    # as B: f32 sums in another order, in bf16 then one rounding: one bf16 ulp
+    tol = ((1e-4 if w.dtype == torch.float32 else 2.0 ** -7)
+           * max(1.0, float(want.float().abs().max())))
     _check(label, err, tol)
-    err2 = float((got.float().reshape(q, n_) - two_step().float()).abs().max())
-    _check(f"{label} vs lookup then fold", err2, tol)
+    two = two_step().float()
+    err2 = float((got.float().reshape(q, n_) - two).abs().max())
+    # f32: the same taps and the same FMA tile in the same k order as A then
+    # B: equal to the bit. bf16: B sums on the tensor cores in another
+    # order: one bf16 ulp of the largest output
+    tol2 = 0.0 if w.dtype == torch.float32 else _bf16_ulp(float(two.abs().max()))
+    _check(f"{label} vs lookup then fold", err2, tol2)
     ms = _time_ms(torch, lambda: klf.lookup_fold(levels, coords, r, w, bias))
     two_step_ms = _time_ms(torch, two_step)
     plain_ms = _time_ms(torch, lambda: klf.lookup_fold_plain(levels, coords, r, w, bias),
@@ -270,12 +333,14 @@ def _lookup_fold_row(torch, levels, coords, r: int, w, bias, label: str) -> dict
     es = w.element_size()
     nbytes = (_tap_count(torch, levels, coords, r) * levels[0].element_size()
               + coords.numel() * 4 + (n_ * k_ + n_ + q * n_) * es)
-    # the window's 11 f32 operations a value, then the product at the bf16
-    # tensor-core peak as for B: two kinds of operations, one after the other
+    # the window's 11 f32 operations a value, then the product at its type's
+    # peak as for B: two kinds of operations, one after the other
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (q * k_ * 11 / PEAK_F32 + 2.0 * q * n_ * k_ / PEAK_BF16) * 1e3
+    peak = PEAK_F32 if w.dtype == torch.float32 else PEAK_BF16
+    t_ops = (q * k_ * 11 / PEAK_F32 + 2.0 * q * n_ * k_ / peak) * 1e3
     bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    return dict(max_abs_err=err, tol=tol, vs_lookup_then_fold_max_abs=err2, ms=ms,
+    return dict(key=key, max_abs_err=err, tol=tol, vs_lookup_then_fold_max_abs=err2,
+                vs_lookup_then_fold_tol=tol2, ms=ms,
                 lookup_then_fold_ms=two_step_ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=lib_ms, library_error=lib_err)
 
@@ -293,7 +358,7 @@ def _local_corr_row(torch, g, dev, shape, dtype, label: str) -> dict:
     r = 4
     f1 = torch.randn(shape, generator=g, device=dev).to(dtype)
     f2 = torch.randn(shape, generator=g, device=dev).to(dtype)
-    got = klc.local_corr(f1, f2, r)
+    got, key = _launch_key(lambda: klc.local_corr(f1, f2, r))
     want = klc.local_corr_plain(f1, f2, r)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
@@ -310,7 +375,7 @@ def _local_corr_row(torch, g, dev, shape, dtype, label: str) -> dict:
     bound, by = _bound_ms((2 * f1.numel() + got.numel()) * es, 2.0 * got.numel() * shape[3],
                           PEAK_F32 if dtype == torch.float32 else PEAK_BF16)
     return dict(shape=f"{tuple(shape)} x2 -> 81, {str(dtype).split('.')[1]}",
-                label=label, max_abs_err=err, tol=tol, ms=ms,
+                label=label, key=key, max_abs_err=err, tol=tol, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
                 library="none: no single PyTorch call computes it")
 
@@ -367,22 +432,33 @@ def kernel_phase(torch, dev):
     wc = wc.to(dev, bf16).contiguous()
     bc = sd["flow_net.update_block.encoder.convc1.bias"].to(dev, bf16)
     a = got.reshape(q, 324).to(bf16)
-    row = _fold_row(torch, a, wc, bc, "fold")
+    row = _fold_row(torch, a, wc, bc, "fold", "mma")
+    # the same product in f32: the FMA tiles, which the fused kernel shares
+    row32 = _fold_row(torch, a.float(), wc.float(), bc.float(), "fold f32", "fma")
+    row32.update(shape="(7040, 324) @ (256, 324).T f32", library="F.linear (f32)")
     results.append(dict(
         name="fold", route="cuda",
         source="focusflow_official_tpu_torch/kernels/csrc/fold.cu",
         replaces="focusflow_official_tpu/kernels/fold.py:51", **row,
-        library="F.linear (bf16)", shape="(7040, 324) @ (256, 324).T bf16"))
+        library="F.linear (bf16)", shape="(7040, 324) @ (256, 324).T bf16",
+        f32=row32))
     _emit(results[-1])
 
     # ---- the fused lookup + convc1: the same pyramid, coords and weights
     row = _lookup_fold_row(torch, levels, coords, r, wc, bc, "lookup_fold")
+    # in f32 (the same pyramid, weights and coords): equal to A then B to the bit
+    levels32 = [lv.float() for lv in levels]
+    row32 = _lookup_fold_row(torch, levels32, coords, r, wc.float(), bc.float(),
+                             "lookup_fold f32")
+    row32.update(shape=f"4 levels f32, Q={q}, (256, 324) weight -> ({q}, 256) f32")
+    del levels32
     results.append(dict(
         name="lookup_fold", route="cuda",
         source="focusflow_official_tpu_torch/kernels/csrc/lookup_fold.cu",
         replaces="focusflow_official_tpu/kernels/stage2.py:64", **row,
         library="F.grid_sample x4 levels (f32), cat, F.linear (bf16)",
-        shape=f"4 levels bf16, Q={q}, (256, 324) weight -> ({q}, 256) bf16"))
+        shape=f"4 levels bf16, Q={q}, (256, 324) weight -> ({q}, 256) bf16",
+        f32=row32))
     _emit(results[-1])
     del levels, got, a
 
@@ -391,14 +467,14 @@ def kernel_phase(torch, dev):
     per_shape = {"in_stats": [], "in_normalize": []}
     for shp in shapes:
         x = (torch.randn(shp, generator=g, device=dev) * 3 + 1).to(bf16)
-        mean, inv = kin.instance_norm_stats(x)
+        (mean, inv), key1 = _launch_key(lambda: kin.instance_norm_stats(x))
         rmean, rinv = kin.stats_plain(x)
         torch.cuda.synchronize()
         err1 = max(float((mean - rmean).abs().max()), float((inv - rinv).abs().max()))
         # f32 sums of up to 1e5 values in another order
         tol1 = 1e-4 * (1.0 + max(float(rmean.abs().max()), float(rinv.abs().max())))
         _check(f"in_stats {shp}", err1, tol1)
-        y = kin.instance_norm_apply(x, mean, inv, True)
+        y, key2 = _launch_key(lambda: kin.instance_norm_apply(x, mean, inv, True))
         ry = kin.apply_plain(x, mean, inv, True)
         torch.cuda.synchronize()
         err2 = float((y.float() - ry.float()).abs().max())
@@ -417,10 +493,10 @@ def kernel_phase(torch, dev):
         b1, by1 = _bound_ms(xs + 2 * shp[0] * shp[3] * 4, 3.0 * x.numel(), PEAK_F32)
         b2, by2 = _bound_ms(2 * xs + 2 * shp[0] * shp[3] * 4, 3.0 * x.numel(), PEAK_F32)
         per_shape["in_stats"].append(dict(
-            shape=list(shp), max_abs_err=err1, tol=tol1, ms=t1, plain_ms=t1p,
+            shape=list(shp), key=key1, max_abs_err=err1, tol=tol1, ms=t1, plain_ms=t1p,
             bound_ms=b1, bound_by=by1, library_ms=tv))
         per_shape["in_normalize"].append(dict(
-            shape=list(shp), max_abs_err=err2, tol=tol2, ms=t2, plain_ms=t2p,
+            shape=list(shp), key=key2, max_abs_err=err2, tol=tol2, ms=t2, plain_ms=t2p,
             bound_ms=b2, bound_by=by2, library_ms=tl))
         del x, y, ry
     src = "focusflow_official_tpu_torch/kernels/csrc/instance_norm.cu"
@@ -443,27 +519,51 @@ def kernel_phase(torch, dev):
     return results
 
 
-def _attention_row(torch, g, dev, b, n, m, c, heads, label) -> dict:
-    """Kernel E on random bf16 q (B, N, C), k, v (B, M, C) against its plain
-    version, timed beside F.scaled_dot_product_attention on (B, heads, N,
-    d) views of the same tensors."""
+def _attention_row(torch, g, dev, b, n, m, c, heads, label, design: str,
+                   dtype=None) -> dict:
+    """Kernel E on random q (B, N, C), k, v (B, M, C) (bf16 unless `dtype`)
+    against its plain version, timed beside F.scaled_dot_product_attention
+    on (B, heads, N, d) views of the same tensors. `design` is the entry
+    these inputs must run: `mma` (tensor cores) or `fma`."""
     import torch.nn.functional as F
 
     from focusflow_official_tpu_torch.kernels import attention as ka
 
-    bf16 = torch.bfloat16
-    q = torch.randn((b, n, c), generator=g, device=dev).to(bf16)
-    k = torch.randn((b, m, c), generator=g, device=dev).to(bf16)
-    v = torch.randn((b, m, c), generator=g, device=dev).to(bf16)
+    dtype = dtype or torch.bfloat16
+    q = torch.randn((b, n, c), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, m, c), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, m, c), generator=g, device=dev).to(dtype)
     d = c // heads
     scale = d ** -0.5
-    got = ka.small_kv_attention(q, k, v, heads, scale)
+    ran = ka.design(q, k, v, heads)
+    if ran != design:
+        raise AssertionError(f"{label}: ran the {ran} entry, not {design}")
+    got, key = _launch_key(lambda: ka.small_kv_attention(q, k, v, heads, scale))
     want = ka.small_kv_attention_plain(q, k, v, heads, scale)
     torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
-    # both take f32 scores, softmax and sums from the same bf16 inputs, in
-    # other orders, and round once to bf16: one bf16 ulp
-    tol = 2.0 ** -7 * max(1.0, float(want.float().abs().max()))
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    top = max(1.0, float(want.float().abs().max()))
+    over = None
+    if dtype == torch.float32:
+        tol = 1e-5 * top  # f32 scores, softmax and sums in another order
+    elif ran == "mma":
+        # held at every output: one bf16 ulp of that output for the two
+        # sides' roundings, and the tensor-core entry's bf16 softmax weights:
+        # 2^-8 of its row's sum of p |v|. `tol` is the bound where the error
+        # is largest
+        bound = ka.bf16_bound(want, q, k, v, heads, scale)
+        over = float((diff / bound).max())
+        if not over <= 1.0:
+            raise AssertionError(f"{label}: |kernel - plain| is {over} of its bound "
+                                 "at some output")
+        tol = float(bound.flatten()[diff.argmax()])
+        del bound
+    else:
+        # both take f32 scores, softmax and sums from the same bf16 inputs,
+        # in other orders, and round once to bf16: one bf16 ulp
+        tol = 2.0 ** -7 * top
+    del diff
     _check(label, err, tol)
     ms = _time_ms(torch, lambda: ka.small_kv_attention(q, k, v, heads, scale))
     plain_ms = _time_ms(torch, lambda: ka.small_kv_attention_plain(
@@ -471,12 +571,15 @@ def _attention_row(torch, g, dev, b, n, m, c, heads, label) -> dict:
     qh, kh, vh = (t.view(b, -1, heads, d).transpose(1, 2) for t in (q, k, v))
     lib_ms, lib_err = _library_ms(torch, lambda: F.scaled_dot_product_attention(
         qh, kh, vh, scale=scale))
-    nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * 2
-    bound, by = _bound_ms(nbytes, 2.0 * b * heads * n * m * 2 * d, PEAK_BF16)
+    nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * q.element_size()
+    scores = float(b) * heads * n * m
     return dict(shape=f"q ({b}, {n}, {c}) x kv ({b}, {m}, {c}), {heads} heads, "
-                      "bf16", label=label,
-                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=lib_ms, library_error=lib_err)
+                      f"{str(dtype).split('.')[1]}", label=label, key=key,
+                design=ran, largest_err_over_its_bound=over, max_abs_err=err,
+                tol=tol, ms=ms, plain_ms=plain_ms,
+                **_attention_bound(torch, nbytes, scores * 2 * 2 * d, scores,
+                                   PEAK_F32 if dtype == torch.float32 else PEAK_BF16),
+                library_ms=lib_ms, library_error=lib_err)
 
 
 def _window_row(torch, g, dev, b, hp, wp, c, heads, label) -> dict:
@@ -493,7 +596,7 @@ def _window_row(torch, g, dev, b, hp, wp, c, heads, label) -> dict:
                for _ in range(3))
     d = c // heads
     scale = d ** -0.5
-    got = kw.window_attention(q, k, v, ws, heads, scale)
+    got, key = _launch_key(lambda: kw.window_attention(q, k, v, ws, heads, scale))
     want = kw.window_attention_plain(q, k, v, ws, heads, scale)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
@@ -517,12 +620,11 @@ def _window_row(torch, g, dev, b, hp, wp, c, heads, label) -> dict:
     lib_ms, lib_err = _library_ms(torch, lambda: F.scaled_dot_product_attention(
         qw, kw_, vw, scale=scale))
     lib_full_ms, _ = _library_ms(torch, sdpa_merged)
-    nwin = b * nh * nw
-    bound, by = _bound_ms(4 * q.numel() * 2,
-                          2.0 * nwin * heads * (ws * ws) ** 2 * 2 * d, PEAK_BF16)
+    scores = float(b * nh * nw) * heads * (ws * ws) ** 2
     return dict(shape=f"({b}, {hp}, {wp}, {c}), {heads} heads, bf16", label=label,
-                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=lib_ms, library_error=lib_err,
+                key=key, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                **_attention_bound(torch, 4 * q.numel() * 2, scores * 2 * 2 * d, scores),
+                library_ms=lib_ms, library_error=lib_err,
                 library_with_partition_ms=lib_full_ms)
 
 
@@ -538,18 +640,22 @@ def ff_kernel_phase(torch, dev) -> dict:
     q = h1 * w1
     rows = {"lookup": [], "fold": [], "attention": [], "window_attention": []}
 
-    # A: one level, the (1, Q, 55, 128) cost maps in bf16
+    def add(kernel: str, row: dict) -> None:
+        rows[kernel].append(row)
+        _emit(dict(kernel=kernel, path="ff_flowformer", **row))
+
+    # A: one level, the (1, Q, 55, 128) cost maps in bf16; once a refinement
     level = torch.randn((1, q, h1, w1), generator=g, device=dev).to(bf16)
     flow = torch.randn((1, h1, w1, 2), generator=g, device=dev) * 8
     coords = (coords_grid(1, h1, w1, device=dev) + flow).contiguous()
     row = _lookup_row(torch, [level], coords, r, "lookup (FlowFormer)")
     window = row.pop("out").reshape(q, 81).to(bf16)
-    rows["lookup"].append(dict(row, shape=f"1 level (1, {q}, {h1}, {w1}) bf16",
-                               library="F.grid_sample x1 level (f32)"))
-    _emit(dict(kernel="lookup", path="ff_flowformer", **rows["lookup"][-1]))
+    add("lookup", dict(row, shape=f"1 level (1, {q}, {h1}, {w1}) bf16",
+                       library="F.grid_sample x1 level (f32)"))
     del level
 
-    # B: the flow-token encoder (81 -> 64) and convc1's window half (81 -> 256)
+    # B: the flow-token encoder (81 -> 64) and convc1's window half (81 ->
+    # 256), each once a refinement
     sd = load_npz(FIXTURE_FF)
     w0 = sd["memory_decoder.flow_token_encoder_0.weight"].reshape(64, 81)
     b0 = sd["memory_decoder.flow_token_encoder_0.bias"]
@@ -558,34 +664,37 @@ def ff_kernel_phase(torch, dev) -> dict:
     for n_, w_, b_ in ((64, w0, b0), (256, wc, bc)):
         w_ = w_.to(dev, bf16).contiguous()
         b_ = b_.to(dev, bf16)
-        row = _fold_row(torch, window, w_, b_, f"fold 81->{n_}")
-        rows["fold"].append(dict(row, shape=f"({q}, 81) @ ({n_}, 81).T bf16",
-                                 library="F.linear (bf16)"))
-        _emit(dict(kernel="fold", path="ff_flowformer", **rows["fold"][-1]))
+        row = _fold_row(torch, window, w_, b_, f"fold 81->{n_}", "mma")
+        add("fold", dict(row, shape=f"({q}, 81) @ ({n_}, 81).T bf16",
+                         library="F.linear (bf16)"))
 
-    # E: Twins GSA at both stages (the feature towers take both frames, the
-    # context towers B = 1), the vertical global layer, the perceiver's
-    # input layer, the latent self-attention, the decoder's cross-attend
-    for b, n, m, c, heads, label in (
-            (2, 28160, 448, 128, 4, "attention twins stage 1"),
-            (1, 28160, 448, 128, 4, "attention twins stage 1, context"),
-            (2, 7040, 448, 256, 8, "attention twins stage 2"),
-            (8, 7168, 448, 128, 8, "attention vertical global"),
-            (q, 8, 112, 128, 8, "attention input layer"),
-            (q, 8, 8, 128, 8, "attention latent self"),
-            (q, 1, 8, 64, 8, "attention decoder")):
-        rows["attention"].append(_attention_row(torch, g, dev, b, n, m, c, heads, label))
-        _emit(dict(kernel="attention", path="ff_flowformer", **rows["attention"][-1]))
+    # E: the Twins GSAs at both stages (each tower has an image and a mask
+    # branch: the feature towers take both frames, the context towers B =
+    # 1), the vertical global layer and the latent self-attention (one each
+    # an encoder layer), the perceiver's input layer, the decoder's
+    # cross-attend (one a refinement); then one tiled shape in f32
+    for b, n, m, c, heads, label, design in (
+            (2, 28160, 448, 128, 4, "attention twins stage 1", "mma"),
+            (1, 28160, 448, 128, 4, "attention twins stage 1, context", "mma"),
+            (2, 7040, 448, 256, 8, "attention twins stage 2", "mma"),
+            (1, 7040, 448, 256, 8, "attention twins stage 2, context", "mma"),
+            (8, 7168, 448, 128, 8, "attention vertical global", "mma"),
+            (q, 8, 112, 128, 8, "attention input layer", "fma"),
+            (q, 8, 8, 128, 8, "attention latent self", "fma"),
+            (q, 1, 8, 64, 8, "attention decoder", "fma")):
+        add("attention", _attention_row(torch, g, dev, b, n, m, c, heads, label, design))
+    add("attention", _attention_row(torch, g, dev, 1, 7040, 448, 256, 8,
+                                    "attention twins stage 2, context, f32", "fma",
+                                    torch.float32))
 
-    # F: Twins LSA at both stages (feature towers), the vertical local layer
+    # F: the Twins LSAs at both stages and batch sizes, the vertical local layer
     for b, hp, wp, c, heads, label in (
             (2, 112, 259, 128, 4, "window twins stage 1"),
+            (1, 112, 259, 128, 4, "window twins stage 1, context"),
             (2, 56, 133, 256, 8, "window twins stage 2"),
+            (1, 56, 133, 256, 8, "window twins stage 2, context"),
             (8, 56, 133, 128, 8, "window vertical local")):
-        rows["window_attention"].append(
-            _window_row(torch, g, dev, b, hp, wp, c, heads, label))
-        _emit(dict(kernel="window_attention", path="ff_flowformer",
-                   **rows["window_attention"][-1]))
+        add("window_attention", _window_row(torch, g, dev, b, hp, wp, c, heads, label))
     return rows
 
 
@@ -600,9 +709,9 @@ def _shift_inputs(h: int, w: int, seed: int = 0):
     return (i1, i2, m1, m2), (dx, dy)
 
 
-_PORT_KERNELS = ("lookup_kernel", "fold_kernel", "lookup_fold_kernel",
+_PORT_KERNELS = ("lookup_kernel", "fold_kernel", "fold_mma", "lookup_fold_kernel",
                  "stats_partial", "stats_finish", "normalize<", "local_corr_kernel",
-                 "attn_tiled", "attn_direct", "window_attn")
+                 "attn_mma", "attn_tiled", "attn_direct", "window_attn")
 
 
 def _category(name: str) -> str:
@@ -655,16 +764,18 @@ def _drive(torch, p, inputs, want: dict, profile_name: str):
     """Warm up, then one forward of the path with every launch count set
     to 0 just before and read just after (it must equal `want`), then ten
     timed calls and one profiled call. Returns (flow (H, W, 2) of the
-    counted forward, counts, median ms, all ms, device breakdown)."""
+    counted forward, (counts, the same launches split by shape key), median
+    ms, all ms, device breakdown)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from focusflow_official_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from focusflow_official_tpu_torch.kernels import (
+        launch_counts, launch_shapes, reset_launch_counts)
 
     p(*inputs)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
     reset_launch_counts()
     flow = p(*inputs)[0]  # one forward of the path
-    counts = dict(launch_counts)
+    counts, shapes = dict(launch_counts), dict(launch_shapes)
     want = {name: want.get(name, 0) for name in counts}
     if counts != want:
         raise AssertionError(f"{profile_name}: launches per forward {counts} != {want}")
@@ -685,7 +796,7 @@ def _drive(torch, p, inputs, want: dict, profile_name: str):
     with open(os.path.join(OUT_DIR, f"{profile_name}.txt"), "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=60))
-    return flow, counts, float(np.median(times)), times, breakdown
+    return flow, (counts, shapes), float(np.median(times)), times, breakdown
 
 
 def _gates(torch, flow, shift, cpu_predictor, inputs) -> dict:
@@ -731,7 +842,7 @@ def end_to_end_phase(torch, card: str):
         cfg, FIXTURE, device="cpu", dtype=torch.float32), inputs)
     _emit(dict(phase="end_to_end", model="ff_raft", card=card, shape=[1, H, W],
                iters=ITERS, dtype="bfloat16", ms_per_pair=ms, pairs_per_s=1e3 / ms,
-               ms_all=times, profile=breakdown, launches=counts, **gates,
+               ms_all=times, profile=breakdown, launches=counts[0], **gates,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
     return counts
 
@@ -781,7 +892,7 @@ def ff_end_to_end_phase(torch, card: str):
     _emit(dict(phase="end_to_end", model="ff_flowformer", card=card,
                shape=[1, H, W], encoder_depth=1, iters=ITERS, dtype="bfloat16",
                ms_per_pair=ms, pairs_per_s=1e3 / ms, ms_all=times,
-               profile=breakdown, launches=counts, **gates,
+               profile=breakdown, launches=counts[0], **gates,
                cpu_f32_size="full frame",
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
     return counts
@@ -802,7 +913,7 @@ def pwc_end_to_end_phase(torch, card: str):
         cfg, FIXTURE_PWC, device="cpu", dtype=torch.float32), inputs)
     _emit(dict(phase="end_to_end", model="ff_pwcnet", card=card, shape=[1, H, W],
                dtype="bfloat16", ms_per_pair=ms, pairs_per_s=1e3 / ms,
-               ms_all=times, profile=breakdown, launches=counts, **gates,
+               ms_all=times, profile=breakdown, launches=counts[0], **gates,
                cpu_f32_size="full frame",
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
     return counts
@@ -856,7 +967,7 @@ def ff_shipped_depth_phase(torch, card: str):
                shape=[1, H, W], encoder_depth=3, iters=ITERS, dtype="bfloat16",
                weights="seeded torch.Generator", ms_per_pair=ms,
                pairs_per_s=1e3 / ms, ms_all=times, profile=breakdown,
-               launches=counts, mean_abs_flow=float(np.abs(flow).mean())))
+               launches=counts[0], mean_abs_flow=float(np.abs(flow).mean())))
     return counts
 
 
@@ -867,23 +978,31 @@ def _worst(rows: list) -> dict:
     return dict(max_abs_err=r["max_abs_err"], tol=r["tol"])
 
 
-def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, counts: dict,
+def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, drives: dict,
                   card: str) -> list:
     """One entry per kernel: the headline shape's times (the FF-RAFT shape
     for A-C2 and the fused lookup + convc1, the first FlowFormer shape for
-    E and F, PWC level 2 for D), the error and tolerance of its worst
-    shape, every shape under `per_shape` with its own tolerance, and
-    `launches` summed over the paths' counted forwards (`counts`: path ->
-    launch counts; `launches_by_path` splits them)."""
+    E and F, PWC level 2 for D), for E and B the entry that shape ran
+    (`design`), the error and tolerance of its worst shape, and every shape
+    held under `per_shape` with its own tolerance. `drives` is path ->
+    (launch counts, launches by shape key) of that path's counted forward.
+    A kernel's `launches` are summed over the three paths
+    (`launches_by_path`); a shape's are read from the same forwards by the
+    key its wrapper counted it under in the kernel phase, with launches x
+    (ms - bound_ms). Every shape a path launched must be held here."""
     table = []
     for kr in raft:
-        rows = ff_rows.get(kr["name"], [])
-        if rows:
-            head = {k: kr[k] for k in ("shape", "max_abs_err", "tol", "ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms")}
-            kr["per_shape"] = [dict(head, path="ff_raft")] + [
-                dict(r, path="ff_flowformer") for r in rows]
+        if "per_shape" not in kr:
+            head = {k: kr[k] for k in ("shape", "key", "design", "max_abs_err", "tol", "ms",
+                                       "plain_ms", "bound_ms", "bound_by", "library_ms")
+                    if k in kr}
+            kr["per_shape"] = [dict(head, path="ff_raft")]
+            if "f32" in kr:
+                kr["per_shape"].append(dict(kr.pop("f32"), path="ff_raft"))
+            kr["per_shape"] += [dict(r, path="ff_flowformer")
+                                for r in ff_rows.get(kr["name"], [])]
             kr.update(_worst(kr["per_shape"]))
+        kr.pop("key", None)
         table.append(kr)
     for name, src, replaces, lib in (
             ("attention", "attention.cu", "focusflow_official_tpu/kernels/attention.py:51",
@@ -896,9 +1015,12 @@ def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, counts: dict,
         top = rows[0]
         table.append(dict(
             name=name, route="cuda", source=f"focusflow_official_tpu_torch/kernels/csrc/{src}",
-            replaces=replaces, **_worst(rows), ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
-            bound_by=top["bound_by"], library_ms=top["library_ms"], library=lib,
+            replaces=replaces, **_worst(rows), ms=top["ms"], plain_ms=top["plain_ms"],
+            bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+            bound_term=top["bound_term"], library_ms=top["library_ms"], library=lib,
             shape=top["shape"], per_shape=[dict(r, path="ff_flowformer") for r in rows]))
+        if "design" in top:
+            table[-1]["design"] = top["design"]
     top = pwc_rows[4]  # level 2, the largest
     table.append(dict(
         name="local_corr", route="cuda",
@@ -907,11 +1029,27 @@ def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, counts: dict,
         ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
         bound_by=top["bound_by"], library_ms=None, library=top["library"],
         shape=top["shape"], per_shape=[dict(r, path="ff_pwcnet") for r in pwc_rows]))
+    paths = ("ff_raft", "ff_flowformer", "ff_pwcnet")  # `launches` sums these
+    held = set()
     for kr in table:
-        by_path = {path: c.get(kr["name"], 0) for path, c in counts.items()}
+        by_path = {path: drives[path][0].get(kr["name"], 0) for path in paths}
         kr["launches"] = sum(by_path.values())
         kr["launches_by_path"] = by_path
         kr["card"] = card
+        for row in kr["per_shape"]:
+            held.add(row["key"])
+            by_path = {path: shapes.get(row["key"], 0)
+                       for path, (_, shapes) in drives.items()}
+            row["launches_by_path"] = by_path
+            row["launches"] = sum(by_path[path] for path in paths)
+            row["launches_x_ms_over_bound"] = row["launches"] * (row["ms"] - row["bound_ms"])
+        if sum(row["launches"] for row in kr["per_shape"]) != kr["launches"]:
+            raise AssertionError(f"{kr['name']}: launches by shape do not add up to "
+                                 f"{kr['launches']}")
+    for path, (_, shapes) in drives.items():
+        if set(shapes) - held:
+            raise AssertionError(f"{path} launched shapes that no kernel row holds: "
+                                 f"{sorted(set(shapes) - held)}")
     return table
 
 
@@ -936,7 +1074,9 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build_all()
     build_s = time.perf_counter() - t0
-    regs = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    # each kernel's registers and shared memory, and any spill that is not zero
+    regs = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln
+                or ("spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln)]
             for n, log in logs.items()}
     _emit(dict(phase="build", seconds=build_s, ptxas=regs))
 
@@ -945,11 +1085,11 @@ def main() -> int:
     ff_rows = ff_kernel_phase(torch, dev)
     pwc_rows = pwc_kernel_phase(torch, dev)
     torch.cuda.empty_cache()
-    counts = {"ff_raft": end_to_end_phase(torch, card),
-              "ff_flowformer": ff_end_to_end_phase(torch, card)}
-    ff_shipped_depth_phase(torch, card)
-    counts["ff_pwcnet"] = pwc_end_to_end_phase(torch, card)
-    kernels = _kernel_table(raft_kernels, ff_rows, pwc_rows, counts, card)
+    drives = {"ff_raft": end_to_end_phase(torch, card),
+              "ff_flowformer": ff_end_to_end_phase(torch, card),
+              "ff_flowformer_depth3": ff_shipped_depth_phase(torch, card),
+              "ff_pwcnet": pwc_end_to_end_phase(torch, card)}
+    kernels = _kernel_table(raft_kernels, ff_rows, pwc_rows, drives, card)
     for kr in kernels:
         if kr["launches"] == 0:
             raise AssertionError(f"{kr['name']}: no launch on any path")

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch twin.
 
 A wrapper launches its kernel for CUDA tensors and takes the plain version
-only for CPU tensors; it adds one to `launch_counts[name]` per launch, so a
-run can show which kernels carried it.
+only for CPU tensors; it calls `count_launch` once per launch, so a run can
+show which kernels carried it (`launch_counts[name]`) and at which shapes
+(`launch_shapes[(name, *shape)]`).
 """
 
 from __future__ import annotations
@@ -10,8 +11,18 @@ from __future__ import annotations
 launch_counts: dict[str, int] = {
     "lookup": 0, "fold": 0, "lookup_fold": 0, "in_stats": 0, "in_normalize": 0,
     "local_corr": 0, "attention": 0, "window_attention": 0}
+# (name, *shape) -> launches; `shape` is what the wrapper passes: the sizes
+# that tell one call site's tensors from another's, and the element type
+launch_shapes: dict[tuple, int] = {}
+
+
+def count_launch(name: str, *shape) -> None:
+    """One launch of kernel `name` on tensors of `shape`."""
+    launch_counts[name] += 1
+    launch_shapes[(name, *shape)] = launch_shapes.get((name, *shape), 0) + 1
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+    launch_shapes.clear()

@@ -8,6 +8,12 @@ scores, softmax and the value sum in f32, emitted in q's type. Every
 non-window softmax attention of the FlowFormer path goes through here:
 Twins GSA, the vertical global layer, the perceiver's input and latent
 self-attention, and the decoder's cross-attend.
+
+On bf16 tensors with head widths 16 or 32 and N >= 64 the kernel runs on
+the tensor cores and rounds the softmax weights to bf16 before the value
+sum (the row sum is of the unrounded weights): against the plain version
+that is up to 2^-8 relative on each weight (`bf16_bound` is the bound
+that follows for the output). Elsewhere the weights stay f32.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ import functools
 
 import torch
 
-from . import _build, launch_counts
+from . import _build, count_launch
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
@@ -30,7 +36,19 @@ def _lib():
     lib.ff_attention.argtypes = [_c, _c, _c, _c] + [_i] * 6 + [
         ctypes.c_float, _i, _c]
     lib.ff_attention.restype = _i
+    lib.ff_attention_entry.argtypes = [_i] * 6
+    lib.ff_attention_entry.restype = _i
     return lib
+
+
+def design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> str:
+    """Which entry of the kernel a call on these CUDA tensors runs, as the
+    library itself decides it: "mma" (tensor cores: bf16, head widths 16 or
+    32, N >= 64) or "fma" (the per-query f32 loop)."""
+    (b, n, c), m, cv = q.shape, k.shape[1], v.shape[2]
+    entry = _lib().ff_attention_entry(b, n, m, c // heads, cv // heads,
+                                      int(q.dtype == torch.bfloat16))
+    return "mma" if entry == 2 else "fma"
 
 
 def small_kv_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -44,6 +62,22 @@ def small_kv_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attn = torch.softmax(torch.einsum("bihd,bjhd->bhij", qh, kh) * scale, dim=-1)
     out = torch.einsum("bhij,bjhd->bihd", attn, vh)
     return out.reshape(b, n, v.shape[-1]).to(q.dtype)
+
+
+def bf16_bound(want: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
+    """The bound on |tensor-core entry - plain version| at every output, for
+    bf16 q, k, v, `want` being the plain version's output -> f32, want's
+    shape. Rounding a softmax weight to bf16 (8 significant bits) moves it
+    by up to 2^-8 of itself, so output (n, c) moves by up to 2^-8 sum_j p_nj
+    |v_jc|, the plain version on |v|. Both sides then round an f32 result
+    once, half a bf16 ulp each: one ulp at the largest size either can have
+    there. 1e-6 stands for the f32 sums' own order."""
+    moved = 2.0 ** -8 * small_kv_attention_plain(q.float(), k.float(),
+                                                 v.float().abs(), heads, scale)
+    top = want.float().abs() * (1 + 2.0 ** -8) + moved
+    ulp = torch.exp2(torch.floor(torch.log2(top.clamp_min(1e-30))) - 7)
+    return moved + ulp + 1e-6
 
 
 def small_kv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -84,5 +118,5 @@ def small_kv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         heads, d, dv, float(scale), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "ff_attention")
-    launch_counts["attention"] += 1
+    count_launch("attention", b, n, m, c, cv, heads, str(q.dtype))
     return out

@@ -11,35 +11,318 @@
 // keys at the widths of this path (448 x 256 x 2 bf16 = 458 KB), so the
 // work is cut by head as well:
 //
-// - `attn_tiled` (N >= 64: the Twins and vertical global attentions,
-//   N = 7k-28k, M = 448): one block per (query tile of 128, head, batch
-//   entry) stages that head's K and V (M x D and M x DV, <= 57 KB in bf16)
-//   in shared memory once; each thread then walks all keys for one query,
-//   reading every key as a broadcast.
+// - `attn_mma` (bf16, head widths 16 or 32, N >= 64: the Twins and vertical
+//   global attentions, N = 7k-28k, M = 448): the tensor-core entry. A block
+//   of 8 warps takes 256 queries of one (head, batch entry); a warp owns
+//   two tiles of 16 queries, whose Q fragments stay in registers for the
+//   whole walk over the keys, and every K and V fragment it reads serves
+//   both tiles. Keys and values arrive in chunks of 128 through a ring of
+//   two `cp.async` stages (rows padded by 8 values, so `ldmatrix` meets no
+//   bank conflict): the first product starts after one chunk, and the next
+//   chunk lands while this one is worked on. S = Q.K^T and O += P.V run as `mma.sync.m16n8k16` (bf16 in, f32
+//   out): K, stored (key, d), is the B operand as it lies; V, stored (key,
+//   dv), is read with `ldmatrix.trans`; the S accumulators, rounded to
+//   bf16, already are the A operand of the second product. The softmax is
+//   online in f32 on the accumulator fragments, 32 keys at a time: a row's
+//   scores lie in the four lanes of a quad, so its max and sum are two
+//   shuffles; exponentials are `ex2.approx` of a fused scale-and-subtract.
+//   Padded keys of the last chunk are staged as zeros and their scores set
+//   to -inf before the row max. O leaves through shared memory as 16-byte
+//   row pieces.
+// - `attn_tiled` (N >= 64, f32 inputs or a head width of 8): one block per
+//   (query tile of 128, head, batch entry) stages that head's K and V in
+//   shared memory once; each thread then walks all keys for one query on
+//   the f32 FMA units (`attend.cuh`), reading every key as a broadcast.
 // - `attn_direct` (N < 64: the perceiver's latent attentions and the
 //   decoder's cross-attend, B = 7040, N = 8 or 1, M <= 112): one thread per
 //   (batch entry, query, head), heads fastest, so a 256-thread block covers
 //   many batch entries and a warp's key loads are one contiguous span of a
 //   key row; keys and values are read through L1.
 //
-// What bounds it on the card: at tensor-core rates, bytes (q, k, v read
-// once, out written once: 14-29 MB at the Twins shapes, 0.01 ms). This
-// first version runs the dot products on the f32 FMA units, one query per
-// thread, so it is bound by FMA issue: ~3*M*D FMAs per query and head. The
-// tensor-core (mma / wgmma) form, with a query tile per warp, is later work.
+// What bounds `attn_mma` on the card: not the tensor cores. At head widths
+// of 16 and 32 the two products are 13 GFLOP at the largest shape of the
+// path, which `mma.sync` does in about 0.02 ms even well under the card's
+// peak. Each score costs one exponential on the special-function units (16
+// lanes a clock an SM: 1.0e8 scores at the Twins shape, 0.03 ms), a handful
+// of f32 operations around it, and its share of the `ldmatrix` traffic
+// (with one 16-query tile a warp, 8 KB of shared-memory reads per 64 keys,
+// as long as the exponentials); bytes (q, k, v read once, out written
+// once: 14-29 MB, 0.01 ms) come after. That is why this is `mma.sync` and
+// not `wgmma`: a 64-row warpgroup tile would speed up the one part that
+// does not bind. The design spends its effort on the rest: the scale is
+// folded into the exponent's FMA, a warp's two query tiles share each K and
+// V fragment (half the `ldmatrix` traffic; two tiles of 32-key steps fill
+// the 128 registers that two blocks an SM allow), and K/V re-staging
+// through L2 falls with the queries a block takes (50 MB at 256 queries a
+// block at the Twins shape, 100 MB at 128).
+//
+// Numbers: `attn_mma` rounds P to bf16 before P.V (the row sum is of the
+// unrounded P), so against the f32 plain version each weight carries up to
+// 2^-8 relative error (bf16 keeps 8 significant bits): an output moves by at
+// most 2^-8 of its row's sum of p |v|.
+// The other two entries keep P in f32.
+
+#include <type_traits>
 
 #include "attend.cuh"
+#include "mma.cuh"
 
 namespace {
 
 using ffattn::attend;
 using ffattn::load_f;
 using ffattn::store_f;
+using bf16 = __nv_bfloat16;
 
 constexpr int TQ = 128;         // queries per block in attn_tiled
 constexpr int DIRECT = 256;     // threads per block in attn_direct
 constexpr int MIN_TILED_N = 64;
 constexpr int MAX_SMEM = 227 * 1024;
+
+// attn_mma
+constexpr int MMA_WARPS = 8;
+constexpr int MMA_THREADS = 32 * MMA_WARPS;
+constexpr int QT = 2;       // 16-query tiles a warp
+constexpr int SC = 32;      // keys per softmax step
+constexpr int KC = 128;     // keys per staged chunk
+constexpr int STAGES = 2;   // chunks in the cp.async ring
+constexpr int PAD = 8;      // values added to a shared row: ldmatrix without bank conflicts
+constexpr int BQ = 16 * QT * MMA_WARPS;  // queries per block
+constexpr float LOG2E = 1.4426950408889634f;
+
+enum Entry { ENTRY_DIRECT = 0, ENTRY_TILED = 1, ENTRY_MMA = 2 };
+
+// which kernel a call runs: by type and shape only
+inline Entry entry_for(bool is_bf16, int d, int dv, int B, int N, int M) {
+  if (N < MIN_TILED_N || B > 65535) return ENTRY_DIRECT;
+  if (is_bf16 && d % 16 == 0 && dv % 16 == 0) return ENTRY_MMA;
+  const long long smem = (long long)M * (d + dv) * (is_bf16 ? 2 : 4);
+  return smem <= MAX_SMEM ? ENTRY_TILED : ENTRY_DIRECT;
+}
+
+template <int D, int DV>
+__global__ void __launch_bounds__(MMA_THREADS, 2)
+attn_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+         bf16* __restrict__ out, int N, int M, int H, float scale) {
+  using namespace ffmma;
+  constexpr int KS = D + PAD, VS = DV + PAD;  // shared row strides, in values
+  constexpr int KP = D / 8, VP = DV / 8;      // 16-byte pieces a row
+  static_assert(D % 16 == 0 && DV % 16 == 0, "head widths are whole k and n tile pairs");
+  static_assert(KC % SC == 0 && SC % 16 == 0, "a chunk is whole softmax steps of key pairs");
+  static_assert(STAGES * KC * (KS + VS) >= MMA_WARPS * 16 * QT * VS,
+                "the output tiles leave through the ring");
+  __shared__ __align__(16) bf16 smem[STAGES * KC * (KS + VS)];
+  bf16* ksm = smem;                     // [STAGES][KC][KS]
+  bf16* vsm = smem + STAGES * KC * KS;  // [STAGES][KC][VS]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y;
+  const long long b = blockIdx.z;
+  const long long C = (long long)H * D, CV = (long long)H * DV;
+  const bf16* kg = k + b * M * C + h * D;
+  const bf16* vg = v + b * M * CV + h * DV;
+  const int nchunks = (M + KC - 1) / KC;
+
+  // chunk c -> stage c % STAGES; keys past M are written as zeros
+  auto stage_chunk = [&](int c) {
+    bf16* kd = ksm + (c % STAGES) * KC * KS;
+    bf16* vd = vsm + (c % STAGES) * KC * VS;
+    const int j0 = c * KC;
+    for (int e = tid; e < KC * (KP + VP); e += MMA_THREADS) {
+      const bool is_k = e < KC * KP;
+      const int e2 = is_k ? e : e - KC * KP;
+      const int r = is_k ? e2 / KP : e2 / VP;
+      const int p = is_k ? e2 % KP : e2 % VP;
+      const bool ok = j0 + r < M;
+      const long long j = ok ? j0 + r : M - 1;
+      if (is_k)
+        cp_async16(kd + r * KS + p * 8, kg + j * C + p * 8, ok ? 16 : 0);
+      else
+        cp_async16(vd + r * VS + p * 8, vg + j * CV + p * 8, ok ? 16 : 0);
+    }
+  };
+
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c) {
+    if (c < nchunks) stage_chunk(c);
+    cp_async_commit();
+  }
+
+  // this warp's queries: tiles of 16 rows, rows g and g + 8 of each in this lane
+  const int n0 = blockIdx.x * BQ + warp * (16 * QT);
+  const bool active = n0 < N;
+  // exp(scale * s) = 2^(sl * s) with sl > 0: a negative scale moves into q's
+  // sign (exact in bf16), a zero one becomes the least normal float
+  const float sl = fmaxf(fabsf(scale) * LOG2E, 1.17549435e-38f);
+  const uint32_t flip = scale < 0.0f ? 0x80008000u : 0u;
+  uint32_t qf[QT][D / 16][4];
+#pragma unroll
+  for (int qt = 0; qt < QT; ++qt) {
+    const int r0 = n0 + qt * 16 + g, r1 = r0 + 8;
+    const uint32_t* q0 = reinterpret_cast<const uint32_t*>(q + (b * N + r0) * C + h * D);
+    const uint32_t* q1 = reinterpret_cast<const uint32_t*>(q + (b * N + r1) * C + h * D);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      qf[qt][kk][0] = r0 < N ? __ldg(q0 + kk * 8 + t) ^ flip : 0u;
+      qf[qt][kk][1] = r1 < N ? __ldg(q1 + kk * 8 + t) ^ flip : 0u;
+      qf[qt][kk][2] = r0 < N ? __ldg(q0 + kk * 8 + 4 + t) ^ flip : 0u;
+      qf[qt][kk][3] = r1 < N ? __ldg(q1 + kk * 8 + 4 + t) ^ flip : 0u;
+    }
+  }
+
+  float m[QT][2], l[QT][2], o[QT][DV / 8][4];
+#pragma unroll
+  for (int qt = 0; qt < QT; ++qt) {
+    m[qt][0] = m[qt][1] = -INFINITY;
+    l[qt][0] = l[qt][1] = 0.0f;
+#pragma unroll
+    for (int nt = 0; nt < DV / 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[qt][nt][i] = 0.0f;
+  }
+
+  // ldmatrix row addresses of this lane, in values from a stage's start:
+  // K, 16 keys x 16 d: matrices (keys 0-7, d 0-7), (keys 0-7, d 8-15),
+  // (keys 8-15, d 0-7), (keys 8-15, d 8-15) = b0, b1 of two key tiles
+  const int k_off = ((lane & 7) + (lane >> 4) * 8) * KS + ((lane >> 3) & 1) * 8;
+  // V, 16 keys x 16 dv, transposed: (keys 0-7, dv 0-7), (keys 8-15, dv 0-7),
+  // (keys 0-7, dv 8-15), (keys 8-15, dv 8-15) = b0, b1 of two dv tiles
+  const int v_off = ((lane & 7) + ((lane >> 3) & 1) * 8) * VS + (lane >> 4) * 8;
+
+  for (int c = 0; c < nchunks; ++c) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of chunk c have landed
+    __syncthreads();              // everyone's have, and chunk c - 1 is done with
+    if (c + STAGES - 1 < nchunks) stage_chunk(c + STAGES - 1);
+    cp_async_commit();
+    if (!active) continue;
+    const bf16* kc = ksm + (c % STAGES) * KC * KS;
+    const bf16* vc = vsm + (c % STAGES) * KC * VS;
+
+#pragma unroll
+    for (int s0 = 0; s0 < KC; s0 += SC) {
+      const int left = M - (c * KC + s0);  // keys from this step's first to the last
+      if (left <= 0) break;                // a step never holds only padded keys
+
+      // S = Q.K^T for SC keys, every K fragment used by all QT tiles
+      float s[QT][SC / 8][4];
+#pragma unroll
+      for (int qt = 0; qt < QT; ++qt)
+#pragma unroll
+        for (int j = 0; j < SC / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[qt][j][i] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+        for (int jp = 0; jp < SC / 16; ++jp) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, kc + (s0 + jp * 16) * KS + kk * 16 + k_off);
+#pragma unroll
+          for (int qt = 0; qt < QT; ++qt) {
+            mma_bf16(s[qt][2 * jp], qf[qt][kk], kb[0], kb[1]);
+            mma_bf16(s[qt][2 * jp + 1], qf[qt][kk], kb[2], kb[3]);
+          }
+        }
+      if (left < SC) {  // padded keys leave the softmax: -inf before the row max
+#pragma unroll
+        for (int j = 0; j < SC / 8; ++j) {
+          const int key = j * 8 + 2 * t;
+#pragma unroll
+          for (int qt = 0; qt < QT; ++qt) {
+            if (key >= left) s[qt][j][0] = s[qt][j][2] = -INFINITY;
+            if (key + 1 >= left) s[qt][j][1] = s[qt][j][3] = -INFINITY;
+          }
+        }
+      }
+
+      // online softmax on the fragments; P rounded to bf16 as the A operand
+      uint32_t pf[QT][SC / 16][4];
+#pragma unroll
+      for (int qt = 0; qt < QT; ++qt) {
+        float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < SC / 8; ++j) {
+          mx0 = fmaxf(mx0, fmaxf(s[qt][j][0], s[qt][j][1]));
+          mx1 = fmaxf(mx1, fmaxf(s[qt][j][2], s[qt][j][3]));
+        }
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+        const float mn0 = fmaxf(m[qt][0], mx0 * sl);  // finite: the step holds a key
+        const float mn1 = fmaxf(m[qt][1], mx1 * sl);
+        const float c0 = ex2(m[qt][0] - mn0);  // 2^-inf = 0 on the first step
+        const float c1 = ex2(m[qt][1] - mn1);
+        m[qt][0] = mn0;
+        m[qt][1] = mn1;
+        float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+        for (int j = 0; j < SC / 8; ++j) {
+          const float p0 = ex2(fmaf(s[qt][j][0], sl, -mn0));
+          const float p1 = ex2(fmaf(s[qt][j][1], sl, -mn0));
+          const float p2 = ex2(fmaf(s[qt][j][2], sl, -mn1));
+          const float p3 = ex2(fmaf(s[qt][j][3], sl, -mn1));
+          sum0 += p0 + p1;
+          sum1 += p2 + p3;
+          pf[qt][j / 2][(j & 1) * 2] = pack_bf16(p0, p1);
+          pf[qt][j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+        }
+        l[qt][0] = fmaf(l[qt][0], c0, sum0);  // this lane's columns; the quad adds up at the end
+        l[qt][1] = fmaf(l[qt][1], c1, sum1);
+#pragma unroll
+        for (int nt = 0; nt < DV / 8; ++nt) {
+          o[qt][nt][0] *= c0;
+          o[qt][nt][1] *= c0;
+          o[qt][nt][2] *= c1;
+          o[qt][nt][3] *= c1;
+        }
+      }
+
+      // O += P.V, every V fragment used by all QT tiles
+#pragma unroll
+      for (int kk = 0; kk < SC / 16; ++kk)
+#pragma unroll
+        for (int np = 0; np < DV / 16; ++np) {
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, vc + (s0 + kk * 16) * VS + np * 16 + v_off);
+#pragma unroll
+          for (int qt = 0; qt < QT; ++qt) {
+            mma_bf16(o[qt][2 * np], pf[qt][kk], vb[0], vb[1]);
+            mma_bf16(o[qt][2 * np + 1], pf[qt][kk], vb[2], vb[3]);
+          }
+        }
+    }
+  }
+
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: each warp's tiles leave through it
+  if (!active) return;
+  bf16* os = smem + warp * (16 * QT) * VS;
+#pragma unroll
+  for (int qt = 0; qt < QT; ++qt) {
+    float l0 = l[qt][0], l1 = l[qt][1];
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float i0 = 1.0f / l0, i1 = 1.0f / l1;
+    uint32_t* w0 = reinterpret_cast<uint32_t*>(os + (qt * 16 + g) * VS);
+    uint32_t* w1 = reinterpret_cast<uint32_t*>(os + (qt * 16 + g + 8) * VS);
+#pragma unroll
+    for (int nt = 0; nt < DV / 8; ++nt) {
+      w0[nt * 4 + t] = pack_bf16(o[qt][nt][0] * i0, o[qt][nt][1] * i0);
+      w1[nt * 4 + t] = pack_bf16(o[qt][nt][2] * i1, o[qt][nt][3] * i1);
+    }
+  }
+  __syncwarp();
+  for (int e = lane; e < 16 * QT * VP; e += 32) {
+    const int r = e / VP, p = e % VP;
+    if (n0 + r < N)
+      *reinterpret_cast<uint4*>(out + (b * N + n0 + r) * CV + h * DV + p * 8) =
+          *reinterpret_cast<const uint4*>(os + r * VS + p * 8);
+  }
+}
 
 template <typename T, int D, int DV>
 __global__ void __launch_bounds__(TQ)
@@ -53,14 +336,14 @@ attn_tiled(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const long long C = (long long)H * D, CV = (long long)H * DV;
 
   // stage this head's keys and values, 16 bytes per copy
-  constexpr int KC = D * sizeof(T) / 16, VC = DV * sizeof(T) / 16;
+  constexpr int KW = D * sizeof(T) / 16, VW = DV * sizeof(T) / 16;
   const uint4* kg = reinterpret_cast<const uint4*>(k + b * M * C + h * D);
   const uint4* vg = reinterpret_cast<const uint4*>(v + b * M * CV + h * DV);
   uint4* kd = reinterpret_cast<uint4*>(ks);
   uint4* vd = reinterpret_cast<uint4*>(vs);
   const long long krow = C * sizeof(T) / 16, vrow = CV * sizeof(T) / 16;
-  for (int e = threadIdx.x; e < M * KC; e += TQ) kd[e] = kg[(e / KC) * krow + e % KC];
-  for (int e = threadIdx.x; e < M * VC; e += TQ) vd[e] = vg[(e / VC) * vrow + e % VC];
+  for (int e = threadIdx.x; e < M * KW; e += TQ) kd[e] = kg[(e / KW) * krow + e % KW];
+  for (int e = threadIdx.x; e < M * VW; e += TQ) vd[e] = vg[(e / VW) * vrow + e % VW];
   __syncthreads();
 
   const int n = blockIdx.x * TQ + threadIdx.x;
@@ -97,8 +380,15 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int N,
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(out);
-  const long long smem = (long long)M * (D + DV) * sizeof(T);
-  if (N >= MIN_TILED_N && smem <= MAX_SMEM && B <= 65535) {
+  constexpr bool is_bf16 = std::is_same<T, bf16>::value;
+  const Entry entry = entry_for(is_bf16, D, DV, B, N, M);
+  if (entry == ENTRY_MMA) {
+    if constexpr (is_bf16 && D % 16 == 0 && DV % 16 == 0) {
+      dim3 grid((N + BQ - 1) / BQ, H, B);
+      attn_mma<D, DV><<<grid, MMA_THREADS, 0, s>>>(qp, kp, vp, op, N, M, H, scale);
+    }
+  } else if (entry == ENTRY_TILED) {
+    const long long smem = (long long)M * (D + DV) * sizeof(T);
     cudaError_t err = cudaFuncSetAttribute(
         attn_tiled<T, D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -149,4 +439,10 @@ extern "C" int ff_attention(const void* q, const void* k, const void* v, void* o
   if (is_bf16)
     return with_d<__nv_bfloat16>(d, dv, q, k, v, out, B, N, M, H, scale, s);
   return with_d<float>(d, dv, q, k, v, out, B, N, M, H, scale, s);
+}
+
+// Which kernel `ff_attention` runs at these sizes and this type: 0
+// `attn_direct`, 1 `attn_tiled` (both f32 FMA loops), 2 `attn_mma`.
+extern "C" int ff_attention_entry(int B, int N, int M, int d, int dv, int is_bf16) {
+  return (int)entry_for(is_bf16 != 0, d, dv, B, N, M);
 }

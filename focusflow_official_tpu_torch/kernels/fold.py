@@ -12,10 +12,11 @@ import functools
 
 import torch
 
-from . import _build, launch_counts
+from . import _build, count_launch
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
+MMA_MAX_K = 896  # the most K whose 64-row bf16 tiles fit an SM's shared memory
 
 
 @functools.cache
@@ -23,7 +24,16 @@ def _lib():
     lib = _build.load("fold")
     lib.ff_fold.argtypes = [_c, _c, _c, _c, _i, _i, _i, _i, _c]
     lib.ff_fold.restype = _i
+    lib.ff_fold_entry.argtypes = [_i]
+    lib.ff_fold_entry.restype = _i
     return lib
+
+
+def design(a: torch.Tensor) -> str:
+    """Which entry of the kernel a call on this CUDA `a` runs, as the library
+    itself decides it: "mma" (tensor cores: bf16) or "fma" (f32 tiles)."""
+    entry = _lib().ff_fold_entry(int(a.dtype == torch.bfloat16))
+    return "mma" if entry == 1 else "fma"
 
 
 def fold_plain(a: torch.Tensor, w: torch.Tensor,
@@ -48,10 +58,17 @@ def fold(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
             raise ValueError(
                 f"fold: expected contiguous {shape} {a.dtype} on {a.device}, "
                 f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if a.dtype == torch.bfloat16:
+        # the tensor-core entry stages whole tiles: all of K in shared memory,
+        # read as aligned spans
+        if not 1 <= k <= MMA_MAX_K:
+            raise ValueError(f"fold: bf16 takes 1 <= K <= {MMA_MAX_K}, got {k}")
+        if a.data_ptr() % 16 or w.data_ptr() % 16:
+            raise ValueError("fold: bf16 a and w must be 16-byte aligned")
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     err = _lib().ff_fold(a.data_ptr(), w.data_ptr(), bias.data_ptr(),
                          out.data_ptr(), m, n, k, int(a.dtype == torch.bfloat16),
                          torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(err, "ff_fold")
-    launch_counts["fold"] += 1
+    count_launch("fold", m, k, n, str(a.dtype))
     return out

@@ -13,7 +13,7 @@ import functools
 
 import torch
 
-from . import _build, launch_counts
+from . import _build, count_launch
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
@@ -73,7 +73,7 @@ def instance_norm_stats(x: torch.Tensor, eps: float = 1e-5):
                              int(x.dtype == torch.bfloat16),
                              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ff_in_stats")
-    launch_counts["in_stats"] += 1
+    count_launch("in_stats", b, h, w, c, str(x.dtype))
     return mean, inv
 
 
@@ -97,7 +97,7 @@ def instance_norm_apply(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
                                  int(x.dtype == torch.bfloat16),
                                  torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ff_in_normalize")
-    launch_counts["in_normalize"] += 1
+    count_launch("in_normalize", b, h, w, c, str(x.dtype))
     return y
 
 

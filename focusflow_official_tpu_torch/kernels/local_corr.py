@@ -13,7 +13,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from . import _build, launch_counts
+from . import _build, count_launch
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
@@ -70,5 +70,5 @@ def local_corr(fmap1: torch.Tensor, fmap2: torch.Tensor,
         int(fmap1.dtype == torch.bfloat16),
         torch.cuda.current_stream(fmap1.device).cuda_stream)
     _build.check(err, "ff_local_corr")
-    launch_counts["local_corr"] += 1
+    count_launch("local_corr", b, h, w, c, radius, str(fmap1.dtype))
     return out

@@ -13,7 +13,7 @@ from typing import Sequence
 
 import torch
 
-from . import _build, launch_counts
+from . import _build, count_launch
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
@@ -104,5 +104,5 @@ def lookup(levels: Sequence[torch.Tensor], coords: torch.Tensor,
         int(dt == torch.bfloat16),
         torch.cuda.current_stream(coords.device).cuda_stream)
     _build.check(err, "ff_lookup")
-    launch_counts["lookup"] += 1
+    count_launch("lookup", b, q, *dims[:2 * nl], str(dt))
     return out

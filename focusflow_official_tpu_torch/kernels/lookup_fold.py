@@ -14,7 +14,7 @@ from typing import Sequence
 
 import torch
 
-from . import _build, launch_counts
+from . import _build, count_launch
 from .fold import fold_plain
 from .lookup import lookup_plain
 
@@ -86,5 +86,5 @@ def lookup_fold(levels: Sequence[torch.Tensor], coords: torch.Tensor, radius: in
         out.data_ptr(), b * q, radius, n, int(dt == torch.bfloat16),
         torch.cuda.current_stream(coords.device).cuda_stream)
     _build.check(err, "ff_lookup_fold")
-    launch_counts["lookup_fold"] += 1
+    count_launch("lookup_fold", b, q, *dims[:2 * nl], n, str(dt))
     return out

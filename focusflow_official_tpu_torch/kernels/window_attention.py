@@ -16,7 +16,7 @@ import functools
 
 import torch
 
-from . import _build, launch_counts
+from . import _build, count_launch
 from .attention import HEAD_DIMS
 
 _c = ctypes.c_void_p
@@ -85,5 +85,5 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         heads, c // heads, float(scale), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "ff_window_attention")
-    launch_counts["window_attention"] += 1
+    count_launch("window_attention", b, hp, wp, c, heads, str(q.dtype))
     return out

@@ -65,6 +65,52 @@ def test_small_kv_cpu_wrapper_is_plain():
                        tattn.small_kv_attention_plain(q, k, v, 4, 0.5))
 
 
+def _bf16(seed, *shape):
+    return torch.from_numpy(_rand(seed, *shape)).bfloat16()
+
+
+# (B, N, M, C, Cv, heads): Twins-like widths with ragged N and M (no multiple
+# of 16, 32 or 64), head widths 32 and 16, a narrower v, a wider spread of v
+@pytest.mark.parametrize("b,n,m,c,cv,heads,vscale", [
+    (2, 301, 437, 128, 128, 4, 1.0),
+    (1, 203, 17, 64, 128, 4, 1.0),
+    (2, 77, 100, 256, 128, 8, 4.0),
+])
+def test_small_kv_bf16_weights_within_stated_tolerance(b, n, m, c, cv, heads, vscale):
+    """The tensor-core entry of the CUDA kernel rounds the softmax weights
+    to bf16 before the value sum and divides by the f32 sum of the unrounded
+    weights. That arithmetic, modelled here on bf16 inputs, stays within
+    `bf16_bound` of the plain version (f32 weights) at every output: the bound the card
+    tests and `chip_smoke.py` hold the kernel to."""
+    q, k = _bf16(20, b, n, c), _bf16(21, b, m, c)
+    v = (_bf16(22, b, m, cv).float() * vscale).bfloat16()
+    d, dv = c // heads, cv // heads
+    scale = d ** -0.5
+    want = tattn.small_kv_attention_plain(q, k, v, heads, scale)
+    qh = q.reshape(b, n, heads, d).float()
+    kh = k.reshape(b, m, heads, d).float()
+    vh = v.reshape(b, m, heads, dv).float()
+    s = torch.einsum("bihd,bjhd->bhij", qh, kh) * scale
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = torch.einsum("bhij,bjhd->bihd", p.bfloat16().float(), vh)
+    out = out / p.sum(-1).permute(0, 2, 1)[..., None]
+    got = out.reshape(b, n, cv).bfloat16()
+    diff = (got.float() - want.float()).abs()
+    bound = tattn.bf16_bound(want, q, k, v, heads, scale)
+    assert float(diff.max()) > 0.0 and bool((diff <= bound).all())
+    # the bound is no looser than it must be: where the model differs most
+    # from the plain version it is under four times that difference
+    assert float(bound.flatten()[diff.argmax()]) < 4 * float(diff.max())
+    # and the rounding of the weights alone, before the output is rounded,
+    # stays under its share of the bound at every output: 2^-8 of its row's
+    # sum of p |v| (and the f32 sums' own rounding)
+    exact = tattn.small_kv_attention_plain(q.float(), k.float(), v.float(), heads, scale)
+    carry = tattn.small_kv_attention_plain(q.float(), k.float(), v.float().abs(),
+                                           heads, scale)
+    moved = (out.reshape(b, n, cv) - exact).abs()
+    assert bool((moved <= 2.0 ** -8 * carry + 1e-6).all())
+
+
 # (B, Hp, Wp, C, heads): several windows each way; a single window (wp == ws)
 @pytest.mark.parametrize("b,hp,wp,c,heads", [
     (2, 14, 21, 64, 4),

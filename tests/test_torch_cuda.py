@@ -67,15 +67,41 @@ def test_lookup_kernel_one_level(dev, dtype):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("m,n,k", [(7040, 256, 324), (100, 70, 33),
-                                   (704, 64, 81), (704, 256, 81)])
+@pytest.mark.parametrize("m,n,k", [
+    (7040, 256, 324), (100, 70, 33), (704, 64, 81), (704, 256, 81),
+    (40, 64, 81),     # fewer rows than a tile
+    (63, 256, 324),   # an odd count of values: the last pair is half outside
+    (129, 70, 81),    # one row into a third tile, a ragged column tile
+    (100, 33, 324),   # an odd row length of the output: 2-byte stores
+    (1, 8, 16),       # K a multiple of 4: 8-byte pieces
+    (90, 64, 72),     # the same with K rounded up (80) and a ragged tile
+    (100, 70, 34),    # K even, no multiple of 4: pairs that straddle no row
+    (70, 40, 1),      # every pair of values straddles two rows
+    (65, 64, 896),    # the most K whose bf16 tiles fit shared memory
+    (65, 64, 900),    # K past that: bf16 is refused, f32 runs
+    # enough 128 x 128 tiles for the large tile, ragged both ways
+    (1300, 1290, 81),  # N no multiple of 8: stores from the fragments
+    (1281, 1288, 40),  # N a multiple of 8: the tile leaves through shared memory
+])
 def test_fold_kernel(dev, dtype, tol, m, n, k):
+    """bf16 runs the tensor-core entry (K = 900 does not fit its tiles and is
+    refused), f32 the FMA tiles; bf16 x bf16 products are exact in f32, so
+    both tolerances are those of f32 sums in another order (and one bf16
+    rounding)."""
     g = torch.Generator(device=dev).manual_seed(2)
     a = torch.randn((m, k), generator=g, device=dev).to(dtype)
     w = (torch.randn((n, k), generator=g, device=dev) * 0.1).to(dtype)
     b = torch.randn((n,), generator=g, device=dev).to(dtype)
-    torch.testing.assert_close(kf.fold(a, w, b).float(),
-                               kf.fold_plain(a, w, b).float(),
+    assert kf.design(a) == ("mma" if dtype == torch.bfloat16 else "fma")
+    before = launch_counts["fold"]
+    if dtype == torch.bfloat16 and k > kf.MMA_MAX_K:
+        with pytest.raises(ValueError):
+            kf.fold(a, w, b)
+        assert launch_counts["fold"] == before
+        return
+    got = kf.fold(a, w, b)
+    assert launch_counts["fold"] == before + 1
+    torch.testing.assert_close(got.float(), kf.fold_plain(a, w, b).float(),
                                rtol=tol, atol=tol)
 
 
@@ -88,8 +114,10 @@ def test_fold_kernel(dev, dtype, tol, m, n, k):
 ])
 def test_lookup_fold_kernel(dev, dtype, b, h1, w1, nl, n):
     """The fused kernel against its plain version, and against kernel A
-    then kernel B, which it must equal bit for bit (the same f32 taps, one
-    rounding to the compute type, the same k order)."""
+    then kernel B. In f32 it must equal them bit for bit (the same f32 taps
+    and the same FMA tile in the same k order). In bf16, B runs its product
+    on the tensor cores, which sum in another order: one bf16 ulp of the
+    largest output."""
     g = torch.Generator(device=dev).manual_seed(7)
     levels = corr_pyramid(torch.randn((b, h1 * w1, h1, w1), generator=g,
                                       device=dev), nl, dtype)
@@ -107,7 +135,9 @@ def test_lookup_fold_kernel(dev, dtype, b, h1, w1, nl, n):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     window = kl.lookup(levels, coords, 4).reshape(b * h1 * w1, k).to(dtype)
     two_step = kf.fold(window, w, bias).reshape(b, h1, w1, n)
-    torch.testing.assert_close(got, two_step, rtol=0, atol=0)
+    top = float(two_step.float().abs().max())
+    ulp = 0.0 if dtype == torch.float32 else 2.0 ** (math.floor(math.log2(top)) - 7)
+    torch.testing.assert_close(got.float(), two_step.float(), rtol=0, atol=ulp)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -169,7 +199,13 @@ def test_instance_norm_kernels(dev, dtype, shape):
 
 
 # bf16: both sides take f32 scores and sums from the same bf16 inputs and
-# round once to bf16 at the end: one bf16 ulp of outputs of size ~1
+# round once to bf16 at the end: one bf16 ulp of outputs of size ~1. This
+# holds for F and for E's FMA entries. E's tensor-core entry also rounds
+# the softmax weights to bf16 before the value sum, which moves an output by
+# up to 2^-8 of its row's sum of p |v|: E's tensor-core entry is held to
+# `ka.bf16_bound` at every output instead (that term plus one bf16 ulp of
+# the output: about 0.004 at a typical output of these inputs, about 0.008
+# at the largest).
 _ATTN_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
              torch.bfloat16: dict(rtol=1e-2, atol=2e-2)}
 
@@ -177,11 +213,21 @@ _ATTN_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,m,c,cv,heads", [
     (2, 300, 448, 128, 128, 4),  # query tiles, Twins-like 448 keys
-    (3, 200, 45, 64, 64, 8),     # query tiles, ragged N and M
+    (3, 200, 45, 64, 64, 8),     # head width 8: the FMA entry in both types
     (2, 100, 30, 256, 128, 8),   # query tiles, v narrower (d 32, dv 16)
     (50, 8, 112, 128, 128, 8),   # many batch entries: the input layer
     (70, 1, 8, 64, 64, 8),       # the decoder's cross-attend
     (6, 8, 20, 128, 64, 8),      # many batch entries, v narrower
+    # ragged N (no multiple of 16) and M around the 16-key tiles, the 32-key
+    # softmax steps and the 64-key chunks; head widths 16 and 32, d != dv
+    (1, 77, 1, 64, 64, 4),       # one key
+    (2, 130, 15, 128, 64, 4),    # d 32, dv 16
+    (1, 203, 17, 64, 128, 4),    # d 16, dv 32
+    (2, 333, 100, 128, 128, 4),
+    (1, 1001, 448, 256, 256, 8),
+    (1, 64, 65, 32, 32, 2),      # the least tiled N; one key into a chunk
+    (3, 257, 33, 64, 64, 2),     # one query and one key into a second tile
+    (2, 90, 200, 128, 128, 8),   # four chunks: the ring wraps
 ])
 def test_attention_kernel(dev, dtype, b, n, m, c, cv, heads):
     g = torch.Generator(device=dev).manual_seed(5)
@@ -194,7 +240,28 @@ def test_attention_kernel(dev, dtype, b, n, m, c, cv, heads):
     assert launch_counts["attention"] == before + 1
     assert got.shape == (b, n, cv) and got.dtype == dtype
     want = ka.small_kv_attention_plain(q, k, v, heads, scale)
-    torch.testing.assert_close(got.float(), want.float(), **_ATTN_TOL[dtype])
+    mma = (dtype == torch.bfloat16 and n >= 64 and (c // heads) % 16 == 0
+           and (cv // heads) % 16 == 0)
+    assert ka.design(q, k, v, heads) == ("mma" if mma else "fma")
+    if mma:
+        bound = ka.bf16_bound(want, q, k, v, heads, scale)
+        assert bool(((got.float() - want.float()).abs() <= bound).all())
+    else:
+        torch.testing.assert_close(got.float(), want.float(), **_ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("scale", [-0.3, 0.0])
+def test_attention_kernel_scale_sign(dev, scale):
+    """The tensor-core entry folds |scale| into the exponent: a negative
+    scale moves into q's sign, a zero one gives the plain mean of v."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn((1, 100, 64), generator=g, device=dev).bfloat16()
+    k = torch.randn((1, 37, 64), generator=g, device=dev).bfloat16()
+    v = torch.randn((1, 37, 64), generator=g, device=dev).bfloat16()
+    got = ka.small_kv_attention(q, k, v, 2, scale)
+    want = ka.small_kv_attention_plain(q, k, v, 2, scale)
+    bound = ka.bf16_bound(want, q, k, v, 2, scale)
+    assert bool(((got.float() - want.float()).abs() <= bound).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -222,6 +289,15 @@ def test_wrappers_reject_strided_input(dev):
     a = torch.randn((16, 8), device=dev)
     with pytest.raises(ValueError):
         kf.fold(a.t(), torch.randn((4, 16), device=dev), torch.randn(4, device=dev))
+    a = torch.randn((17, 25), device=dev)
+    wt, bias = torch.randn((8, 25), device=dev), torch.randn(8, device=dev)
+    # a row slice that starts off a 16-byte boundary: f32 takes it, bf16 does not
+    torch.testing.assert_close(kf.fold(a[1:], wt, bias), kf.fold_plain(a[1:], wt, bias),
+                               rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError):
+        kf.fold(a.bfloat16()[1:, :], wt.bfloat16(), bias.bfloat16())
+    with pytest.raises(ValueError):  # bf16 stages all of K: K = 0 is refused
+        kf.fold(a.bfloat16()[:, :0], wt.bfloat16()[:, :0].contiguous(), bias.bfloat16())
     q = torch.randn((2, 16, 64), device=dev)
     with pytest.raises(ValueError):
         ka.small_kv_attention(q.transpose(0, 1), q, q, 4, 0.25)

@@ -118,6 +118,31 @@ def test_fold_plain_matches_pallas_fold(dtype, tol):
                                rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("k", [81, 324])
+def test_fold_plain_zero_padded_k(k):
+    """The tensor-core entry of the CUDA kernel stages K rounded up to a
+    multiple of 16 with zeros in the padding of both operands: that product
+    is the unpadded one. bf16 inputs, whose products are exact in f32, so
+    the two differ only where the f32 sums are taken in another order."""
+    m, n = 70, 40  # a ragged second tile each way
+    a = torch.from_numpy(RNG.randn(m, k).astype(np.float32)).bfloat16()
+    w = torch.from_numpy((RNG.randn(n, k) * 0.1).astype(np.float32)).bfloat16()
+    bias = torch.from_numpy(RNG.randn(n).astype(np.float32)).bfloat16()
+    kp = (k + 15) // 16 * 16
+    assert kp > k
+    a_pad = torch.zeros((m, kp), dtype=a.dtype)
+    w_pad = torch.zeros((n, kp), dtype=w.dtype)
+    a_pad[:, :k], w_pad[:, :k] = a, w
+    want = tfold.fold_plain(a.float(), w.float(), bias.float())
+    got = tfold.fold_plain(a_pad.float(), w_pad.float(), bias.float())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    # in the working type the two round to the same bf16 values but where a
+    # sum lies within 1e-6 of a rounding boundary
+    diff = (tfold.fold_plain(a_pad, w_pad, bias).float()
+            - tfold.fold_plain(a, w, bias).float()).abs()
+    assert float((diff > 0).float().mean()) < 1e-2
+
+
 @pytest.mark.parametrize("shape", [(2, 20, 24, 64), (1, 13, 17, 96),
                                    (2, 9, 11, 128)])
 def test_stats_plain_matches_pallas_stats(shape):
