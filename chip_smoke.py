@@ -17,9 +17,11 @@ Phases (any failure raises and exits non-zero; no result is printed):
    attentions' products at the bf16 tensor-core peak, and as a third term
    their exponentials, one a score, on 16 special-function lanes a clock an
    SM). One JSON line per kernel and shape: A-C2 and the fused lookup +
-   convc1 at the FF-RAFT shapes (the fused kernel also beside A then B,
-   and once more in f32, where it must equal them to the bit; B once more
-   in f32), then A (one level), B (K = 81), E (small-kv attention) and F
+   convc1 at the FF-RAFT shapes (A bit-equal to its plain version; the
+   fused kernel with the launch plan it ran, beside A then B, and once
+   more in f32, where it must equal them to the bit; B once more in f32),
+   then A (one level, bit-equal to its plain version), B (K = 81), E
+   (small-kv attention) and F
    (7x7 window attention) at every distinct FF-FlowFormer shape (E: the
    Twins GSAs at both stages and batch sizes, the vertical global layer,
    the perceiver's input and self-attention, the decoder, and one shape in
@@ -36,7 +38,10 @@ Phases (any failure raises and exits non-zero; no result is printed):
    (mean |diff| < 0.05 max(mean |flow|, 1), median < 0.1 px). Every
    kernel's launch count over one forward must match the path (the fused
    lookup + convc1 12, instance-norm stats 30, normalize 30, A and B 0).
-   Prints ms per frame pair.
+   Prints ms per frame pair. The profile lists each port kernel's launches
+   and mean time inside the forward; the fused kernel's goes into its
+   table entry as `in_forward` (the kernel phase repeats one call's inputs
+   on a warm L2, the forward does not).
 4. FF-FlowFormer end to end through `FlowPredictor`, the same way: a
    textured 1024x436 frame and its (3, -2) px shift, B=1, 12 refinements,
    bf16, the trained fixture (`trained_smoke_ff.npz`, encoder_depth 1), the
@@ -229,29 +234,33 @@ def _tap_count(torch, levels, coords, r: int) -> int:
 
 
 def _lookup_row(torch, levels, coords, r: int, label: str) -> dict:
-    """Kernel A against its plain version at these levels and coords,
-    timed beside F.grid_sample, with its bound. `out` is the kernel's."""
+    """Kernel A against its plain version at these levels and coords (in
+    the levels' type; bf16 is the plain f32 result's cast: bit-equal
+    either way), timed beside F.grid_sample, with its bound and the
+    library's block size. `out` is the kernel's."""
     from focusflow_official_tpu_torch.kernels import lookup as kl
 
     got, key = _launch_key(lambda: kl.lookup(levels, coords, r))
     want = kl.lookup_plain(levels, coords, r)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    # the same f32 products and sums in the same order: rounding only
-    tol = 1e-5 * (1.0 + float(want.abs().max()))
-    _check(label, err, tol)
+    err = float((got.float() - want.float()).abs().max())
+    # the same f32 products and sums in the same order, rounded once to the
+    # output type as the plain version's cast rounds: the same bits
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: not bit-equal to the plain version ({err})")
     ms = _time_ms(torch, lambda: kl.lookup(levels, coords, r))
     plain_ms = _time_ms(torch, lambda: kl.lookup_plain(levels, coords, r), reps=10)
     sample = _grid_sample_yardstick(torch, levels, coords, r)
     lib_ms, lib_err = _library_ms(torch, sample)
     del sample
-    nbytes = (got.numel() * 4 + coords.numel() * 4
+    nbytes = (got.numel() * got.element_size() + coords.numel() * 4
               + _tap_count(torch, levels, coords, r) * levels[0].element_size())
     flops = got.numel() * 11  # 4 weights, 4 tap products, 3 adds per output
     bound, by = _bound_ms(nbytes, flops, PEAK_F32)
-    return dict(key=key, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by, library_ms=lib_ms,
-                library_error=lib_err, out=got)
+    design = dict(design="patch", units_per_block=kl.units_per_block())
+    return dict(key=key, design=design, max_abs_err=err,
+                tol=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, library_error=lib_err, out=got)
 
 
 def _fold_row(torch, a, w, bias, label: str, design: str) -> dict:
@@ -288,7 +297,8 @@ def _fold_row(torch, a, w, bias, label: str, design: str) -> dict:
 def _lookup_fold_row(torch, levels, coords, r: int, w, bias, label: str) -> dict:
     """The fused lookup + convc1 against its plain version (lookup_plain
     then fold_plain) and against kernel A then kernel B, timed beside both
-    and beside F.grid_sample per level then F.linear."""
+    and beside F.grid_sample per level then F.linear, with the launch plan
+    it ran."""
     import torch.nn.functional as F
 
     from focusflow_official_tpu_torch.kernels import fold as kf
@@ -298,9 +308,14 @@ def _lookup_fold_row(torch, levels, coords, r: int, w, bias, label: str) -> dict
     b, h1, w1, _ = coords.shape
     q = b * h1 * w1
     n_, k_ = w.shape
+    sms = torch.cuda.get_device_properties(coords.device).multi_processor_count
+    layout = klf.layout()
+    plan = klf.plan(q, n_, r, w.dtype, sms, **layout)
+    if plan["entry"] == "mma":  # beside the plan, the library's layout
+        plan.update(layout, smem=klf.smem(k_, n_))
 
     def two_step():
-        window = kl.lookup(levels, coords, r).reshape(q, k_).to(w.dtype)
+        window = kl.lookup(levels, coords, r).reshape(q, k_)
         return kf.fold(window, w, bias)
 
     got, key = _launch_key(lambda: klf.lookup_fold(levels, coords, r, w, bias))
@@ -312,11 +327,11 @@ def _lookup_fold_row(torch, levels, coords, r: int, w, bias, label: str) -> dict
            * max(1.0, float(want.float().abs().max())))
     _check(label, err, tol)
     two = two_step().float()
-    err2 = float((got.float().reshape(q, n_) - two).abs().max())
     # f32: the same taps and the same FMA tile in the same k order as A then
-    # B: equal to the bit. bf16: B sums on the tensor cores in another
-    # order: one bf16 ulp of the largest output
+    # B: equal to the bit. bf16: the same window and k chain as B's tensor
+    # cores, which may sum in another order: one bf16 ulp of the largest output
     tol2 = 0.0 if w.dtype == torch.float32 else _bf16_ulp(float(two.abs().max()))
+    err2 = float((got.float().reshape(q, n_) - two).abs().max())
     _check(f"{label} vs lookup then fold", err2, tol2)
     ms = _time_ms(torch, lambda: klf.lookup_fold(levels, coords, r, w, bias))
     two_step_ms = _time_ms(torch, two_step)
@@ -339,8 +354,8 @@ def _lookup_fold_row(torch, levels, coords, r: int, w, bias, label: str) -> dict
     peak = PEAK_F32 if w.dtype == torch.float32 else PEAK_BF16
     t_ops = (q * k_ * 11 / PEAK_F32 + 2.0 * q * n_ * k_ / peak) * 1e3
     bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    return dict(key=key, max_abs_err=err, tol=tol, vs_lookup_then_fold_max_abs=err2,
-                vs_lookup_then_fold_tol=tol2, ms=ms,
+    return dict(key=key, plan=plan, max_abs_err=err, tol=tol,
+                vs_lookup_then_fold_max_abs=err2, vs_lookup_then_fold_tol=tol2, ms=ms,
                 lookup_then_fold_ms=two_step_ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=lib_ms, library_error=lib_err)
 
@@ -649,7 +664,7 @@ def ff_kernel_phase(torch, dev) -> dict:
     flow = torch.randn((1, h1, w1, 2), generator=g, device=dev) * 8
     coords = (coords_grid(1, h1, w1, device=dev) + flow).contiguous()
     row = _lookup_row(torch, [level], coords, r, "lookup (FlowFormer)")
-    window = row.pop("out").reshape(q, 81).to(bf16)
+    window = row.pop("out").reshape(q, 81)
     add("lookup", dict(row, shape=f"1 level (1, {q}, {h1}, {w1}) bf16",
                        library="F.grid_sample x1 level (f32)"))
     del level
@@ -709,7 +724,7 @@ def _shift_inputs(h: int, w: int, seed: int = 0):
     return (i1, i2, m1, m2), (dx, dy)
 
 
-_PORT_KERNELS = ("lookup_kernel", "fold_kernel", "fold_mma", "lookup_fold_kernel",
+_PORT_KERNELS = ("lookup_kernel", "fold_kernel", "fold_mma", "lookup_fold_mma", "lookup_fold_fma",
                  "stats_partial", "stats_finish", "normalize<", "local_corr_kernel",
                  "attn_mma", "attn_tiled", "attn_direct", "window_attn")
 
@@ -738,13 +753,18 @@ def _device_breakdown(torch, prof, wall_ms: float) -> dict:
 
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
             and not e.name.startswith("Activity Buffer")]
-    by_cat, by_name = {}, {}
+    by_cat, by_name, port = {}, {}, {}
     spans = []
     for e in kern:
         us = e.time_range.end - e.time_range.start
         by_cat[_category(e.name)] = by_cat.get(_category(e.name), 0.0) + us
         by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + us
         spans.append((e.time_range.start, e.time_range.end))
+        for k in sorted(_PORT_KERNELS, key=len, reverse=True):  # the longest that matches
+            if k in e.name:
+                n, t = port.get(k, (0, 0.0))
+                port[k] = (n + 1, t + us)
+                break
     busy, end = 0.0, -float("inf")
     for s, e in sorted(spans):
         if e > end:
@@ -757,7 +777,10 @@ def _device_breakdown(torch, prof, wall_ms: float) -> dict:
         ms_by_category={k: v / 1e3 for k, v in
                         sorted(by_cat.items(), key=lambda kv: -kv[1])},
         top_kernels_ms=[[k, v / 1e3] for k, v in
-                        sorted(by_name.items(), key=lambda kv: -kv[1])[:12]])
+                        sorted(by_name.items(), key=lambda kv: -kv[1])[:12]],
+        # the port's kernels in this forward: launches, total and mean ms
+        port_kernels=[[k, n, t / 1e3, t / 1e3 / n] for k, (n, t) in
+                      sorted(port.items(), key=lambda kv: -kv[1][1])])
 
 
 def _drive(torch, p, inputs, want: dict, profile_name: str):
@@ -844,7 +867,7 @@ def end_to_end_phase(torch, card: str):
                iters=ITERS, dtype="bfloat16", ms_per_pair=ms, pairs_per_s=1e3 / ms,
                ms_all=times, profile=breakdown, launches=counts[0], **gates,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
-    return counts
+    return counts, breakdown
 
 
 def _textured_inputs(h: int, w: int, seed: int = 0):
@@ -973,8 +996,8 @@ def ff_shipped_depth_phase(torch, card: str):
 
 def _worst(rows: list) -> dict:
     """The max_abs_err and tol of the shape whose error is the largest
-    share of its own tolerance."""
-    r = max(rows, key=lambda r_: r_["max_abs_err"] / r_["tol"])
+    share of its own tolerance (a tolerance of 0: bit-equal, share 0)."""
+    r = max(rows, key=lambda r_: r_["max_abs_err"] / r_["tol"] if r_["tol"] else 0.0)
     return dict(max_abs_err=r["max_abs_err"], tol=r["tol"])
 
 
@@ -993,7 +1016,7 @@ def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, drives: dict,
     table = []
     for kr in raft:
         if "per_shape" not in kr:
-            head = {k: kr[k] for k in ("shape", "key", "design", "max_abs_err", "tol", "ms",
+            head = {k: kr[k] for k in ("shape", "key", "design", "plan", "max_abs_err", "tol", "ms",
                                        "plain_ms", "bound_ms", "bound_by", "library_ms")
                     if k in kr}
             kr["per_shape"] = [dict(head, path="ff_raft")]
@@ -1085,11 +1108,17 @@ def main() -> int:
     ff_rows = ff_kernel_phase(torch, dev)
     pwc_rows = pwc_kernel_phase(torch, dev)
     torch.cuda.empty_cache()
-    drives = {"ff_raft": end_to_end_phase(torch, card),
+    raft_counts, raft_profile = end_to_end_phase(torch, card)
+    drives = {"ff_raft": raft_counts,
               "ff_flowformer": ff_end_to_end_phase(torch, card),
               "ff_flowformer_depth3": ff_shipped_depth_phase(torch, card),
               "ff_pwcnet": pwc_end_to_end_phase(torch, card)}
     kernels = _kernel_table(raft_kernels, ff_rows, pwc_rows, drives, card)
+    # the fused kernel inside the profiled FF-RAFT forward, where its inputs
+    # are not the same on every call as in the kernel phase
+    (g,) = [kr for kr in kernels if kr["name"] == "lookup_fold"]
+    (row,) = [r_ for r_ in raft_profile["port_kernels"] if r_[0] == "lookup_fold_mma"]
+    g["in_forward"] = dict(launches=row[1], total_ms=row[2], mean_ms=row[3])
     for kr in kernels:
         if kr["launches"] == 0:
             raise AssertionError(f"{kr['name']}: no launch on any path")

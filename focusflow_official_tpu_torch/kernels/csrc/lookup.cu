@@ -3,72 +3,123 @@
 // Replaces the TPU kernel `focusflow_official_tpu/ops/pallas_lookup.py`
 // (`_level_kernel`, called from `lookup_corr_pyramid_pallas`). The TPU has no
 // gather, so that kernel stages each query's rows in VMEM and extracts an
-// integer-aligned patch with lane/sublane rolls. Hopper gathers in hardware:
-// here each thread computes one output channel of one query and reads its
-// four bilinear taps straight from the level's row in device memory.
+// integer-aligned patch with lane/sublane rolls. Hopper gathers in hardware,
+// so here a warp stages each (query, level) patch in shared memory with
+// coalesced row runs and computes the window from it (`lookup.cuh`).
 //
 // out[b, q, l*K2 + ix*K + iy] = bilinear(corr_l[b, q], coords[b, q] / 2^l
 //                                        + (ix - r, iy - r)),  K = 2r+1
 // with zero outside the level (grid_sample's zero padding) and the
 // reference channel order: the x-offset varies slowest. Taps are summed in
-// f32 whatever the level's type.
+// f32 whatever the level's type; the output takes the level's type, so a
+// bf16 output is that f32 sum rounded once (the bits of the f32 result cast
+// to bf16).
 //
-// What bounds it: bytes. Each output value (f32) is written once and needs
-// four taps; a query's 81 windows of one level share one (K+1)x(K+1) patch,
-// so the taps a query needs are ~100 values per level, read through L1/L2.
-// Design: threads of a block cover consecutive channels of consecutive
-// queries, so the output stores are fully coalesced and the neighbouring
-// threads of one query hit the same patch rows in cache. The per-value
-// arithmetic lives in `lookup.cuh`, shared with `lookup_fold.cu`, which
-// applies convc1 in the same launch so the window never reaches HBM.
+// What bounds it: bytes (the output, and each query's (2r+3)^2 patch a
+// level), and in fact the latency of two dependent loads (coordinates, then
+// patch). Design: a block of 4 warps takes 8 consecutive (query, level)
+// units, 2 a warp; a warp issues the loads of its 2 patches at once (8
+// values a lane in flight), stages them, and computes 81 values a unit, 3 a
+// lane. Small blocks of few registers keep many warps in flight to hide the
+// two latencies. The units of a warp are consecutive, so its stores cover
+// one stretch of the output: a query's row of L*81 values, or 2 rows at L = 1.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "lookup.cuh"
 
 namespace {
 
-using fflookup::Levels;
+using namespace fflookup;
+
+constexpr int WARPS = 4, UNITS = 2;  // a block: 4 warps of 2 (query, level) units
+constexpr int THREADS = 32 * WARPS;
+
+template <typename T, int R>
+__global__ void __launch_bounds__(THREADS)
+lookup_kernel(const __grid_constant__ Levels lv, int num_levels,
+              const float* __restrict__ coords, T* __restrict__ out, int units) {
+  using G = Geometry<R>;
+  __shared__ T patches[WARPS][UNITS][PATCH_STRIDE];
+  __shared__ int2 tables[WARPS][UNITS][TABLE_STRIDE];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Lanes<R> ln(lane);
+  const int u0 = (blockIdx.x * WARPS + warp) * UNITS;
+  const int ch = num_levels * G::K2;
+
+  // unit u = (query u / L, level u % L): a warp's units are consecutive.
+  // Every unit's coordinates are asked for before the first patch load
+  // waits on them: one latency, not one a unit.
+  T v[UNITS][G::PSLOTS];
+  Unit un[UNITS];
+  float2 c[UNITS];
+  int bq = u0 / num_levels, l = u0 - bq * num_levels;
+  int bqs[UNITS], ls[UNITS];
+#pragma unroll
+  for (int i = 0; i < UNITS; ++i) {
+    bqs[i] = bq;
+    ls[i] = l;
+    if (u0 + i < units) c[i] = __ldg(reinterpret_cast<const float2*>(coords) + bq);
+    if (++l == num_levels) {
+      l = 0;
+      ++bq;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < UNITS; ++i) {
+    if (u0 + i < units) {
+      un[i] = make_unit<R>(c[i].x, c[i].y, ls[i]);
+      load_patch<T, R>(v[i], lv, ls[i], bqs[i], un[i], ln, lane);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < UNITS; ++i) {
+    if (u0 + i < units) {
+      store_patch<T, R>(patches[warp][i], v[i], lane);
+      axis_entry<R>(tables[warp][i], un[i], lane);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < UNITS; ++i) {
+    if (u0 + i >= units) break;
+    T* row = out + (long long)bqs[i] * ch + ls[i] * G::K2;
+    window_values<T, R>(patches[warp][i], tables[warp][i], lane,
+                        [&](int wi, float val) { row[wi] = ffconv::from_f<T>(val); });
+  }
+}
 
 template <typename T>
-__global__ void lookup_kernel(Levels lv, int num_levels, const float* __restrict__ coords,
-                              float* __restrict__ out, long long nq, int radius) {
-  const int k = 2 * radius + 1;
-  const int k2 = k * k;
-  const int ch = num_levels * k2;
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= nq * ch) return;
-  const long long bq = t / ch;
-  const int c = (int)(t - bq * ch);
-  const int l = c / k2;
-  const int wi = c - l * k2;
-  const int ix = wi / k;  // x-offset: slow axis (reference quirk)
-  const int iy = wi - ix * k;
-  out[t] = fflookup::window_value<T>(lv, coords, bq, l, ix, iy, radius);
+int launch(const Levels& lv, int num_levels, const float* coords, void* out, int units,
+           int radius, cudaStream_t s) {
+  const int blocks = (units + WARPS * UNITS - 1) / (WARPS * UNITS);
+  return with_radius(radius, [&](auto rad) {
+    lookup_kernel<T, decltype(rad)::value><<<blocks, THREADS, 0, s>>>(
+        lv, num_levels, coords, static_cast<T*>(out), units);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
 
 // levels: num_levels (<= 4) contiguous (B, Q, H_l, W_l) tensors of one type
 // (bf16 if is_bf16, else f32); coords: (B*Q, 2) f32 level-0 (x, y);
-// out: (B*Q, num_levels*(2r+1)^2) f32. Returns the launch's cudaError_t.
+// out: (B*Q, num_levels*(2r+1)^2) in the levels' type; radius 3 or 4;
+// B*Q*num_levels < 2^31. Returns the launch's cudaError_t.
 extern "C" int ff_lookup(const void* c0, const void* c1, const void* c2, const void* c3,
                          int h0, int w0, int h1, int w1, int h2, int w2, int h3, int w3,
-                         int num_levels, const float* coords, float* out, long long nq,
+                         int num_levels, const float* coords, void* out, long long nq,
                          int radius, int is_bf16, void* stream) {
-  if (num_levels < 1 || num_levels > 4) return (int)cudaErrorInvalidValue;
+  if (num_levels < 1 || num_levels > 4 || nq * num_levels >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  if (nq == 0) return 0;
+  const int units = (int)(nq * num_levels);
   Levels lv = {{c0, c1, c2, c3}, {h0, h1, h2, h3}, {w0, w1, w2, w3}};
-  const int k = 2 * radius + 1;
-  const long long total = nq * num_levels * k * k;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  if (blocks == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    lookup_kernel<__nv_bfloat16><<<(unsigned)blocks, threads, 0, s>>>(lv, num_levels, coords, out,
-                                                                     nq, radius);
-  else
-    lookup_kernel<float><<<(unsigned)blocks, threads, 0, s>>>(lv, num_levels, coords, out, nq,
-                                                             radius);
-  return (int)cudaGetLastError();
+  return is_bf16 ? launch<__nv_bfloat16>(lv, num_levels, coords, out, units, radius, s)
+                 : launch<float>(lv, num_levels, coords, out, units, radius, s);
 }
+
+// The units (query, level) a block of `ff_lookup` takes.
+extern "C" int ff_lookup_units_per_block() { return WARPS * UNITS; }

@@ -1,5 +1,5 @@
-// Warp-level tensor-core pieces shared by `attention.cu` (kernel E) and
-// `fold.cu` (kernel B): `mma.sync.m16n8k16` on bf16 with f32 accumulators,
+// Warp-level tensor-core pieces shared by `attention.cu` (kernel E),
+// `fold.cu` (kernel B) and `lookup_fold.cu`: `mma.sync.m16n8k16` on bf16 with f32 accumulators,
 // `ldmatrix` to bring its operands out of shared memory, and `cp.async` to
 // stage shared memory without passing through registers.
 //
@@ -32,6 +32,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(__cvta_generic_to_global(src)), "r"(bytes)
+               : "memory");
+}
+
+// 8 bytes global -> shared through L1 (both 8-byte aligned)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)),
+               "l"(__cvta_generic_to_global(src))
                : "memory");
 }
 

@@ -2,7 +2,9 @@
 
 For each level l the bilinear (2r+1)^2 window of corr_l around coords/2^l,
 zero outside the level, channels in the reference order (x-offset slow,
-levels fine to coarse). Taps are summed in f32; the output is f32.
+levels fine to coarse). Taps are summed in f32 and the output takes the
+levels' type: bf16 levels give the f32 sum rounded once, the bits of the
+f32 result cast to bf16.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from . import _build, count_launch
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
+RADII = (3, 4)  # the radii `csrc/lookup.cuh::with_radius` builds
 
 
 @functools.cache
@@ -25,7 +28,13 @@ def _lib():
     lib.ff_lookup.argtypes = [_c, _c, _c, _c] + [_i] * 9 + [
         _c, _c, ctypes.c_longlong, _i, _i, _c]
     lib.ff_lookup.restype = _i
+    lib.ff_lookup_units_per_block.restype = _i
     return lib
+
+
+def units_per_block() -> int:
+    """The (query, level) units a block of the kernel takes, as built."""
+    return _lib().ff_lookup_units_per_block()
 
 
 def _lookup_level_plain(corr_l: torch.Tensor, coords: torch.Tensor,
@@ -60,18 +69,20 @@ def _lookup_level_plain(corr_l: torch.Tensor, coords: torch.Tensor,
 
 def lookup_plain(levels: Sequence[torch.Tensor], coords: torch.Tensor,
                  radius: int) -> torch.Tensor:
-    """Plain PyTorch version: (B, H1, W1, L*(2r+1)^2) f32."""
+    """Plain PyTorch version: (B, H1, W1, L*(2r+1)^2), summed in f32 and cast
+    to the levels' type."""
     b, h1, w1, _ = coords.shape
     c = coords.reshape(b, h1 * w1, 2).float()
     outs = [_lookup_level_plain(corr_l, c / (2.0 ** i), radius)
             for i, corr_l in enumerate(levels)]
-    return torch.cat(outs, dim=-1).reshape(b, h1, w1, -1)
+    return torch.cat(outs, dim=-1).reshape(b, h1, w1, -1).to(levels[0].dtype)
 
 
 def lookup(levels: Sequence[torch.Tensor], coords: torch.Tensor,
            radius: int) -> torch.Tensor:
     """levels: up to 4 (B, H1*W1, H2_l, W2_l) volumes of one type (bf16 or
-    f32); coords: (B, H1, W1, 2) f32 level-0 (x, y) -> (B, H1, W1, L*K2) f32."""
+    f32); coords: (B, H1, W1, 2) f32 level-0 (x, y) -> (B, H1, W1, L*K2) in
+    the levels' type."""
     if coords.device.type == "cpu":
         return lookup_plain(levels, coords, radius)
     if coords.device.type != "cuda":
@@ -79,10 +90,16 @@ def lookup(levels: Sequence[torch.Tensor], coords: torch.Tensor,
     b, h1, w1, two = coords.shape
     q = h1 * w1
     nl = len(levels)
-    if two != 2 or coords.dtype != torch.float32 or not coords.is_contiguous():
-        raise ValueError("lookup: coords must be contiguous f32 (B, H, W, 2)")
+    if (two != 2 or coords.dtype != torch.float32 or not coords.is_contiguous()
+            or coords.data_ptr() % 8):
+        raise ValueError("lookup: coords must be contiguous f32 (B, H, W, 2), "
+                         "8-byte aligned")
     if not 1 <= nl <= 4:
         raise ValueError(f"lookup: 1 to 4 levels, got {nl}")
+    if radius not in RADII:
+        raise ValueError(f"lookup: radius {RADII}, got {radius}")
+    if b * q * nl >= 2 ** 31:
+        raise ValueError(f"lookup: {b * q} queries x {nl} levels is 2^31 or more")
     dt = levels[0].dtype
     if dt not in (torch.bfloat16, torch.float32):
         raise ValueError(f"lookup: levels must be bf16 or f32, got {dt}")
@@ -95,14 +112,12 @@ def lookup(levels: Sequence[torch.Tensor], coords: torch.Tensor,
                 f"not fit coords {tuple(coords.shape)} (contiguous (B, Q, H, W))")
         dims += [lv.shape[2], lv.shape[3]]
     k2 = (2 * radius + 1) ** 2
-    out = torch.empty((b, h1, w1, nl * k2), dtype=torch.float32,
-                      device=coords.device)
+    out = torch.empty((b, h1, w1, nl * k2), dtype=dt, device=coords.device)
     ptrs = [lv.data_ptr() for lv in levels] + [0] * (4 - nl)
     dims += [0] * (8 - len(dims))
     err = _lib().ff_lookup(
         *ptrs, *dims, nl, coords.data_ptr(), out.data_ptr(), b * q, radius,
-        int(dt == torch.bfloat16),
-        torch.cuda.current_stream(coords.device).cuda_stream)
+        int(dt == torch.bfloat16), torch.cuda.current_stream(coords.device).cuda_stream)
     _build.check(err, "ff_lookup")
     count_launch("lookup", b, q, *dims[:2 * nl], str(dt))
     return out

@@ -4,6 +4,12 @@ out[b, y, x] = convc1(window(b, y, x)): the L*(2r+1)^2 bilinear window of
 kernel A (taps summed in f32, then rounded to the compute type), times the
 (O, L*(2r+1)^2) convc1 weight with f32 accumulation, plus the bias in f32,
 emitted in the compute type. The window stays in shared memory.
+
+bf16 runs on the tensor cores with the weight resident in shared memory:
+one block an SM of 16 gather warps, which write the windows of 16 queries
+a pass into shared memory, and 8 tensor-core warps, which multiply 32 rows
+at a time; `plan` lays the launch out from the library's `layout`. f32 runs
+FMA tiles and equals kernel A then kernel B to the bit.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ import torch
 
 from . import _build, count_launch
 from .fold import fold_plain
-from .lookup import lookup_plain
+from .lookup import RADII, lookup_plain
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
@@ -26,9 +32,47 @@ _i = ctypes.c_int
 def _lib():
     lib = _build.load("lookup_fold")
     lib.ff_lookup_fold.argtypes = [_c, _c, _c, _c] + [_i] * 9 + [
-        _c, _c, _c, _c, ctypes.c_longlong, _i, _i, _i, _c]
+        _c, _c, _c, _c, ctypes.c_longlong, _i, _i, _i, _i, _i, _c]
     lib.ff_lookup_fold.restype = _i
+    lib.ff_lookup_fold_smem.argtypes = [_i, _i]
+    lib.ff_lookup_fold_smem.restype = _i
+    lib.ff_lookup_fold_rows.restype = _i
+    lib.ff_lookup_fold_cols.restype = _i
     return lib
+
+
+def layout() -> dict:
+    """The bf16 entry as built: query rows a gather pass (one a gather
+    warp) and output columns a block owns."""
+    lib = _lib()
+    return dict(rows=lib.ff_lookup_fold_rows(), cols=lib.ff_lookup_fold_cols())
+
+
+def smem(k: int, n: int) -> int:
+    """Shared memory (bytes) a bf16 launch takes at K = k and N = n, as built."""
+    return _lib().ff_lookup_fold_smem(k, n)
+
+
+def plan(q: int, n: int, radius: int, dtype: torch.dtype, sms: int,
+         rows: int, cols: int) -> dict:
+    """The launch of a call over `q` queries and n output columns on a card
+    of `sms` SMs, for the bf16 entry's `layout()` (`rows`, `cols`).
+
+    f32: the FMA entry, which lays itself out (one block each 32 queries).
+    bf16: the tensor-core entry, a persistent grid: ceil(n / cols) column
+    slices, each with `sms // slices` blocks (fewer where there are not
+    `rows` queries a block), each staging its slice of the weight once and
+    walking a contiguous run of at most `per_block` queries in passes of
+    `rows`. Raises ValueError where no plan exists: a radius the gather is
+    not built for."""
+    if radius not in RADII:
+        raise ValueError(f"lookup_fold: radius {RADII}, got {radius}")
+    if dtype == torch.float32:
+        return dict(entry="fma", grid=None, slices=None)
+    slices = -(-n // cols)
+    per_slice = max(1, min(sms // slices, -(-q // rows)))
+    return dict(entry="mma", grid=slices * per_slice, slices=slices,
+                per_block=-(-q // per_slice))
 
 
 def lookup_fold_plain(levels: Sequence[torch.Tensor], coords: torch.Tensor,
@@ -54,8 +98,10 @@ def lookup_fold(levels: Sequence[torch.Tensor], coords: torch.Tensor, radius: in
     b, h1, w1, two = coords.shape
     q = h1 * w1
     nl = len(levels)
-    if two != 2 or coords.dtype != torch.float32 or not coords.is_contiguous():
-        raise ValueError("lookup_fold: coords must be contiguous f32 (B, H, W, 2)")
+    if (two != 2 or coords.dtype != torch.float32 or not coords.is_contiguous()
+            or coords.data_ptr() % 8):
+        raise ValueError("lookup_fold: coords must be contiguous f32 (B, H, W, 2), "
+                         "8-byte aligned")
     if not 1 <= nl <= 4:
         raise ValueError(f"lookup_fold: 1 to 4 levels, got {nl}")
     dt = weight.dtype
@@ -78,13 +124,18 @@ def lookup_fold(levels: Sequence[torch.Tensor], coords: torch.Tensor, radius: in
             raise ValueError(
                 f"lookup_fold: expected contiguous {shape} {dt} on "
                 f"{coords.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if dt == torch.bfloat16 and weight.data_ptr() % 16:
+        raise ValueError("lookup_fold: a bf16 weight must be 16-byte aligned")
+    sms = torch.cuda.get_device_properties(coords.device).multi_processor_count
+    p = plan(b * q, n, radius, dt, sms, **layout())
     out = torch.empty((b, h1, w1, n), dtype=dt, device=coords.device)
     ptrs = [lv.data_ptr() for lv in levels] + [0] * (4 - nl)
     dims += [0] * (8 - len(dims))
     err = _lib().ff_lookup_fold(
         *ptrs, *dims, nl, coords.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), b * q, radius, n, int(dt == torch.bfloat16),
-        torch.cuda.current_stream(coords.device).cuda_stream)
+        out.data_ptr(), b * q, radius, n, int(dt == torch.bfloat16), p["grid"] or 0,
+        p["slices"] or 0, torch.cuda.current_stream(coords.device).cuda_stream)
     _build.check(err, "ff_lookup_fold")
-    count_launch("lookup_fold", b, q, *dims[:2 * nl], n, str(dt))
+    count_launch("lookup_fold", b, q, *dims[:2 * nl], n, str(dt), p["entry"],
+                 p["grid"], p["slices"])
     return out

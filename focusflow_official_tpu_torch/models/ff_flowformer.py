@@ -155,7 +155,7 @@ class MemoryDecoder(nn.Module):
         up_mask = None
         depth = self.cfg.decoder_depth
         for it in range(depth):
-            window = lookup([cost_maps], coords1, _RADIUS).to(d)  # (B, H1, W1, 81)
+            window = lookup([cost_maps], coords1, _RADIUS)  # (B, H1, W1, 81) in d
             cost_global = self._cost_global(window.reshape(b * h1 * w1, -1),
                                             coords1, k_mem, v_mem)
             net, up_mask, delta = self.update_block(

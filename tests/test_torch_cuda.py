@@ -18,7 +18,7 @@ import torch
 from focusflow_official_tpu_torch.kernels import attention as ka
 from focusflow_official_tpu_torch.kernels import fold as kf
 from focusflow_official_tpu_torch.kernels import instance_norm as kin
-from focusflow_official_tpu_torch.kernels import launch_counts
+from focusflow_official_tpu_torch.kernels import launch_counts, launch_shapes
 from focusflow_official_tpu_torch.kernels import local_corr as klc
 from focusflow_official_tpu_torch.kernels import lookup as kl
 from focusflow_official_tpu_torch.kernels import lookup_fold as klf
@@ -37,6 +37,37 @@ def dev():
     return torch.device("cuda", 0)
 
 
+def _hard_coords(g, b, h1, w1, span, dev):
+    """(B, H1, W1, 2) f32 coordinates of five kinds, mixed per value: the
+    largest f32 below (or the least above) an integer at some level's scale,
+    uniform over [-40, span + 40] (negative, past every edge of every
+    level), 1000 + u and -1000 - u, and uniform inside (as the CPU model's
+    test, `test_torch_lookup_patch.py`)."""
+    shape = (b, h1, w1, 2)
+    scale = 2.0 ** torch.randint(0, 4, shape, generator=g, device=dev)
+    ints = (torch.randint(-4, span + 4, shape, generator=g, device=dev) * scale).float()
+    below = torch.nextafter(ints, torch.full_like(ints, -math.inf))
+    above = torch.nextafter(ints, torch.full_like(ints, math.inf))
+    u = torch.rand(shape, generator=g, device=dev)
+    wide = u * (span + 80) - 40
+    far = torch.where(u < 0.5, 1000 + 2 * u, -1000 - 2 * u + 1)
+    inside = u * span
+    kind = torch.randint(0, 5, shape, generator=g, device=dev)
+    out = torch.stack([below, above, wide, far, inside]).gather(0, kind[None])[0]
+    out.view(-1, 2)[0] = 1.0 - 2.0 ** -24  # + 4 rounds to 5
+    return out.contiguous()
+
+
+def _check_lookup(levels, coords, r):
+    """A writes the levels' type: f32 levels give the plain f32 window's
+    bits, bf16 levels the bits of its cast. One launch."""
+    n = launch_counts["lookup"]
+    want = kl.lookup_plain([lv.float() for lv in levels], coords, r)
+    got = kl.lookup(levels, coords, r)
+    assert got.dtype == levels[0].dtype and torch.equal(got, want.to(got.dtype))
+    assert launch_counts["lookup"] == n + 1
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h1,w1", [(8, 12), (12, 16)])  # level 3 >= 1x1
 def test_lookup_kernel(dev, dtype, h1, w1):
@@ -44,11 +75,7 @@ def test_lookup_kernel(dev, dtype, h1, w1):
     levels = corr_pyramid(torch.randn((2, h1 * w1, h1, w1), generator=g,
                                       device=dev), 4, dtype)
     coords = torch.rand((2, h1, w1, 2), generator=g, device=dev) * 30 - 10
-    n = launch_counts["lookup"]
-    got = kl.lookup(levels, coords, 4)
-    assert launch_counts["lookup"] == n + 1
-    want = kl.lookup_plain(levels, coords, 4)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    _check_lookup(levels, coords, 4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -59,10 +86,34 @@ def test_lookup_kernel_one_level(dev, dtype):
     h1, w1 = 11, 16
     level = torch.randn((1, h1 * w1, h1, w1), generator=g, device=dev).to(dtype)
     coords = torch.rand((1, h1, w1, 2), generator=g, device=dev) * 24 - 4
-    got = kl.lookup([level], coords, 4)
-    assert got.shape == (1, h1, w1, 81)
-    torch.testing.assert_close(got, kl.lookup_plain([level], coords, 4),
-                               rtol=1e-5, atol=1e-5)
+    assert kl.lookup([level], coords, 4).shape == (1, h1, w1, 81)
+    _check_lookup([level], coords, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nl", [1, 4])
+@pytest.mark.parametrize("r", [3, 4])
+def test_lookup_kernel_hard_coords(dev, dtype, nl, r):
+    """Coordinates just below integers (a tap pair at offset 2r+1 of the
+    patch), negative, past every edge, near 1000, and 1x1 coarse levels; B
+    = 2 and 3 (not a multiple of the 32 units of a block)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    for b, h1, w1 in ((2, 8, 12), (3, 8, 9)):
+        levels = corr_pyramid(torch.randn((b, h1 * w1, h1, w1), generator=g,
+                                          device=dev), nl, dtype)
+        _check_lookup(levels, _hard_coords(g, b, h1, w1, w1, dev), r)
+
+
+def test_lookup_refusals(dev):
+    """Radii the kernel is not built for (3 and 4 are) and f16 levels are
+    refused, with no launch."""
+    level = torch.randn((1, 12, 3, 4), device=dev)
+    coords = torch.rand((1, 3, 4, 2), device=dev)
+    n = launch_counts["lookup"]
+    for lv, radius in ((level, 0), (level, 2), (level, 5), (level.half(), 4)):
+        with pytest.raises(ValueError):
+            kl.lookup([lv], coords, radius)
+    assert launch_counts["lookup"] == n
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -105,6 +156,42 @@ def test_fold_kernel(dev, dtype, tol, m, n, k):
                                rtol=tol, atol=tol)
 
 
+def _check_lookup_fold(levels, coords, r, w, bias):
+    """The fused kernel against its plain version, and against kernel A
+    then kernel B. In f32 it must equal them bit for bit (the same f32 taps
+    and the same FMA tile in the same k order). In bf16, against A then B
+    (B's tensor cores): one bf16 ulp of the largest output. Returns the
+    plan the launch was counted under."""
+    b, h1, w1, _ = coords.shape
+    n, k = w.shape
+    dtype = w.dtype
+    before = dict(launch_counts)
+    shapes = dict(launch_shapes)
+    got = klf.lookup_fold(levels, coords, r, w, bias)
+    assert launch_counts["lookup_fold"] == before["lookup_fold"] + 1
+    assert launch_counts["lookup"] == before["lookup"]
+    (key,) = [key for key, c in launch_shapes.items() if c != shapes.get(key, 0)]
+    assert got.shape == (b, h1, w1, n) and got.dtype == dtype
+    want = klf.lookup_fold_plain(levels, coords, r, w, bias)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2  # as test_fold_kernel
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    window = kl.lookup(levels, coords, r).reshape(b * h1 * w1, k)
+    two_step = kf.fold(window, w, bias).reshape(b, h1, w1, n)
+    top = float(two_step.float().abs().max())
+    ulp = 0.0 if dtype == torch.float32 else 2.0 ** (math.floor(math.log2(top)) - 7)
+    torch.testing.assert_close(got.float(), two_step.float(), rtol=0, atol=ulp)
+    return dict(zip(("entry", "grid", "slices"), key[-3:]))
+
+
+def _fold_operands(g, dev, dtype, b, h1, w1, nl, n, r=4):
+    levels = corr_pyramid(torch.randn((b, h1 * w1, h1, w1), generator=g,
+                                      device=dev), nl, dtype)
+    k = nl * (2 * r + 1) ** 2
+    w = (torch.randn((n, k), generator=g, device=dev) * 0.1).to(dtype)
+    bias = torch.randn((n,), generator=g, device=dev).to(dtype)
+    return levels, w, bias
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h1,w1,nl,n", [
     (2, 8, 12, 4, 256),   # three whole query tiles, the RAFT widths
@@ -113,31 +200,64 @@ def test_fold_kernel(dev, dtype, tol, m, n, k):
     (1, 9, 11, 2, 64),
 ])
 def test_lookup_fold_kernel(dev, dtype, b, h1, w1, nl, n):
-    """The fused kernel against its plain version, and against kernel A
-    then kernel B. In f32 it must equal them bit for bit (the same f32 taps
-    and the same FMA tile in the same k order). In bf16, B runs its product
-    on the tensor cores, which sum in another order: one bf16 ulp of the
-    largest output."""
     g = torch.Generator(device=dev).manual_seed(7)
-    levels = corr_pyramid(torch.randn((b, h1 * w1, h1, w1), generator=g,
-                                      device=dev), nl, dtype)
+    levels, w, bias = _fold_operands(g, dev, dtype, b, h1, w1, nl, n)
     coords = torch.rand((b, h1, w1, 2), generator=g, device=dev) * 30 - 10
-    k = nl * 81
-    w = (torch.randn((n, k), generator=g, device=dev) * 0.1).to(dtype)
-    bias = torch.randn((n,), generator=g, device=dev).to(dtype)
-    before = dict(launch_counts)
-    got = klf.lookup_fold(levels, coords, 4, w, bias)
-    assert launch_counts["lookup_fold"] == before["lookup_fold"] + 1
-    assert launch_counts["lookup"] == before["lookup"]
-    assert got.shape == (b, h1, w1, n) and got.dtype == dtype
-    want = klf.lookup_fold_plain(levels, coords, 4, w, bias)
-    tol = 1e-4 if dtype == torch.float32 else 2e-2  # as test_fold_kernel
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
-    window = kl.lookup(levels, coords, 4).reshape(b * h1 * w1, k).to(dtype)
-    two_step = kf.fold(window, w, bias).reshape(b, h1, w1, n)
-    top = float(two_step.float().abs().max())
-    ulp = 0.0 if dtype == torch.float32 else 2.0 ** (math.floor(math.log2(top)) - 7)
-    torch.testing.assert_close(got.float(), two_step.float(), rtol=0, atol=ulp)
+    _check_lookup_fold(levels, coords, 4, w, bias)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h1,w1,nl,n,r", [
+    (2, 8, 12, 4, 256, 4),
+    (3, 8, 9, 4, 256, 4),   # Q = 216: a ragged last tile of either height
+    (2, 8, 12, 1, 64, 4),
+    (1, 8, 12, 4, 96, 3),   # radius 3: K = 196, a 9 x 9 patch
+])
+def test_lookup_fold_kernel_hard_coords(dev, dtype, b, h1, w1, nl, n, r):
+    g = torch.Generator(device=dev).manual_seed(12)
+    levels, w, bias = _fold_operands(g, dev, dtype, b, h1, w1, nl, n, r)
+    _check_lookup_fold(levels, _hard_coords(g, b, h1, w1, w1, dev), r, w, bias)
+
+
+@pytest.mark.parametrize("b,h1,w1,nl,n", [
+    (1, 10, 14, 4, 256),  # Q = 140: 9 blocks of 15 or 16 rows, fewer than the SMs
+    (2, 40, 60, 4, 256),  # Q = 4800: runs of 36 or 37 rows, a ragged last pass
+    (1, 40, 60, 1, 600),  # three column slices (256, 256, 88), N % 8 == 0
+    (1, 20, 30, 2, 300),  # two slices, N % 8 != 0: 2-byte stores
+])
+def test_lookup_fold_plan_run(dev, b, h1, w1, nl, n):
+    """The bf16 launch runs the plan `plan` names for the call from the
+    library's layout (the launch is counted under it), and is right at
+    every column slicing."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    levels, w, bias = _fold_operands(g, dev, torch.bfloat16, b, h1, w1, nl, n)
+    coords = _hard_coords(g, b, h1, w1, w1, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = klf.plan(b * h1 * w1, n, 4, torch.bfloat16, sms, **klf.layout())
+    ran = _check_lookup_fold(levels, coords, 4, w, bias)
+    assert ran == {key: want[key] for key in ("entry", "grid", "slices")}
+    assert want["slices"] == -(-n // klf.layout()["cols"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lookup_fold_refusals(dev, dtype):
+    """No plan for a radius the gather is not built for (3 and 4 are), for
+    either type; a bf16 weight off a 16-byte boundary is refused. None
+    launches."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    coords = torch.rand((1, 6, 8, 2), generator=g, device=dev) * 8
+    n = launch_counts["lookup_fold"]
+    for radius in (2, 5):
+        levels, w, bias = _fold_operands(g, dev, dtype, 1, 6, 8, 1, 64, radius)
+        with pytest.raises(ValueError):
+            klf.lookup_fold(levels, coords, radius, w, bias)
+    if dtype == torch.bfloat16:
+        levels, w, bias = _fold_operands(g, dev, dtype, 1, 6, 8, 1, 64)
+        shifted = torch.empty(w.numel() + 1, dtype=dtype, device=dev)[1:].view_as(w)
+        shifted.copy_(w)
+        with pytest.raises(ValueError):
+            klf.lookup_fold(levels, coords, 4, shifted, bias)
+    assert launch_counts["lookup_fold"] == n
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
