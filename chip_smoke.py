@@ -28,20 +28,29 @@ Phases (any failure raises and exits non-zero; no result is printed):
    f32; F: the Twins LSAs at both stages and batch sizes, the vertical
    local layer), then D (local
    correlation) at FF-PWCNet's five decoder levels in bf16 and at one of
-   them in f32. E's and B's rows say which entry of the kernel ran
+   them in f32. E's, F's and B's rows say which entry of the kernel ran
    (`design`: `mma` on the tensor cores, `fma` on the f32 units): every
-   bf16 path shape of B and every tiled one of E must say `mma`.
+   bf16 path shape of B and F and every tiled one of E must say `mma`,
+   and the tensor-core entries of E and F are held at every output to
+   their `bf16_bound`; F is timed once more with the other head grouping
+   of a block. C1's rows name their entry (`vector`: 16-byte loads) and
+   time the whole one-launch call.
 3. FF-RAFT end to end through `FlowPredictor`: a 1024x436 frame pair and
    keypoint masks, B=1, 12 iterations, bf16, the trained fixture weights.
    The flow must be finite, recover the known constant shift (interior
    EPE < 6 px) and track the port's f32 run on the CPU on the same inputs
    (mean |diff| < 0.05 max(mean |flow|, 1), median < 0.1 px). Every
    kernel's launch count over one forward must match the path (the fused
-   lookup + convc1 12, instance-norm stats 30, normalize 30, A and B 0).
+   lookup + convc1 12, instance-norm stats 30, normalize 30, A and B 0),
+   and the profiled forward must show 30 kernels of C1 and no other.
    Prints ms per frame pair. The profile lists each port kernel's launches
    and mean time inside the forward; the fused kernel's goes into its
    table entry as `in_forward` (the kernel phase repeats one call's inputs
    on a warm L2, the forward does not).
+   Then the same pair through an f32 `FlowPredictor` under PyTorch's
+   default TF32 flags (set for the phase, put back after): TF32 must be
+   off inside its forward and the flags as they were after it, and the
+   flow must pass the same gates against the same f32 CPU run.
 4. FF-FlowFormer end to end through `FlowPredictor`, the same way: a
    textured 1024x436 frame and its (3, -2) px shift, B=1, 12 refinements,
    bf16, the trained fixture (`trained_smoke_ff.npz`, encoder_depth 1), the
@@ -63,8 +72,9 @@ Phases (any failure raises and exits non-zero; no result is printed):
    the counted forwards of phases 3 to 6 by that key, with launches x (ms -
    bound). A path that launched a shape which phase 2 does not hold fails.
 
-f32 matmuls and convolutions run in full f32 here (TF32 off), so the f32
-comparisons are not blurred by TF32's 10-bit mantissa. Needs one card.
+Outside the phase under default flags, f32 matmuls and convolutions run
+in full f32 here (TF32 off), so the f32 comparisons are not blurred by
+TF32's 10-bit mantissa. Needs one card.
 """
 
 from __future__ import annotations
@@ -104,6 +114,10 @@ def _card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def _sms(torch) -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 @functools.cache
 def _exp_per_s(torch) -> float:
     """Exponentials a second the card's special-function units can start:
@@ -112,7 +126,7 @@ def _exp_per_s(torch) -> float:
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         check=True, capture_output=True, text=True, timeout=60).stdout
     mhz = float(out.strip().splitlines()[0])
-    return torch.cuda.get_device_properties(0).multi_processor_count * SFU_LANES * mhz * 1e6
+    return _sms(torch) * SFU_LANES * mhz * 1e6
 
 
 def _attention_bound(torch, nbytes: float, flops: float, scores: float,
@@ -483,6 +497,8 @@ def kernel_phase(torch, dev):
     for shp in shapes:
         x = (torch.randn(shp, generator=g, device=dev) * 3 + 1).to(bf16)
         (mean, inv), key1 = _launch_key(lambda: kin.instance_norm_stats(x))
+        if key1[-1] != "vector":
+            raise AssertionError(f"in_stats {shp}: ran the {key1[-1]} entry, not vector")
         rmean, rinv = kin.stats_plain(x)
         torch.cuda.synchronize()
         err1 = max(float((mean - rmean).abs().max()), float((inv - rinv).abs().max()))
@@ -507,8 +523,10 @@ def kernel_phase(torch, dev):
         tv = _time_ms(torch, lambda: torch.var_mean(x, dim=(1, 2), correction=0))
         b1, by1 = _bound_ms(xs + 2 * shp[0] * shp[3] * 4, 3.0 * x.numel(), PEAK_F32)
         b2, by2 = _bound_ms(2 * xs + 2 * shp[0] * shp[3] * 4, 3.0 * x.numel(), PEAK_F32)
+        # the launch's key ends with the split and the entry that ran
         per_shape["in_stats"].append(dict(
-            shape=list(shp), key=key1, max_abs_err=err1, tol=tol1, ms=t1, plain_ms=t1p,
+            shape=list(shp), key=key1, design=key1[-1], splits=key1[-2],
+            max_abs_err=err1, tol=tol1, ms=t1, plain_ms=t1p,
             bound_ms=b1, bound_by=by1, library_ms=tv))
         per_shape["in_normalize"].append(dict(
             shape=list(shp), key=key2, max_abs_err=err2, tol=tol2, ms=t2, plain_ms=t2p,
@@ -530,6 +548,8 @@ def kernel_phase(torch, dev):
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], library_ms=top["library_ms"],
             library=lib, shape=f"{tuple(shapes[0])} bf16", per_shape=rows))
+        if "design" in top:
+            results[-1]["design"] = top["design"]
         _emit(results[-1])
     return results
 
@@ -601,7 +621,9 @@ def _window_row(torch, g, dev, b, hp, wp, c, heads, label) -> dict:
     """Kernel F on random bf16 (B, Hp, Wp, C) q, k, v against its plain
     version, timed beside F.scaled_dot_product_attention on the window-
     partitioned (B*nwin, heads, 49, d) tensors (partitioned before the
-    timed window; a second time includes the partition and the merge)."""
+    timed window; a second time includes the partition and the merge).
+    Every bf16 shape of the path runs the tensor-core entry (`mma`), held
+    at every output to `bf16_bound`."""
     import torch.nn.functional as F
 
     from focusflow_official_tpu_torch.kernels import window_attention as kw
@@ -612,10 +634,21 @@ def _window_row(torch, g, dev, b, hp, wp, c, heads, label) -> dict:
     d = c // heads
     scale = d ** -0.5
     got, key = _launch_key(lambda: kw.window_attention(q, k, v, ws, heads, scale))
+    if key[-1] != "mma":  # the launch's key ends with the entry that ran
+        raise AssertionError(f"{label}: ran the {key[-1]} entry, not mma")
     want = kw.window_attention_plain(q, k, v, ws, heads, scale)
     torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
-    tol = 2.0 ** -7 * max(1.0, float(want.float().abs().max()))  # one bf16 ulp
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    # held at every output: one bf16 ulp of that output for the two sides'
+    # roundings, and 2^-8 of its row's sum of p |v| for the bf16 softmax
+    # weights. `tol` is the bound where the error is largest
+    bound = kw.bf16_bound(want, q, k, v, heads, scale)
+    over = float((diff / bound).max())
+    if not over <= 1.0:
+        raise AssertionError(f"{label}: |kernel - plain| is {over} of its bound at some output")
+    tol = float(bound.flatten()[diff.argmax()])
+    del bound, diff
     _check(label, err, tol)
     ms = _time_ms(torch, lambda: kw.window_attention(q, k, v, ws, heads, scale))
     plain_ms = _time_ms(torch, lambda: kw.window_attention_plain(
@@ -637,7 +670,8 @@ def _window_row(torch, g, dev, b, hp, wp, c, heads, label) -> dict:
     lib_full_ms, _ = _library_ms(torch, sdpa_merged)
     scores = float(b * nh * nw) * heads * (ws * ws) ** 2
     return dict(shape=f"({b}, {hp}, {wp}, {c}), {heads} heads, bf16", label=label,
-                key=key, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                key=key, design=key[-1], largest_err_over_its_bound=over,
+                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                 **_attention_bound(torch, 4 * q.numel() * 2, scores * 2 * 2 * d, scores),
                 library_ms=lib_ms, library_error=lib_err,
                 library_with_partition_ms=lib_full_ms)
@@ -725,8 +759,8 @@ def _shift_inputs(h: int, w: int, seed: int = 0):
 
 
 _PORT_KERNELS = ("lookup_kernel", "fold_kernel", "fold_mma", "lookup_fold_mma", "lookup_fold_fma",
-                 "stats_partial", "stats_finish", "normalize<", "local_corr_kernel",
-                 "attn_mma", "attn_tiled", "attn_direct", "window_attn")
+                 "in_stats<", "normalize<", "local_corr_kernel",
+                 "attn_mma", "attn_tiled", "attn_direct", "window_mma", "window_attn")
 
 
 def _category(name: str) -> str:
@@ -822,10 +856,24 @@ def _drive(torch, p, inputs, want: dict, profile_name: str):
     return flow, (counts, shapes), float(np.median(times)), times, breakdown
 
 
-def _gates(torch, flow, shift, cpu_predictor, inputs) -> dict:
+def _cpu_flow(cfg, fixture: str, inputs):
+    """The port's f32 run on the CPU on the same inputs -> (flow (H, W, 2),
+    seconds)."""
+    import torch
+
+    from focusflow_official_tpu_torch.predict import FlowPredictor
+
+    p = FlowPredictor(cfg, fixture, device="cpu", dtype=torch.float32)
+    t0 = time.perf_counter()
+    flow = p(*inputs)[0]
+    return flow, time.perf_counter() - t0
+
+
+def _gates(flow, shift, cpu) -> dict:
     """Finite flow of the input's size, interior EPE < 6 px on the known
     shift (skipped where `shift` is None: a fixture that does not solve
-    the probe), and agreement with the f32 CPU run on the same inputs."""
+    the probe), and agreement with the f32 CPU run `cpu` (`_cpu_flow`) on
+    the same inputs."""
     if flow.shape != (H, W, 2) or not np.isfinite(flow).all():
         raise AssertionError(f"flow {flow.shape} not finite or not ({H}, {W}, 2)")
     epe = None
@@ -834,14 +882,12 @@ def _gates(torch, flow, shift, cpu_predictor, inputs) -> dict:
                             .sum(-1)).mean())
         if not epe < 6.0:
             raise AssertionError(f"interior EPE {epe} >= 6 px")
-    t0 = time.perf_counter()
-    flow_cpu = cpu_predictor(*inputs)[0]
-    cpu_s = time.perf_counter() - t0
+    flow_cpu, cpu_s = cpu
     diff = np.abs(flow - flow_cpu)
     mag = float(np.abs(flow_cpu).mean())
     if not (float(diff.mean()) < 0.05 * max(mag, 1.0)
             and float(np.median(diff)) < 0.1):
-        raise AssertionError(f"bf16 card vs f32 CPU: mean {diff.mean()}, "
+        raise AssertionError(f"card vs f32 CPU: mean {diff.mean()}, "
                              f"median {np.median(diff)}, |flow| {mag}")
     return dict(epe_interior=epe, mean_abs_flow=float(np.abs(flow).mean()),
                 vs_cpu_f32_mean_abs=float(diff.mean()),
@@ -850,24 +896,73 @@ def _gates(torch, flow, shift, cpu_predictor, inputs) -> dict:
                 cpu_f32_seconds=cpu_s)
 
 
-def end_to_end_phase(torch, card: str):
+def _raft_cfg():
     from focusflow_official_tpu_torch.models import FFRaftConfig
+
+    return FFRaftConfig(fusion="parallel", fusion_type="1x1conv", fuse_cnet=True, iters=ITERS)
+
+
+def end_to_end_phase(torch, card: str):
+    """-> (launch counts of the counted forward, its profile, the f32 CPU
+    run on the phase's inputs)."""
     from focusflow_official_tpu_torch.predict import FlowPredictor
 
-    cfg = FFRaftConfig(fusion="parallel", fusion_type="1x1conv",
-                       fuse_cnet=True, iters=ITERS)
+    cfg = _raft_cfg()
     inputs, shift = _shift_inputs(H, W)
     p = FlowPredictor(cfg, FIXTURE, device="cuda", dtype=torch.bfloat16)
     want = {"lookup_fold": ITERS, "in_stats": 30, "in_normalize": 30}
     flow, counts, ms, times, breakdown = _drive(torch, p, inputs, want,
                                                 "chip_smoke_profile")
-    gates = _gates(torch, flow, shift, FlowPredictor(
-        cfg, FIXTURE, device="cpu", dtype=torch.float32), inputs)
+    # C1 is one launch a call: 30 in the profiled forward, no second kernel
+    stats = [r_ for r_ in breakdown["port_kernels"] if r_[0] == "in_stats<"]
+    if [r_[1] for r_ in stats] != [30]:
+        raise AssertionError(f"profiled forward: in_stats launches {stats} != 30")
+    cpu = _cpu_flow(cfg, FIXTURE, inputs)
+    gates = _gates(flow, shift, cpu)
     _emit(dict(phase="end_to_end", model="ff_raft", card=card, shape=[1, H, W],
                iters=ITERS, dtype="bfloat16", ms_per_pair=ms, pairs_per_s=1e3 / ms,
                ms_all=times, profile=breakdown, launches=counts[0], **gates,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
-    return counts, breakdown
+    return counts, breakdown, cpu
+
+
+def f32_default_flags_phase(torch, card: str, defaults: tuple, cpu) -> None:
+    """FF-RAFT in f32 on the card under PyTorch's default TF32 flags
+    (`defaults`: matmul, cuDNN, as the process found them), set here and
+    put back after: the predictor must run its forward with both off (each
+    backend's `fp32_precision` "ieee"), leave them as they were, and track
+    the f32 CPU run `cpu` on the same inputs within the agreement bounds."""
+    from focusflow_official_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from focusflow_official_tpu_torch.predict import FlowPredictor
+
+    flags = lambda: (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    saved = flags()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = defaults
+    try:
+        inputs, shift = _shift_inputs(H, W)
+        p = FlowPredictor(_raft_cfg(), FIXTURE, device="cuda", dtype=torch.float32)
+        inside = []
+        hook = p.model.register_forward_hook(lambda *_: inside.append(tuple(
+            b.fp32_precision for b in (torch.backends.cuda.matmul, torch.backends.cudnn.conv))))
+        p(*inputs)  # warm-up
+        reset_launch_counts()
+        flow = p(*inputs)[0]
+        counts = {k: v for k, v in launch_counts.items() if v}
+        hook.remove()
+        after = flags()
+        if inside != [("ieee", "ieee")] * 2 or after != defaults:
+            raise AssertionError(f"TF32 flags inside the forward {inside}, after it "
+                                 f"{after}, caller's {defaults}")
+        want = {"lookup_fold": ITERS, "in_stats": 30, "in_normalize": 30}
+        if counts != want:
+            raise AssertionError(f"f32 forward: launches {counts} != {want}")
+        gates = _gates(flow, shift, cpu)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    _emit(dict(phase="f32_default_flags", model="ff_raft", card=card, shape=[1, H, W],
+               iters=ITERS, dtype="float32", caller_flags=dict(zip(("matmul", "cudnn"), defaults)),
+               flags_inside_forward=dict(zip(("matmul", "cudnn"), inside[-1])),
+               launches=counts, **gates))
 
 
 def _textured_inputs(h: int, w: int, seed: int = 0):
@@ -910,8 +1005,7 @@ def ff_end_to_end_phase(torch, card: str):
     p = FlowPredictor(cfg, FIXTURE_FF, device="cuda", dtype=torch.bfloat16)
     flow, counts, ms, times, breakdown = _drive(
         torch, p, inputs, _ff_launches(1, ITERS), "chip_smoke_profile_ff")
-    gates = _gates(torch, flow, shift, FlowPredictor(
-        cfg, FIXTURE_FF, device="cpu", dtype=torch.float32), inputs)
+    gates = _gates(flow, shift, _cpu_flow(cfg, FIXTURE_FF, inputs))
     _emit(dict(phase="end_to_end", model="ff_flowformer", card=card,
                shape=[1, H, W], encoder_depth=1, iters=ITERS, dtype="bfloat16",
                ms_per_pair=ms, pairs_per_s=1e3 / ms, ms_all=times,
@@ -932,8 +1026,7 @@ def pwc_end_to_end_phase(torch, card: str):
     p = FlowPredictor(cfg, FIXTURE_PWC, device="cuda", dtype=torch.bfloat16)
     flow, counts, ms, times, breakdown = _drive(
         torch, p, inputs, {"local_corr": 5}, "chip_smoke_profile_pwc")
-    gates = _gates(torch, flow, None, FlowPredictor(
-        cfg, FIXTURE_PWC, device="cpu", dtype=torch.float32), inputs)
+    gates = _gates(flow, None, _cpu_flow(cfg, FIXTURE_PWC, inputs))
     _emit(dict(phase="end_to_end", model="ff_pwcnet", card=card, shape=[1, H, W],
                dtype="bfloat16", ms_per_pair=ms, pairs_per_s=1e3 / ms,
                ms_all=times, profile=breakdown, launches=counts[0], **gates,
@@ -1084,7 +1177,9 @@ def main() -> int:
         return 2
     from focusflow_official_tpu_torch.kernels import _build
 
-    # full f32 for the f32 comparisons: no TF32 in matmuls or convolutions
+    # PyTorch's defaults, for the f32 phase under them; then full f32 for
+    # the f32 comparisons: no TF32 in matmuls or convolutions
+    defaults = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -1108,7 +1203,8 @@ def main() -> int:
     ff_rows = ff_kernel_phase(torch, dev)
     pwc_rows = pwc_kernel_phase(torch, dev)
     torch.cuda.empty_cache()
-    raft_counts, raft_profile = end_to_end_phase(torch, card)
+    raft_counts, raft_profile, raft_cpu = end_to_end_phase(torch, card)
+    f32_default_flags_phase(torch, card, defaults, raft_cpu)
     drives = {"ff_raft": raft_counts,
               "ff_flowformer": ff_end_to_end_phase(torch, card),
               "ff_flowformer_depth3": ff_shipped_depth_phase(torch, card),

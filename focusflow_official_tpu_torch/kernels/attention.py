@@ -64,20 +64,29 @@ def small_kv_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, n, v.shape[-1]).to(q.dtype)
 
 
-def bf16_bound(want: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
-               v: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
-    """The bound on |tensor-core entry - plain version| at every output, for
-    bf16 q, k, v, `want` being the plain version's output -> f32, want's
-    shape. Rounding a softmax weight to bf16 (8 significant bits) moves it
-    by up to 2^-8 of itself, so output (n, c) moves by up to 2^-8 sum_j p_nj
-    |v_jc|, the plain version on |v|. Both sides then round an f32 result
-    once, half a bf16 ulp each: one ulp at the largest size either can have
-    there. 1e-6 stands for the f32 sums' own order."""
-    moved = 2.0 ** -8 * small_kv_attention_plain(q.float(), k.float(),
-                                                 v.float().abs(), heads, scale)
+def rounded_p_bound(want: torch.Tensor, on_abs_v: torch.Tensor) -> torch.Tensor:
+    """The bound on |tensor-core entry - plain version| at every output of
+    an attention whose softmax weights are rounded to bf16 before the value
+    sum, from the plain version's output `want` and the plain version's
+    output on |v| in f32 (`on_abs_v`) -> f32, want's shape. Rounding a
+    weight to bf16 (8 significant bits) moves it by up to 2^-8 of itself,
+    so output (n, c) moves by up to 2^-8 sum_j p_nj |v_jc|. Both sides then
+    round an f32 result once, half a bf16 ulp each: one ulp at the largest
+    size either can have there. 1e-6 stands for the f32 sums' own order.
+    Kernel F's tensor-core entry is held to it too
+    (`window_attention.bf16_bound`)."""
+    moved = 2.0 ** -8 * on_abs_v
     top = want.float().abs() * (1 + 2.0 ** -8) + moved
     ulp = torch.exp2(torch.floor(torch.log2(top.clamp_min(1e-30))) - 7)
     return moved + ulp + 1e-6
+
+
+def bf16_bound(want: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
+    """`rounded_p_bound` for bf16 q, k, v of this kernel, `want` being the
+    plain version's output."""
+    return rounded_p_bound(want, small_kv_attention_plain(
+        q.float(), k.float(), v.float().abs(), heads, scale))
 
 
 def small_kv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

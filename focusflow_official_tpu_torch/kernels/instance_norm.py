@@ -2,7 +2,11 @@
 (`csrc/instance_norm.cu`).
 
 C1 `instance_norm_stats`: per (b, c) the f32 mean and
-rsqrt(max(E[x^2] - mean^2, 0) + eps) over H*W.
+rsqrt(max(E[x^2] - mean^2, 0) + eps) over H*W, in one launch: `plan`
+splits H*W into S slabs a sample, and the last block of a sample to finish
+adds their partial sums in index order. `design(x)` names the entry a CUDA
+tensor takes: "vector" (16-byte loads: C a multiple of 8 in bf16 or 4 in
+f32, x 16-byte aligned) or "scalar".
 C2 `instance_norm_apply`: (x - mean) * inv in x's type, optional ReLU.
 """
 
@@ -17,18 +21,59 @@ from . import _build, count_launch
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
-_SMS = 132  # H100 SXM streaming multiprocessors: the stats aim at 2 blocks each
+ROWS_PER_BLOCK = 128  # the least rows a stats block takes, where there are enough
+BLOCKS_PER_SM = 2  # what the stats aim at
 
 
 @functools.cache
 def _lib():
     lib = _build.load("instance_norm")
-    lib.ff_in_stats.argtypes = [_c, _c, _c, _c, _i, _i, _i, _i,
-                                ctypes.c_float, _i, _c]
+    lib.ff_in_stats.argtypes = [_c, _c, _c, _c, _c, _i, _i, _i, _i,
+                                ctypes.c_float, _i, _i, _c]
     lib.ff_in_stats.restype = _i
-    lib.ff_in_normalize.argtypes = [_c, _c, _c, _c, _i, _i, _i, _i, _i, _c]
+    lib.ff_in_normalize.argtypes = [_c, _c, _c, _c, _i, _i, _i, _i, _i, _i, _c]
     lib.ff_in_normalize.restype = _i
     return lib
+
+
+@functools.cache
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# per (device, stream): the stats' per-sample tickets, zero between
+# launches (the block that finishes a sample puts its counter back to 0).
+# Launches on one stream run one after another, so they never share a
+# counter that is in use; launches on two streams take two buffers.
+_counters: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, stream: int, b: int) -> torch.Tensor:
+    t = _counters.get((device, stream))
+    if t is None or t.numel() < b:
+        t = torch.zeros(max(b, 64), dtype=torch.int32, device=device)
+        _counters[(device, stream)] = t
+    return t
+
+
+def plan(hw: int, b: int, sms: int) -> int:
+    """The stats' split S of a sample's H*W rows: BLOCKS_PER_SM blocks an
+    SM over the B samples, no block under ROWS_PER_BLOCK rows where H*W
+    allows it; block s takes rows [s * ceil(hw / S), (s + 1) * ceil(hw / S))."""
+    return max(1, min(-(-hw // ROWS_PER_BLOCK), -(-BLOCKS_PER_SM * sms // max(b, 1))))
+
+
+def vector_width(dtype: torch.dtype) -> int:
+    """Values in one 16-byte load of the stats' vector entry."""
+    return 16 // (2 if dtype == torch.bfloat16 else 4)
+
+
+def design(x: torch.Tensor) -> str:
+    """The stats entry that NHWC `x` takes on the card: "vector" where C is
+    a multiple of `vector_width` and x starts on a 16-byte boundary, else
+    "scalar"."""
+    ok = x.shape[-1] % vector_width(x.dtype) == 0 and x.data_ptr() % 16 == 0
+    return "vector" if ok else "scalar"
 
 
 def stats_plain(x: torch.Tensor, eps: float = 1e-5):
@@ -64,16 +109,18 @@ def instance_norm_stats(x: torch.Tensor, eps: float = 1e-5):
     _check_x(x, "instance_norm_stats")
     b, h, w, c = x.shape
     hw = h * w
-    splits = max(1, min(-(-hw // 256), -(-2 * _SMS // max(b, 1))))
+    splits = plan(hw, b, _sms(x.device))
+    entry = design(x)
     partial = torch.empty((b, splits, 2, c), dtype=torch.float32, device=x.device)
     mean = torch.empty((b, c), dtype=torch.float32, device=x.device)
     inv = torch.empty_like(mean)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _lib().ff_in_stats(x.data_ptr(), partial.data_ptr(), mean.data_ptr(),
-                             inv.data_ptr(), b, hw, c, splits, eps,
-                             int(x.dtype == torch.bfloat16),
-                             torch.cuda.current_stream(x.device).cuda_stream)
+                             inv.data_ptr(), _tickets(x.device, stream, b).data_ptr(),
+                             b, hw, c, splits, eps, int(x.dtype == torch.bfloat16),
+                             int(entry == "vector"), stream)
     _build.check(err, "ff_in_stats")
-    count_launch("in_stats", b, h, w, c, str(x.dtype))
+    count_launch("in_stats", b, h, w, c, str(x.dtype), splits, entry)
     return mean, inv
 
 
@@ -94,7 +141,7 @@ def instance_norm_apply(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
     y = torch.empty_like(x)
     err = _lib().ff_in_normalize(x.data_ptr(), mean.data_ptr(), inv.data_ptr(),
                                  y.data_ptr(), b, h * w, c, int(relu),
-                                 int(x.dtype == torch.bfloat16),
+                                 int(x.dtype == torch.bfloat16), 16 * _sms(x.device),
                                  torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ff_in_normalize")
     count_launch("in_normalize", b, h, w, c, str(x.dtype))

@@ -7,6 +7,11 @@ h*d:(h+1)*d), softmax in f32; the output keeps the layout and q's type.
 The caller pads the grid before its q/k/v projections, so padded tokens
 are ordinary (bias-carrying) keys. Every 7x7 window attention of the
 FlowFormer path goes through here: Twins LSA and the vertical local layer.
+
+`design(q, heads)` names the entry a CUDA call runs: "mma" (bf16, head
+widths 16 or 32: every shape of the path) on the tensor cores, which
+rounds the softmax weights to bf16 before the value sum and is held to
+`bf16_bound`; "fma" (f32, or a head width of 8) on the f32 units.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import functools
 import torch
 
 from . import _build, count_launch
-from .attention import HEAD_DIMS
+from .attention import HEAD_DIMS, rounded_p_bound
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
@@ -30,7 +35,17 @@ def _lib():
     lib.ff_window_attention.argtypes = [_c, _c, _c, _c] + [_i] * 5 + [
         ctypes.c_float, _i, _c]
     lib.ff_window_attention.restype = _i
+    lib.ff_window_attention_entry.argtypes = [_i, _i]
+    lib.ff_window_attention_entry.restype = _i
     return lib
+
+
+def design(q: torch.Tensor, heads: int) -> str:
+    """Which entry a call on this CUDA q runs, as the library itself decides
+    it: "mma" (tensor cores) or "fma" (the per-query f32 loop)."""
+    entry = _lib().ff_window_attention_entry(q.shape[-1] // heads,
+                                             int(q.dtype == torch.bfloat16))
+    return "mma" if entry == 1 else "fma"
 
 
 def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -52,6 +67,15 @@ def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, hp, wp, c).to(q.dtype)
 
 
+def bf16_bound(want: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor, heads: int, scale: float) -> torch.Tensor:
+    """The bound on |tensor-core entry - plain version| at every output, for
+    bf16 q, k, v, `want` being the plain version's output: E's
+    (`attention.rounded_p_bound`) over the windows."""
+    return rounded_p_bound(want, window_attention_plain(
+        q.float(), k.float(), v.float().abs(), WS, heads, scale))
+
+
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      ws: int, heads: int, scale: float) -> torch.Tensor:
     """q, k, v (B, Hp, Wp, C) of one type (bf16 or f32) -> (B, Hp, Wp, C)."""
@@ -70,6 +94,9 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if c % heads or c // heads not in HEAD_DIMS:
         raise ValueError(f"window_attention: head width C/heads = {c}/{heads} "
                          f"must be one of {HEAD_DIMS}")
+    if c * q.element_size() % 16:  # every pixel row starts on a 16-byte boundary
+        raise ValueError(f"window_attention: C * {q.element_size()} bytes must "
+                         f"be a multiple of 16, got C={c}")
     for t in (q, k, v):
         if (t.device != q.device or t.dtype != q.dtype
                 or t.shape != q.shape or not t.is_contiguous()
@@ -85,5 +112,6 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         heads, c // heads, float(scale), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "ff_window_attention")
-    count_launch("window_attention", b, hp, wp, c, heads, str(q.dtype))
+    count_launch("window_attention", b, hp, wp, c, heads, str(q.dtype),
+                 design(q, heads))
     return out

@@ -20,6 +20,7 @@ in 0..255, numpy or torch; masks default to zeros (no keypoint prior).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -51,13 +52,40 @@ def _as_nhwc(arr, channels: int, device) -> torch.Tensor:
     return a
 
 
+# the settings that decide TF32 in cuBLAS matmuls and cuDNN convolutions
+_TF32_BACKENDS = (torch.backends.cuda.matmul, torch.backends.cudnn.conv)
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """TF32 off in cuBLAS matmuls and cuDNN convolutions inside the block
+    (each backend's `fp32_precision` "ieee"); the caller's settings are put
+    back on the way out, raise or not. Reading and restoring the backends'
+    own settings keeps the caller's state whole, whichever API set it: the
+    boolean `allow_tf32` would turn `set_float32_matmul_precision("medium")`
+    into "high", and raises where the caller set `fp32_precision`."""
+    saved = [b.fp32_precision for b in _TF32_BACKENDS]
+    try:
+        for b in _TF32_BACKENDS:
+            b.fp32_precision = "ieee"
+        yield
+    finally:
+        for b, precision in zip(_TF32_BACKENDS, saved):
+            b.fp32_precision = precision
+
+
 class FlowPredictor:
     """Load a config and weights once; call on frame pairs.
 
     weights_npz: flat flax variables as saved by the JAX package's
     `scripts/export_fixture.py`. dtype: compute type (bf16 or f32),
     default `cfg.compute_dtype`. Runs on `device` ("cuda" unless the
-    caller asks for "cpu")."""
+    caller asks for "cpu").
+
+    An f32 predictor is full f32 on the card: its forward runs with TF32
+    off in matmuls and convolutions, as the JAX package computes its f32
+    path (`HIGHEST` precision), and the caller's flags are restored after
+    the call. bf16 runs in bf16 and leaves the flags as they are."""
 
     def __init__(self, cfg: FFRaftConfig | FlowFormerConfig | FFPWCNetConfig,
                  weights_npz: str, *,
@@ -96,7 +124,9 @@ class FlowPredictor:
     def forward(self, image1, image2, mask1, mask2) -> torch.Tensor:
         """NHWC f32 tensors on the device -> (B, H, W, 2) f32 flow there."""
         padder = InputPadder(image1.shape)
-        out = self.model(*padder.pad(image1, image2, mask1, mask2))
+        full_f32 = compute_dtype(self.cfg) == torch.float32
+        with _no_tf32() if full_f32 else contextlib.nullcontext():
+            out = self.model(*padder.pad(image1, image2, mask1, mask2))
         return padder.unpad(out[self._flow_at])
 
     def __call__(self, image1, image2, mask1=None, mask2=None) -> np.ndarray:

@@ -318,6 +318,131 @@ def test_instance_norm_kernels(dev, dtype, shape):
                                    rtol=0, atol=0)
 
 
+def _stats_entry(x):
+    """C1 on x -> (mean, inv, the entry its launch was counted under)."""
+    before = dict(launch_shapes)
+    n = launch_counts["in_stats"]
+    mean, inv = kin.instance_norm_stats(x)
+    assert launch_counts["in_stats"] == n + 1
+    (key,) = [key for key, c in launch_shapes.items() if c != before.get(key, 0)]
+    return mean, inv, key[-1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 220, 512, 64), (2, 110, 256, 96), (2, 55, 128, 128),  # the fnet's, S from the SMs
+    (1, 7, 143, 96),   # H*W = 1001: a short last slab
+    (3, 5, 7, 8),      # one vector a row, one slab
+])
+def test_in_stats_one_launch_repeats_its_bits(dev, dtype, shape):
+    """One launch a call on the vector entry, right, and the same bits on a
+    second call: the last block adds the partials in index order, whichever
+    block finished last."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    x = (torch.randn(shape, generator=g, device=dev) * 3 + 1).to(dtype)
+    assert kin.design(x) == "vector"
+    mean, inv, entry = _stats_entry(x)
+    assert entry == "vector"
+    rmean, rinv = kin.stats_plain(x)
+    torch.testing.assert_close(mean, rmean, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(inv, rinv, rtol=1e-4, atol=1e-5)
+    mean2, inv2 = kin.instance_norm_stats(x)
+    assert torch.equal(mean, mean2) and torch.equal(inv, inv2)
+
+
+def test_in_stats_counters_reset(dev):
+    """50 calls in a row with B going 1, 2, 3: each finishing block puts its
+    sample's counter back to 0, so every call still matches the plain
+    version."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    xs = [(torch.randn((b, 40, 70, 64), generator=g, device=dev) * 2 + 1).bfloat16()
+          for b in (1, 2, 3)]
+    wants = [kin.stats_plain(x) for x in xs]
+    for i in range(50):
+        x, (rmean, rinv) = xs[i % 3], wants[i % 3]
+        mean, inv = kin.instance_norm_stats(x)
+        torch.testing.assert_close(mean, rmean, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(inv, rinv, rtol=1e-4, atol=1e-5)
+
+
+def test_in_stats_two_streams_at_once(dev):
+    """C1 launches on two streams at the same time, 20 on each, each stream
+    with its own ticket buffer: every result matches the plain version,
+    and a later call on each stream, at another batch size, does too (its
+    counters are back at 0)."""
+    g = torch.Generator(device=dev).manual_seed(20)
+    xs = [(torch.randn(shape, generator=g, device=dev) * 3 + 1).bfloat16()
+          for shape in ((2, 220, 512, 64), (3, 110, 256, 96))]
+    wants = [kin.stats_plain(x) for x in xs]
+    streams = [torch.cuda.Stream(dev) for _ in xs]
+    main = torch.cuda.current_stream(dev)
+    for s in streams:
+        s.wait_stream(main)
+    got = [[], []]
+    for _ in range(20):
+        for i, (x, s) in enumerate(zip(xs, streams)):
+            with torch.cuda.stream(s):
+                got[i].append(kin.instance_norm_stats(x))
+    torch.cuda.synchronize(dev)
+    assert {(dev, s.cuda_stream) for s in streams} <= set(kin._counters)
+    for (rmean, rinv), results in zip(wants, got):
+        for mean, inv in results:
+            torch.testing.assert_close(mean, rmean, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(inv, rinv, rtol=1e-4, atol=1e-5)
+    for x, s in zip(xs, streams):
+        with torch.cuda.stream(s):
+            mean, inv = kin.instance_norm_stats(x[:1])
+        torch.cuda.synchronize(dev)
+        rmean, rinv = kin.stats_plain(x[:1])
+        torch.testing.assert_close(mean, rmean, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(inv, rinv, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_in_stats_misaligned_view_takes_scalar_entry(dev, dtype):
+    """A contiguous view that starts one value past a 16-byte boundary,
+    and C = 300 in bf16 (no multiple of 8), take the scalar entry, with the
+    same one-launch finish."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    shape = (2, 30, 41, 64)
+    flat = (torch.randn(1 + 2 * 30 * 41 * 64, generator=g, device=dev) * 3 + 1).to(dtype)
+    for x in (flat[1:].view(shape),
+              (torch.randn((2, 9, 11, 300), generator=g, device=dev) * 3 + 1).bfloat16()):
+        assert x.is_contiguous() and kin.design(x) == "scalar"
+        mean, inv, entry = _stats_entry(x)
+        assert entry == "scalar"
+        rmean, rinv = kin.stats_plain(x)
+        torch.testing.assert_close(mean, rmean, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(inv, rinv, rtol=1e-4, atol=1e-5)
+        mean2, inv2 = kin.instance_norm_stats(x)
+        assert torch.equal(mean, mean2) and torch.equal(inv, inv2)
+
+
+def test_raft_forward_profile_has_one_stats_kernel_a_norm(dev):
+    """A bf16 FF-RAFT forward: 30 C1 launches (the fnet's 15 instance norms
+    on each frame), each one kernel on the card, and no finishing kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from focusflow_official_tpu_torch.models import FFRaftConfig
+    from focusflow_official_tpu_torch.predict import FlowPredictor
+
+    fixture = os.path.join(os.path.dirname(__file__), "fixtures", "trained_smoke.npz")
+    cfg = FFRaftConfig(fusion="parallel", fusion_type="1x1conv", fuse_cnet=True, iters=2)
+    p = FlowPredictor(cfg, fixture, device=dev, dtype=torch.bfloat16)
+    rng = np.random.RandomState(3)
+    i1 = (rng.rand(96, 128, 3) * 255).astype(np.float32)
+    i2 = np.roll(i1, 2, 1)
+    p(i1, i2)  # warm-up
+    n = launch_counts["in_stats"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        p(i1, i2)
+        torch.cuda.synchronize()
+    assert launch_counts["in_stats"] == n + 30
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("in_stats<" in name for name in names) == 30
+    assert not any("stats_finish" in name or "stats_partial" in name for name in names)
+
+
 # bf16: both sides take f32 scores and sums from the same bf16 inputs and
 # round once to bf16 at the end: one bf16 ulp of outputs of size ~1. This
 # holds for F and for E's FMA entries. E's tensor-core entry also rounds
@@ -384,22 +509,80 @@ def test_attention_kernel_scale_sign(dev, scale):
     assert bool(((got.float() - want.float()).abs() <= bound).all())
 
 
+def _check_window(q, k, v, heads, scale):
+    """F against its plain version: the tensor-core entry (bf16, head
+    widths 16 and 32) at every output within `kw.bf16_bound`, the FMA
+    entry (f32, or head width 8) within `_ATTN_TOL`. One launch, counted
+    under the entry that `design` names. Returns the output."""
+    d = q.shape[-1] // heads
+    mma = q.dtype == torch.bfloat16 and d in (16, 32)
+    assert kw.design(q, heads) == ("mma" if mma else "fma")
+    before = dict(launch_shapes)
+    n = launch_counts["window_attention"]
+    got = kw.window_attention(q, k, v, 7, heads, scale)
+    assert launch_counts["window_attention"] == n + 1
+    (key,) = [key for key, c in launch_shapes.items() if c != before.get(key, 0)]
+    assert key[-1] == ("mma" if mma else "fma")
+    assert got.shape == q.shape and got.dtype == q.dtype
+    want = kw.window_attention_plain(q, k, v, 7, heads, scale)
+    if mma:
+        bound = kw.bf16_bound(want, q, k, v, heads, scale)
+        assert bool(((got.float() - want.float()).abs() <= bound).all())
+    else:
+        torch.testing.assert_close(got.float(), want.float(), **_ATTN_TOL[q.dtype])
+    return got
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,hp,wp,c,heads", [
     (2, 14, 259, 128, 4),  # odd width, 37 windows a row (Twins stage 1)
     (8, 14, 133, 128, 8),  # the vertical local layer's widths
     (1, 7, 7, 32, 2),      # a single window
+    (1, 14, 133, 256, 8),  # Twins stage 2's widths: two groups of 4 heads a window
+    (2, 14, 133, 256, 8),
+    (1, 7, 7, 128, 8),     # a single window at head width 16, 4 heads a block
+    (1, 7, 14, 96, 3),     # 3 heads of 32: one head a block (2 do not divide 3)
+    (1, 7, 14, 64, 8),     # head width 8: the FMA entry in both types
 ])
 def test_window_attention_kernel(dev, dtype, b, hp, wp, c, heads):
     g = torch.Generator(device=dev).manual_seed(6)
     q, k, v = (torch.randn((b, hp, wp, c), generator=g, device=dev).to(dtype)
                for _ in range(3))
-    scale = (c // heads) ** -0.5
-    before = launch_counts["window_attention"]
-    got = kw.window_attention(q, k, v, 7, heads, scale)
-    assert launch_counts["window_attention"] == before + 1
-    want = kw.window_attention_plain(q, k, v, 7, heads, scale)
-    torch.testing.assert_close(got.float(), want.float(), **_ATTN_TOL[dtype])
+    _check_window(q, k, v, heads, (c // heads) ** -0.5)
+
+
+@pytest.mark.parametrize("scale", [-0.3, 0.0, 4.0])
+def test_window_attention_kernel_scale(dev, scale):
+    """The tensor-core entry folds |scale| into the exponent: a negative
+    scale moves into q's sign, a zero one gives the window's mean of v, a
+    large one a near one-hot softmax."""
+    g = torch.Generator(device=dev).manual_seed(18)
+    q, k, v = (torch.randn((2, 7, 21, 64), generator=g, device=dev).bfloat16()
+               for _ in range(3))
+    _check_window(q, k, v, 2, scale)
+
+
+@pytest.mark.parametrize("b,hp,wp,c,heads", [
+    (1, 14, 133, 256, 8),   # Twins stage 2: 2 heads (64 columns) a block
+    (2, 14, 259, 128, 4),   # Twins stage 1: the same
+    (2, 14, 133, 128, 8),   # the vertical local layer: 4 heads of width 16
+    (1, 7, 14, 96, 3),      # 3 heads of 32: one head a block
+])
+def test_window_mma_head_groups(dev, b, hp, wp, c, heads):
+    """A block takes a group of heads (one warp a head), as many as fit 64
+    columns and divide H. Each head's output has the bits of that head run
+    alone (a launch of one head, one head a block): a head's arithmetic
+    does not depend on its group."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    q, k, v = (torch.randn((b, hp, wp, c), generator=g, device=dev).bfloat16()
+               for _ in range(3))
+    d = c // heads
+    scale = d ** -0.5
+    got = _check_window(q, k, v, heads, scale)
+    for h in range(heads):
+        one = [t[..., h * d:(h + 1) * d].contiguous() for t in (q, k, v)]
+        alone = kw.window_attention(*one, 7, 1, scale)
+        assert torch.equal(got[..., h * d:(h + 1) * d], alone), h
 
 
 def test_wrappers_reject_strided_input(dev):
@@ -463,6 +646,42 @@ def test_predictor_on_card_matches_cpu(dev):
     on_card = FlowPredictor(cfg, fixture, device=dev)(i1, i2, m1, m2)
     assert all(launch_counts[k] > before[k] for k in raft_kernels)
     on_cpu = FlowPredictor(cfg, fixture, device="cpu")(i1, i2, m1, m2)
+    assert float(np.abs(on_card - on_cpu).max()) <= 1e-2
+
+
+@pytest.mark.parametrize("matmul", ["medium", "highest"])
+def test_f32_predictor_under_default_tf32_matches_cpu(dev, matmul):
+    """An f32 predictor on the card with cuDNN's TF32 flag on (PyTorch's
+    default; the fixture `dev` turns it off) and the caller's matmul
+    precision runs full f32 inside (each backend's `fp32_precision`
+    "ieee") and leaves both as they were: it tracks the f32 CPU run within
+    the bound of `test_predictor_on_card_matches_cpu`."""
+    from focusflow_official_tpu_torch.models import FFRaftConfig
+    from focusflow_official_tpu_torch.predict import FlowPredictor
+
+    fixture = os.path.join(os.path.dirname(__file__), "fixtures",
+                           "trained_smoke.npz")
+    rng = np.random.RandomState(0)
+    i1 = (rng.rand(96, 128, 3) * 255).astype(np.float32)
+    i2 = np.roll(np.roll(i1, -2, 0), 3, 1)
+    cfg = FFRaftConfig(fuse_cnet=True)
+    on_cpu = FlowPredictor(cfg, fixture, device="cpu", dtype=torch.float32)(i1, i2)
+    saved = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision(matmul)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        p = FlowPredictor(cfg, fixture, device=dev, dtype=torch.float32)
+        inside = []
+        p.model.register_forward_hook(lambda *_: inside.append(
+            (torch.backends.cuda.matmul.fp32_precision,
+             torch.backends.cudnn.conv.fp32_precision)))
+        on_card = p(i1, i2)
+        assert inside == [("ieee", "ieee")]
+        assert torch.backends.cudnn.allow_tf32
+        assert torch.get_float32_matmul_precision() == matmul
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
     assert float(np.abs(on_card - on_cpu).max()) <= 1e-2
 
 
