@@ -29,20 +29,26 @@ Phases (any failure raises and exits non-zero; no result is printed):
    local layer), then D (local
    correlation) at FF-PWCNet's five decoder levels in bf16 and at one of
    them in f32. E's, F's and B's rows say which entry of the kernel ran
-   (`design`: `mma` on the tensor cores, `fma` on the f32 units): every
-   bf16 path shape of B and F and every tiled one of E must say `mma`,
-   and the tensor-core entries of E and F are held at every output to
-   their `bf16_bound`; F is timed once more with the other head grouping
-   of a block. C1's rows name their entry (`vector`: 16-byte loads) and
-   time the whole one-launch call.
+   (`design`: `mma` on the tensor cores, `fma` on the f32 units, and for
+   E `staged` and `tiled`): every bf16 path shape of B and F and every
+   N >= 64 one of E must say `mma`, E's N < 64 shapes `staged` (with its
+   launch plan), and the tensor-core entries of E and F are held at every
+   output to their `bf16_bound`. C1's and C2's rows name their entry
+   (`vector`: 16-byte accesses); C1's time the whole one-launch call. C2
+   runs in its plain form and in its residual form (relu(r + y), the
+   ResidualBlock's shortcut) at each shape, each bit-equal to its plain
+   version, the residual form also to the plain-form kernel then
+   PyTorch's add and ReLU; its yardstick there is three calls
+   (F.instance_norm, add, ReLU).
 3. FF-RAFT end to end through `FlowPredictor`: a 1024x436 frame pair and
    keypoint masks, B=1, 12 iterations, bf16, the trained fixture weights.
    The flow must be finite, recover the known constant shift (interior
    EPE < 6 px) and track the port's f32 run on the CPU on the same inputs
    (mean |diff| < 0.05 max(mean |flow|, 1), median < 0.1 px). Every
    kernel's launch count over one forward must match the path (the fused
-   lookup + convc1 12, instance-norm stats 30, normalize 30, A and B 0),
-   and the profiled forward must show 30 kernels of C1 and no other.
+   lookup + convc1 12, instance-norm stats 30, normalize 30 of which 12
+   in the residual form, A and B 0), and the profiled forward must show
+   30 kernels of C1 and 30 of C2.
    Prints ms per frame pair. The profile lists each port kernel's launches
    and mean time inside the forward; the fused kernel's goes into its
    table entry as `in_forward` (the kernel phase repeats one call's inputs
@@ -491,11 +497,13 @@ def kernel_phase(torch, dev):
     _emit(results[-1])
     del levels, got, a
 
-    # ---- C1, C2: instance norm at the fnet's three shapes (both frames)
+    # ---- C1, C2: instance norm at the fnet's three shapes (both frames); C2
+    # in its plain form and in its residual form (ResidualBlock's shortcut)
     shapes = [(2, 220, 512, 64), (2, 110, 256, 96), (2, 55, 128, 128)]
     per_shape = {"in_stats": [], "in_normalize": []}
     for shp in shapes:
         x = (torch.randn(shp, generator=g, device=dev) * 3 + 1).to(bf16)
+        res = torch.randn(shp, generator=g, device=dev).to(bf16)
         (mean, inv), key1 = _launch_key(lambda: kin.instance_norm_stats(x))
         if key1[-1] != "vector":
             raise AssertionError(f"in_stats {shp}: ran the {key1[-1]} entry, not vector")
@@ -505,33 +513,56 @@ def kernel_phase(torch, dev):
         # f32 sums of up to 1e5 values in another order
         tol1 = 1e-4 * (1.0 + max(float(rmean.abs().max()), float(rinv.abs().max())))
         _check(f"in_stats {shp}", err1, tol1)
-        y, key2 = _launch_key(lambda: kin.instance_norm_apply(x, mean, inv, True))
-        ry = kin.apply_plain(x, mean, inv, True)
-        torch.cuda.synchronize()
-        err2 = float((y.float() - ry.float()).abs().max())
-        # the kernel rounds where PyTorch's bf16 ops round: expected equal,
-        # one bf16 ulp allowed
-        tol2 = 2.0 ** -7 * max(1.0, float(ry.float().abs().max()))
-        _check(f"in_normalize {shp}", err2, tol2)
-        xs = x.numel() * 2
         t1 = _time_ms(torch, lambda: kin.instance_norm_stats(x))
         t1p = _time_ms(torch, lambda: kin.stats_plain(x))
-        t2 = _time_ms(torch, lambda: kin.instance_norm_apply(x, mean, inv, True))
-        t2p = _time_ms(torch, lambda: kin.apply_plain(x, mean, inv, True))
-        xn = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC tensor
-        tl = _time_ms(torch, lambda: F.instance_norm(xn))
         tv = _time_ms(torch, lambda: torch.var_mean(x, dim=(1, 2), correction=0))
+        xs = x.numel() * 2
         b1, by1 = _bound_ms(xs + 2 * shp[0] * shp[3] * 4, 3.0 * x.numel(), PEAK_F32)
-        b2, by2 = _bound_ms(2 * xs + 2 * shp[0] * shp[3] * 4, 3.0 * x.numel(), PEAK_F32)
         # the launch's key ends with the split and the entry that ran
         per_shape["in_stats"].append(dict(
             shape=list(shp), key=key1, design=key1[-1], splits=key1[-2],
             max_abs_err=err1, tol=tol1, ms=t1, plain_ms=t1p,
             bound_ms=b1, bound_by=by1, library_ms=tv))
-        per_shape["in_normalize"].append(dict(
-            shape=list(shp), key=key2, max_abs_err=err2, tol=tol2, ms=t2, plain_ms=t2p,
-            bound_ms=b2, bound_by=by2, library_ms=tl))
-        del x, y, ry
+        xn, rn = x.permute(0, 3, 1, 2), res.permute(0, 3, 1, 2)  # NCHW views
+        plain_y = None
+        for r in (None, res):
+            form = "plain" if r is None else "residual"
+            y, key2 = _launch_key(lambda: kin.instance_norm_apply(x, mean, inv, True, r))
+            if key2[-2:] != ("vector", form):  # the key ends with the entry and the form
+                raise AssertionError(f"in_normalize {shp}: ran {key2[-2:]}, not vector {form}")
+            ry = kin.apply_plain(x, mean, inv, True, r)
+            torch.cuda.synchronize()
+            err2 = float((y.float() - ry.float()).abs().max())
+            # the kernel rounds where PyTorch's bf16 ops round: bit-equal
+            if not torch.equal(y, ry):
+                raise AssertionError(f"in_normalize {shp} {form}: not bit-equal ({err2})")
+            row = dict(shape=list(shp), form=form, key=key2, design=key2[-2],
+                       max_abs_err=err2, tol=0.0)
+            if r is None:
+                plain_y = y
+                lib = lambda: F.instance_norm(xn)
+                row["library"] = "F.instance_norm (stats and normalize, no ReLU)"
+            else:
+                # one launch against the plain-form kernel, then PyTorch's add and ReLU
+                two = torch.relu(res + plain_y)
+                if not torch.equal(y, two):
+                    raise AssertionError(f"in_normalize {shp}: the residual form is not the "
+                                         "plain-form kernel then add and ReLU")
+                row["vs_plain_kernel_add_relu"] = "bit-equal"
+                row["plain_kernel_add_relu_ms"] = _time_ms(torch, lambda: torch.relu(
+                    res + kin.instance_norm_apply(x, mean, inv, True)))
+                lib = lambda: torch.relu(rn + F.instance_norm(xn))
+                row["library"] = "three calls: F.instance_norm, add, ReLU"
+            row["ms"] = _time_ms(torch, lambda: kin.instance_norm_apply(x, mean, inv, True, r))
+            row["plain_ms"] = _time_ms(torch, lambda: kin.apply_plain(x, mean, inv, True, r))
+            row["library_ms"] = _time_ms(torch, lib)
+            tensors = 2 if r is None else 3  # x (and r) read, y written
+            row["bound_ms"], row["bound_by"] = _bound_ms(
+                tensors * xs + 2 * shp[0] * shp[3] * 4, (3.0 if r is None else 5.0) * x.numel(),
+                PEAK_F32)
+            per_shape["in_normalize"].append(row)
+            del y, ry
+        del x, res, plain_y, xn, rn
     src = "focusflow_official_tpu_torch/kernels/csrc/instance_norm.cu"
     for name, replaces, lib in (
             ("in_stats", "focusflow_official_tpu/kernels/instance_norm.py:51",
@@ -540,16 +571,15 @@ def kernel_phase(torch, dev):
             ("in_normalize", "focusflow_official_tpu/kernels/instance_norm.py:66",
              "F.instance_norm (stats and normalize, no ReLU)")):
         rows = per_shape[name]
-        top = rows[0]  # the largest shape stands for the kernel
+        top = rows[0]  # the largest shape (plain form) stands for the kernel
         results.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             max_abs_err=max(r_["max_abs_err"] for r_ in rows),
             tol=min(r_["tol"] for r_ in rows),
             ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], library_ms=top["library_ms"],
-            library=lib, shape=f"{tuple(shapes[0])} bf16", per_shape=rows))
-        if "design" in top:
-            results[-1]["design"] = top["design"]
+            library=lib, shape=f"{tuple(shapes[0])} bf16", design=top["design"],
+            per_shape=rows))
         _emit(results[-1])
     return results
 
@@ -559,7 +589,8 @@ def _attention_row(torch, g, dev, b, n, m, c, heads, label, design: str,
     """Kernel E on random q (B, N, C), k, v (B, M, C) (bf16 unless `dtype`)
     against its plain version, timed beside F.scaled_dot_product_attention
     on (B, heads, N, d) views of the same tensors. `design` is the entry
-    these inputs must run: `mma` (tensor cores) or `fma`."""
+    these inputs must run: `mma` (tensor cores), `staged` (N < 64: each
+    entry's keys staged once) or `tiled` (f32 FMA)."""
     import torch.nn.functional as F
 
     from focusflow_official_tpu_torch.kernels import attention as ka
@@ -571,9 +602,10 @@ def _attention_row(torch, g, dev, b, n, m, c, heads, label, design: str,
     d = c // heads
     scale = d ** -0.5
     ran = ka.design(q, k, v, heads)
-    if ran != design:
-        raise AssertionError(f"{label}: ran the {ran} entry, not {design}")
     got, key = _launch_key(lambda: ka.small_kv_attention(q, k, v, heads, scale))
+    if ran != design or key[-1] != design:  # the launch's key ends with the entry
+        raise AssertionError(f"{label}: ran the {ran} entry, not {design}")
+    plan = ka.staged_launch(q, k, v, heads) if ran == "staged" else None
     want = ka.small_kv_attention_plain(q, k, v, heads, scale)
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
@@ -610,7 +642,7 @@ def _attention_row(torch, g, dev, b, n, m, c, heads, label, design: str,
     scores = float(b) * heads * n * m
     return dict(shape=f"q ({b}, {n}, {c}) x kv ({b}, {m}, {c}), {heads} heads, "
                       f"{str(dtype).split('.')[1]}", label=label, key=key,
-                design=ran, largest_err_over_its_bound=over, max_abs_err=err,
+                design=ran, plan=plan, largest_err_over_its_bound=over, max_abs_err=err,
                 tol=tol, ms=ms, plain_ms=plain_ms,
                 **_attention_bound(torch, nbytes, scores * 2 * 2 * d, scores,
                                    PEAK_F32 if dtype == torch.float32 else PEAK_BF16),
@@ -728,12 +760,12 @@ def ff_kernel_phase(torch, dev) -> dict:
             (2, 7040, 448, 256, 8, "attention twins stage 2", "mma"),
             (1, 7040, 448, 256, 8, "attention twins stage 2, context", "mma"),
             (8, 7168, 448, 128, 8, "attention vertical global", "mma"),
-            (q, 8, 112, 128, 8, "attention input layer", "fma"),
-            (q, 8, 8, 128, 8, "attention latent self", "fma"),
-            (q, 1, 8, 64, 8, "attention decoder", "fma")):
+            (q, 8, 112, 128, 8, "attention input layer", "staged"),
+            (q, 8, 8, 128, 8, "attention latent self", "staged"),
+            (q, 1, 8, 64, 8, "attention decoder", "staged")):
         add("attention", _attention_row(torch, g, dev, b, n, m, c, heads, label, design))
     add("attention", _attention_row(torch, g, dev, 1, 7040, 448, 256, 8,
-                                    "attention twins stage 2, context, f32", "fma",
+                                    "attention twins stage 2, context, f32", "tiled",
                                     torch.float32))
 
     # F: the Twins LSAs at both stages and batch sizes, the vertical local layer
@@ -760,7 +792,8 @@ def _shift_inputs(h: int, w: int, seed: int = 0):
 
 _PORT_KERNELS = ("lookup_kernel", "fold_kernel", "fold_mma", "lookup_fold_mma", "lookup_fold_fma",
                  "in_stats<", "normalize<", "local_corr_kernel",
-                 "attn_mma", "attn_tiled", "attn_direct", "window_mma", "window_attn")
+                 "attn_mma", "attn_tiled", "attn_staged", "attn_direct", "window_mma",
+                 "window_attn")
 
 
 def _category(name: str) -> str:
@@ -913,10 +946,19 @@ def end_to_end_phase(torch, card: str):
     want = {"lookup_fold": ITERS, "in_stats": 30, "in_normalize": 30}
     flow, counts, ms, times, breakdown = _drive(torch, p, inputs, want,
                                                 "chip_smoke_profile")
-    # C1 is one launch a call: 30 in the profiled forward, no second kernel
-    stats = [r_ for r_ in breakdown["port_kernels"] if r_[0] == "in_stats<"]
-    if [r_[1] for r_ in stats] != [30]:
-        raise AssertionError(f"profiled forward: in_stats launches {stats} != 30")
+    # C1 and C2 are one kernel a call: 30 each in the profiled forward
+    for name in ("in_stats<", "normalize<"):
+        got = [r_[1] for r_ in breakdown["port_kernels"] if r_[0] == name]
+        if got != [30]:
+            raise AssertionError(f"profiled forward: {name} launches {got} != [30]")
+    # the 12 ResidualBlocks of the fnet (image and mask branch, both frames
+    # batched) take their shortcut add and ReLU in C2's residual form
+    forms = {}
+    for key, n in counts[1].items():
+        if key[0] == "in_normalize":
+            forms[key[-1]] = forms.get(key[-1], 0) + n
+    if forms != {"plain": 18, "residual": 12}:
+        raise AssertionError(f"in_normalize forms {forms} != 18 plain, 12 residual")
     cpu = _cpu_flow(cfg, FIXTURE, inputs)
     gates = _gates(flow, shift, cpu)
     _emit(dict(phase="end_to_end", model="ff_raft", card=card, shape=[1, H, W],

@@ -9,11 +9,16 @@ non-window softmax attention of the FlowFormer path goes through here:
 Twins GSA, the vertical global layer, the perceiver's input and latent
 self-attention, and the decoder's cross-attend.
 
-On bf16 tensors with head widths 16 or 32 and N >= 64 the kernel runs on
-the tensor cores and rounds the softmax weights to bf16 before the value
-sum (the row sum is of the unrounded weights): against the plain version
-that is up to 2^-8 relative on each weight (`bf16_bound` is the bound
-that follows for the output). Elsewhere the weights stay f32.
+`design` names the entry a CUDA call runs. N < 64 (the perceiver and the
+decoder: thousands of tiny attentions) runs "staged": a block copies each
+batch entry's key and value rows into shared memory once, for all its
+queries and heads, as `staged_plan` lays the launch out. On bf16 tensors
+with head widths 16 or 32 and N >= 64 the kernel runs on the tensor cores
+("mma") and rounds the softmax weights to bf16 before the value sum (the
+row sum is of the unrounded weights): against the plain version that is
+up to 2^-8 relative on each weight (`bf16_bound` is the bound that follows
+for the output). Elsewhere ("staged", "tiled", "direct") the weights stay
+f32.
 """
 
 from __future__ import annotations
@@ -28,27 +33,104 @@ from . import _build, count_launch
 _c = ctypes.c_void_p
 _i = ctypes.c_int
 HEAD_DIMS = (8, 16, 32)  # head widths the kernel is built for
+ENTRIES = ("direct", "tiled", "mma", "staged")  # by the library's entry number
+
+# the staged entry, as `csrc/attention.cu` is built
+STAGED_THREADS = 256  # a block
+STAGED_STAGES = 2  # chunks in the ring
+STAGED_KEYS = 32  # the most keys a chunk
+STAGED_SMEM = 72 * 1024  # what a block's stages aim at (the registers allow two an SM)
+
+
+@functools.cache
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.cache
 def _lib():
     lib = _build.load("attention")
     lib.ff_attention.argtypes = [_c, _c, _c, _c] + [_i] * 6 + [
-        ctypes.c_float, _i, _c]
+        ctypes.c_float] + [_i] * 6 + [_c]
     lib.ff_attention.restype = _i
     lib.ff_attention_entry.argtypes = [_i] * 6
     lib.ff_attention_entry.restype = _i
+    lib.ff_attention_staged_blocks.argtypes = [_i] * 7
+    lib.ff_attention_staged_blocks.restype = _i
     return lib
 
 
 def design(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> str:
     """Which entry of the kernel a call on these CUDA tensors runs, as the
-    library itself decides it: "mma" (tensor cores: bf16, head widths 16 or
-    32, N >= 64) or "fma" (the per-query f32 loop)."""
+    library itself decides it: "staged" (N < 64), "mma" (tensor cores:
+    bf16, head widths 16 or 32, N >= 64), "tiled" (one head's keys staged,
+    f32 FMA) or "direct" (N >= 64 beyond what the tiled entries launch)."""
     (b, n, c), m, cv = q.shape, k.shape[1], v.shape[2]
-    entry = _lib().ff_attention_entry(b, n, m, c // heads, cv // heads,
-                                      int(q.dtype == torch.bfloat16))
-    return "mma" if entry == 2 else "fma"
+    return ENTRIES[_lib().ff_attention_entry(b, n, m, c // heads, cv // heads,
+                                             int(q.dtype == torch.bfloat16))]
+
+
+def padded(pieces: int) -> int:
+    """16-byte pieces a staged row of `pieces` takes: one more after every 8."""
+    return pieces + (pieces + 7) // 8
+
+
+def staged_plan(b: int, n: int, m: int, heads: int, d: int, dv: int,
+                itemsize: int) -> dict:
+    """The staged entry's launch for q (b, n, heads*d), k (b, m, heads*d)
+    and v (b, m, heads*dv) of `itemsize`-byte values, but for its grid
+    (`staged_grid`).
+
+    A thread takes `queries_a_thread` queries (2 where n > 1: each key and
+    value row it loads serves both) of one head. A unit is one batch
+    entry's group of `heads_a_group` heads (the largest divisor of `heads`
+    whose ceil(n / queries_a_thread) x group threads fit a block); a round
+    is `units` units; a chunk is up to `keys_a_chunk` keys of a round's
+    units (a multiple of 8, the softmax loop's step, from 8 up; fewer where
+    the two stages would pass STAGED_SMEM), so a round takes `chunks`
+    steps; `smem` bytes a block."""
+    qp = 1 if n == 1 else 2
+    groups = -(-n // qp)
+    hg = max(g for g in range(1, heads + 1)
+             if heads % g == 0 and groups * g <= STAGED_THREADS)
+    units = STAGED_THREADS // (groups * hg)
+    per_piece = 16 // itemsize
+    row = 16 * (padded(hg * d // per_piece) + padded(hg * dv // per_piece))
+    kc = max(1, min(m, STAGED_KEYS, STAGED_SMEM // (STAGED_STAGES * units * row)))
+    if kc >= 8:
+        kc -= kc % 8
+    return dict(queries_a_thread=qp, heads_a_group=hg, units=units, keys_a_chunk=kc,
+                chunks=-(-m // kc), rounds=-(-b * (heads // hg) // units),
+                smem=STAGED_STAGES * units * kc * row)
+
+
+def staged_grid(plan: dict, sms: int, blocks_per_sm: int) -> int:
+    """The persistent grid of a staged launch: as many blocks as the card's
+    SMs hold at once, or one a round where there are fewer rounds; block x
+    takes rounds x, x + grid, ..."""
+    return max(1, min(plan["rounds"], sms * blocks_per_sm))
+
+
+def staged_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> dict:
+    """The staged launch a call on these CUDA tensors makes: `staged_plan`
+    with the grid from the blocks an SM holds (`blocks_per_sm`, the
+    library's occupancy query for the plan)."""
+    (b, n, c), m, cv = q.shape, k.shape[1], v.shape[2]
+    d, dv = c // heads, cv // heads
+    plan = staged_plan(b, n, m, heads, d, dv, q.element_size())
+    blocks = _staged_blocks(d, dv, q.dtype == torch.bfloat16, plan["heads_a_group"],
+                            plan["queries_a_thread"], plan["units"], plan["keys_a_chunk"])
+    return dict(plan, blocks_per_sm=blocks, grid=staged_grid(plan, _sms(q.device), blocks))
+
+
+@functools.cache
+def _staged_blocks(d: int, dv: int, bf16: bool, hg: int, qp: int, units: int, kc: int) -> int:
+    blocks = _lib().ff_attention_staged_blocks(d, dv, int(bf16), hg, qp, units, kc)
+    if blocks < 1:
+        raise RuntimeError(f"attn_staged: no block of its plan fits an SM (d {d}, dv "
+                           f"{dv}, {hg} heads a group, {qp} queries a thread, {units} "
+                           f"units, {kc} keys a chunk)")
+    return blocks
 
 
 def small_kv_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -122,10 +204,14 @@ def small_kv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, n, cv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    entry = design(q, k, v, heads)
+    p = (staged_launch(q, k, v, heads) if entry == "staged" else
+         dict(heads_a_group=0, queries_a_thread=0, units=0, keys_a_chunk=0, grid=0))
     err = _lib().ff_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, m,
         heads, d, dv, float(scale), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        p["heads_a_group"], p["queries_a_thread"], p["units"], p["keys_a_chunk"],
+        p["grid"], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "ff_attention")
-    count_launch("attention", b, n, m, c, cv, heads, str(q.dtype))
+    count_launch("attention", b, n, m, c, cv, heads, str(q.dtype), entry)
     return out

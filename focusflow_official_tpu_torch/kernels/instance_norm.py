@@ -4,10 +4,14 @@
 C1 `instance_norm_stats`: per (b, c) the f32 mean and
 rsqrt(max(E[x^2] - mean^2, 0) + eps) over H*W, in one launch: `plan`
 splits H*W into S slabs a sample, and the last block of a sample to finish
-adds their partial sums in index order. `design(x)` names the entry a CUDA
-tensor takes: "vector" (16-byte loads: C a multiple of 8 in bf16 or 4 in
-f32, x 16-byte aligned) or "scalar".
-C2 `instance_norm_apply`: (x - mean) * inv in x's type, optional ReLU.
+adds their partial sums in index order.
+C2 `instance_norm_apply`: (x - mean) * inv in x's type, optional ReLU;
+given a residual r of x's shape, relu(r + that) in the same launch (the
+residual form, ResidualBlock's shortcut add), bit-equal to
+`torch.relu(r + apply_plain(...))`.
+`design(x, ...)` names the entry a CUDA call takes, for C1 and C2 alike:
+"vector" (16-byte accesses: C a multiple of 8 in bf16 or 4 in f32, every
+tensor 16-byte aligned) or "scalar".
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ _c = ctypes.c_void_p
 _i = ctypes.c_int
 ROWS_PER_BLOCK = 128  # the least rows a stats block takes, where there are enough
 BLOCKS_PER_SM = 2  # what the stats aim at
+NORMALIZE_BLOCKS_PER_SM = 8  # C2's grid cap: 8 blocks of 256 threads fill an SM
 
 
 @functools.cache
@@ -31,7 +36,7 @@ def _lib():
     lib.ff_in_stats.argtypes = [_c, _c, _c, _c, _c, _i, _i, _i, _i,
                                 ctypes.c_float, _i, _i, _c]
     lib.ff_in_stats.restype = _i
-    lib.ff_in_normalize.argtypes = [_c, _c, _c, _c, _i, _i, _i, _i, _i, _i, _c]
+    lib.ff_in_normalize.argtypes = [_c, _c, _c, _c, _c, _i, _i, _i, _i, _i, _i, _i, _c]
     lib.ff_in_normalize.restype = _i
     return lib
 
@@ -64,15 +69,17 @@ def plan(hw: int, b: int, sms: int) -> int:
 
 
 def vector_width(dtype: torch.dtype) -> int:
-    """Values in one 16-byte load of the stats' vector entry."""
+    """Values in one 16-byte access of the vector entries."""
     return 16 // (2 if dtype == torch.bfloat16 else 4)
 
 
-def design(x: torch.Tensor) -> str:
-    """The stats entry that NHWC `x` takes on the card: "vector" where C is
-    a multiple of `vector_width` and x starts on a 16-byte boundary, else
+def design(*tensors: torch.Tensor) -> str:
+    """The entry that NHWC tensors of one type take on the card (C1: x;
+    C2: x and its residual, if any): "vector" where C is a multiple of
+    `vector_width` and every tensor starts on a 16-byte boundary, else
     "scalar"."""
-    ok = x.shape[-1] % vector_width(x.dtype) == 0 and x.data_ptr() % 16 == 0
+    ok = all(t.shape[-1] % vector_width(t.dtype) == 0 and t.data_ptr() % 16 == 0
+             for t in tensors)
     return "vector" if ok else "scalar"
 
 
@@ -85,11 +92,14 @@ def stats_plain(x: torch.Tensor, eps: float = 1e-5):
 
 
 def apply_plain(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
-                relu: bool) -> torch.Tensor:
-    """Plain PyTorch C2: (x - mean) * inv in x's type."""
+                relu: bool, residual: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch C2: (x - mean) * inv in x's type, ReLU'd if `relu`;
+    with `residual`, torch.relu(residual + that)."""
     d = x.dtype
     y = (x - mean[:, None, None, :].to(d)) * inv[:, None, None, :].to(d)
-    return torch.relu(y) if relu else y
+    if relu:
+        y = torch.relu(y)
+    return y if residual is None else torch.relu(residual + y)
 
 
 def _check_x(x: torch.Tensor, what: str) -> None:
@@ -125,10 +135,12 @@ def instance_norm_stats(x: torch.Tensor, eps: float = 1e-5):
 
 
 def instance_norm_apply(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
-                        relu: bool = False) -> torch.Tensor:
-    """NHWC x and (B, C) f32 stats -> (x - mean) * inv [ReLU'd], x's type."""
+                        relu: bool = False,
+                        residual: torch.Tensor | None = None) -> torch.Tensor:
+    """NHWC x and (B, C) f32 stats -> (x - mean) * inv [ReLU'd], x's type;
+    with an NHWC `residual` of x's shape and type, relu(residual + that)."""
     if x.device.type == "cpu":
-        return apply_plain(x, mean, inv, relu)
+        return apply_plain(x, mean, inv, relu, residual)
     if x.device.type != "cuda":
         raise ValueError(f"instance_norm_apply: unsupported device {x.device}")
     _check_x(x, "instance_norm_apply")
@@ -138,18 +150,31 @@ def instance_norm_apply(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
                 or tuple(t.shape) != (b, c) or not t.is_contiguous()):
             raise ValueError("instance_norm_apply: stats must be contiguous "
                              f"(B, C) f32 on {x.device}")
+    if residual is not None and (
+            residual.device != x.device or residual.dtype != x.dtype
+            or residual.shape != x.shape or not residual.is_contiguous()):
+        raise ValueError(
+            "instance_norm_apply: the residual must be a contiguous NHWC "
+            f"{tuple(x.shape)} {x.dtype} tensor on {x.device} (the NHWC view of "
+            f"a channels_last tensor), got {tuple(residual.shape)} "
+            f"{residual.dtype} on {residual.device}, strides {residual.stride()}")
     y = torch.empty_like(x)
-    err = _lib().ff_in_normalize(x.data_ptr(), mean.data_ptr(), inv.data_ptr(),
-                                 y.data_ptr(), b, h * w, c, int(relu),
-                                 int(x.dtype == torch.bfloat16), 16 * _sms(x.device),
-                                 torch.cuda.current_stream(x.device).cuda_stream)
+    entry = design(x) if residual is None else design(x, residual)
+    err = _lib().ff_in_normalize(
+        x.data_ptr(), mean.data_ptr(), inv.data_ptr(),
+        0 if residual is None else residual.data_ptr(), y.data_ptr(), b, h * w, c,
+        int(relu), int(x.dtype == torch.bfloat16), int(entry == "vector"),
+        NORMALIZE_BLOCKS_PER_SM * _sms(x.device),
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ff_in_normalize")
-    count_launch("in_normalize", b, h, w, c, str(x.dtype))
+    count_launch("in_normalize", b, h, w, c, str(x.dtype), entry,
+                 "plain" if residual is None else "residual")
     return y
 
 
-def instance_norm(x: torch.Tensor, eps: float = 1e-5,
-                  relu: bool = False) -> torch.Tensor:
-    """Instance norm of NHWC x: C1, then C2."""
+def instance_norm(x: torch.Tensor, eps: float = 1e-5, relu: bool = False,
+                  residual: torch.Tensor | None = None) -> torch.Tensor:
+    """Instance norm of NHWC x: C1, then C2 (with `residual`: its residual
+    form)."""
     mean, inv = instance_norm_stats(x, eps)
-    return instance_norm_apply(x, mean, inv, relu)
+    return instance_norm_apply(x, mean, inv, relu, residual)

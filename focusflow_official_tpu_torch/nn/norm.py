@@ -11,6 +11,10 @@ instance-norm kernels read without a copy.
 - 'none'     : identity
 
 Statistics are taken in f32; the normalisation itself runs in x's type.
+Given a residual (ResidualBlock's shortcut), `forward` returns
+relu(residual + norm(x)): for 'instance' that is C2's residual form, one
+launch, which takes the residual `channels_last` on the card, as it takes
+x; the other kinds add and ReLU in PyTorch.
 """
 
 from __future__ import annotations
@@ -35,11 +39,17 @@ class Norm(nn.Module):
             self.register_buffer("running_mean", torch.zeros(features))
             self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
-        kind, d = self.kind, x.dtype
-        if kind == "instance":
-            y = instance_norm(x.permute(0, 2, 3, 1).contiguous(), self.eps, relu)
+    def forward(self, x: torch.Tensor, relu: bool = False,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+        if self.kind == "instance":
+            r = None if residual is None else residual.permute(0, 2, 3, 1)
+            y = instance_norm(x.permute(0, 2, 3, 1).contiguous(), self.eps, relu, r)
             return y.permute(0, 3, 1, 2)
+        y = self._norm(x, relu)
+        return y if residual is None else torch.relu(residual + y)
+
+    def _norm(self, x: torch.Tensor, relu: bool) -> torch.Tensor:
+        kind, d = self.kind, x.dtype
         if kind == "none":
             return torch.relu(x) if relu else x
         col = lambda t: t.to(d)[None, :, None, None]

@@ -443,6 +443,152 @@ def test_raft_forward_profile_has_one_stats_kernel_a_norm(dev):
     assert not any("stats_finish" in name or "stats_partial" in name for name in names)
 
 
+def _normalize(x, mean, inv, relu, residual=None):
+    """C2 on x -> (y, the key its launch was counted under: ..., entry, form)."""
+    before = dict(launch_shapes)
+    y = kin.instance_norm_apply(x, mean, inv, relu, residual)
+    (key,) = [key for key, c in launch_shapes.items() if c != before.get(key, 0)]
+    return y, key
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("b", [1, 2, 3])
+@pytest.mark.parametrize("case", ["vector", "misaligned x", "misaligned r", "odd C"])
+def test_in_normalize_both_forms_each_entry(dev, dtype, relu, b, case):
+    """C2's plain and residual forms on each entry: `vector` (C = 96: 12
+    threads a row, 252 a block), `scalar` for a view one value past a
+    16-byte boundary (of x or of the residual alone) and for C = 50 (no
+    multiple of 8 or 4). Both bit-equal to the plain version, and the
+    residual form to the plain-form kernel then PyTorch's add and ReLU."""
+    g = torch.Generator(device=dev).manual_seed(30 + b)
+    c = 50 if case == "odd C" else 96
+    shape = (b, 13, 17, c)
+    n = math.prod(shape)
+
+    def make(scale, shift, misaligned):
+        flat = (torch.randn(n + 1, generator=g, device=dev) * scale + shift).to(dtype)
+        return (flat[1:] if misaligned else flat[:n]).view(shape)
+
+    x = make(3, 1, case == "misaligned x")
+    r = make(1, 0, case == "misaligned r")
+    assert x.is_contiguous() and r.is_contiguous()
+    entry = "vector" if case == "vector" else "scalar"
+    assert kin.design(x, r) == entry
+    mean, inv = kin.instance_norm_stats(x)
+    y, key = _normalize(x, mean, inv, relu)
+    assert key[-2:] == (kin.design(x), "plain")
+    torch.testing.assert_close(y, kin.apply_plain(x, mean, inv, relu), rtol=0, atol=0)
+    yr, key = _normalize(x, mean, inv, relu, r)
+    assert key[-2:] == (entry, "residual")
+    torch.testing.assert_close(yr, kin.apply_plain(x, mean, inv, relu, r), rtol=0, atol=0)
+    torch.testing.assert_close(yr, torch.relu(r + y), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(2, 220, 512, 64), (2, 110, 256, 96), (2, 55, 128, 128)])
+def test_in_normalize_residual_at_the_fnet_shapes(dev, shape):
+    """bf16 at the fnet's three shapes: the vector entry, both forms
+    bit-equal to the plain version."""
+    g = torch.Generator(device=dev).manual_seed(33)
+    x = (torch.randn(shape, generator=g, device=dev) * 3 + 1).bfloat16()
+    r = torch.randn(shape, generator=g, device=dev).bfloat16()
+    mean, inv = kin.instance_norm_stats(x)
+    y, key = _normalize(x, mean, inv, True, r)
+    assert key[-2:] == ("vector", "residual")
+    torch.testing.assert_close(y, kin.apply_plain(x, mean, inv, True, r), rtol=0, atol=0)
+
+
+def test_in_normalize_refuses_a_residual_it_cannot_read(dev):
+    x = torch.randn((2, 6, 7, 32), device=dev)
+    mean, inv = kin.instance_norm_stats(x)
+    for r in (x.permute(0, 2, 1, 3),  # strided
+              x.bfloat16(),  # another type
+              x[:1].contiguous(),  # another shape
+              x.cpu()):
+        with pytest.raises(ValueError):
+            kin.instance_norm_apply(x, mean, inv, True, r)
+
+
+def _raft(dev, dtype):
+    from focusflow_official_tpu_torch.models import FFRaftConfig
+    from focusflow_official_tpu_torch.predict import FlowPredictor
+
+    fixture = os.path.join(os.path.dirname(__file__), "fixtures", "trained_smoke.npz")
+    cfg = FFRaftConfig(fusion="parallel", fusion_type="1x1conv", fuse_cnet=True, iters=2)
+    return FlowPredictor(cfg, fixture, device=dev, dtype=dtype)
+
+
+def test_raft_forward_profile_fnet_takes_the_residual_in_c2(dev):
+    """A bf16 FF-RAFT forward at 96x128: 30 C2 kernels, 12 of them the
+    residual form; at the fnet's shapes (B = 2: both frames) no ReLU, no
+    copy, and no add but the fusion units' 8 (fusion1-4, each direction):
+    the 12 blocks' add and ReLU run inside C2."""
+    from torch.profiler import ProfilerActivity, profile
+
+    p = _raft(dev, torch.bfloat16)
+    rng = np.random.RandomState(4)
+    i1 = (rng.rand(96, 128, 3) * 255).astype(np.float32)
+    i2 = np.roll(i1, 2, 1)
+    p(i1, i2)  # warm-up
+    before = dict(launch_shapes)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        p(i1, i2)
+        torch.cuda.synchronize()
+    forms = {}
+    for key, n in launch_shapes.items():
+        if key[0] == "in_normalize" and n != before.get(key, 0):
+            forms[key[-1]] = forms.get(key[-1], 0) + n - before.get(key, 0)
+    assert forms == {"plain": 18, "residual": 12}
+    events = prof.events()
+    kernels = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("normalize<" in name for name in kernels) == 30
+    fnet = {(2, 64, 48, 64), (2, 96, 24, 32), (2, 128, 12, 16)}
+    ops = {}
+    for e in events:
+        shapes = e.input_shapes if e.device_type == torch.autograd.DeviceType.CPU else None
+        if shapes and tuple(shapes[0]) in fnet:
+            ops[e.name] = ops.get(e.name, 0) + 1
+    assert ops.get("aten::add", 0) == 8, ops
+    assert not [name for name in ops if any(w in name for w in ("relu", "clamp", "copy"))], ops
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fnet_output_equals_the_unfused_blocks(dev, dtype):
+    """The fnet with C2's residual form against the same fnet whose 12
+    blocks run, module by module, conv, C2's plain form, then
+    torch.relu(x + y): the same bits."""
+    import types
+
+    from focusflow_official_tpu_torch.nn.blocks import ResidualBlock
+
+    fnet = _raft(dev, dtype).model.flow_net.fnet
+    g = torch.Generator(device=dev).manual_seed(34)
+    x = (torch.rand((2, 96, 128, 3), generator=g, device=dev) * 2 - 1).to(dtype)
+    mask = torch.where(torch.rand((2, 96, 128, 3), generator=g, device=dev) > 0.97,
+                       1.0, -1.0).to(dtype)
+
+    def unfused(self, x):
+        y = self.norm1(self.conv1(x), relu=True)
+        y = self.norm2(self.conv2(y), relu=True)
+        if self.stride != 1:
+            x = self.norm3(self.downsample_conv(x))
+        return torch.relu(x + y)
+
+    blocks = [m for m in fnet.modules() if isinstance(m, ResidualBlock)]
+    assert len(blocks) == 12
+    with torch.inference_mode():
+        fused = fnet(x, mask)
+        for blk in blocks:
+            blk.forward = types.MethodType(unfused, blk)
+        try:
+            plain = fnet(x, mask)
+        finally:
+            for blk in blocks:
+                del blk.forward
+    assert torch.equal(fused, plain)
+
+
 # bf16: both sides take f32 scores and sums from the same bf16 inputs and
 # round once to bf16 at the end: one bf16 ulp of outputs of size ~1. This
 # holds for F and for E's FMA entries. E's tensor-core entry also rounds
@@ -487,7 +633,7 @@ def test_attention_kernel(dev, dtype, b, n, m, c, cv, heads):
     want = ka.small_kv_attention_plain(q, k, v, heads, scale)
     mma = (dtype == torch.bfloat16 and n >= 64 and (c // heads) % 16 == 0
            and (cv // heads) % 16 == 0)
-    assert ka.design(q, k, v, heads) == ("mma" if mma else "fma")
+    assert ka.design(q, k, v, heads) == ("mma" if mma else "staged" if n < 64 else "tiled")
     if mma:
         bound = ka.bf16_bound(want, q, k, v, heads, scale)
         assert bool(((got.float() - want.float()).abs() <= bound).all())
@@ -507,6 +653,68 @@ def test_attention_kernel_scale_sign(dev, scale):
     want = ka.small_kv_attention_plain(q, k, v, 2, scale)
     bound = ka.bf16_bound(want, q, k, v, 2, scale)
     assert bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,m,c,cv,heads,scale", [
+    (7040, 8, 112, 128, 128, 8, 0.25),  # the perceiver's input layer
+    (7040, 8, 8, 128, 128, 8, 0.25),    # its latent self-attention
+    (7040, 1, 8, 64, 64, 8, 8 ** -0.5),  # the decoder's cross-attend
+    (37, 8, 1, 128, 128, 8, 0.25),      # one key
+    (37, 8, 113, 128, 128, 8, -0.3),    # a ragged last chunk; a negative scale
+    (5, 63, 113, 256, 256, 8, 0.2),     # 63 queries: four heads a unit; d 32
+    (5, 63, 40, 64, 64, 8, -1.0),       # d 8
+    (300, 1, 113, 64, 128, 8, 0.35),    # d 8, dv 16
+    (70, 1, 1, 256, 128, 8, 0.1),       # d 32, dv 16, one key
+    (3, 5, 17, 96, 48, 3, 0.3),         # three heads (d 32, dv 16)
+])
+def test_attention_staged_entry(dev, dtype, b, n, m, c, cv, heads, scale):
+    """E's small-N entry at the path's shapes and ragged ones, every head
+    width, both types: the staged launch (`staged_plan`'s layout, at least
+    two blocks an SM) within the FMA tolerance of the plain version."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    q = torch.randn((b, n, c), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, m, c), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, m, cv), generator=g, device=dev).to(dtype)
+    assert ka.design(q, k, v, heads) == "staged"
+    plan = ka.staged_launch(q, k, v, heads)
+    assert plan["blocks_per_sm"] >= 2  # the registers its launch bounds allow
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert plan["grid"] == min(plan["rounds"], sms * plan["blocks_per_sm"])
+    before = dict(launch_shapes)
+    got = ka.small_kv_attention(q, k, v, heads, scale)
+    (key,) = [key for key, n_ in launch_shapes.items() if n_ != before.get(key, 0)]
+    assert key[-1] == "staged"
+    want = ka.small_kv_attention_plain(q, k, v, heads, scale)
+    torch.testing.assert_close(got.float(), want.float(), **_ATTN_TOL[dtype])
+    # the same bits on a second call: no order between blocks enters a sum
+    assert torch.equal(got, ka.small_kv_attention(q, k, v, heads, scale))
+
+
+@pytest.mark.parametrize("b,n,m,c,heads,dtype,entry", [
+    (4, 63, 30, 128, 8, torch.bfloat16, "staged"),  # N < 64
+    (2, 64, 30, 128, 8, torch.bfloat16, "mma"),     # N >= 64, bf16, d 16
+    (2, 64, 30, 128, 8, torch.float32, "tiled"),    # f32: keys staged a head
+    (2, 64, 30, 64, 8, torch.bfloat16, "tiled"),    # d 8
+    (1, 64, 1000, 32, 1, torch.float32, "direct"),  # 256 KB of f32 keys a head
+    (65536, 64, 1, 8, 1, torch.float32, "direct"),  # more than 65535 entries
+])
+def test_attention_every_entry(dev, b, n, m, c, heads, dtype, entry):
+    """Every branch of the library's entry choice, each against the plain
+    version."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    q = torch.randn((b, n, c), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, m, c), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, m, c), generator=g, device=dev).to(dtype)
+    scale = (c // heads) ** -0.5
+    assert ka.design(q, k, v, heads) == entry
+    got = ka.small_kv_attention(q, k, v, heads, scale)
+    want = ka.small_kv_attention_plain(q, k, v, heads, scale)
+    if entry == "mma":
+        bound = ka.bf16_bound(want, q, k, v, heads, scale)
+        assert bool(((got.float() - want.float()).abs() <= bound).all())
+    else:
+        torch.testing.assert_close(got.float(), want.float(), **_ATTN_TOL[dtype])
 
 
 def _check_window(q, k, v, heads, scale):
