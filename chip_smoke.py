@@ -28,9 +28,14 @@ Phases (any failure raises and exits non-zero; no result is printed):
    f32; F: the Twins LSAs at both stages and batch sizes, the vertical
    local layer), then D (local
    correlation) at FF-PWCNet's five decoder levels in bf16 and at one of
-   them in f32. E's, F's and B's rows say which entry of the kernel ran
+   them in f32, and in its fused form (the decoder's leaky ReLU in the
+   epilogue, which the path runs) at the five levels, each bit-equal to the
+   plain-form kernel then F.leaky_relu and timed beside those two launches
+   (`two_step_ms`). D's rows name the launch plan they ran
+   (`kernels/local_corr.py::plan`). E's, F's, B's and D's rows say which
+   entry of the kernel ran
    (`design`: `mma` on the tensor cores, `fma` on the f32 units, and for
-   E `staged` and `tiled`): every bf16 path shape of B and F and every
+   E `staged` and `tiled`): every bf16 path shape of B, D and F and every
    N >= 64 one of E must say `mma`, E's N < 64 shapes `staged` (with its
    launch plan), and the tensor-core entries of E and F are held at every
    output to their `bf16_bound`. C1's and C2's rows name their entry
@@ -68,7 +73,9 @@ Phases (any failure raises and exits non-zero; no result is printed):
 6. FF-PWCNet end to end through `FlowPredictor`: the same textured pair,
    raw 0-255 inputs resized to 1024x448 inside, B=1, bf16, the trained
    fixture (`trained_smoke_pwc.npz`). Finite flow that tracks the f32 CPU
-   run within the same bounds, and exactly 5 launches of D. No shift gate:
+   run within the same bounds (the margin printed: mean |diff| over its
+   limit), and exactly 5 launches of D, all in the fused form, 5 in the
+   profile too (the kernel count and D's profile time printed). No shift gate:
    this fixture predicts about the zero-flow baseline on any probe, so the
    agreement with the f32 run carries correctness.
 7. A `{"kernels": [...]}` line, then the last line
@@ -385,47 +392,77 @@ PWC_LEVELS = ((1, 7, 16, 196), (1, 14, 32, 128), (1, 28, 64, 96),
               (1, 56, 128, 64), (1, 112, 256, 32))
 
 
-def _local_corr_row(torch, g, dev, shape, dtype, label: str) -> dict:
-    """Kernel D on random (B, H, W, C) maps against its plain version. No
-    single PyTorch call computes this function, so there is no yardstick."""
+def _local_corr_row(torch, g, dev, shape, dtype, label: str, slope=None) -> dict:
+    """Kernel D on random (B, H, W, C) maps against its plain version, with
+    the launch plan it ran. With a slope, the fused form (leaky ReLU in the
+    epilogue), which must also equal the plain-form kernel then
+    F.leaky_relu (two launches, `two_step_ms`) to the bit. No single PyTorch
+    call computes this function, so there is no yardstick."""
+    import torch.nn.functional as F
+
     from focusflow_official_tpu_torch.kernels import local_corr as klc
 
     r = 4
     f1 = torch.randn(shape, generator=g, device=dev).to(dtype)
     f2 = torch.randn(shape, generator=g, device=dev).to(dtype)
-    got, key = _launch_key(lambda: klc.local_corr(f1, f2, r))
-    want = klc.local_corr_plain(f1, f2, r)
+    plan = klc.plan(*shape, r, dtype, _sms(torch))
+    if plan["entry"] == "mma":
+        plan["smem_built"] = klc.smem_built(shape[3], r, plan)
+        if plan["smem_built"] != plan["smem"]:
+            raise AssertionError(f"{label}: plan smem {plan['smem']} != the library's "
+                                 f"{plan['smem_built']}")
+    if plan["entry"] != ("fma" if dtype == torch.float32 else "mma"):
+        raise AssertionError(f"{label}: ran the {plan['entry']} entry")
+    call = lambda: klc.local_corr(f1, f2, r, negative_slope=slope)
+    got, key = _launch_key(call)
+    want = klc.local_corr_plain(f1, f2, r, slope)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     if dtype == torch.float32:
         # f32 sums of C products in another order
         tol = 1e-5 * max(1.0, float(want.abs().max()))
     else:
-        # the same f32 sums rounded once: one bf16 ulp of the largest output
+        # exact products summed in f32 in another order, rounded once: one
+        # bf16 ulp of the largest output
         tol = _bf16_ulp(float(want.float().abs().max()))
     _check(label, err, tol)
-    ms = _time_ms(torch, lambda: klc.local_corr(f1, f2, r))
-    plain_ms = _time_ms(torch, lambda: klc.local_corr_plain(f1, f2, r), reps=10)
+    extra = {}
+    if slope is not None:
+        two_step = lambda: F.leaky_relu(klc.local_corr(f1, f2, r), slope)
+        if not torch.equal(got, two_step()):
+            raise AssertionError(f"{label}: not bit-equal to the plain-form kernel then "
+                                 "F.leaky_relu")
+        extra = dict(vs_two_step="bit-equal", two_step_ms=_time_ms(torch, two_step))
+    ms = _time_ms(torch, call)
+    plain_ms = _time_ms(torch, lambda: klc.local_corr_plain(f1, f2, r, slope), reps=10)
     es = f1.element_size()
     bound, by = _bound_ms((2 * f1.numel() + got.numel()) * es, 2.0 * got.numel() * shape[3],
                           PEAK_F32 if dtype == torch.float32 else PEAK_BF16)
-    return dict(shape=f"{tuple(shape)} x2 -> 81, {str(dtype).split('.')[1]}",
-                label=label, key=key, max_abs_err=err, tol=tol, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=None,
-                library="none: no single PyTorch call computes it")
+    form = "plain" if slope is None else f"leaky_relu {slope}"
+    return dict(shape=f"{tuple(shape)} x2 -> 81, {str(dtype).split('.')[1]}, {form}",
+                label=label, key=key, design=plan["entry"], plan=plan, max_abs_err=err,
+                tol=tol, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None, library="none: no single PyTorch call computes it", **extra)
 
 
 def pwc_kernel_phase(torch, dev) -> list:
-    """D at FF-PWCNet's five decoder levels in bf16 and at level 4 in f32."""
+    """D at FF-PWCNet's five decoder levels in bf16, at level 4 in f32, then
+    the fused form (the decoder's leaky ReLU, which the path runs) at the
+    five levels in bf16."""
     g = torch.Generator(device=dev).manual_seed(2)
     rows = []
-    for lvl, shape in zip((6, 5, 4, 3, 2), PWC_LEVELS):
+    levels = list(zip((6, 5, 4, 3, 2), PWC_LEVELS))
+    for lvl, shape in levels:
         rows.append(_local_corr_row(torch, g, dev, shape, torch.bfloat16,
                                     f"local_corr level {lvl}"))
         _emit(dict(kernel="local_corr", path="ff_pwcnet", **rows[-1]))
     rows.append(_local_corr_row(torch, g, dev, PWC_LEVELS[2], torch.float32,
                                 "local_corr level 4, f32"))
     _emit(dict(kernel="local_corr", path="ff_pwcnet", **rows[-1]))
+    for lvl, shape in levels:
+        rows.append(_local_corr_row(torch, g, dev, shape, torch.bfloat16,
+                                    f"local_corr level {lvl}, leaky_relu", slope=0.1))
+        _emit(dict(kernel="local_corr", path="ff_pwcnet", **rows[-1]))
     return rows
 
 
@@ -791,7 +828,7 @@ def _shift_inputs(h: int, w: int, seed: int = 0):
 
 
 _PORT_KERNELS = ("lookup_kernel", "fold_kernel", "fold_mma", "lookup_fold_mma", "lookup_fold_fma",
-                 "in_stats<", "normalize<", "local_corr_kernel",
+                 "in_stats<", "normalize<", "local_corr_kernel", "local_corr_mma",
                  "attn_mma", "attn_tiled", "attn_staged", "attn_direct", "window_mma",
                  "window_attn")
 
@@ -1069,8 +1106,24 @@ def pwc_end_to_end_phase(torch, card: str):
     flow, counts, ms, times, breakdown = _drive(
         torch, p, inputs, {"local_corr": 5}, "chip_smoke_profile_pwc")
     gates = _gates(flow, None, _cpu_flow(cfg, FIXTURE_PWC, inputs))
+    # every launch of D is the fused form: no leaky ReLU runs on the volume
+    forms = {}
+    for key, n in counts[1].items():
+        if key[0] == "local_corr":
+            forms[key[-1]] = forms.get(key[-1], 0) + n
+    if forms != {"leaky_relu": 5}:
+        raise AssertionError(f"local_corr forms {forms} != 5 leaky_relu")
+    d_prof = [r_ for r_ in breakdown["port_kernels"] if r_[0].startswith("local_corr")]
+    if sum(r_[1] for r_ in d_prof) != 5:
+        raise AssertionError(f"profiled forward: local_corr launches {d_prof} != 5")
+    limit = 0.05 * max(gates["cpu_f32_mean_abs_flow"], 1.0)
     _emit(dict(phase="end_to_end", model="ff_pwcnet", card=card, shape=[1, H, W],
                dtype="bfloat16", ms_per_pair=ms, pairs_per_s=1e3 / ms,
+               kernel_count=breakdown["kernel_count"],
+               local_corr_in_profile=dict(launches=sum(r_[1] for r_ in d_prof),
+                                          total_ms=sum(r_[2] for r_ in d_prof)),
+               agreement_margin=dict(mean_abs=gates["vs_cpu_f32_mean_abs"], limit=limit,
+                                     share=gates["vs_cpu_f32_mean_abs"] / limit),
                ms_all=times, profile=breakdown, launches=counts[0], **gates,
                cpu_f32_size="full frame",
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
@@ -1179,13 +1232,14 @@ def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, drives: dict,
             shape=top["shape"], per_shape=[dict(r, path="ff_flowformer") for r in rows]))
         if "design" in top:
             table[-1]["design"] = top["design"]
-    top = pwc_rows[4]  # level 2, the largest
+    top = pwc_rows[-1]  # level 2, the largest, in the fused form the path runs
     table.append(dict(
         name="local_corr", route="cuda",
         source="focusflow_official_tpu_torch/kernels/csrc/local_corr.cu",
         replaces="focusflow_official_tpu/ops/pallas_local_corr.py:46", **_worst(pwc_rows),
         ms=top["ms"], plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
         bound_by=top["bound_by"], library_ms=None, library=top["library"],
+        design=top["design"], two_step_ms=top["two_step_ms"],
         shape=top["shape"], per_shape=[dict(r, path="ff_pwcnet") for r in pwc_rows]))
     paths = ("ff_raft", "ff_flowformer", "ff_pwcnet")  # `launches` sums these
     held = set()

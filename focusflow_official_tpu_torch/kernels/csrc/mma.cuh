@@ -1,5 +1,6 @@
 // Warp-level tensor-core pieces shared by `attention.cu` (kernel E),
-// `fold.cu` (kernel B) and `lookup_fold.cu`: `mma.sync.m16n8k16` on bf16 with f32 accumulators,
+// `fold.cu` (kernel B), `lookup_fold.cu` and `local_corr.cu` (kernel D):
+// `mma.sync.m16n8k16` on bf16 with f32 accumulators,
 // `ldmatrix` to bring its operands out of shared memory, and `cp.async` to
 // stage shared memory without passing through registers.
 //
@@ -42,6 +43,14 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
                : "memory");
 }
 
+// 8 bytes global -> shared through L1 (both 8-byte aligned). `bytes` (8 or
+// 0) of them are read from `src`, the rest of the 8 are written as zeros.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(__cvta_generic_to_global(src)), "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -56,6 +65,14 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// two 8x8 b16 matrices; lane l < 16 gives the address of row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_u32(p))
                : "memory");
 }

@@ -25,10 +25,11 @@ from .fusion_units import FusionUnit
 
 _LEVEL_DIMS = (16, 32, 64, 96, 128, 196)
 _LEVEL_NAMES = ("netOne", "netTwo", "netThr", "netFou", "netFiv", "netSix")
+_SLOPE = 0.1  # every leaky ReLU of the PWC nets
 
 
 def lrelu(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, negative_slope=0.1)
+    return F.leaky_relu(x, negative_slope=_SLOPE)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -137,13 +138,13 @@ class PWCDecoder(nn.Module):
         Returns (flow (B, 2, h, w), feat (B, feat_dim, h, w)), NCHW-indexed."""
         d = ten_one.dtype
         if prev is None:
-            feat = lrelu(_nchw(local_corr(ten_one, ten_two, 4)))
+            feat = _nchw(local_corr(ten_one, ten_two, 4, negative_slope=_SLOPE))
         else:
             prev_flow, prev_feat = prev
             flow = self.netUpflow(prev_flow)
             feat_up = self.netUpfeat(prev_feat)
             warped = backwarp(ten_two, _nhwc(flow).float() * _BACKWARP_SCALE[self.level])
-            volume = lrelu(_nchw(local_corr(ten_one, warped.to(d), 4)))
+            volume = _nchw(local_corr(ten_one, warped.to(d), 4, negative_slope=_SLOPE))
             feat = torch.cat([volume, _nchw(ten_one), flow, feat_up], dim=1)
         for name, _ in _DENSE:
             y = lrelu(getattr(self, f"{name}_0")(feat))

@@ -14,6 +14,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from focusflow_official_tpu_torch.kernels import attention as ka
 from focusflow_official_tpu_torch.kernels import fold as kf
@@ -260,10 +261,10 @@ def test_lookup_fold_refusals(dev, dtype):
     assert launch_counts["lookup_fold"] == n
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,r", [
-    # how the launch spreads the 2r+1 dy rows depends on the tile count
-    # (8 x 8 pixels a tile) against the card's 132 SMs
+LOCAL_CORR_SHAPES = [
+    # how the launch (`klc.plan`) spreads rows, dy rows and channel slices
+    # over blocks and warps depends on the pixel count against the card's
+    # SMs; f32 runs 8 x 8 tiles, bf16 16-pixel segments
     ((2, 12, 16, 32), 4),    # 8 tiles: one dy row a block
     ((1, 9, 13, 24), 3),     # odd sizes, radius 3
     ((1, 7, 16, 196), 4),    # PWC level 6: a frame lower than the window
@@ -275,7 +276,18 @@ def test_lookup_fold_refusals(dev, dtype):
     ((1, 56, 100, 32), 4),   # 91 tiles at 7 x 13, still two groups
     ((1, 28, 64, 96), 4),    # PWC level 4, 32 tiles: groups of 2, 2, 2, 2, 1
     ((1, 90, 100, 16), 4),   # 156 tiles: all dy rows in one block
-])
+    ((1, 14, 32, 128), 4),   # PWC level 5
+    ((1, 56, 128, 64), 4),   # PWC level 3
+    ((1, 112, 256, 32), 4),  # PWC level 2
+    ((1, 20, 27, 3), 4),     # C = 3: one k16 step of 13 pad channels, plain loads
+    ((2, 30, 50, 24), 3),    # B = 2, W not a multiple of 16, 8-byte copies
+    ((1, 9, 40, 300), 4),    # three channel chunks through the ring
+    ((1, 33, 70, 40), 2),    # radius 2, a last band of one row
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,r", LOCAL_CORR_SHAPES)
 def test_local_corr_kernel(dev, dtype, shape, r):
     g = torch.Generator(device=dev).manual_seed(8)
     f1 = torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -285,8 +297,9 @@ def test_local_corr_kernel(dev, dtype, shape, r):
     assert launch_counts["local_corr"] == before + 1
     assert got.shape == shape[:3] + ((2 * r + 1) ** 2,) and got.dtype == dtype
     want = klc.local_corr_plain(f1, f2, r)
-    # f32: sums of C products in another order; bf16: the same f32 sums
-    # rounded once, so one bf16 ulp (8 significant bits) of the largest output
+    # f32: sums of C products in another order; bf16: exact products on the
+    # tensor cores, summed in f32 in another order and rounded once, so one
+    # bf16 ulp (8 significant bits) of the largest output
     top = float(want.float().abs().max())
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** (math.floor(math.log2(top)) - 7)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
@@ -300,6 +313,58 @@ def test_local_corr_border_is_zero_padding(dev):
     torch.testing.assert_close(got, klc.local_corr_plain(f, f, 4), rtol=0, atol=0)
     assert float(got[0, 0, 0, 0]) == 0.0 and float(got[0, 0, 0, 40]) == 1.0
     assert float(got[0, 10, 18, 80]) == 0.0 and float(got[0, 5, 9].min()) == 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,r", LOCAL_CORR_SHAPES)
+def test_local_corr_leaky_relu_kernel(dev, dtype, shape, r):
+    """The fused form (one launch) bit-equal to the plain-form kernel then
+    F.leaky_relu: both launches sum in the same order (the plan does not
+    depend on the slope), and the epilogue rounds before the slope."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    f1 = torch.randn(shape, generator=g, device=dev).to(dtype)
+    f2 = torch.randn(shape, generator=g, device=dev).to(dtype)
+    before = launch_counts["local_corr"]
+    got = klc.local_corr(f1, f2, r, negative_slope=0.1)
+    assert launch_counts["local_corr"] == before + 1
+    torch.testing.assert_close(got, F.leaky_relu(klc.local_corr(f1, f2, r), 0.1),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_local_corr_border_in_both_forms(dev, dtype):
+    """As `test_local_corr_border_is_zero_padding`, in both types and in the
+    fused form, over a frame lower than the window (PWC level 6's 7 rows)."""
+    for shape in ((1, 11, 19, 8), (1, 7, 16, 196)):
+        f = torch.ones(shape, device=dev, dtype=dtype)
+        for slope in (None, 0.1):
+            got = klc.local_corr(f, f, 4, negative_slope=slope)
+            torch.testing.assert_close(got, klc.local_corr_plain(f, f, 4, slope),
+                                       rtol=0, atol=0)
+
+
+def test_local_corr_misaligned_view(dev):
+    """A contiguous map one element into its storage: the 16- and 8-byte
+    copies would read misaligned, so the launch takes plain loads and gives
+    the plain version's result within one bf16 ulp."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    for shape in ((1, 14, 32, 128), (1, 12, 20, 36)):
+        n = math.prod(shape)
+        base = torch.randn(2 * n + 1, generator=g, device=dev).bfloat16()
+        f1, f2 = base[1:n + 1].view(shape), base[n + 1:].view(shape)
+        assert f1.is_contiguous() and f1.data_ptr() % 4 == 2
+        got = klc.local_corr(f1, f2, 4)
+        want = klc.local_corr_plain(f1, f2, 4)
+        torch.cuda.synchronize()
+        tol = 2.0 ** (math.floor(math.log2(float(want.float().abs().max()))) - 7)
+        torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("shape,r", LOCAL_CORR_SHAPES)
+def test_local_corr_plan_smem_is_the_librarys(dev, shape, r):
+    p = klc.plan(*shape, r, torch.bfloat16,
+                 torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert klc.smem_built(shape[3], r, p) == p["smem"]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

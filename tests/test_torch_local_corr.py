@@ -5,9 +5,11 @@ interpret mode, on the same numpy inputs in f32.
 The plain version is what CPU tensors take and what the CUDA kernel is held
 against on the card, so this pins the kernel's arithmetic here."""
 
+import jax
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 
@@ -47,6 +49,36 @@ def test_local_corr_matches_pallas_kernel(shape, r):
                                       interpret=True))
     got = local_corr(torch.from_numpy(f1), torch.from_numpy(f2), r).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("shape,r", SHAPES)
+def test_local_corr_leaky_relu_matches_jax(shape, r, impl):
+    """The fused form against the JAX decoder's lrelu(local_corr(.)) (JAX
+    `nn/pwc.py`), through the XLA shifts or the Pallas kernel in interpret
+    mode, in f32."""
+    f1, f2 = _maps(shape)
+    a, b = jnp.asarray(f1), jnp.asarray(f2)
+    corr = (jlocal_corr(a, b, r) if impl == "xla"
+            else jpallas_forward(a, b, r, interpret=True))
+    want = np.asarray(jax.nn.leaky_relu(corr, 0.1))
+    got = local_corr(torch.from_numpy(f1), torch.from_numpy(f2), r,
+                     negative_slope=0.1).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,r", SHAPES)
+def test_local_corr_leaky_relu_is_plain_then_leaky_relu(shape, r, dtype):
+    """The fused form is the plain form rounded to its type, then PyTorch's
+    leaky ReLU: bit-equal, as the kernel's epilogue is held on the card."""
+    f1, f2 = _maps(shape)
+    a, b = torch.from_numpy(f1).to(dtype), torch.from_numpy(f2).to(dtype)
+    got = klc.local_corr(a, b, r, negative_slope=0.1)
+    want = F.leaky_relu(klc.local_corr_plain(a, b, r), 0.1)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert bool((got < 0).any()) and torch.equal(
+        got[got < 0], (klc.local_corr_plain(a, b, r)[got < 0].float() * 0.1).to(dtype))
 
 
 def test_local_corr_channel_order_and_padding():
