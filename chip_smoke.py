@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it: FF-RAFT,
-FF-FlowFormer and FF-PWCNet inference.
+FF-FlowFormer and FF-PWCNet inference, and the evaluation entry point.
 
     python3 chip_smoke.py
 
@@ -84,6 +84,23 @@ Phases (any failure raises and exits non-zero; no result is printed):
    of every shape it holds, and the table reads each shape's launches from
    the counted forwards of phases 3 to 6 by that key, with launches x (ms -
    bound). A path that launched a shape which phase 2 does not hold fails.
+   (The line is printed after phase 8, which is not one of its drives.)
+8. The evaluation entry point (`eval_phase`): the validation protocol of
+   `train/evaluate.py` on in-memory FlyingChairs (4 pairs, 384x512),
+   Sintel (one 5-frame scene at 436x1024, clean and a blurred, noisy
+   final) and KITTI (3 pairs at 375x1242, one at 370x1224, sparse valid)
+   layouts of a multi-pixel input: smoothed textured noise under exact
+   affine warps (`data/synthetic.py`). bf16: FF-RAFT through chairs (12
+   refinements), Sintel and KITTI (32), the warm-started Sintel sequence
+   and the KITTI submission writer; FF-FlowFormer and FF-PWCNet through
+   chairs. Each dataset's metrics beside the zero-flow baseline's, its
+   ms a pair (median of three runs) and the device breakdown of one more,
+   profiled run. Gates: finite metrics; the first pair
+   of each FF-RAFT layout and the second Sintel pair from the same
+   `flow_init` track the f32 CPU run (phase 3's bounds, and AEPE and
+   keypoint EPE within 0.05 max(AEPE, 1) px). Every (kernel, shape) the
+   phase launched that phase 2 does not hold is checked once against its
+   plain version, untimed, and listed.
 
 Outside the phase under default flags, f32 matmuls and convolutions run
 in full f32 here (TF32 off), so the f32 comparisons are not blurred by
@@ -939,13 +956,13 @@ def _cpu_flow(cfg, fixture: str, inputs):
     return flow, time.perf_counter() - t0
 
 
-def _gates(flow, shift, cpu) -> dict:
-    """Finite flow of the input's size, interior EPE < 6 px on the known
-    shift (skipped where `shift` is None: a fixture that does not solve
-    the probe), and agreement with the f32 CPU run `cpu` (`_cpu_flow`) on
-    the same inputs."""
-    if flow.shape != (H, W, 2) or not np.isfinite(flow).all():
-        raise AssertionError(f"flow {flow.shape} not finite or not ({H}, {W}, 2)")
+def _gates(flow, shift, cpu, shape=(H, W, 2)) -> dict:
+    """Finite flow of the input's size (`shape`), interior EPE < 6 px on the
+    known shift (skipped where `shift` is None: a fixture that does not
+    solve the probe), and agreement with the f32 CPU run `cpu` (`_cpu_flow`)
+    on the same inputs."""
+    if flow.shape != tuple(shape) or not np.isfinite(flow).all():
+        raise AssertionError(f"flow {flow.shape} not finite or not {tuple(shape)}")
     epe = None
     if shift is not None:
         epe = float(np.sqrt(((flow[8:-8, 8:-8] - np.array(shift)) ** 2)
@@ -1182,6 +1199,336 @@ def ff_shipped_depth_phase(torch, card: str):
     return counts
 
 
+def _hold_shape(torch, g, dev, key: tuple) -> dict:
+    """One untimed launch of a kernel at the shape of a launch key, on
+    seeded inputs, against its plain version, with the tolerance of the
+    kernel phase's row for that kernel. The launch must count under the
+    same key (the same shape, type, entry and plan)."""
+    from focusflow_official_tpu_torch.kernels import attention as ka
+    from focusflow_official_tpu_torch.kernels import fold as kf
+    from focusflow_official_tpu_torch.kernels import instance_norm as kin
+    from focusflow_official_tpu_torch.kernels import local_corr as klc
+    from focusflow_official_tpu_torch.kernels import lookup as kl
+    from focusflow_official_tpu_torch.kernels import lookup_fold as klf
+    from focusflow_official_tpu_torch.kernels import window_attention as kw
+    from focusflow_official_tpu_torch.ops.coords import coords_grid
+
+    name = key[0]
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    dtype_of = lambda text: getattr(torch, text.split(".")[1])  # "torch.bfloat16"
+    over = None
+
+    def rel_tol(want, f32_rel, bf16_rel):
+        return (f32_rel if want.dtype == torch.float32 else bf16_rel) * max(
+            1.0, float(want.float().abs().max()))
+
+    if name in ("lookup", "lookup_fold"):
+        b, q = key[1], key[2]
+        if name == "lookup":
+            dims, dt = key[3:-1], dtype_of(key[-1])
+        else:
+            dims, n, dt = key[3:-5], key[-5], dtype_of(key[-4])
+        levels = [rnd(b, q, hl, wl).to(dt) for hl, wl in zip(dims[::2], dims[1::2])]
+        coords = (coords_grid(b, dims[0], dims[1], device=dev)
+                  + rnd(b, dims[0], dims[1], 2) * 8).contiguous()
+        if name == "lookup":  # bit-equal in the levels' type, as its row
+            call = lambda: kl.lookup(levels, coords, 4)
+            want, tol = kl.lookup_plain(levels, coords, 4), 0.0
+        else:
+            k = 81 * len(levels)
+            w = (rnd(n, k) / k ** 0.5).to(dt).contiguous()
+            bias = (rnd(n) * 0.1).to(dt)
+            call = lambda: klf.lookup_fold(levels, coords, 4, w, bias)
+            want = klf.lookup_fold_plain(levels, coords, 4, w, bias)
+            tol = rel_tol(want, 1e-4, 2.0 ** -7)
+    elif name == "fold":
+        m, k, n, dt = key[1], key[2], key[3], dtype_of(key[4])
+        a, w, bias = rnd(m, k).to(dt), (rnd(n, k) / k ** 0.5).to(dt), (rnd(n) * 0.1).to(dt)
+        call = lambda: kf.fold(a, w, bias)
+        want = kf.fold_plain(a, w, bias)
+        tol = rel_tol(want, 1e-4, 2.0 ** -7)
+    elif name == "in_stats":
+        x = (rnd(*key[1:5]) * 3 + 1).to(dtype_of(key[5]))
+        call = lambda: torch.cat(kin.instance_norm_stats(x))
+        want = torch.cat(kin.stats_plain(x))
+        tol = 1e-4 * (1.0 + float(want.abs().max()))
+    elif name == "in_normalize":
+        x = (rnd(*key[1:5]) * 3 + 1).to(dtype_of(key[5]))
+        mean, inv = kin.stats_plain(x)
+        res = rnd(*key[1:5]).to(x.dtype) if key[-1] == "residual" else None
+        call = lambda: kin.instance_norm_apply(x, mean, inv, True, res)
+        want, tol = kin.apply_plain(x, mean, inv, True, res), 0.0  # bit-equal, as its row
+    elif name == "local_corr":
+        b, h, w, c, r, dt = key[1], key[2], key[3], key[4], key[5], dtype_of(key[6])
+        f1, f2 = rnd(b, h, w, c).to(dt), rnd(b, h, w, c).to(dt)
+        slope = 0.1 if key[-1] == "leaky_relu" else None
+        call = lambda: klc.local_corr(f1, f2, r, negative_slope=slope)
+        want = klc.local_corr_plain(f1, f2, r, slope)
+        tol = (1e-5 * max(1.0, float(want.abs().max())) if dt == torch.float32
+               else _bf16_ulp(float(want.float().abs().max())))
+    elif name in ("attention", "window_attention"):
+        if name == "attention":
+            b, n, m, c, cv, heads, dt = key[1:8]
+            dt = dtype_of(dt)
+            q, k, v = rnd(b, n, c).to(dt), rnd(b, m, c).to(dt), rnd(b, m, cv).to(dt)
+            scale = (c // heads) ** -0.5
+            call = lambda: ka.small_kv_attention(q, k, v, heads, scale)
+            want = ka.small_kv_attention_plain(q, k, v, heads, scale)
+            bound_of = ka.bf16_bound
+        else:
+            b, hp, wp, c, heads, dt = key[1:7]
+            dt = dtype_of(dt)
+            q, k, v = (rnd(b, hp, wp, c).to(dt) for _ in range(3))
+            scale = (c // heads) ** -0.5
+            call = lambda: kw.window_attention(q, k, v, 7, heads, scale)
+            want = kw.window_attention_plain(q, k, v, 7, heads, scale)
+            bound_of = kw.bf16_bound
+        if key[-1] == "mma":  # held at every output to the entry's bound
+            got = call()
+            diff = (got.float() - want.float()).abs()
+            bound = bound_of(want, q, k, v, heads, scale)
+            over = float((diff / bound).max())
+            if not over <= 1.0:
+                raise AssertionError(f"{key}: |kernel - plain| is {over} of its bound")
+            tol = float(bound.flatten()[diff.argmax()])
+            del diff, bound, got
+        else:  # f32 sums in another order; the staged bf16 entry: one bf16 ulp
+            tol = rel_tol(want, 1e-5, 2.0 ** -7)
+    else:
+        raise AssertionError(f"no check for kernel {name!r} at {key}")
+    got, got_key = _launch_key(call)
+    if got_key != key:
+        raise AssertionError(f"held {key} but the launch counted {got_key}")
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    if tol == 0.0 and not torch.equal(got, want):
+        raise AssertionError(f"{key}: not bit-equal to the plain version ({err})")
+    _check(f"{key}", err, tol)
+    return dict(key=list(key), max_abs_err=err, tol=tol, largest_err_over_its_bound=over)
+
+
+def _protocol_flow(torch, model, sample: dict, iters: int, pad_mode, device):
+    """The protocol's forward of one sample (`train/evaluate.py`): padded as
+    the dataset's validation pads (not at all for chairs), unpadded ->
+    (flow (H, W, 2) numpy, its frame metrics: AEPE, keypoint EPE)."""
+    from focusflow_official_tpu_torch.ops.padding import InputPadder
+    from focusflow_official_tpu_torch.predict import eval_forward
+    from focusflow_official_tpu_torch.train.evaluate import frame_metrics
+
+    ims = [torch.as_tensor(sample[k], device=device)[None]
+           for k in ("image1", "image2", "mask1", "mask2")]
+    padder = InputPadder(ims[0].shape, mode=pad_mode or "sintel")
+    flow = eval_forward(model, *(padder.pad(*ims) if pad_mode else ims), iters=iters)[0]
+    flow = (padder.unpad(flow) if pad_mode else flow)[0].float()
+    m = frame_metrics(flow, torch.as_tensor(sample["flow"], device=device),
+                      torch.as_tensor(sample["valid"], device=device), ims[2][0],
+                      sparse=pad_mode == "kitti").cpu().numpy()
+    return flow.cpu().numpy(), dict(aepe=float(m[3]), keypoint_epe=float(m[2]))
+
+
+def _epe_gate(card: dict, cpu: dict) -> dict:
+    """The card's AEPE and keypoint EPE of one pair within 0.05 max(AEPE of
+    the f32 CPU run, 1) px of the CPU run's."""
+    limit = 0.05 * max(cpu["aepe"], 1.0)
+    deltas = {k: abs(card[k] - cpu[k]) for k in ("aepe", "keypoint_epe")}
+    if not all(d < limit for d in deltas.values()):
+        raise AssertionError(f"card {card} vs f32 CPU {cpu}: limit {limit} px")
+    return dict(card=card, cpu_f32=cpu, limit_px=limit, delta=deltas)
+
+
+def eval_phase(torch, card: str, held: set) -> dict:
+    """The evaluation entry point on the card: the validation protocol
+    (`train/evaluate.py`) on in-memory chairs, Sintel and KITTI layouts of
+    the multi-pixel affine input (`data/synthetic.py`), bf16.
+
+    - FF-RAFT (the trained fixture, full width): chairs at 12 refinements,
+      Sintel clean and final and KITTI (mixed sizes, per-shape padding) at
+      32; `FlowPredictor.sequence` over the Sintel scene with and without
+      warm start; `create_kitti_submission` (the KITTI PNG codec needs cv2:
+      without it, a clear ImportError is the expected outcome).
+    - FF-FlowFormer (encoder_depth 1) and FF-PWCNet: chairs.
+
+    Gates: every metric finite; the first pair of each FF-RAFT layout, and
+    the second Sintel pair from the same `flow_init`, track the port's f32
+    CPU run (`_gates`' bounds, and AEPE and keypoint EPE within 0.05
+    max(AEPE, 1) px); each family launches its kernels. Every (kernel,
+    shape) the phase launched that the kernel phase did not hold (`held`)
+    is held here against its plain version (`_hold_shape`), untimed. The
+    phase is not one of the kernels line's drives. Each dataset runs twice:
+    once counted, once timed."""
+    from focusflow_official_tpu_torch.data import synthetic as sy
+    from focusflow_official_tpu_torch.data.io import read_flow_kitti
+    from focusflow_official_tpu_torch.kernels import (
+        launch_counts, launch_shapes, reset_launch_counts)
+    from focusflow_official_tpu_torch.models import FFPWCNetConfig, FlowFormerConfig
+    from focusflow_official_tpu_torch.ops.coords import forward_interpolate
+    from focusflow_official_tpu_torch.predict import FlowPredictor
+    from focusflow_official_tpu_torch.train import evaluate as tev
+    from focusflow_official_tpu_torch.train.submission import create_kitti_submission
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    chairs = sy.chairs_layout(0)
+    sintel, scene = sy.sintel_layout(1)
+    kitti = sy.kitti_layout(2)
+    data_s = time.perf_counter() - t0
+    bf16 = torch.bfloat16
+    raft = FlowPredictor(_raft_cfg(), FIXTURE, device="cuda", dtype=bf16)
+    raft_cpu = FlowPredictor(_raft_cfg(), FIXTURE, device="cpu", dtype=torch.float32)
+    shapes, out = {}, dict(data_seconds=data_s)
+
+    class ZeroFlow(torch.nn.Module):
+        def forward(self, image1, image2, mask1, mask2):
+            return torch.zeros(image1.shape[:3] + (2,), device=image1.device)
+
+    def note_shapes():
+        for key, n in launch_shapes.items():
+            shapes[key] = shapes.get(key, 0) + n
+
+    def drive(label, validate, model, n_pairs, kernels, **kw):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        first = validate(model, **kw)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t
+        counts = {k: v for k, v in launch_counts.items() if v}
+        note_shapes()
+        if not all(counts.get(k, 0) > 0 for k in kernels):
+            raise AssertionError(f"{label}: launches {counts}, expected each of {kernels}")
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            metrics = validate(model, **kw)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        secs = float(np.median(times))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            validate(model, **kw)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        breakdown = _device_breakdown(torch, prof, wall_ms)
+        data = {k: v for k, v in kw.items() if k in ("dataset", "datasets")}
+        zero = validate(ZeroFlow(), device=dev, **data)
+        if not np.isfinite(list(metrics.values()) + list(first.values())).all():
+            raise AssertionError(f"{label}: metrics {metrics} not finite")
+        out[label] = dict(metrics=metrics, zero_flow=zero, first_run_metrics=first,
+                          seconds=secs, seconds_all=times, first_run_seconds=first_s,
+                          pairs=n_pairs,
+                          ms_per_pair=secs * 1e3 / n_pairs, iters=kw.get("iters"),
+                          launches_counted_run=counts,
+                          busy_ms_per_pair=breakdown["device_busy_ms"] / n_pairs,
+                          profile=breakdown)
+        _emit(dict(phase="eval", dataset=label, card=card, dtype="bfloat16", **out[label]))
+
+    raft_kernels = ("lookup_fold", "in_stats", "in_normalize")
+    drive("ff_raft chairs", tev.validate_chairs, raft.model, len(chairs), raft_kernels,
+          dataset=chairs, iters=12)
+    drive("ff_raft sintel", tev.validate_sintel, raft.model, 2 * len(sintel["clean"]),
+          raft_kernels, datasets=sintel, iters=32)
+    drive("ff_raft kitti", tev.validate_kitti, raft.model, len(kitti), raft_kernels,
+          dataset=kitti, iters=32)
+
+    # the first pair of each layout against the f32 CPU run on the same inputs
+    agree = {}
+    for label, sample, iters, pad in (("chairs", chairs[0], 12, None),
+                                      ("sintel", sintel["clean"][0], 32, "sintel"),
+                                      ("kitti", kitti[0], 32, "kitti")):
+        t = time.perf_counter()
+        flow_cpu, m_cpu = _protocol_flow(torch, raft_cpu.model, sample, iters, pad, "cpu")
+        cpu_s = time.perf_counter() - t
+        flow, m_card = _protocol_flow(torch, raft.model, sample, iters, pad, dev)
+        agree[label] = dict(_gates(flow, None, (flow_cpu, cpu_s), shape=flow_cpu.shape),
+                            epe=_epe_gate(m_card, m_cpu), iters=iters,
+                            shape=list(sample["image1"].shape[:2]),
+                            gt_mean_abs_flow=float(np.abs(sample["flow"]).mean()))
+
+    # the Sintel scene as a warm-started sequence, and its second pair from
+    # the same flow_init on the card and on the CPU
+    seq = FlowPredictor(_raft_cfg(), FIXTURE, device="cuda", dtype=bf16, iters=32)
+    seq_cpu = FlowPredictor(_raft_cfg(), FIXTURE, device="cpu", dtype=torch.float32, iters=32)
+    frames, masks = scene["frames"]["clean"], scene["masks"]
+    runs = {}
+    reset_launch_counts()
+    for warm in (True, False):
+        seq.sequence(frames, masks, warm_start=warm)  # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        flows = seq.sequence(frames, masks, warm_start=warm)
+        secs = time.perf_counter() - t
+        if flows.shape != (len(frames) - 1, *frames[0].shape[:2], 2) or not np.isfinite(
+                flows).all():
+            raise AssertionError(f"sequence flows {flows.shape} not finite")
+        epe = [float(np.sqrt(((f - g_) ** 2).sum(-1)).mean())
+               for f, g_ in zip(flows, scene["flows"])]
+        runs["warm" if warm else "cold"] = dict(seconds=secs, ms_per_pair=secs * 1e3 / len(epe),
+                                                epe_per_pair=epe, flows=flows)
+    note_shapes()
+    _, flow_lr = seq.forward(*seq.prepare(frames[0], frames[1], masks[0], masks[1]))
+    t = time.perf_counter()
+    init = forward_interpolate(flow_lr[0].cpu().numpy())
+    runs["warm"]["splat_ms"] = (time.perf_counter() - t) * 1e3  # on the host, once
+    pair2 = (frames[1], frames[2], masks[1], masks[2])
+    flow2 = seq.forward(*seq.prepare(*pair2), flow_init=torch.from_numpy(init[None]).to(dev))[0]
+    t = time.perf_counter()
+    flow2_cpu = seq_cpu.forward(*seq_cpu.prepare(*pair2), flow_init=torch.from_numpy(init[None]))[0]
+    cpu_s = time.perf_counter() - t
+    flow2 = flow2[0].cpu().numpy()
+    warm2 = _gates(flow2, None, (flow2_cpu[0].numpy(), cpu_s), shape=flow2.shape)
+    warm2["init_mean_abs"] = float(np.abs(init).mean())
+    warm2["vs_sequence_max_abs"] = float(np.abs(flow2 - runs["warm"]["flows"][1]).max())
+    agree["sintel pair 2, warm start"] = warm2
+    for run in runs.values():
+        del run["flows"]
+    out["sequence"], out["agreement"] = runs, agree
+    _emit(dict(phase="eval", part="agreement and sequence", card=card, agreement=agree,
+               sequence=runs))
+
+    ff = FlowPredictor(FlowFormerConfig(encoder_depth=1, decoder_depth=ITERS), FIXTURE_FF,
+                       device="cuda", dtype=bf16)
+    drive("ff_flowformer chairs", tev.validate_chairs, ff.model, len(chairs),
+          ("attention", "window_attention", "lookup", "fold"), dataset=chairs, iters=ITERS)
+    del ff
+    pwc = FlowPredictor(FFPWCNetConfig(fusion="parallel", fusion_type="1x1conv"), FIXTURE_PWC,
+                        device="cuda", dtype=bf16)
+    drive("ff_pwcnet chairs", tev.validate_chairs, pwc.model, len(chairs), ("local_corr",),
+          dataset=chairs)
+    del pwc
+
+    # the KITTI submission writer: PNGs where cv2 is installed, else the
+    # codec's ImportError after the first pair's forward
+    test_split = sy.InMemoryDataset([dict(kitti[i], extra_info=[f"{i:06d}_10.png"])
+                                     for i in range(len(kitti))])
+    sub_dir = os.path.join(OUT_DIR, "kitti_submission")
+    reset_launch_counts()
+    try:
+        create_kitti_submission(raft.model, test_split, sub_dir)
+        png_flow, png_valid = read_flow_kitti(os.path.join(sub_dir, "000000_10.png"))
+        flow0, _ = _protocol_flow(torch, raft.model, kitti[0], 24, "kitti", dev)
+        err = float(np.abs(png_flow - flow0).max())
+        if not (err <= 1 / 64 + 1e-3 and (png_valid == 1).all()):
+            raise AssertionError(f"KITTI PNG read back: max |diff| {err} px")
+        out["kitti_submission"] = dict(pngs=len(os.listdir(sub_dir)), read_back_max_abs=err)
+    except ImportError as e:
+        if "OpenCV" not in str(e):
+            raise
+        out["kitti_submission"] = dict(import_error=str(e))
+    note_shapes()
+    if launch_counts["lookup_fold"] == 0:
+        raise AssertionError("the KITTI submission ran no forward")
+    _emit(dict(phase="eval", part="kitti_submission", card=card, **out["kitti_submission"]))
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    new = sorted((k for k in shapes if k not in held), key=str)
+    out["new_shapes"] = [dict(_hold_shape(torch, g, dev, k), launches=shapes[k]) for k in new]
+    torch.cuda.empty_cache()
+    _emit(dict(phase="eval", part="new shapes, each held against its plain version",
+               count=len(new), rows=out["new_shapes"]))
+    return out
+
+
 def _worst(rows: list) -> dict:
     """The max_abs_err and tol of the shape whose error is the largest
     share of its own tolerance (a tolerance of 0: bit-equal, share 0)."""
@@ -1314,6 +1661,8 @@ def main() -> int:
     for kr in kernels:
         if kr["launches"] == 0:
             raise AssertionError(f"{kr['name']}: no launch on any path")
+    torch.cuda.empty_cache()
+    eval_phase(torch, card, {row["key"] for kr in kernels for row in kr["per_shape"]})
 
     _emit(dict(phase="total", seconds=time.perf_counter() - t_start))
     _emit({"kernels": kernels})

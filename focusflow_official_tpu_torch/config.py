@@ -1,0 +1,175 @@
+"""YAML experiment configs: the reference schema, read into the port's
+model configs.
+
+The reference's flat YAML (sections GLOBAL / TRAIN / MODEL / CRITERION /
+OPTIMIZER / SCHEDULER, or TRAINER for FF-FlowFormer) loads into a
+dot-accessible `ConfigNode`. `config_from_yaml` picks the family from the
+file's shape and builds `FFRaftConfig`, `FFPWCNetConfig` or
+`FlowFormerConfig`; `model_from_config` builds the model and says how many
+refinements it runs.
+
+The port's configs hold only the fields the port has. A field that selects
+a variant the port lacks is read only to refuse it: any value other than
+the ported one raises `NotImplementedError` naming the `ROADMAP.md` item
+that brings it, so a file is never run as a different model. The TPU
+layout knobs of the JAX package (`corr_impl`, the `FF_*` variables) are not
+read. PyYAML is imported when a file is read, not with this module.
+"""
+
+from __future__ import annotations
+
+import types
+from typing import Any, Dict, Optional
+
+from .models import FFFlowFormer, FFPWCNet, FFRaft, PWCNet
+from .models.config import FFPWCNetConfig, FFRaftConfig, FlowFormerConfig
+from .models.ff_raft import compute_dtype
+
+# where ROADMAP.md queues the inference variants the port lacks
+_VARIANTS_ITEM = "ROADMAP.md queue 1, 'The remaining inference variants',"
+
+
+class ConfigNode(types.SimpleNamespace):
+    """A YAML section: its keys as attributes, `get` with a default."""
+
+    def get(self, name: str, default: Any = None) -> Any:
+        return getattr(self, name, default)
+
+
+def _to_node(obj: Any) -> Any:
+    if isinstance(obj, dict):
+        return ConfigNode(**{k: _to_node(v) for k, v in obj.items()})
+    return obj
+
+
+def load_yaml_config(path: str) -> ConfigNode:
+    import yaml
+
+    with open(path) as f:
+        return _to_node(yaml.safe_load(f))
+
+
+def detect_family(cfg: ConfigNode) -> str:
+    """'raft', 'pwcnet' or 'flowformer' from the file's shape: an explicit
+    MODEL.FAMILY wins; a TRAINER section or the latent-cost keys mean
+    FlowFormer; TRAIN.LOSS_WEIGHTS (the multiscale loss) means PWC-Net;
+    anything else is RAFT."""
+    fam = cfg.MODEL.get("FAMILY")
+    if fam:
+        return str(fam).lower()
+    if cfg.get("TRAINER") is not None or cfg.MODEL.get("cost_latent_dim") is not None:
+        return "flowformer"
+    if cfg.TRAIN.get("LOSS_WEIGHTS") is not None:
+        return "pwcnet"
+    return "raft"
+
+
+def _refuse(section: ConfigNode, key: str, ported: Any, default: Any = None) -> None:
+    """Raise unless `section.key` (absent: `default`) is the ported value,
+    read as the ported value's type where that is bool or int (as the
+    reference reads it: `gma: GMA` is true)."""
+    value = section.get(key, default)
+    if isinstance(ported, (bool, int)) and value is not None:
+        value = type(ported)(value)
+    if value != ported:
+        raise NotImplementedError(
+            f"{key}: {value!r} selects a variant this port lacks (it has "
+            f"{ported!r}); {_VARIANTS_ITEM} brings it")
+
+
+def _mask_fields(train: ConfigNode, model: Optional[ConfigNode] = None) -> Dict:
+    """The TRAIN section's mask handling (FF-FlowFormer may set it in MODEL)."""
+    model = model or ConfigNode()
+    pick = lambda key, default: model.get(key, train.get(key, default))
+    return dict(mask_modal=pick("MASK_MODAL", "point"),
+                mask_channel=int(pick("MASK_CHANNEL", 3)),
+                mask_dilate=int(pick("MASK_DILATE", 31)),
+                kernel_size=int(train.get("KERNEL_SIZE", 31)),
+                kernel_sigma=float(train.get("KERNEL_SIGMA", 5)))
+
+
+def model_config_from_yaml(cfg: ConfigNode, *,
+                           compute_dtype: str = "float32") -> FFRaftConfig:
+    """FF-RAFT: the CCE model (`FUSION: parallel`) with the context encoder
+    fused (`FUSE_CNET: true`) at full width; the other front ends, `SMALL`,
+    `ABANDON_FNET` and `ALT_CORR` are refused."""
+    model = cfg.MODEL
+    _refuse(model, "FUSION", "parallel")
+    _refuse(model, "FUSE_CNET", True, False)
+    for key in ("SMALL", "ABANDON_FNET", "ALT_CORR"):
+        _refuse(model, key, False, False)
+    fusion_type = model.get("FUSION_TYPE", "1x1conv")
+    if fusion_type not in ("1x1conv", "1x1conv-unidirection"):
+        _refuse(model, "FUSION_TYPE", "1x1conv")
+    return FFRaftConfig(fusion="parallel", fusion_type=fusion_type, small=False,
+                        fuse_cnet=True, iters=int(model.get("ITERS", 12)),
+                        compute_dtype=compute_dtype, **_mask_fields(cfg.TRAIN))
+
+
+def pwcnet_config_from_yaml(cfg: ConfigNode, *,
+                            compute_dtype: str = "float32") -> FFPWCNetConfig:
+    """FF-PWCNet (`FUSION: parallel`) or the vanilla PWC-Net (`FUSION:
+    null`), with the `1x1conv` fusion units."""
+    model = cfg.MODEL
+    fusion = model.get("FUSION")
+    if fusion is not None:
+        _refuse(model, "FUSION", "parallel")
+    fusion_type = model.get("FUSION_TYPE", "1x1conv")
+    if fusion_type not in ("1x1conv", "1x1conv-unidirection"):
+        _refuse(model, "FUSION_TYPE", "1x1conv")
+    return FFPWCNetConfig(fusion=fusion, fusion_type=fusion_type,
+                          compute_dtype=compute_dtype, **_mask_fields(cfg.TRAIN))
+
+
+# FlowFormer's `latentcostformer` keys that select a variant, with the ported
+# value and the reference default where a file leaves the key out
+_FF_FIXED = (("FUSION", "parallel", None), ("pe", "linear", "linear"),
+             ("cost_heads_num", 1, 1), ("patch_size", 8, 8), ("gma", True, True),
+             ("use_mlp", False, False), ("vertical_conv", False, False),
+             ("only_global", False, False), ("cost_encoder_res", True, True),
+             ("add_flow_token", True, True), ("feat_cross_attn", False, False))
+
+
+def flowformer_config_from_yaml(cfg: ConfigNode, *,
+                                compute_dtype: str = "float32") -> FlowFormerConfig:
+    """FF-FlowFormer with the CCE Twins towers, GMA, attention latent layers
+    and the rest of the reference's default `latentcostformer` block."""
+    m = cfg.MODEL
+    for key, ported, default in _FF_FIXED:
+        _refuse(m, key, ported, default)
+    return FlowFormerConfig(
+        encoder_latent_dim=int(m.get("encoder_latent_dim", 256)),
+        query_latent_dim=int(m.get("query_latent_dim", 64)),
+        cost_latent_input_dim=int(m.get("cost_latent_input_dim", 64)),
+        cost_latent_token_num=int(m.get("cost_latent_token_num", 8)),
+        cost_latent_dim=int(m.get("cost_latent_dim", 128)),
+        encoder_depth=int(m.get("encoder_depth", 3)),
+        decoder_depth=int(m.get("decoder_depth", 12)),
+        vert_c_dim=int(m.get("vert_c_dim", 64)),
+        compute_dtype=compute_dtype, **_mask_fields(cfg.TRAIN, m))
+
+
+def config_from_yaml(cfg: ConfigNode, *, compute_dtype: str = "float32"):
+    """The port's model config for this file's family."""
+    read = {"raft": model_config_from_yaml, "pwcnet": pwcnet_config_from_yaml,
+            "flowformer": flowformer_config_from_yaml}
+    family = detect_family(cfg)
+    if family not in read:
+        raise ValueError(f"unknown model family {family!r}")
+    return read[family](cfg, compute_dtype=compute_dtype)
+
+
+def model_from_config(model_cfg):
+    """The model a port config describes, with its refinement count: FF-RAFT
+    `iters`, FF-FlowFormer `decoder_depth`, FF-PWCNet None (it has no
+    refinement loop)."""
+    if isinstance(model_cfg, FFRaftConfig):
+        return FFRaft(model_cfg), model_cfg.iters
+    if isinstance(model_cfg, FlowFormerConfig):
+        return FFFlowFormer(model_cfg), model_cfg.decoder_depth
+    if isinstance(model_cfg, FFPWCNetConfig):
+        if model_cfg.fusion is None:
+            return PWCNet(compute_dtype(model_cfg)), None
+        return FFPWCNet(model_cfg), None
+    raise TypeError("expected FFRaftConfig, FlowFormerConfig or FFPWCNetConfig, "
+                    f"got {model_cfg!r}")

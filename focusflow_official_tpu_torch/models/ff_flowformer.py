@@ -5,9 +5,10 @@
   `encoder_latent_dim`, the all-pairs cost volume (no sqrt scaling, stored
   in the compute type), and the cost perceiver, which compresses each
   query's cost map into K latent tokens;
-- decoder: `decoder_depth` refinements sharing one set of parameters.
-  Each looks up the radius-4 window of the cost maps (kernel A, one level),
-  encodes it into a flow token (kernel B, then a 1x1), cross-attends to the
+- decoder: `decoder_depth` refinements (or the forward's `iters`) sharing
+  one set of parameters. Each looks up the radius-4 window of the cost
+  maps (kernel A, one level), encodes it into a flow token (kernel B,
+  then a 1x1), cross-attends to the
   query's latent tokens (kernel E, keys and values computed once before
   the loop) and runs the GMA update block (convc1's window half as kernel
   B). Only the final low-resolution flow is convex-upsampled.
@@ -21,6 +22,8 @@ the port's FF-RAFT does (the JAX model returns them the other way round).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -137,9 +140,11 @@ class MemoryDecoder(nn.Module):
             gelu(self.decoder_layer_cross_attend_ffn_0(xn)))
         return x[:, 0]
 
-    def forward(self, cost_memory, cost_maps, context):
+    def forward(self, cost_memory, cost_maps, context, iters: int,
+                flow_init: Optional[torch.Tensor] = None):
         """cost_memory (B*Q, K, D), cost_maps (B, Q, H1, W1), context NHWC
-        (B, H1, W1, 256) -> (flow_lr (B, H1, W1, 2), flow_up (B, 8H1, 8W1, 2))."""
+        (B, H1, W1, 256) -> (flow_lr (B, H1, W1, 2), flow_up (B, 8H1, 8W1, 2))
+        after `iters` refinements from `coords0 + flow_init`."""
         b, h1, w1, _ = context.shape
         d = cost_maps.dtype
         context = conv1x1_nhwc(self.proj, context)
@@ -151,16 +156,16 @@ class MemoryDecoder(nn.Module):
         v_mem = self.decoder_layer_cross_attend_v(cost_memory)
 
         coords0 = coords_grid(b, h1, w1, device=context.device)
-        coords1 = coords0.contiguous()
+        coords1 = (coords0.contiguous() if flow_init is None
+                   else (coords0 + flow_init.float()).contiguous())
         up_mask = None
-        depth = self.cfg.decoder_depth
-        for it in range(depth):
+        for it in range(iters):
             window = lookup([cost_maps], coords1, _RADIUS)  # (B, H1, W1, 81) in d
             cost_global = self._cost_global(window.reshape(b * h1 * w1, -1),
                                             coords1, k_mem, v_mem)
             net, up_mask, delta = self.update_block(
                 net, inp, cost_global.reshape(b, h1, w1, -1), window,
-                (coords1 - coords0).to(d), attention, mask_needed=it == depth - 1)
+                (coords1 - coords0).to(d), attention, mask_needed=it == iters - 1)
             coords1 = coords1 + delta.float()
 
         flow_lr = coords1 - coords0
@@ -181,9 +186,18 @@ class FFFlowFormer(nn.Module):
         self.memory_encoder = FusionMemoryEncoder(cfg)
         self.memory_decoder = MemoryDecoder(cfg)
 
-    def forward(self, image1, image2, mask1, mask2):
-        """NHWC images (0..255) and raw 0/255 masks -> (flow_lr, flow_up), f32."""
+    def forward(self, image1, image2, mask1, mask2, iters: Optional[int] = None,
+                flow_init: Optional[torch.Tensor] = None):
+        """NHWC images (0..255) and raw 0/255 masks -> (flow_lr, flow_up), f32,
+        after `iters` refinements (default `decoder_depth`; the parameters are
+        shared, so any count >= 1 runs) from `coords0 + flow_init` (the
+        warm start, (B, H/8, W/8, 2))."""
         cfg = self.cfg
+        if iters is None:
+            iters = cfg.decoder_depth
+        if iters < 1:
+            raise ValueError(f"iters must be >= 1, got {iters}: the last "
+                             "refinement makes the upsampling mask")
         d = compute_dtype(cfg)
         mask1, mask2 = init_mask(
             image1, image2, mask1, mask2, mask_modal=cfg.mask_modal,
@@ -193,4 +207,4 @@ class FFFlowFormer(nn.Module):
             (2 * (t / 255.0) - 1.0).to(d) for t in (image1, image2, mask1, mask2))
         context = self.context_encoder_svt(image1, mask1)
         memory, cost_maps = self.memory_encoder(image1, image2, mask1, mask2, context)
-        return self.memory_decoder(memory, cost_maps, context)
+        return self.memory_decoder(memory, cost_maps, context, iters, flow_init)

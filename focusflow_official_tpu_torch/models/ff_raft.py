@@ -55,9 +55,11 @@ class RAFT(nn.Module):
                                              self.hdim)
 
     def forward(self, image1, image2, mask1, mask2, iters: int = 12,
-                dtype: torch.dtype = torch.float32):
+                dtype: torch.dtype = torch.float32,
+                flow_init: Optional[torch.Tensor] = None):
         """NHWC inputs scaled to [-1, 1] -> (flow_lr (B, H/8, W/8, 2),
-        flow_up (B, H, W, 2)), both f32."""
+        flow_up (B, H, W, 2)), both f32. `flow_init` (B, H/8, W/8, 2), the
+        warm start, is added to the starting coordinates."""
         if iters < 1:
             raise ValueError(f"iters must be >= 1, got {iters}")
         image1, image2 = image1.to(dtype), image2.to(dtype)
@@ -74,7 +76,7 @@ class RAFT(nn.Module):
 
         b, h, w = fmap1.shape[:3]
         coords0 = coords_grid(b, h, w, device=fmap1.device)
-        coords1 = coords0.clone()
+        coords1 = coords0.clone() if flow_init is None else coords0 + flow_init.float()
         up_mask = None
         for it in range(iters):
             flow = (coords1 - coords0).to(dtype)
@@ -100,8 +102,9 @@ class FFRaft(nn.Module):
         self.flow_net = RAFT(cfg.mask_channel, cfg.fusion_type)
 
     def forward(self, image1, image2, mask1, mask2,
-                iters: Optional[int] = None):
-        """NHWC images (0..255) and raw 0/255 masks -> (flow_lr, flow_up)."""
+                iters: Optional[int] = None, flow_init: Optional[torch.Tensor] = None):
+        """NHWC images (0..255) and raw 0/255 masks -> (flow_lr, flow_up);
+        `flow_init` as in `RAFT.forward`."""
         cfg = self.cfg
         if iters is None:
             iters = cfg.iters
@@ -111,4 +114,5 @@ class FFRaft(nn.Module):
             kernel_size=cfg.kernel_size, kernel_sigma=cfg.kernel_sigma)
         scale = lambda t: 2 * (t / 255.0) - 1.0
         return self.flow_net(scale(image1), scale(image2), scale(mask1),
-                             scale(mask2), iters=iters, dtype=compute_dtype(cfg))
+                             scale(mask2), iters=iters, dtype=compute_dtype(cfg),
+                             flow_init=flow_init)

@@ -1,5 +1,6 @@
-"""Coordinate grids, the 8x align-corners flow upsampler and the half-pixel
-bilinear resize (NHWC)."""
+"""Coordinate grids, the 8x align-corners flow upsampler, the half-pixel
+bilinear resize (NHWC) and the host-side forward splat of a flow field
+(the warm start between frame pairs)."""
 
 from __future__ import annotations
 
@@ -32,3 +33,29 @@ def resize_bilinear(x: torch.Tensor, new_hw: tuple[int, int]) -> torch.Tensor:
     out = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(new_hw),
                         mode="bilinear", align_corners=False)
     return out.permute(0, 2, 3, 1)
+
+
+def forward_interpolate(flow):
+    """Forward-splat a (H, W, 2) numpy flow field to warm-start the next
+    frame pair: each pixel's flow moves to where it points, and the holes
+    take their nearest splatted neighbour's value (scipy `griddata`,
+    'nearest'). Host-side; the result is (H, W, 2) float32."""
+    import numpy as np
+    from scipy import interpolate
+
+    flow = np.asarray(flow)
+    dx, dy = flow[..., 0], flow[..., 1]
+    ht, wd = dx.shape
+    x0, y0 = np.meshgrid(np.arange(wd), np.arange(ht))
+
+    x1 = (x0 + dx).reshape(-1)
+    y1 = (y0 + dy).reshape(-1)
+    dxf = dx.reshape(-1)
+    dyf = dy.reshape(-1)
+
+    valid = (x1 > 0) & (x1 < wd) & (y1 > 0) & (y1 < ht)
+    x1, y1, dxf, dyf = x1[valid], y1[valid], dxf[valid], dyf[valid]
+
+    flow_x = interpolate.griddata((x1, y1), dxf, (x0, y0), method="nearest", fill_value=0)
+    flow_y = interpolate.griddata((x1, y1), dyf, (x0, y0), method="nearest", fill_value=0)
+    return np.stack([flow_x, flow_y], axis=-1).astype(np.float32)

@@ -7,10 +7,16 @@
     flow = p(img1, img2, mask1, mask2)   # (H, W, 2) float32 numpy
     p = FlowPredictor(FlowFormerConfig(encoder_depth=1), "weights_ff.npz")
     p = FlowPredictor(FFPWCNetConfig(), "weights_pwc.npz")
+    p = FlowPredictor("configs/ff-raft/experiment/ffraft_chairs_orb.yaml",
+                      "raft-chairs.pth")           # a reference checkpoint
+    flows = p.sequence(frames)                     # warm-started video
 
 The config's type picks the model: `FFRaftConfig` -> FF-RAFT,
 `FlowFormerConfig` -> FF-FlowFormer, `FFPWCNetConfig` -> FF-PWCNet (the
-vanilla PWC-Net with `fusion=None`).
+vanilla PWC-Net with `fusion=None`). A YAML path is read into one of them
+(`config.py`). Weights are an `.npz` of flat flax variables (the JAX
+package's `scripts/export_fixture.py` writes one from an orbax
+checkpoint) or a reference `.pth` / `.pth.tar` / `.pt`.
 
 Frames are padded (replicate) to a multiple of 8, run through the
 test-mode forward and unpadded; FF-PWCNet then resizes to a multiple of 64
@@ -22,20 +28,24 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Optional
+import inspect
+import os
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from .compat.torch_import import load_torch_pretrained
 from .compat.weights import load_npz
-from .models.config import FFPWCNetConfig, FFRaftConfig, FlowFormerConfig
-from .models.ff_flowformer import FFFlowFormer
-from .models.ff_pwcnet import FFPWCNet, PWCNet
-from .models.ff_raft import DTYPES, FFRaft, compute_dtype
+from .config import config_from_yaml, load_yaml_config, model_from_config
+from .models.ff_raft import DTYPES, compute_dtype
+from .ops.coords import forward_interpolate
 from .ops.padding import InputPadder
 
 _DTYPE_NAMES = {v: k for k, v in DTYPES.items()}
+_TORCH_SUFFIXES = (".pth", ".pth.tar", ".pt")
 
 
 def _as_nhwc(arr, channels: int, device) -> torch.Tensor:
@@ -74,42 +84,88 @@ def _no_tf32():
             b.fp32_precision = precision
 
 
+def runs_f32(model: nn.Module) -> bool:
+    """True where no parameter of `model` is bf16: an f32 model, whose
+    forward `eval_forward` runs in full f32."""
+    return not any(p.dtype == torch.bfloat16 for p in model.parameters())
+
+
+def eval_forward(model: nn.Module, image1, image2, mask1, mask2, *,
+                 iters: Optional[int] = None,
+                 flow_init: Optional[torch.Tensor] = None):
+    """One test-mode forward of a port model on NHWC f32 tensors (sizes a
+    multiple of 8) -> (flow at the input's size, the low-resolution flow),
+    both f32 (B, h, w, 2); a model without one gives its flow twice.
+
+    `iters` goes to a model whose forward takes it (FF-PWCNet has no
+    refinement loop), `flow_init` ((B, H/8, W/8, 2), the warm start) to the
+    model as given. An f32 model (`runs_f32`) runs with TF32 off in matmuls
+    and convolutions, as the JAX package computes its f32 path (`HIGHEST`
+    precision), and the caller's flags are restored after the call; a bf16
+    model leaves them as they are."""
+    kwargs = {}
+    if iters is not None and "iters" in inspect.signature(model.forward).parameters:
+        kwargs["iters"] = iters
+    if flow_init is not None:
+        kwargs["flow_init"] = flow_init
+    with torch.inference_mode(), (_no_tf32() if runs_f32(model) else contextlib.nullcontext()):
+        out = model(image1, image2, mask1, mask2, **kwargs)
+    if torch.is_tensor(out):
+        return out, out
+    flows = [o for o in out if torch.is_tensor(o)]
+    full = [o for o in flows if o.shape[1:3] == image1.shape[1:3]]
+    low = [o for o in flows if o.shape[1:3] != image1.shape[1:3]]
+    return full[0], (low[0] if low else full[0])
+
+
+def load_weights(path: str, model: nn.Module) -> dict:
+    """An `.npz` of flat flax variables or a reference `.pth` / `.pth.tar` /
+    `.pt` -> the state dict of `model`. An orbax checkpoint directory is
+    refused: the JAX package's `scripts/export_fixture.py` turns one into
+    the `.npz`."""
+    path = os.fspath(path)
+    if os.path.isdir(path):
+        raise ValueError(f"{path} is a directory (an orbax checkpoint?): the port "
+                         "reads .npz or .pth weights; the JAX package's "
+                         "scripts/export_fixture.py writes the .npz")
+    if path.endswith(_TORCH_SUFFIXES):
+        return load_torch_pretrained(path, model)
+    if path.endswith(".npz"):
+        return load_npz(path)
+    raise ValueError(f"{path}: expected .npz, or {', '.join(_TORCH_SUFFIXES)}")
+
+
 class FlowPredictor:
     """Load a config and weights once; call on frame pairs.
 
-    weights_npz: flat flax variables as saved by the JAX package's
-    `scripts/export_fixture.py`. dtype: compute type (bf16 or f32),
-    default `cfg.compute_dtype`. Runs on `device` ("cuda" unless the
-    caller asks for "cpu").
+    cfg: a port config (`FFRaftConfig`, `FlowFormerConfig`,
+    `FFPWCNetConfig`) or the path of a reference YAML. weights: see
+    `load_weights`. dtype: compute type (bf16 or f32), default
+    `cfg.compute_dtype`, and bf16 for a YAML (the serving type). iters:
+    refinements a pair (default the config's: FF-RAFT `iters`, FF-FlowFormer
+    `decoder_depth`; FF-PWCNet has none). pad_to: an (H, W) that every
+    input is edge-padded to first, so mixed sizes run at one shape. Runs
+    on `device` ("cuda" unless the caller asks for "cpu").
 
-    An f32 predictor is full f32 on the card: its forward runs with TF32
-    off in matmuls and convolutions, as the JAX package computes its f32
-    path (`HIGHEST` precision), and the caller's flags are restored after
-    the call. bf16 runs in bf16 and leaves the flags as they are."""
+    An f32 predictor is full f32 on the card (`eval_forward`); bf16 runs in
+    bf16 and leaves the TF32 flags as they are."""
 
-    def __init__(self, cfg: FFRaftConfig | FlowFormerConfig | FFPWCNetConfig,
-                 weights_npz: str, *,
-                 device="cuda", dtype: Optional[torch.dtype] = None):
-        if dtype is not None:
-            if dtype not in _DTYPE_NAMES:
-                raise ValueError(f"dtype must be one of {list(_DTYPE_NAMES)}")
+    def __init__(self, cfg, weights: str, *, device="cuda",
+                 dtype: Optional[torch.dtype] = None, iters: Optional[int] = None,
+                 pad_to: Optional[Tuple[int, int]] = None):
+        if dtype is not None and dtype not in _DTYPE_NAMES:
+            raise ValueError(f"dtype must be one of {list(_DTYPE_NAMES)}")
+        if isinstance(cfg, (str, os.PathLike)):
+            cfg = config_from_yaml(load_yaml_config(cfg),
+                                   compute_dtype=_DTYPE_NAMES[dtype or torch.bfloat16])
+        elif dtype is not None:
             cfg = dataclasses.replace(cfg, compute_dtype=_DTYPE_NAMES[dtype])
         self.cfg = cfg
         self.device = torch.device(device)
-        # the model, and where the full-resolution flow stands in what its
-        # test-mode forward returns
-        if isinstance(cfg, FFRaftConfig):
-            model, self._flow_at = FFRaft(cfg), 1  # (low-resolution flow, flow)
-        elif isinstance(cfg, FlowFormerConfig):
-            model, self._flow_at = FFFlowFormer(cfg), 1
-        elif isinstance(cfg, FFPWCNetConfig):
-            model = (PWCNet(compute_dtype(cfg)) if cfg.fusion is None
-                     else FFPWCNet(cfg))
-            self._flow_at = 0  # (flow, per-level flows)
-        else:
-            raise TypeError("expected FFRaftConfig, FlowFormerConfig or "
-                            f"FFPWCNetConfig, got {cfg!r}")
-        model.load_state_dict(load_npz(weights_npz), strict=True)
+        model, cfg_iters = model_from_config(cfg)
+        self.iters = iters or cfg_iters
+        self.pad_to = pad_to
+        model.load_state_dict(load_weights(weights, model), strict=True)
         model.to(self.device).eval()
         # convs and dense layers run in the compute type; norms and free
         # parameters stay f32 and cast at use
@@ -120,22 +176,63 @@ class FlowPredictor:
                 m.to(compute_dtype(cfg))
         self.model = model
 
-    @torch.inference_mode()
-    def forward(self, image1, image2, mask1, mask2) -> torch.Tensor:
-        """NHWC f32 tensors on the device -> (B, H, W, 2) f32 flow there."""
-        padder = InputPadder(image1.shape)
-        full_f32 = compute_dtype(self.cfg) == torch.float32
-        with _no_tf32() if full_f32 else contextlib.nullcontext():
-            out = self.model(*padder.pad(image1, image2, mask1, mask2))
-        return padder.unpad(out[self._flow_at])
+    def _pad(self, *tensors: torch.Tensor):
+        """Edge-pad NHWC tensors at the bottom and right to `pad_to`."""
+        if self.pad_to is None:
+            return tensors
+        h, w = tensors[0].shape[1:3]
+        th, tw = self.pad_to
+        if th < h or tw < w:
+            raise ValueError(f"pad_to {self.pad_to} is smaller than the input {(h, w)}")
+        return tuple(F.pad(t.permute(0, 3, 1, 2), (0, tw - w, 0, th - h), mode="replicate")
+                     .permute(0, 2, 3, 1) for t in tensors)
 
-    def __call__(self, image1, image2, mask1=None, mask2=None) -> np.ndarray:
-        """Returns (H, W, 2) float32 for HWC inputs, (B, H, W, 2) for NHWC."""
-        single = np.ndim(image1) == 3
+    def forward(self, image1, image2, mask1, mask2,
+                flow_init: Optional[torch.Tensor] = None):
+        """NHWC f32 tensors on the device -> ((B, H, W, 2) f32 flow there,
+        the low-resolution flow on the padded /8 grid, which `flow_init`
+        shares)."""
+        h, w = image1.shape[1:3]
+        inputs = self._pad(image1, image2, mask1, mask2)
+        padder = InputPadder(inputs[0].shape)
+        flow, flow_lr = eval_forward(self.model, *padder.pad(*inputs), iters=self.iters,
+                                     flow_init=flow_init)
+        return padder.unpad(flow)[:, :h, :w], flow_lr
+
+    def prepare(self, image1, image2, mask1=None, mask2=None):
+        """Frames and masks as `__call__` takes them -> NHWC f32 tensors on
+        the device, as `forward` takes them (no mask: zeros)."""
         i1 = _as_nhwc(image1, 3, self.device)
         i2 = _as_nhwc(image2, 3, self.device)
         zeros = lambda: torch.zeros(i1.shape[:3] + (1,), device=self.device)
         m1 = zeros() if mask1 is None else _as_nhwc(mask1, 1, self.device)
         m2 = zeros() if mask2 is None else _as_nhwc(mask2, 1, self.device)
-        flow = self.forward(i1, i2, m1, m2).cpu().numpy()
+        return i1, i2, m1, m2
+
+    def __call__(self, image1, image2, mask1=None, mask2=None) -> np.ndarray:
+        """Returns (H, W, 2) float32 for HWC inputs, (B, H, W, 2) for NHWC."""
+        single = np.ndim(image1) == 3
+        flow = self.forward(*self.prepare(image1, image2, mask1, mask2))[0].cpu().numpy()
         return flow[0] if single else flow
+
+    def sequence(self, frames, masks=None, *, warm_start: bool = True) -> np.ndarray:
+        """Flow of each consecutive pair of a clip: frames (T, H, W, 3) or a
+        list of HWC frames, masks optional and as many -> (T-1, H, W, 2)
+        float32. With `warm_start`, each pair's low-resolution flow is
+        forward-splatted (`forward_interpolate`, on the host) into the next
+        pair's `flow_init`, as the reference's Sintel submission does."""
+        frames = list(frames)
+        masks = [None] * len(frames) if masks is None else list(masks)
+        if len(frames) < 2 or len(masks) != len(frames):
+            raise ValueError(f"{len(frames)} frames and {len(masks)} masks: need two "
+                             "or more frames and a mask for each, or none")
+        flows, flow_prev = [], None
+        for i in range(len(frames) - 1):
+            inputs = self.prepare(frames[i], frames[i + 1], masks[i], masks[i + 1])
+            init = (None if flow_prev is None
+                    else torch.from_numpy(flow_prev[None]).to(self.device))
+            flow, flow_lr = self.forward(*inputs, flow_init=init)
+            flows.append(flow[0].cpu().numpy())
+            if warm_start:
+                flow_prev = forward_interpolate(flow_lr[0].cpu().numpy())
+        return np.stack(flows)

@@ -1001,3 +1001,66 @@ def test_pwc_predictor_on_card_matches_cpu(dev):
     on_cpu = FlowPredictor(cfg, fixture, device="cpu")(i1, i2, m1, m2)
     assert on_card.shape == (100, 150, 2)
     assert float(np.abs(on_card - on_cpu).max()) <= 1e-2
+
+
+# ---- the evaluation path's new shapes (chairs 384x512; KITTI 375x1242 and
+# 370x1224 padded per shape to 376x1248 and 376x1224) ----------------------
+
+EVAL_GRIDS = [(48, 64), (47, 156), (47, 153)]  # the /8 grids
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h1,w1", EVAL_GRIDS)
+def test_lookup_fold_at_the_eval_grids(dev, dtype, h1, w1):
+    """G over the 4-level pyramid of these grids (an odd H/8 at KITTI's),
+    coords a multi-pixel flow away, at the RAFT widths."""
+    g = torch.Generator(device=dev).manual_seed(40)
+    levels, w, bias = _fold_operands(g, dev, dtype, 1, h1, w1, 4, 256)
+    from focusflow_official_tpu_torch.ops.coords import coords_grid
+    coords = (coords_grid(1, h1, w1, device=dev)
+              + torch.randn((1, h1, w1, 2), generator=g, device=dev) * 8).contiguous()
+    _check_lookup_fold(levels, coords, 4, w, bias)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h1,w1", EVAL_GRIDS)
+def test_instance_norm_at_the_eval_fnet_shapes(dev, dtype, h1, w1):
+    """C1 and C2 (both forms) at the fnet's three shapes for these grids:
+    (2, 4 h1, 4 w1, 64), (2, 2 h1, 2 w1, 96), (2, h1, w1, 128)."""
+    g = torch.Generator(device=dev).manual_seed(41)
+    for shape in ((2, 4 * h1, 4 * w1, 64), (2, 2 * h1, 2 * w1, 96), (2, h1, w1, 128)):
+        x = (torch.randn(shape, generator=g, device=dev) * 3 + 1).to(dtype)
+        r = torch.randn(shape, generator=g, device=dev).to(dtype)
+        mean, inv, entry = _stats_entry(x)
+        assert entry == "vector"
+        rmean, rinv = kin.stats_plain(x)
+        torch.testing.assert_close(mean, rmean, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(inv, rinv, rtol=1e-4, atol=1e-5)
+        for res in (None, r):
+            y, key = _normalize(x, mean, inv, True, res)
+            assert key[-2:] == ("vector", "plain" if res is None else "residual")
+            torch.testing.assert_close(y, kin.apply_plain(x, mean, inv, True, res),
+                                       rtol=0, atol=0)
+
+
+def test_validate_kitti_card_against_cpu(dev):
+    """The validation protocol on two mixed-shape sparse pairs (the
+    multi-pixel affine input, per-shape 'kitti' padding), FF-RAFT at full
+    width on the trained fixture, 8 refinements, f32: the card's metrics
+    within 1e-3 of the same code's CPU run (f32 on both; TF32 off)."""
+    from focusflow_official_tpu_torch.data import synthetic
+    from focusflow_official_tpu_torch.models import FFRaftConfig
+    from focusflow_official_tpu_torch.predict import FlowPredictor
+    from focusflow_official_tpu_torch.train.evaluate import validate_kitti
+
+    fixture = os.path.join(os.path.dirname(__file__), "fixtures", "trained_smoke.npz")
+    cfg = FFRaftConfig(fuse_cnet=True)
+    ds = synthetic.kitti_layout(0, shapes=((125, 414), (120, 408)))
+    got = validate_kitti(FlowPredictor(cfg, fixture, device="cuda", dtype=torch.float32).model,
+                         ds, iters=8)
+    want = validate_kitti(FlowPredictor(cfg, fixture, device="cpu", dtype=torch.float32).model,
+                          ds, iters=8)
+    assert got.keys() == want.keys() and len(got) == 3
+    for k in want:
+        assert np.isfinite(got[k]) and abs(got[k] - want[k]) <= 1e-3 * max(1.0, abs(want[k])), (
+            k, got[k], want[k])
