@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it: FF-RAFT,
-FF-FlowFormer and FF-PWCNet inference, and the evaluation entry point.
+FF-FlowFormer and FF-PWCNet inference, the evaluation entry point and
+FF-RAFT training.
 
     python3 chip_smoke.py
 
@@ -82,9 +83,10 @@ Phases (any failure raises and exits non-zero; no result is printed):
    `{"ok": true, "device": {...}}`. Each wrapper counts a launch under its
    kernel's name and under a key of the call's shape; phase 2 notes the key
    of every shape it holds, and the table reads each shape's launches from
-   the counted forwards of phases 3 to 6 by that key, with launches x (ms -
-   bound). A path that launched a shape which phase 2 does not hold fails.
-   (The line is printed after phase 8, which is not one of its drives.)
+   the counted forwards of phases 3 to 6 and the counted training step of
+   phase 9 by that key, with launches x (ms - bound). A path that launched
+   a shape which phase 2 (or phase 9's rows) does not hold fails. (The line
+   is printed after phase 8, which is not one of its drives.)
 8. The evaluation entry point (`eval_phase`): the validation protocol of
    `train/evaluate.py` on in-memory FlyingChairs (4 pairs, 384x512),
    Sintel (one 5-frame scene at 436x1024, clean and a blurred, noisy
@@ -101,6 +103,26 @@ Phases (any failure raises and exits non-zero; no result is printed):
    keypoint EPE within 0.05 max(AEPE, 1) px). Every (kernel, shape) the
    phase launched that phase 2 does not hold is checked once against its
    plain version, untimed, and listed.
+
+9. FF-RAFT training (`train_kernel_rows`, `train_phase`), before the
+   kernels line: G, A, C1 and C2 at the training step's shapes (B=10 at
+   368x496, bf16; the fnet at B=20), held and timed as in phase 2, each
+   with its Function's backward: the gradients against autograd through
+   the plain version on the card and the backward's time beside
+   autograd's through the plain version. Then the trainer's body
+   (`cli/train.py::train`) on `ffraft_chairs_orb.yaml` at full width (B=10,
+   368x496 crops, 12 refinements, MixLoss, noise, the cnet's batch norm in
+   train mode, AdamW + OneCycle, bf16) from the trained fixture, NUM_STEPS
+   cut to 16, on one fixed batch of in-memory multi-pixel affine pairs
+   with 3% keypoint masks. Gates: finite loss and gradient norm at every
+   step; every step launches G 12, A 12 (in G's backward), C1 30 and C2 30
+   (12 residual); the last four losses' mean under 0.98 x the first; the
+   final `validate_chairs` finite; on two samples without noise, the f32
+   step (TF32 off) within 1e-4 of the port's f32 CPU step in loss and
+   >= 0.9999 in gradient cosine, and the bf16 step within 2% and >= 0.99 of
+   the f32 step. Step 4 is the counted step (every count 0 before it),
+   steps 4-13 are timed on the host clock, step 15 is profiled, and one
+   more step is profiled in its forward, backward and optimizer parts.
 
 Outside the phase under default flags, f32 matmuls and convolutions run
 in full f32 here (TF32 off), so the f32 comparisons are not blurred by
@@ -483,6 +505,158 @@ def pwc_kernel_phase(torch, dev) -> list:
     return rows
 
 
+def _grad_tol(want) -> float:
+    """One bf16 ulp of the largest |value| (2^-7 of it) for a bf16 gradient,
+    1e-5 of it in f32."""
+    return (2.0 ** -7 if str(want.dtype) == "torch.bfloat16" else 1e-5) * float(
+        want.float().abs().max())
+
+
+def _backward_check(torch, fn, plain, inputs, g, vjp, label: str) -> dict:
+    """The Function `fn(*inputs)`'s gradients for the cotangent `g` against
+    autograd through `plain(*inputs)` on the same inputs, each within
+    `_grad_tol` of the plain gradient, and the device time of the backward
+    alone (`vjp()`, what the Function's backward runs) beside autograd's
+    through the plain version."""
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    got = torch.autograd.grad(fn(*leaves), leaves, g)
+    ref = [t.detach().requires_grad_(True) for t in inputs]
+    out = plain(*ref)
+    want = torch.autograd.grad(out, ref, g, retain_graph=True)
+    errs, tols = [], []
+    for a, b in zip(got, want):
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"{label}: gradient {a.dtype} {tuple(a.shape)} against "
+                                 f"{b.dtype} {tuple(b.shape)}, or not finite")
+        errs.append(float((a.float() - b.float()).abs().max()))
+        tols.append(_grad_tol(b))
+        _check(f"{label} gradient", errs[-1], tols[-1])
+    return dict(grad_max_abs_err=errs, grad_tol=tols, backward_ms=_time_ms(torch, vjp, reps=10),
+                plain_backward_ms=_time_ms(
+                    torch, lambda: torch.autograd.grad(out, ref, g, retain_graph=True), reps=10))
+
+
+def _instance_norm_backward(torch, g, dev, x, r, label: str) -> dict:
+    """The instance norm Function's gradients (C1 then C2 with ReLU, and
+    `r` the residual or None) against autograd through the plain version in
+    f32 from the same bf16 inputs, within `_grad_tol`; the ReLU of the
+    residual form masks where the forward's own output is > 0 (the plain
+    form's bf16 output, to which the kernel is bit-equal), and the
+    residual's gradient must be that masked cotangent to the bit. The
+    plain version in bf16 is not the yardstick: its ReLU masks where the
+    rounded (x - mean) * inv > 0, which drops gradients the f32 VJP keeps.
+    Times the backward alone (`instance_norm_vjp`) and autograd's through
+    the bf16 plain version."""
+    from focusflow_official_tpu_torch.kernels import instance_norm as kin
+
+    cot = torch.randn(x.shape, generator=g, device=dev).to(x.dtype)
+    leaves = [x.detach().requires_grad_(True)] + ([] if r is None else [r.detach().requires_grad_(True)])
+    y = kin.instance_norm(*leaves[:1], 1e-5, True, *leaves[1:])
+    got = torch.autograd.grad(y, leaves, cot)
+    g_in = cot if r is None else torch.where(y.detach() > 0, cot, torch.zeros_like(cot))
+    if r is not None and not torch.equal(got[1], g_in):
+        raise AssertionError(f"{label}: the residual's gradient is not the masked cotangent")
+    x32 = x.detach().float().requires_grad_(True)
+    (want,) = torch.autograd.grad(kin.apply_plain(x32, *kin.stats_plain(x32), True), x32,
+                                  g_in.float())
+    err, tol = float((got[0].float() - want).abs().max()), _grad_tol(want.to(x.dtype))
+    _check(f"{label} gradient", err, tol)
+    ref = [t.detach().requires_grad_(True) for t in leaves]
+    out = kin.apply_plain(ref[0], *kin.stats_plain(ref[0]), True, *ref[1:])
+    return dict(grad_max_abs_err=err, grad_tol=tol,
+                backward_ms=_time_ms(torch, lambda: kin.instance_norm_vjp(
+                    x, torch.where(y > 0, cot, 0.0) if r is not None else cot, 1e-5, True),
+                    reps=10),
+                plain_backward_ms=_time_ms(
+                    torch, lambda: torch.autograd.grad(out, ref, cot, retain_graph=True),
+                    reps=10))
+
+
+def _instance_norm_rows(torch, g, dev, shapes, backward: bool = False) -> dict:
+    """C1 and C2 (both forms, ReLU) at NHWC `shapes` in bf16, each against
+    its plain version and timed -> {"in_stats": rows, "in_normalize": rows}.
+    With `backward`, each row also holds its Function's gradients against
+    autograd through the plain version (`_backward_check`) and times the
+    backward."""
+    import torch.nn.functional as F
+
+    from focusflow_official_tpu_torch.kernels import instance_norm as kin
+
+    bf16 = torch.bfloat16
+    per_shape = {"in_stats": [], "in_normalize": []}
+    for shp in shapes:
+        x = (torch.randn(shp, generator=g, device=dev) * 3 + 1).to(bf16)
+        res = torch.randn(shp, generator=g, device=dev).to(bf16)
+        (mean, inv), key1 = _launch_key(lambda: kin.instance_norm_stats(x))
+        if key1[-1] != "vector":
+            raise AssertionError(f"in_stats {shp}: ran the {key1[-1]} entry, not vector")
+        rmean, rinv = kin.stats_plain(x)
+        torch.cuda.synchronize()
+        err1 = max(float((mean - rmean).abs().max()), float((inv - rinv).abs().max()))
+        # f32 sums of up to 1e5 values in another order
+        tol1 = 1e-4 * (1.0 + max(float(rmean.abs().max()), float(rinv.abs().max())))
+        _check(f"in_stats {shp}", err1, tol1)
+        t1 = _time_ms(torch, lambda: kin.instance_norm_stats(x))
+        t1p = _time_ms(torch, lambda: kin.stats_plain(x))
+        tv = _time_ms(torch, lambda: torch.var_mean(x, dim=(1, 2), correction=0))
+        xs = x.numel() * 2
+        b1, by1 = _bound_ms(xs + 2 * shp[0] * shp[3] * 4, 3.0 * x.numel(), PEAK_F32)
+        # the launch's key ends with the split and the entry that ran
+        per_shape["in_stats"].append(dict(
+            shape=list(shp), key=key1, design=key1[-1], splits=key1[-2],
+            max_abs_err=err1, tol=tol1, ms=t1, plain_ms=t1p,
+            bound_ms=b1, bound_by=by1, library_ms=tv))
+        if backward:
+            gm = torch.randn(rmean.shape, generator=g, device=dev)
+            gi = torch.randn(rinv.shape, generator=g, device=dev)
+            per_shape["in_stats"][-1].update(_backward_check(
+                torch, kin.instance_norm_stats, kin.stats_plain, [x], (gm, gi),
+                lambda: kin.stats_vjp(x, mean, inv, gm, gi), f"in_stats {shp}"))
+        xn, rn = x.permute(0, 3, 1, 2), res.permute(0, 3, 1, 2)  # NCHW views
+        plain_y = None
+        for r in (None, res):
+            form = "plain" if r is None else "residual"
+            y, key2 = _launch_key(lambda: kin.instance_norm_apply(x, mean, inv, True, r))
+            if key2[-2:] != ("vector", form):  # the key ends with the entry and the form
+                raise AssertionError(f"in_normalize {shp}: ran {key2[-2:]}, not vector {form}")
+            ry = kin.apply_plain(x, mean, inv, True, r)
+            torch.cuda.synchronize()
+            err2 = float((y.float() - ry.float()).abs().max())
+            # the kernel rounds where PyTorch's bf16 ops round: bit-equal
+            if not torch.equal(y, ry):
+                raise AssertionError(f"in_normalize {shp} {form}: not bit-equal ({err2})")
+            row = dict(shape=list(shp), form=form, key=key2, design=key2[-2],
+                       max_abs_err=err2, tol=0.0)
+            if r is None:
+                plain_y = y
+                lib = lambda: F.instance_norm(xn)
+                row["library"] = "F.instance_norm (stats and normalize, no ReLU)"
+            else:
+                # one launch against the plain-form kernel, then PyTorch's add and ReLU
+                two = torch.relu(res + plain_y)
+                if not torch.equal(y, two):
+                    raise AssertionError(f"in_normalize {shp}: the residual form is not the "
+                                         "plain-form kernel then add and ReLU")
+                row["vs_plain_kernel_add_relu"] = "bit-equal"
+                row["plain_kernel_add_relu_ms"] = _time_ms(torch, lambda: torch.relu(
+                    res + kin.instance_norm_apply(x, mean, inv, True)))
+                lib = lambda: torch.relu(rn + F.instance_norm(xn))
+                row["library"] = "three calls: F.instance_norm, add, ReLU"
+            row["ms"] = _time_ms(torch, lambda: kin.instance_norm_apply(x, mean, inv, True, r))
+            row["plain_ms"] = _time_ms(torch, lambda: kin.apply_plain(x, mean, inv, True, r))
+            row["library_ms"] = _time_ms(torch, lib)
+            tensors = 2 if r is None else 3  # x (and r) read, y written
+            row["bound_ms"], row["bound_by"] = _bound_ms(
+                tensors * xs + 2 * shp[0] * shp[3] * 4, (3.0 if r is None else 5.0) * x.numel(),
+                PEAK_F32)
+            if backward:
+                row.update(_instance_norm_backward(torch, g, dev, x, r, f"in_normalize {shp} {form}"))
+            per_shape["in_normalize"].append(row)
+            del y, ry
+        del x, res, plain_y, xn, rn
+    return per_shape
+
+
 def kernel_phase(torch, dev):
     """A, B, the fused lookup + convc1, C1 and C2 at the FF-RAFT shapes ->
     one result per kernel."""
@@ -554,69 +728,7 @@ def kernel_phase(torch, dev):
     # ---- C1, C2: instance norm at the fnet's three shapes (both frames); C2
     # in its plain form and in its residual form (ResidualBlock's shortcut)
     shapes = [(2, 220, 512, 64), (2, 110, 256, 96), (2, 55, 128, 128)]
-    per_shape = {"in_stats": [], "in_normalize": []}
-    for shp in shapes:
-        x = (torch.randn(shp, generator=g, device=dev) * 3 + 1).to(bf16)
-        res = torch.randn(shp, generator=g, device=dev).to(bf16)
-        (mean, inv), key1 = _launch_key(lambda: kin.instance_norm_stats(x))
-        if key1[-1] != "vector":
-            raise AssertionError(f"in_stats {shp}: ran the {key1[-1]} entry, not vector")
-        rmean, rinv = kin.stats_plain(x)
-        torch.cuda.synchronize()
-        err1 = max(float((mean - rmean).abs().max()), float((inv - rinv).abs().max()))
-        # f32 sums of up to 1e5 values in another order
-        tol1 = 1e-4 * (1.0 + max(float(rmean.abs().max()), float(rinv.abs().max())))
-        _check(f"in_stats {shp}", err1, tol1)
-        t1 = _time_ms(torch, lambda: kin.instance_norm_stats(x))
-        t1p = _time_ms(torch, lambda: kin.stats_plain(x))
-        tv = _time_ms(torch, lambda: torch.var_mean(x, dim=(1, 2), correction=0))
-        xs = x.numel() * 2
-        b1, by1 = _bound_ms(xs + 2 * shp[0] * shp[3] * 4, 3.0 * x.numel(), PEAK_F32)
-        # the launch's key ends with the split and the entry that ran
-        per_shape["in_stats"].append(dict(
-            shape=list(shp), key=key1, design=key1[-1], splits=key1[-2],
-            max_abs_err=err1, tol=tol1, ms=t1, plain_ms=t1p,
-            bound_ms=b1, bound_by=by1, library_ms=tv))
-        xn, rn = x.permute(0, 3, 1, 2), res.permute(0, 3, 1, 2)  # NCHW views
-        plain_y = None
-        for r in (None, res):
-            form = "plain" if r is None else "residual"
-            y, key2 = _launch_key(lambda: kin.instance_norm_apply(x, mean, inv, True, r))
-            if key2[-2:] != ("vector", form):  # the key ends with the entry and the form
-                raise AssertionError(f"in_normalize {shp}: ran {key2[-2:]}, not vector {form}")
-            ry = kin.apply_plain(x, mean, inv, True, r)
-            torch.cuda.synchronize()
-            err2 = float((y.float() - ry.float()).abs().max())
-            # the kernel rounds where PyTorch's bf16 ops round: bit-equal
-            if not torch.equal(y, ry):
-                raise AssertionError(f"in_normalize {shp} {form}: not bit-equal ({err2})")
-            row = dict(shape=list(shp), form=form, key=key2, design=key2[-2],
-                       max_abs_err=err2, tol=0.0)
-            if r is None:
-                plain_y = y
-                lib = lambda: F.instance_norm(xn)
-                row["library"] = "F.instance_norm (stats and normalize, no ReLU)"
-            else:
-                # one launch against the plain-form kernel, then PyTorch's add and ReLU
-                two = torch.relu(res + plain_y)
-                if not torch.equal(y, two):
-                    raise AssertionError(f"in_normalize {shp}: the residual form is not the "
-                                         "plain-form kernel then add and ReLU")
-                row["vs_plain_kernel_add_relu"] = "bit-equal"
-                row["plain_kernel_add_relu_ms"] = _time_ms(torch, lambda: torch.relu(
-                    res + kin.instance_norm_apply(x, mean, inv, True)))
-                lib = lambda: torch.relu(rn + F.instance_norm(xn))
-                row["library"] = "three calls: F.instance_norm, add, ReLU"
-            row["ms"] = _time_ms(torch, lambda: kin.instance_norm_apply(x, mean, inv, True, r))
-            row["plain_ms"] = _time_ms(torch, lambda: kin.apply_plain(x, mean, inv, True, r))
-            row["library_ms"] = _time_ms(torch, lib)
-            tensors = 2 if r is None else 3  # x (and r) read, y written
-            row["bound_ms"], row["bound_by"] = _bound_ms(
-                tensors * xs + 2 * shp[0] * shp[3] * 4, (3.0 if r is None else 5.0) * x.numel(),
-                PEAK_F32)
-            per_shape["in_normalize"].append(row)
-            del y, ry
-        del x, res, plain_y, xn, rn
+    per_shape = _instance_norm_rows(torch, g, dev, shapes)
     src = "focusflow_official_tpu_torch/kernels/csrc/instance_norm.cu"
     for name, replaces, lib in (
             ("in_stats", "focusflow_official_tpu/kernels/instance_norm.py:51",
@@ -1529,6 +1641,306 @@ def eval_phase(torch, card: str, held: set) -> dict:
     return out
 
 
+# ------------------------------------------------------------- training
+TRAIN_YAML = os.path.join(ROOT, "configs", "ff-raft", "experiment", "ffraft_chairs_orb.yaml")
+TB, TH, TW = 10, 368, 496  # the chairs stage's batch and crop
+TRAIN_STEPS = 16
+COUNTED_STEP, PROFILED_STEP = 4, 15  # steps 1-3 warm up; 4-13 timed
+# each training step: G 12 (forward), A 12 (G's backward), C1 30, C2 30
+TRAIN_WANT = {"lookup_fold": ITERS, "lookup": ITERS, "in_stats": 30, "in_normalize": 30}
+
+
+def train_kernel_rows(torch, dev) -> dict:
+    """G, A, C1 and C2 at the training step's shapes (B=10 at 368x496,
+    bf16: the pyramid of a 46x62 grid; the fnet's three shapes over both
+    frames, B=20), held and timed as the kernel phase holds them, each row
+    with its Function's backward: the gradients against autograd through
+    the plain version (`_backward_check`, `_instance_norm_backward`) and
+    the backward's time -> kernel name -> rows."""
+    from focusflow_official_tpu_torch.compat.weights import load_npz
+    from focusflow_official_tpu_torch.kernels import lookup as kl
+    from focusflow_official_tpu_torch.kernels import lookup_fold as klf
+    from focusflow_official_tpu_torch.ops.coords import coords_grid
+    from focusflow_official_tpu_torch.ops.corr import corr_pyramid
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    bf16 = torch.bfloat16
+    h1, w1, r = TH // 8, TW // 8, 4
+    q = h1 * w1
+    corr0 = torch.randn((TB, q, h1, w1), generator=g, device=dev)
+    levels = corr_pyramid(corr0, 4, bf16)
+    del corr0
+    coords = (coords_grid(TB, h1, w1, device=dev)
+              + torch.randn((TB, h1, w1, 2), generator=g, device=dev) * 8).contiguous()
+    shape = f"levels {[tuple(lv.shape) for lv in levels]} bf16, Q={TB * q}"
+
+    row = _lookup_row(torch, levels, coords, r, "lookup train")
+    win = row.pop("out")
+    cot = torch.randn(win.shape, generator=g, device=dev).to(bf16)
+    row.update(shape=shape, **_backward_check(
+        torch, lambda *lv: kl.lookup(lv, coords, r), lambda *lv: kl.lookup_plain(lv, coords, r),
+        levels, cot, lambda: kl.lookup_vjp(levels, coords, r, cot), "lookup train"))
+    rows = {"lookup": [row]}
+    del win, cot
+
+    sd = load_npz(FIXTURE)
+    wc = sd["flow_net.update_block.encoder.convc1.weight"].reshape(256, 324).to(dev, bf16)
+    bc = sd["flow_net.update_block.encoder.convc1.bias"].to(dev, bf16)
+    row = _lookup_fold_row(torch, levels, coords, r, wc.contiguous(), bc, "lookup_fold train")
+    cot = torch.randn((TB, h1, w1, 256), generator=g, device=dev).to(bf16)
+    row.update(shape=f"{shape}, (256, 324) weight -> ({TB * q}, 256) bf16", **_backward_check(
+        torch, lambda w_, b_, *lv: klf.lookup_fold(lv, coords, r, w_, b_),
+        lambda w_, b_, *lv: klf.lookup_fold_plain(lv, coords, r, w_, b_),
+        [wc, bc, *levels], cot, lambda: klf.lookup_fold_vjp(levels, coords, r, wc, cot),
+        "lookup_fold train"))
+    rows["lookup_fold"] = [row]
+    del levels, coords, cot
+    torch.cuda.empty_cache()
+
+    shapes = [(2 * TB, TH // 2, TW // 2, 64), (2 * TB, TH // 4, TW // 4, 96),
+              (2 * TB, TH // 8, TW // 8, 128)]
+    rows.update(_instance_norm_rows(torch, g, dev, shapes, backward=True))
+    for name in rows:
+        for row in rows[name]:
+            _emit(dict(phase="train_kernels", name=name, **{k: v for k, v in row.items()
+                                                            if k != "key"}, key=list(row["key"])))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _flat_grad(torch, model) -> "torch.Tensor":
+    return torch.cat([p.grad.detach().float().flatten().cpu() for p in model.parameters()])
+
+
+def _two_sample_grads(torch, cfg, batch: dict, device, dtype):
+    """The fixture's FF-RAFT (f32 parameters, train mode) on `batch`, no
+    noise: one forward in `dtype` and the loss's backward -> (loss, flat
+    gradient on the CPU)."""
+    from focusflow_official_tpu_torch.cli.train import build_model
+    from focusflow_official_tpu_torch.compat.weights import load_npz
+    from focusflow_official_tpu_torch.train.loop import forward_loss
+
+    _, model, loss_fn, iters = build_model(
+        cfg, {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype])
+    model.load_state_dict(load_npz(FIXTURE), strict=True)
+    model.to(device)
+    if torch.device(device).type == "cuda":
+        model.to(memory_format=torch.channels_last)
+    model.train()
+    loss, _ = forward_loss(model, loss_fn, {k: v.to(device) for k, v in batch.items()},
+                           iters=iters, dtype=dtype)
+    loss.backward()
+    return float(loss.detach()), _flat_grad(torch, model)
+
+
+def _cosine(torch, a, b) -> float:
+    return float(torch.nn.functional.cosine_similarity(a.double(), b.double(), dim=0))
+
+
+def train_phase(torch, card: str, held: set) -> tuple:
+    """FF-RAFT training on the card through the trainer's body
+    (`cli/train.py::train`), the chairs stage of `ffraft_chairs_orb.yaml` at
+    full width: B=10, 368x496 crops, 12 refinements, MixLoss, noise, the
+    cnet's batch norm in train mode, AdamW + OneCycle, bf16, from the
+    trained fixture (PRETRAIN; the YAML's LOAD_MODULE, pretrain/raft-chairs.pth,
+    is not in the repository), NUM_STEPS cut to 16, on one fixed batch of 10
+    in-memory multi-pixel affine pairs with 3% keypoint masks
+    (`data/synthetic.py`; no host augmentation).
+
+    Gates: every step's loss and gradient norm finite; every step launches
+    G 12, A 12, C1 30, C2 30 (12 in the residual form); the mean of the last
+    four losses under 0.98 x the first (JAX's own descent test); the final
+    validation (`validate_chairs` on phase 8's chairs layout) finite. Then,
+    on two of the samples with no noise: the f32 step's loss (TF32 off)
+    within 1e-4 of the port's f32 step on the CPU and the cosine of their
+    flat gradients >= 0.9999; the bf16 step's loss within 2% of the f32
+    step's and the gradient cosine >= 0.99. Prints ms a step (host clock,
+    the median of steps 4-13), samples/s, the device breakdown of step 15
+    (profiled; its idle share also against the unprofiled median) with the
+    forward / backward / optimizer split of one more step (each part
+    profiled alone), and the peak memory. Every (kernel, shape) launched that no
+    kernel row holds (`held`) is held once against its plain version.
+    -> (counts, launches by shape key) of step 4, the counted step."""
+    import copy
+
+    from focusflow_official_tpu_torch.cli.train import train as run_trainer
+    from focusflow_official_tpu_torch.config import load_yaml_config
+    from focusflow_official_tpu_torch.data import synthetic as sy
+    from focusflow_official_tpu_torch.kernels import (
+        launch_counts, launch_shapes, reset_launch_counts)
+    from focusflow_official_tpu_torch.predict import for_inference
+    from focusflow_official_tpu_torch.train import evaluate as tev
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda", 0)
+    bf16 = torch.bfloat16
+    t_phase = time.perf_counter()
+    cfg = load_yaml_config(TRAIN_YAML)
+    cfg.TRAIN.NUM_STEPS = TRAIN_STEPS
+    cfg.MODEL.PRETRAIN = FIXTURE
+    cfg.MODEL.LOAD_MODULE = None
+    cfg.GLOBAL.NUM_WORKERS = 2
+    if (int(cfg.TRAIN.BATCH_SIZE), tuple(cfg.TRAIN.IMAGE_SIZE)) != (TB, (TH, TW)):
+        raise AssertionError(f"{TRAIN_YAML}: batch {cfg.TRAIN.BATCH_SIZE}, crop "
+                             f"{cfg.TRAIN.IMAGE_SIZE}, not {TB} at {TH}x{TW}")
+    t0 = time.perf_counter()
+    data = sy.chairs_layout(5, n=TB, h=TH, w=TW)
+    chairs = sy.chairs_layout(0)
+    data_s = time.perf_counter() - t0
+    shapes_seen: dict = {}
+    st = dict(times=[], metrics=[], per_step=[], counted=None, prof=None)
+
+    def on_step(step, metrics):
+        """After each step: its launches (every count set to 0 after the
+        step before), its metrics, the profiler around step 15."""
+        torch.cuda.synchronize()
+        st["times"].append(time.perf_counter())
+        counts = dict(launch_counts)
+        st["per_step"].append({k: v for k, v in counts.items() if v})
+        st["metrics"].append(metrics)
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"step {step}: metrics {metrics} not finite")
+        if step == COUNTED_STEP:
+            st["counted"] = (counts, dict(launch_shapes))
+            st["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if step == PROFILED_STEP:
+            st["prof"].stop()
+            st["profiled_ms"] = (st["times"][-1] - st["times"][-2]) * 1e3
+        for key, n in launch_shapes.items():
+            shapes_seen[key] = shapes_seen.get(key, 0) + n
+        reset_launch_counts()  # each step counted from 0
+        if step == PROFILED_STEP - 1:
+            st["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            st["prof"].start()
+
+    def validate(model):
+        return tev.validate_chairs(for_inference(copy.deepcopy(model), bf16, dev), chairs)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = run_trainer(cfg, data, validate=validate, log_dir=os.path.join(OUT_DIR, "train_runs"),
+                         device="cuda", compute_dtype="bfloat16", val_freq=10 ** 9,
+                         on_step=on_step)
+    train_s = time.perf_counter() - t0
+    for key, n in launch_shapes.items():  # the final validation's launches
+        shapes_seen[key] = shapes_seen.get(key, 0) + n
+    for i, c in enumerate(st["per_step"], start=1):
+        if c != TRAIN_WANT:
+            raise AssertionError(f"training step {i}: launches {c} != {TRAIN_WANT}")
+    counts, step_shapes = st["counted"]
+    forms = {}
+    for key, n in step_shapes.items():
+        if key[0] == "in_normalize":
+            forms[key[-1]] = forms.get(key[-1], 0) + n
+    if forms != {"plain": 18, "residual": 12}:
+        raise AssertionError(f"training step: in_normalize forms {forms}, not 18 plain, 12 residual")
+    losses = [m["loss"] for m in st["metrics"]]
+    if not float(np.mean(losses[-4:])) < 0.98 * losses[0]:
+        raise AssertionError(f"no descent over {TRAIN_STEPS} steps: {losses}")
+    final = result["final"]
+    if not np.isfinite(list(final.values())).all():
+        raise AssertionError(f"validation on the trained weights: {final}")
+    step_ms = np.diff(st["times"]) * 1e3  # step_ms[i] is step i + 2
+    timed = step_ms[COUNTED_STEP - 2:COUNTED_STEP + 8]  # steps 4-13
+    ms = float(np.median(timed))
+    breakdown = _device_breakdown(torch, st["prof"], st["profiled_ms"])
+    # the profiler slows the host: the busy share of an unprofiled step too
+    breakdown["idle_share_of_unprofiled_step"] = max(0.0, 1 - breakdown["device_busy_ms"] / ms)
+    with open(os.path.join(OUT_DIR, "chip_smoke_profile_train.txt"), "w") as f:
+        f.write(st["prof"].key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    split = _train_step_split(torch, cfg, data)
+
+    # f32 (TF32 off) on the card against the CPU, then bf16 against f32
+    two = {k: torch.as_tensor(np.stack([data[i][k] for i in range(2)]))
+           for k in ("image1", "image2", "mask1", "mask2", "flow", "valid")}
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grad = _two_sample_grads(torch, cfg, two, "cpu", torch.float32)
+    cpu_s = time.perf_counter() - t0
+    reset_launch_counts()
+    f32_loss, f32_grad = _two_sample_grads(torch, cfg, two, dev, torch.float32)
+    bf_loss, bf_grad = _two_sample_grads(torch, cfg, two, dev, bf16)
+    for key, n in launch_shapes.items():
+        shapes_seen[key] = shapes_seen.get(key, 0) + n
+    agree = dict(cpu_f32_loss=cpu_loss, card_f32_loss=f32_loss, card_bf16_loss=bf_loss,
+                 f32_loss_rel=abs(f32_loss - cpu_loss) / abs(cpu_loss),
+                 f32_grad_cosine=_cosine(torch, f32_grad, cpu_grad),
+                 bf16_loss_rel=abs(bf_loss - f32_loss) / abs(f32_loss),
+                 bf16_grad_cosine=_cosine(torch, bf_grad, f32_grad),
+                 cpu_f32_step_seconds=cpu_s)
+    if not (agree["f32_loss_rel"] <= 1e-4 and agree["f32_grad_cosine"] >= 0.9999
+            and agree["bf16_loss_rel"] <= 0.02 and agree["bf16_grad_cosine"] >= 0.99
+            and torch.isfinite(bf_grad).all()):
+        raise AssertionError(f"training agreement: {agree}")
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    new = sorted((k for k in shapes_seen if k not in held), key=str)
+    new_rows = [dict(_hold_shape(torch, g, dev, k), launches=shapes_seen[k]) for k in new]
+    out = dict(phase="train", card=card, yaml=os.path.relpath(TRAIN_YAML, ROOT),
+               batch=TB, crop=[TH, TW], iters=ITERS, dtype="bfloat16", steps=TRAIN_STEPS,
+               ms_per_step=ms, ms_steps_4_13=timed.tolist(), samples_per_s=TB * 1e3 / ms,
+               first_steps_ms=step_ms[:COUNTED_STEP - 2].tolist(), losses=losses,
+               last4_over_first=float(np.mean(losses[-4:])) / losses[0],
+               grad_norms=[m["grad_norm"] for m in st["metrics"]],
+               final_validation=final, launches_per_step=TRAIN_WANT,
+               in_normalize_forms=forms, peak_mem_gib=st["peak_gib"],
+               peak_mem_gib_run=torch.cuda.max_memory_allocated() / 2 ** 30,
+               profile=breakdown, split=split, agreement=agree,
+               new_shapes_held=new_rows, data_seconds=data_s, trainer_seconds=train_s,
+               phase_seconds=time.perf_counter() - t_phase)
+    _emit(out)
+    torch.cuda.empty_cache()
+    return counts, step_shapes
+
+
+def _train_step_split(torch, cfg, data) -> dict:
+    """One more step on the fixed batch in three parts, each profiled on
+    its own and ended by a device sync: the forward with the loss, the
+    backward, the clip with AdamW -> each part's `_device_breakdown`."""
+    from focusflow_official_tpu_torch.cli.train import build_model
+    from focusflow_official_tpu_torch.compat.weights import load_npz
+    from focusflow_official_tpu_torch.train.loop import (
+        build_optimizer, clip_by_global_norm, forward_loss)
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda", 0)
+    _, model, loss_fn, iters = build_model(cfg, "bfloat16")
+    model.load_state_dict(load_npz(FIXTURE), strict=True)
+    model.to(dev).to(memory_format=torch.channels_last).train()
+    opt = build_optimizer(model, 1e-5)
+    batch = {k: torch.as_tensor(np.stack([data[i][k] for i in range(len(data))]), device=dev)
+             for k in ("image1", "image2", "mask1", "mask2", "flow", "valid")}
+    noise = torch.Generator(device=dev).manual_seed(0)
+    held = {}
+
+    def forward():
+        held["loss"], _ = forward_loss(model, loss_fn, batch, iters=iters,
+                                       dtype=torch.bfloat16, noise=noise)
+
+    def backward():
+        opt.zero_grad(set_to_none=True)
+        held.pop("loss").backward()
+
+    def optimizer():
+        clip_by_global_norm([p.grad for p in model.parameters()], 1.0)
+        opt.step()
+
+    parts = (("forward", forward), ("backward", backward), ("optimizer", optimizer))
+    for _, fn in parts:  # warm-up
+        fn()
+    torch.cuda.synchronize()
+    out = {}
+    for name, fn in parts:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        out[name] = _device_breakdown(torch, prof, wall_ms)
+    return out
+
+
 def _worst(rows: list) -> dict:
     """The max_abs_err and tol of the shape whose error is the largest
     share of its own tolerance (a tolerance of 0: bit-equal, share 0)."""
@@ -1536,8 +1948,19 @@ def _worst(rows: list) -> dict:
     return dict(max_abs_err=r["max_abs_err"], tol=r["tol"])
 
 
-def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, drives: dict,
-                  card: str) -> list:
+def _row_keys(raft: list, ff_rows: dict, pwc_rows: list, train_rows: dict) -> set:
+    """The launch key of every row the kernel phases hold."""
+    keys = set()
+    for kr in raft:
+        keys.update(r["key"] for r in kr.get("per_shape", ()))
+        keys.update(k for k in (kr.get("key"), kr.get("f32", {}).get("key")) if k)
+    for rows in (*ff_rows.values(), pwc_rows, *train_rows.values()):
+        keys.update(r["key"] for r in rows)
+    return keys
+
+
+def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, train_rows: dict,
+                  drives: dict, card: str) -> list:
     """One entry per kernel: the headline shape's times (the FF-RAFT shape
     for A-C2 and the fused lookup + convc1, the first FlowFormer shape for
     E and F, PWC level 2 for D), for E and B the entry that shape ran
@@ -1547,7 +1970,9 @@ def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, drives: dict,
     A kernel's `launches` are summed over the three paths
     (`launches_by_path`); a shape's are read from the same forwards by the
     key its wrapper counted it under in the kernel phase, with launches x
-    (ms - bound_ms). Every shape a path launched must be held here."""
+    (ms - bound_ms). Every shape a path launched must be held here. The
+    training step's rows (`train_rows`, path "ff_raft_train") carry their
+    backward's time and gradient check beside the forward's."""
     table = []
     for kr in raft:
         if "per_shape" not in kr:
@@ -1588,7 +2013,17 @@ def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, drives: dict,
         bound_by=top["bound_by"], library_ms=None, library=top["library"],
         design=top["design"], two_step_ms=top["two_step_ms"],
         shape=top["shape"], per_shape=[dict(r, path="ff_pwcnet") for r in pwc_rows]))
-    paths = ("ff_raft", "ff_flowformer", "ff_pwcnet")  # `launches` sums these
+    for kr in table:
+        rows = [dict(r, path="ff_raft_train") for r in train_rows.get(kr["name"], ())]
+        if rows:
+            kr["per_shape"] += rows
+            kr["backward_ms"] = rows[0]["backward_ms"]
+            kr["plain_backward_ms"] = rows[0]["plain_backward_ms"]
+            kr["train_shape"] = rows[0]["shape"]
+            worst = _worst(kr["per_shape"])
+            kr["max_abs_err"], kr["tol"] = worst["max_abs_err"], worst["tol"]
+    # `launches` sums these
+    paths = ("ff_raft", "ff_flowformer", "ff_pwcnet", "ff_raft_train")
     held = set()
     for kr in table:
         by_path = {path: drives[path][0].get(kr["name"], 0) for path in paths}
@@ -1652,7 +2087,11 @@ def main() -> int:
               "ff_flowformer": ff_end_to_end_phase(torch, card),
               "ff_flowformer_depth3": ff_shipped_depth_phase(torch, card),
               "ff_pwcnet": pwc_end_to_end_phase(torch, card)}
-    kernels = _kernel_table(raft_kernels, ff_rows, pwc_rows, drives, card)
+    torch.cuda.empty_cache()
+    train_rows = train_kernel_rows(torch, dev)
+    drives["ff_raft_train"] = train_phase(
+        torch, card, _row_keys(raft_kernels, ff_rows, pwc_rows, train_rows))
+    kernels = _kernel_table(raft_kernels, ff_rows, pwc_rows, train_rows, drives, card)
     # the fused kernel inside the profiled FF-RAFT forward, where its inputs
     # are not the same on every call as in the kernel phase
     (g,) = [kr for kr in kernels if kr["name"] == "lookup_fold"]

@@ -1,0 +1,291 @@
+"""Training CLI: `python -m focusflow_official_tpu_torch.cli.train`.
+
+    python -m focusflow_official_tpu_torch.cli.train --yaml <config> \\
+        [--data-root chairs=<dir> ...] [--log-dir runs] \\
+        [--compute-dtype bfloat16|float32] [--val-freq 5000] \\
+        [--profile-dir <dir> --profile-start 10 --profile-steps 5] \\
+        [--tensorboard] [--device cuda|cpu]
+
+The reference's training interface on the reference YAML schema: TRAIN
+picks the stage's dataset curriculum (`data/datasets.py::fetch_dataset`,
+with the host augmentation), the batch, the steps, the noise augmentation
+and the sequence loss; OPTIMIZER and SCHEDULER the AdamW step and its
+OneCycle schedule over NUM_STEPS + 100 steps; MODEL the weights to start
+from (PRETRAIN, LOAD_MODULE into `flow_net`, LOAD_MODULE_TO_BRANCH) and
+the parameter groups (FREEZE_MODULE, TRAIN.SEPARATE_LR). Each step is
+`train/loop.py::train_step`. Every `--val-freq` steps a checkpoint is
+written and the CRITERION.VAL_DATASET validation runs
+(`train/evaluate.py`); at the end the final validation, a last checkpoint
+and the weights as a flat `.npz` of flax variables (`<NAME>_final.npz`,
+which the port's `--checkpoint`, `FlowPredictor` and the JAX package
+load). The run directory `<log-dir>/<time>_<NAME>/` holds `metrics.jsonl`,
+`train.log`, `config.yaml`, `checkpoints/` and the export.
+
+FF-RAFT only: the FF-PWCNet and FF-FlowFormer families raise
+NotImplementedError. `--gpus` is accepted and ignored (one card), as is
+`--corr-impl` (the port has one lookup). `--device-aug` and `--multihost`
+raise, naming their ROADMAP items. File datasets need cv2 and PIL, the
+YAML needs PyYAML.
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import os
+from typing import Callable, Dict, Optional, Sequence
+
+import torch
+from torch import nn
+
+from ..compat.torch_import import load_torch_pretrained
+from ..config import (ConfigNode, detect_family, load_yaml_config, loss_kwargs_from_yaml,
+                      model_config_from_yaml, model_from_config,
+                      optimizer_kwargs_from_yaml)
+from ..data.datasets import KITTI, FlyingChairs, MpiSintel, fetch_dataset
+from ..data.loader import Loader
+from ..losses import build_sequence_loss
+from ..models.ff_raft import DTYPES
+from ..predict import for_inference, load_weights
+from ..train import evaluate as eval_mod
+from ..train.checkpoints import CheckpointManager, save_params_only
+from ..train.loop import build_optimizer, train_step
+from ..train.metrics import MetricsLogger
+from ..train.schedule import one_cycle
+from ..train.surgery import copy_to_branch, flow_net_lr_labels, freeze_mask_for_parallel
+from .evaluate import DEFAULT_DATA_ROOT, mask_roots
+
+_BATCH_KEYS = ("image1", "image2", "mask1", "mask2", "flow", "valid")
+# where ROADMAP.md queues what the trainer refuses
+_QUEUE = "ROADMAP.md queue 1"
+
+
+def _raft_only(cfg: ConfigNode) -> None:
+    family = detect_family(cfg)
+    if family != "raft":
+        raise NotImplementedError(
+            f"training the {family} family: {_QUEUE}, 'FF-PWCNet and FF-FlowFormer "
+            "training', brings it")
+
+
+def build_model(cfg: ConfigNode, compute_dtype: str):
+    """The FF-RAFT model of the YAML (f32 parameters) -> (its config, the
+    model, the sequence loss, its refinements a step)."""
+    _raft_only(cfg)
+    model_cfg = model_config_from_yaml(cfg, compute_dtype=compute_dtype)
+    model, iters = model_from_config(model_cfg)
+    kw = loss_kwargs_from_yaml(cfg)
+    return model_cfg, model, build_sequence_loss(kw.pop("loss_type"), **kw), iters
+
+
+def load_initial_weights(cfg: ConfigNode, model: nn.Module) -> None:
+    """MODEL.PRETRAIN (the whole model: the port's `.npz` or a reference
+    `.pth`), then MODEL.LOAD_MODULE (a bare RAFT `.pth` into `flow_net`,
+    the rest kept) and LOAD_MODULE_TO_BRANCH (the CCE mask branches start
+    from the image branches)."""
+    m = cfg.MODEL
+    if m.get("PRETRAIN"):
+        model.load_state_dict(load_weights(m.PRETRAIN, model), strict=True)
+    if m.get("LOAD_MODULE"):
+        model.load_state_dict(load_torch_pretrained(m.LOAD_MODULE, model, prefix="flow_net.",
+                                                    strict=False), strict=True)
+        if m.get("LOAD_MODULE_TO_BRANCH"):
+            model.load_state_dict(copy_to_branch(model.state_dict()), strict=True)
+
+
+def param_labels(cfg: ConfigNode, model: nn.Module) -> Optional[Dict[str, str]]:
+    """Each parameter's group: 'frozen' (MODEL.FREEZE_MODULE) over
+    'encoder' (TRAIN.SEPARATE_LR: `flow_net` at lr / 10) over 'trainable';
+    None where neither is set."""
+    names = [n for n, _ in model.named_parameters()]
+    freeze = bool(cfg.MODEL.get("FREEZE_MODULE", False))
+    separate = bool(cfg.TRAIN.get("SEPARATE_LR", False))
+    if not (freeze or separate):
+        return None
+    labels = flow_net_lr_labels(names) if separate else {n: "trainable" for n in names}
+    if freeze:
+        for n, lbl in freeze_mask_for_parallel(names).items():
+            if lbl == "frozen":
+                labels[n] = "frozen"
+    return labels
+
+
+def run_validation(cfg: ConfigNode, model: nn.Module, data_root: Dict[str, str],
+                   mask_root: Dict[str, str], dtype: torch.dtype, device) -> Dict:
+    """CRITERION.VAL_DATASET's validation (`train/evaluate.py`) on a copy of
+    the model prepared as the predictor prepares it. A dataset whose files
+    are missing or broken is reported (printed, and NaN under
+    '<name>-error'), not raised: it must not end a long run."""
+    eval_model = for_inference(copy.deepcopy(model), dtype, device)
+    mask_type = cfg.TRAIN.MASK_TYPE
+    results: Dict = {}
+    for name in cfg.CRITERION.VAL_DATASET:
+        try:
+            if name == "chairs":
+                ds = FlyingChairs(data_root["chairs"], mask_root["chairs"],
+                                  split="validation", mask_type=mask_type)
+                results.update(eval_mod.validate_chairs(eval_model, ds, mask_type))
+            elif name == "sintel":
+                dss = {t: MpiSintel(data_root["sintel"], mask_root["sintel"], split="val",
+                                    dstype=t, mask_type=mask_type)
+                       for t in ("clean", "final")}
+                results.update(eval_mod.validate_sintel(eval_model, dss, mask_type))
+            elif name == "kitti":
+                ds = KITTI(data_root["kitti"], mask_root["kitti"], split="val",
+                           mask_type=mask_type)
+                results.update(eval_mod.validate_kitti(eval_model, ds, mask_type))
+        except (FileNotFoundError, AssertionError, IndexError) as e:
+            print(f"validation on '{name}' failed: {type(e).__name__}: {e}")
+            results[f"{name}-error"] = float("nan")
+    return results
+
+
+def _to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(batch[k], device=device) for k in _BATCH_KEYS}
+
+
+def train(cfg: ConfigNode, dataset, *, validate: Callable[[nn.Module], Dict],
+          log_dir: str = "runs", device="cuda", compute_dtype: str = "bfloat16",
+          val_freq: int = 5000, config_path: Optional[str] = None,
+          profile_dir: Optional[str] = None, profile_start: int = 10,
+          profile_steps: int = 5, tensorboard: bool = False,
+          on_step: Optional[Callable[[int, Dict], None]] = None) -> Dict:
+    """The trainer: TRAIN.NUM_STEPS steps of the YAML's FF-RAFT over
+    `dataset` (samples as `data/datasets.py` gives them, batched by the
+    `Loader`), from RESTORE_CHECKPOINT's step where set. `validate(model)`
+    -> metrics runs every `val_freq` steps (after a checkpoint) and at the
+    end; `on_step(step, metrics)` is called after each step. Returns the
+    run directory, the last step, its metrics, the final validation and
+    the exported `.npz`."""
+    device = torch.device(device)
+    model_cfg, model, loss_fn, iters = build_model(cfg, compute_dtype)
+    dtype = DTYPES[compute_dtype]
+    name = cfg.GLOBAL.get("NAME", "run")
+    seed = int(cfg.GLOBAL.get("SEED", 1234))
+    logger = MetricsLogger(log_dir, config_path, name, tensorboard=tensorboard)
+    logger.info(f"experiment: {name}  device: {device}  dtype: {compute_dtype}")
+
+    load_initial_weights(cfg, model)
+    model.to(device)
+    if device.type == "cuda":  # the instance-norm kernels read NHWC without a copy
+        model.to(memory_format=torch.channels_last)
+    opt = optimizer_kwargs_from_yaml(cfg)
+    clip = opt.pop("clip")
+    lr = opt.pop("lr")
+    optimizer = build_optimizer(model, lr, labels=param_labels(cfg, model), **opt)
+    num_steps = int(cfg.TRAIN.NUM_STEPS)
+    scheduler = one_cycle(optimizer, num_steps + 100)
+    noise = None
+    if cfg.TRAIN.get("ADD_NOISE", False):
+        noise = torch.Generator(device=device).manual_seed(seed)
+
+    ckpt = CheckpointManager(os.path.join(logger.log_dir, "checkpoints"))
+    step = 0
+    if cfg.TRAIN.get("RESTORE_CHECKPOINT"):
+        step = CheckpointManager(cfg.TRAIN.RESTORE_CHECKPOINT).restore(
+            model, optimizer, scheduler, noise)
+        logger.info(f"restored checkpoint step {step} from {cfg.TRAIN.RESTORE_CHECKPOINT}")
+
+    def train_mode():
+        model.train()
+        if model_cfg.freeze_bn:
+            model.freeze_bn()
+
+    loader = Loader(dataset, int(cfg.TRAIN.BATCH_SIZE), seed=seed,
+                    num_workers=int(cfg.GLOBAL.get("NUM_WORKERS", 4)))
+    logger.info(f"training with {len(dataset)} image pairs")
+    train_mode()
+    prof, metrics = None, {}
+    for batch in loader.batches(start_step=step):
+        if step >= num_steps:
+            break
+        if profile_dir and step == profile_start:
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]
+                                          + ([torch.profiler.ProfilerActivity.CUDA]
+                                             if device.type == "cuda" else []))
+            prof.start()
+        metrics = train_step(model, optimizer, scheduler, loss_fn, _to_device(batch, device),
+                             iters=iters, dtype=dtype, clip=clip, noise=noise)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        logger.push(metrics)
+        if prof is not None and step >= profile_start + profile_steps - 1:
+            prof.stop()
+            os.makedirs(profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(profile_dir, f"steps_{profile_start}.json"))
+            logger.info(f"profiler trace written to {profile_dir}")
+            prof = None
+        step += 1
+        if on_step is not None:
+            on_step(step, metrics)
+        if step % val_freq == 0:
+            ckpt.save(step, model, optimizer, scheduler, noise)
+            logger.write_dict(validate(model), prefix="val/")
+            train_mode()
+
+    final = validate(model)
+    logger.write_dict(final, prefix="final/")
+    ckpt.save(step, model, optimizer, scheduler, noise)
+    export = save_params_only(os.path.join(logger.log_dir, f"{name}_final.npz"), model)
+    logger.close()
+    return dict(run_dir=logger.log_dir, step=step, metrics=metrics, final=final,
+                export=export)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--yaml", required=True, help="experiment config")
+    parser.add_argument("--gpus", default=None, nargs="*",
+                        help="accepted for the reference CLI's sake; unused (one card)")
+    parser.add_argument("--data-root", nargs="*", default=None, metavar="NAME=DIR")
+    parser.add_argument("--log-dir", default="runs")
+    parser.add_argument("--compute-dtype", default="bfloat16", choices=sorted(DTYPES))
+    parser.add_argument("--corr-impl", default="auto",
+                        help="accepted and unused: the port has one lookup")
+    parser.add_argument("--val-freq", type=int, default=5000)
+    parser.add_argument("--device-aug", action="store_true",
+                        help="not ported: raises")
+    parser.add_argument("--profile-dir", default=None,
+                        help="write a torch.profiler trace of some steps here")
+    parser.add_argument("--profile-start", type=int, default=10)
+    parser.add_argument("--profile-steps", type=int, default=5)
+    parser.add_argument("--multihost", action="store_true", help="not ported: raises")
+    parser.add_argument("--tensorboard", action="store_true",
+                        help="also write TensorBoard scalars")
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+    if args.device_aug:
+        raise NotImplementedError(f"--device-aug: {_QUEUE}, 'The device half of the data "
+                                  "path' (data/device_aug.py), brings it")
+    if args.multihost:
+        raise NotImplementedError(f"--multihost: {_QUEUE}, 'FF-RAFT training' (train/mesh.py "
+                                  "as torch DDP), brings it")
+
+    cfg = load_yaml_config(args.yaml)
+    _raft_only(cfg)  # before the data is read
+    data_root = dict(DEFAULT_DATA_ROOT)
+    for kv in args.data_root or ():
+        k, v = kv.split("=", 1)
+        data_root[k] = v
+    mask_root = mask_roots(data_root)
+    seed = int(cfg.GLOBAL.get("SEED", 1234))
+    stage = cfg.TRAIN.STAGE
+    dataset = fetch_dataset(data_root, mask_root, stage=stage,
+                            image_size=tuple(cfg.TRAIN.IMAGE_SIZE),
+                            mask_type=cfg.TRAIN.MASK_TYPE,
+                            train_ds="C+T+S" if stage == "sintel" else None, seed=seed)
+    dtype = DTYPES[args.compute_dtype]
+    device = torch.device(args.device)
+    result = train(
+        cfg, dataset,
+        validate=lambda model: run_validation(cfg, model, data_root, mask_root, dtype,
+                                              device),
+        log_dir=args.log_dir, device=device, compute_dtype=args.compute_dtype,
+        val_freq=args.val_freq, config_path=args.yaml, profile_dir=args.profile_dir,
+        profile_start=args.profile_start, profile_steps=args.profile_steps,
+        tensorboard=args.tensorboard)
+    print(result["run_dir"])
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -131,18 +131,23 @@ def state_dict_from_reference(sd: Mapping[str, torch.Tensor], model: torch.nn.Mo
 
     For every key of the port model's state dict, the flax path is rebuilt
     from its '.'-joined components (its leaf renamed as in `_LEAVES`) and
-    `prefix + torch_key_for_path(path)` is looked up in `sd` (keys with a
-    `module.` prefix stripped). A missing key raises KeyError when `strict`,
-    else the model's own tensor is kept; a shape mismatch raises
-    ValueError. Tensors are taken as they are, in f32."""
+    its reference key `torch_key_for_path(path)` is looked up in `sd` (keys
+    with a `module.` prefix stripped). With `prefix` (LOAD_MODULE's
+    'flow_net.'), the file holds only the port's subtree under it: a key
+    under `prefix` is looked up without it (the port's
+    `flow_net.fnet.conv1.weight` is the file's `fnet.conv1.weight`), and
+    the keys outside it are not in the file. A missing key raises KeyError
+    when `strict`, else the model's own tensor is kept; a shape mismatch
+    raises ValueError. Tensors are taken as they are, in f32."""
     ref = {(k[len("module."):] if k.startswith("module.") else k): v for k, v in sd.items()}
     out = {}
     for key, own in model.state_dict().items():
         *comps, leaf = key.split(".")
         collection, flax_leaf = _LEAVES.get(leaf, ("params", leaf))
-        tkey = prefix + torch_key_for_path(tuple(comps) + (flax_leaf,), collection)
+        tkey = torch_key_for_path(tuple(comps) + (flax_leaf,), collection)
+        tkey = tkey[len(prefix):] if tkey.startswith(prefix) else None
         if tkey not in ref:
-            alias = _shared_norm_key(tkey)
+            alias = None if tkey is None else _shared_norm_key(tkey)
             if alias in ref:
                 tkey = alias
             elif strict:
@@ -170,10 +175,13 @@ def drop_first_convs(state_dict: Dict) -> Dict:
             if k.split("module.")[-1] not in drop}
 
 
-def load_torch_pretrained(path: str, model: torch.nn.Module, *, backend: bool = False,
+def load_torch_pretrained(path: str, model: torch.nn.Module, *, prefix: str = "",
+                          backend: bool = False,
                           strict: bool = True) -> Dict[str, torch.Tensor]:
     """A reference `.pth` / `.pth.tar` / `.pt` -> the port model's state dict.
     A checkpoint that wraps its weights in a `"model"` entry is unwrapped;
+    `prefix` names the port's subtree the file holds (MODEL.LOAD_MODULE:
+    'flow_net.', a bare RAFT checkpoint; see `state_dict_from_reference`);
     `backend` drops the first convs (`drop_first_convs`), and then their
     keys must be absent, so it implies `strict=False`. The file is read
     with `weights_only=True`: tensors and plain containers, no code."""
@@ -183,4 +191,4 @@ def load_torch_pretrained(path: str, model: torch.nn.Module, *, backend: bool = 
     if backend:
         sd = drop_first_convs(sd)
         strict = False
-    return state_dict_from_reference(sd, model, strict=strict)
+    return state_dict_from_reference(sd, model, prefix=prefix, strict=strict)

@@ -13,7 +13,10 @@ module names, so a path maps to a key by:
   `var` -> `running_mean` / `running_var`; free parameters
   (`latent_tokens`, `gamma`, `pos_emb_rel_*`) keep their names.
 
-An unknown leaf raises `KeyError`.
+An unknown leaf raises `KeyError`. `params_to_jax` is the inverse: the
+port's `state_dict` back to flat flax variables (the scan scope put back
+where the JAX modules have one), so weights the port trains load into the
+JAX package and into the port's `.npz` readers.
 """
 
 from __future__ import annotations
@@ -48,6 +51,52 @@ def params_from_jax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
             t = t.permute(_KERNEL_PERMUTE[t.dim()])
         sd[".".join(path + [names[leaf]])] = t.contiguous()
     return sd
+
+
+# the JAX modules whose refinement loop is a flax scan ('update_step'), and
+# the children that live inside that scope
+_SCAN_SCOPES = {
+    "flow_net": frozenset({"update_block"}),
+    "memory_decoder": frozenset({
+        "update_block", "flow_token_encoder_0", "flow_token_encoder_2",
+        "decoder_layer_cross_attend_q", "decoder_layer_cross_attend_proj",
+        "decoder_layer_cross_attend_norm1", "decoder_layer_cross_attend_norm2",
+        "decoder_layer_cross_attend_ffn_0", "decoder_layer_cross_attend_ffn_3"}),
+}
+_STAT_NAMES = {v: k for k, v in _STAT_LEAVES.items()}
+_FREE = frozenset(n for n, v in _PARAM_LEAVES.items() if n == v and n != "bias")
+_KERNEL_UNPERMUTE = {4: (2, 3, 1, 0), 2: (1, 0)}
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """The port's state dict -> flat flax variables (f32 numpy), the
+    inverse of `params_from_jax`: `weight` of a conv or dense layer ->
+    `kernel` in flax's layout, of a norm -> `scale`; running stats ->
+    `batch_stats/.../mean|var`; the scan scope `update_step` put back."""
+    flat = {}
+    for key, t in state_dict.items():
+        *path, leaf = key.split(".")
+        for i, comp in enumerate(path[:-1]):
+            if path[i + 1] in _SCAN_SCOPES.get(comp, ()):
+                path.insert(i + 1, "update_step")
+                break
+        a = t.detach().to("cpu", torch.float32)
+        if leaf in _STAT_NAMES:
+            coll, leaf = "batch_stats", _STAT_NAMES[leaf]
+        elif leaf == "weight":
+            coll = "params"
+            if a.dim() in _KERNEL_UNPERMUTE:
+                leaf, a = "kernel", a.permute(_KERNEL_UNPERMUTE[a.dim()])
+            elif a.dim() == 1:
+                leaf = "scale"
+            else:
+                raise KeyError(f"{a.dim()}-D weight {key!r}")
+        elif leaf == "bias" or leaf in _FREE:
+            coll = "params"
+        else:
+            raise KeyError(f"unmapped parameter {key!r}")
+        flat["/".join([coll, *path, leaf])] = np.ascontiguousarray(a.numpy())
+    return flat
 
 
 def load_npz(path: str) -> dict[str, torch.Tensor]:

@@ -103,6 +103,7 @@ def model_config_from_yaml(cfg: ConfigNode, *,
         _refuse(model, "FUSION_TYPE", "1x1conv")
     return FFRaftConfig(fusion="parallel", fusion_type=fusion_type, small=False,
                         fuse_cnet=True, iters=int(model.get("ITERS", 12)),
+                        freeze_bn=cfg.TRAIN.get("STAGE", "chairs") != "chairs",
                         compute_dtype=compute_dtype, **_mask_fields(cfg.TRAIN))
 
 
@@ -157,6 +158,39 @@ def config_from_yaml(cfg: ConfigNode, *, compute_dtype: str = "float32"):
     if family not in read:
         raise ValueError(f"unknown model family {family!r}")
     return read[family](cfg, compute_dtype=compute_dtype)
+
+
+def loss_kwargs_from_yaml(cfg: ConfigNode) -> Dict:
+    """The sequence loss of TRAIN: its type and settings, for
+    `losses.build_sequence_loss` (`loss_type` first)."""
+    t = cfg.TRAIN
+    return dict(
+        loss_type=t.get("LOSS_TYPE", "EPELoss"),
+        gamma=float(t.get("LOSS_GAMMA", 0.8)),
+        max_flow=float(t.get("MAX_FLOW", 400)),
+        kernel_size=int(t.get("LOSS_KERNEL_SIZE", 5)),
+        sigma=float(t.get("LOSS_SIGMA", 1.7)),
+        lamda=float(t.get("LOSS_LAMDA", 0.8)),
+    )
+
+
+def optimizer_kwargs_from_yaml(cfg: ConfigNode) -> Dict:
+    """lr, weight decay, eps and the clip from OPTIMIZER + SCHEDULER
+    (FF-RAFT, FF-PWCNet) or FF-FlowFormer's TRAINER block."""
+    if cfg.get("TRAINER") is not None:
+        t = cfg.TRAINER
+        return dict(
+            lr=float(t.canonical_lr),
+            weight_decay=float(t.get("adamw_decay", t.get("adam_decay", 1e-4))),
+            epsilon=float(t.get("epsilon", 1e-8)),
+            clip=float(t.get("clip", 1.0)),
+        )
+    return dict(
+        lr=float(cfg.SCHEDULER.LR),
+        weight_decay=float(cfg.OPTIMIZER.WEIGHT_DECAY),
+        epsilon=float(cfg.OPTIMIZER.EPSILON),
+        clip=float(cfg.TRAIN.get("CLIP", 1.0)),
+    )
 
 
 def model_from_config(model_cfg):

@@ -266,3 +266,53 @@ class RecipeTagged:
         s = self.dataset[index]
         s["recipe"] = np.int32(self.recipe_id)
         return s
+
+
+# where ROADMAP.md queues the on-device augmentation (raw frames, the
+# augmentation inside the step)
+_DEVICE_AUG_ITEM = "ROADMAP.md queue 1, 'The device half of the data path' (data/device_aug.py)"
+
+
+def fetch_dataset(data_root: Dict[str, str], mask_root: Dict[str, str], *,
+                  stage: str, image_size, mask_type: str = "orb",
+                  train_ds: Optional[str] = "C+T+S", seed: Optional[int] = 0,
+                  no_aug: bool = False):
+    """The training set of a stage of the curriculum, with the host
+    augmentation recipe of each of its datasets (crop to `image_size`,
+    scale range, flips): chairs; things (clean + final passes); sintel
+    (`train_ds` None: Sintel clean + final; 'C+T+S': 100 x each Sintel
+    pass + Things clean; 'C+T+S+K': also 200 x KITTI, sparse); kitti (100 x
+    each Sintel pass + 200 x KITTI). `no_aug` (raw frames for an
+    augmentation inside the step) is not ported: it raises."""
+    if no_aug:
+        raise NotImplementedError(f"no_aug (raw frames for the on-device augmentation): "
+                                  f"{_DEVICE_AUG_ITEM} brings it")
+    dense = lambda lo, hi: dict(crop_size=image_size, min_scale=lo, max_scale=hi,
+                                do_flip=True)
+    if stage == "chairs":
+        return FlyingChairs(data_root["chairs"], mask_root["chairs"], dense(-0.1, 1.0),
+                            split="training", mask_type=mask_type, seed=seed)
+    if stage == "things":
+        clean, final = (FlyingThings3D(data_root["things"], mask_root["things"],
+                                       dense(-0.4, 0.8), dstype=f"frames_{p}pass",
+                                       mask_type=mask_type, seed=seed)
+                        for p in ("clean", "final"))
+        return WeightedConcat([(clean, 1), (final, 1)])
+    if stage not in ("sintel", "kitti"):
+        raise NotImplementedError(f"Stage {stage} not supported.")
+    clean, final = (MpiSintel(data_root["sintel"], mask_root["sintel"], dense(-0.2, 0.6),
+                              dstype=t, mask_type=mask_type, seed=seed)
+                    for t in ("clean", "final"))
+    kitti = lambda: KITTI(data_root["kitti"], mask_root["kitti"], dense(-0.3, 0.5),
+                          split="training", mask_type=mask_type, seed=seed)
+    if stage == "kitti":
+        return WeightedConcat([(clean, 100), (final, 100), (kitti(), 200)])
+    if train_ds is None:
+        return WeightedConcat([(clean, 1), (final, 1)])
+    things = FlyingThings3D(data_root["things"], mask_root["things"], dense(-0.2, 0.6),
+                            dstype="frames_cleanpass", mask_type=mask_type, seed=seed)
+    if train_ds == "C+T+S":
+        return WeightedConcat([(clean, 100), (final, 100), (things, 1)])
+    if train_ds == "C+T+S+K":
+        return WeightedConcat([(things, 1), (clean, 100), (final, 100), (kitti(), 200)])
+    raise ValueError(train_ds)

@@ -3,6 +3,10 @@
 out = a @ w.T + bias with f32 accumulation, emitted in a's type; `w` is
 the (O, I) convc1 weight as PyTorch stores it, rows of `a` in the
 reference window order, so no permutation is needed.
+
+`fold` is differentiable (a `torch.autograd.Function`); its backward is
+`fold_vjp`, the JAX package's `kernels/fold.py::_fold_bwd` in plain
+PyTorch on every device: f32 products, da and dw in their inputs' types.
 """
 
 from __future__ import annotations
@@ -42,8 +46,34 @@ def fold_plain(a: torch.Tensor, w: torch.Tensor,
     return (a.float() @ w.float().t() + bias.float()).to(a.dtype)
 
 
+def fold_vjp(a: torch.Tensor, w: torch.Tensor, g: torch.Tensor):
+    """The fold's VJP: g (M, N), the gradient of its output -> (da in a's
+    type, dw in w's type, dbias f32), every product summed in f32."""
+    gf = g.float()
+    return ((gf @ w.float()).to(a.dtype), (gf.t() @ a.float()).to(w.dtype),
+            gf.sum(0))
+
+
+class _Fold(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, w, bias):
+        ctx.save_for_backward(a, w)
+        return _launch(a, w, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        return fold_vjp(a, w, g)
+
+
 def fold(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """a: (M, K), w: (N, K), bias: (N,) of one type (bf16 or f32) -> (M, N)."""
+    """a: (M, K), w: (N, K), bias: (N,) of one type (bf16 or f32) -> (M, N).
+    Differentiable in all three (`fold_vjp`)."""
+    return _Fold.apply(a, w, bias)
+
+
+def _launch(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The forward: kernel B on CUDA tensors, `fold_plain` on the CPU."""
     if a.device.type == "cpu":
         return fold_plain(a, w, bias)
     if a.device.type != "cuda":

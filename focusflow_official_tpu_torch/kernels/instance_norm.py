@@ -12,6 +12,16 @@ residual form, ResidualBlock's shortcut add), bit-equal to
 `design(x, ...)` names the entry a CUDA call takes, for C1 and C2 alike:
 "vector" (16-byte accesses: C a multiple of 8 in bf16 or 4 in f32, every
 tensor 16-byte aligned) or "scalar".
+
+`instance_norm_stats` and `instance_norm` are differentiable
+(`torch.autograd.Function`s). Their backwards are plain PyTorch on every
+device, the JAX package's VJPs (`kernels/instance_norm.py::_stats_bwd` and
+`::_bwd`): `instance_norm_vjp` recomputes the stats in f32, with the
+variance E[x^2] - mean^2 unclamped as the JAX VJP takes it (the forward
+clamps it at 0; the two agree wherever the variance is positive), masks
+the ReLU where x̂ > 0, and returns dx = inv·(g − mean(g) − x̂·mean(g·x̂));
+the residual form relu(r + y) first takes its own mask, out > 0, which is
+also the residual's gradient.
 """
 
 from __future__ import annotations
@@ -110,8 +120,70 @@ def _check_x(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: x must be bf16 or f32, got {x.dtype}")
 
 
+def stats_vjp(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
+              gmean: torch.Tensor, ginv: torch.Tensor) -> torch.Tensor:
+    """The stats' VJP: d mean / dx = 1/N, d inv / dx = -inv^3 (x - mean) / N
+    -> dx in x's type."""
+    n = x.shape[1] * x.shape[2]
+    col = lambda t: t[:, None, None, :]
+    dx = col(gmean) / n - col(ginv) * col(inv) ** 3 * (x.float() - col(mean)) / n
+    return dx.to(x.dtype)
+
+
+def instance_norm_vjp(x: torch.Tensor, g: torch.Tensor, eps: float,
+                      relu: bool) -> torch.Tensor:
+    """The VJP of (x - mean)·inv [ReLU'd] -> dx in x's type, the stats
+    recomputed in f32 with the variance unclamped."""
+    xf, gf = x.float(), g.float()
+    mean = xf.mean((1, 2), keepdim=True)
+    var = (xf * xf).mean((1, 2), keepdim=True) - mean * mean
+    inv = torch.rsqrt(var + eps)
+    xhat = (xf - mean) * inv
+    if relu:
+        gf = gf * (xhat > 0)
+    gm = gf.mean((1, 2), keepdim=True)
+    gxm = (gf * xhat).mean((1, 2), keepdim=True)
+    return (inv * (gf - gm - xhat * gxm)).to(x.dtype)
+
+
+class _Stats(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, eps):
+        mean, inv = _stats_launch(x, eps)
+        ctx.save_for_backward(x, mean, inv)
+        return mean, inv
+
+    @staticmethod
+    def backward(ctx, gmean, ginv):
+        return stats_vjp(*ctx.saved_tensors, gmean, ginv), None
+
+
+class _InstanceNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, eps, relu, residual):
+        mean, inv = _stats_launch(x, eps)
+        y = instance_norm_apply(x, mean, inv, relu, residual)
+        ctx.eps, ctx.relu, ctx.residual = eps, relu, residual is not None
+        ctx.save_for_backward(x, y if residual is not None else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        dr = None
+        if ctx.residual:  # out = relu(r + z): out > 0 passes to r and to z
+            g = dr = torch.where(y > 0, g, torch.zeros_like(g))
+        return instance_norm_vjp(x, g, ctx.eps, ctx.relu), None, None, dr
+
+
 def instance_norm_stats(x: torch.Tensor, eps: float = 1e-5):
-    """NHWC x (B, H, W, C) -> (mean, inv), each (B, C) f32."""
+    """NHWC x (B, H, W, C) -> (mean, inv), each (B, C) f32. Differentiable
+    (`stats_vjp`)."""
+    return _Stats.apply(x, eps)
+
+
+def _stats_launch(x: torch.Tensor, eps: float):
+    """C1: the kernel on a CUDA tensor, `stats_plain` on the CPU."""
     if x.device.type == "cpu":
         return stats_plain(x, eps)
     if x.device.type != "cuda":
@@ -138,7 +210,8 @@ def instance_norm_apply(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
                         relu: bool = False,
                         residual: torch.Tensor | None = None) -> torch.Tensor:
     """NHWC x and (B, C) f32 stats -> (x - mean) * inv [ReLU'd], x's type;
-    with an NHWC `residual` of x's shape and type, relu(residual + that)."""
+    with an NHWC `residual` of x's shape and type, relu(residual + that).
+    Not differentiable: `instance_norm` is the differentiable whole."""
     if x.device.type == "cpu":
         return apply_plain(x, mean, inv, relu, residual)
     if x.device.type != "cuda":
@@ -175,6 +248,5 @@ def instance_norm_apply(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
 def instance_norm(x: torch.Tensor, eps: float = 1e-5, relu: bool = False,
                   residual: torch.Tensor | None = None) -> torch.Tensor:
     """Instance norm of NHWC x: C1, then C2 (with `residual`: its residual
-    form)."""
-    mean, inv = instance_norm_stats(x, eps)
-    return instance_norm_apply(x, mean, inv, relu, residual)
+    form). Differentiable in x and the residual (`instance_norm_vjp`)."""
+    return _InstanceNorm.apply(x, eps, relu, residual)

@@ -10,6 +10,14 @@ one block an SM of 16 gather warps, which write the windows of 16 queries
 a pass into shared memory, and 8 tensor-core warps, which multiply 32 rows
 at a time; `plan` lays the launch out from the library's `layout`. f32 runs
 FMA tiles and equals kernel A then kernel B to the bit.
+
+`lookup_fold` is differentiable (a `torch.autograd.Function`). The JAX
+package's fused kernel has no VJP (its trainer runs the lookup and the fold
+apart), so the backward is the fold's VJP and then the lookup's, composed
+(`lookup_fold_vjp`): the kernel never writes the window, so the backward
+rebuilds it with kernel A (`kernels/lookup.py`; the plain version on the
+CPU), then dW = gᵀ·window and dbias = sum g in f32, dwindow = g·W in the
+window's type, and the levels' gradient in the lookup's tent form.
 """
 
 from __future__ import annotations
@@ -21,8 +29,9 @@ from typing import Sequence
 import torch
 
 from . import _build, count_launch
-from .fold import fold_plain
-from .lookup import RADII, lookup_plain
+from .fold import fold_plain, fold_vjp
+from .lookup import RADII, lookup_plain, lookup_vjp
+from .lookup import _launch as _lookup_launch
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
@@ -86,11 +95,52 @@ def lookup_fold_plain(levels: Sequence[torch.Tensor], coords: torch.Tensor,
     return out.reshape(b, h, w, -1)
 
 
+def lookup_fold_vjp(levels: Sequence[torch.Tensor], coords: torch.Tensor, radius: int,
+                    weight: torch.Tensor, g: torch.Tensor, coords_grad: bool = False):
+    """The VJP of `lookup_fold`: g (B, H, W, O) -> (the levels' gradients,
+    the coordinates' gradient or None, dweight, dbias). The window is looked
+    up again (kernel A on the card) and cast to the weight's type, as the
+    forward casts it."""
+    b, h, w, _ = coords.shape
+    m = b * h * w
+    window = _lookup_launch(levels, coords, radius).reshape(m, -1).to(weight.dtype)
+    dwindow, dweight, dbias = fold_vjp(window, weight, g.reshape(m, -1))
+    dlevels, dcoords = lookup_vjp(levels, coords, radius, dwindow.reshape(b, h, w, -1),
+                                  coords_grad)
+    return dlevels, dcoords, dweight, dbias
+
+
+class _LookupFold(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, radius, coords, weight, bias, *levels):
+        ctx.radius = radius
+        ctx.save_for_backward(coords, weight, *levels)
+        return _launch(levels, coords, radius, weight, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        coords, weight, *levels = ctx.saved_tensors
+        dlevels, dcoords, dweight, dbias = lookup_fold_vjp(
+            levels, coords, ctx.radius, weight, g, ctx.needs_input_grad[1])
+        if not any(ctx.needs_input_grad[4:]):
+            dlevels = [None] * len(levels)
+        return (None, dcoords, dweight, dbias, *dlevels)
+
+
 def lookup_fold(levels: Sequence[torch.Tensor], coords: torch.Tensor, radius: int,
                 weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """levels: up to 4 (B, H*W, H_l, W_l) volumes; coords: (B, H, W, 2) f32
     level-0 (x, y); weight: (O, L*(2r+1)^2); bias: (O,). Levels, weight and
-    bias share one type (bf16 or f32) -> (B, H, W, O) in that type."""
+    bias share one type (bf16 or f32) -> (B, H, W, O) in that type.
+    Differentiable in the levels, coords, weight and bias
+    (`lookup_fold_vjp`)."""
+    return _LookupFold.apply(radius, coords, weight, bias, *levels)
+
+
+def _launch(levels: Sequence[torch.Tensor], coords: torch.Tensor, radius: int,
+            weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The forward: the fused kernel on CUDA tensors, `lookup_fold_plain` on
+    the CPU."""
     if coords.device.type == "cpu":
         return lookup_fold_plain(levels, coords, radius, weight, bias)
     if coords.device.type != "cuda":

@@ -1,0 +1,3 @@
+from .sequence import build_sequence_loss, cpcl_loss, epe_loss, mix_loss, smear_mask
+
+__all__ = ["build_sequence_loss", "cpcl_loss", "epe_loss", "mix_loss", "smear_mask"]

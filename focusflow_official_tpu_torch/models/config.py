@@ -1,5 +1,5 @@
 """Model configurations: the fields of the reference YAML schema that the
-inference paths read.
+inference and training paths read.
 
 - `FFRaftConfig`: the MODEL and TRAIN mask sections of FF-RAFT;
 - `FFPWCNetConfig`: what FF-PWCNet reads of the same two sections;
@@ -23,6 +23,9 @@ class FFRaftConfig:
     small: bool = False
     fuse_cnet: bool = False
     iters: int = 12
+    # training: keep the batch norms' running statistics (every stage but
+    # chairs, as the reference's `model.freeze_bn()`)
+    freeze_bn: bool = False
 
     # TRAIN section (mask handling)
     mask_modal: str = "point"  # 'point'|'neighborE'|'neighborG'|'context'|'frame'

@@ -1,12 +1,21 @@
-"""FF-RAFT inference: keypoint-conditioned RAFT with the Condition Control
-Encoder, in test mode.
+"""FF-RAFT: keypoint-conditioned RAFT with the Condition Control Encoder,
+in test mode and in train mode.
 
 The feature encoder runs once over both frames batched together (exact
 for the instance-norm fnet); the all-pairs volume and its 4-level pyramid
 are built once; then `iters` refinement steps each run the update block,
 whose motion encoder looks up the radius-4 window and applies convc1 in
-one kernel (`kernels/lookup_fold.py`). Only the final low-resolution flow
-is convex-upsampled.
+one kernel (`kernels/lookup_fold.py`). The coordinates are detached at the
+start of every step, as the reference does. Test mode convex-upsamples
+only the final low-resolution flow; train mode runs the mask head on every
+step and returns every step's upsampled flow, stacked.
+
+Train mode is the module's `training` flag (`model.train()`); the cnet's
+batch norms then use the batch's statistics unless `freeze_bn()` put them
+back in eval mode. The module holds its parameters in f32; a bf16 forward
+takes its convolutions' weights in bf16 (`train/loop.py::compute_params`
+casts them at use for training, `FlowPredictor` casts the module once for
+inference).
 
 This slice covers `fusion='parallel'`, `fuse_cnet=True`, the full-width
 model (`small=False`) and the `1x1conv` fusion units.
@@ -20,6 +29,7 @@ import torch
 from torch import nn
 
 from ..nn.cce import BasicParallelFusionLayer
+from ..nn.norm import Norm
 from ..nn.update import BasicUpdateBlock
 from ..ops.coords import coords_grid
 from ..ops.corr import all_pairs_corr, corr_pyramid
@@ -58,8 +68,10 @@ class RAFT(nn.Module):
                 dtype: torch.dtype = torch.float32,
                 flow_init: Optional[torch.Tensor] = None):
         """NHWC inputs scaled to [-1, 1] -> (flow_lr (B, H/8, W/8, 2),
-        flow_up (B, H, W, 2)), both f32. `flow_init` (B, H/8, W/8, 2), the
-        warm start, is added to the starting coordinates."""
+        flow_up (B, H, W, 2)), both f32; in train mode every step's
+        upsampled flow, (iters, B, H, W, 2) f32. `flow_init`
+        (B, H/8, W/8, 2), the warm start, is added to the starting
+        coordinates."""
         if iters < 1:
             raise ValueError(f"iters must be >= 1, got {iters}")
         image1, image2 = image1.to(dtype), image2.to(dtype)
@@ -77,14 +89,19 @@ class RAFT(nn.Module):
         b, h, w = fmap1.shape[:3]
         coords0 = coords_grid(b, h, w, device=fmap1.device)
         coords1 = coords0.clone() if flow_init is None else coords0 + flow_init.float()
-        up_mask = None
+        up_mask, flows = None, []
         for it in range(iters):
+            coords1 = coords1.detach()
             flow = (coords1 - coords0).to(dtype)
             net, up_mask, delta = self.update_block(
                 net, inp, levels, coords1.contiguous(), flow,
-                mask_needed=it == iters - 1)
+                mask_needed=self.training or it == iters - 1)
             coords1 = coords1 + delta.float()
+            if self.training:
+                flows.append(convex_upsample(coords1 - coords0, up_mask.float()))
 
+        if self.training:
+            return torch.stack(flows)
         flow_lr = coords1 - coords0
         return flow_lr, convex_upsample(flow_lr, up_mask.float())
 
@@ -103,8 +120,9 @@ class FFRaft(nn.Module):
 
     def forward(self, image1, image2, mask1, mask2,
                 iters: Optional[int] = None, flow_init: Optional[torch.Tensor] = None):
-        """NHWC images (0..255) and raw 0/255 masks -> (flow_lr, flow_up);
-        `flow_init` as in `RAFT.forward`."""
+        """NHWC images (0..255) and raw 0/255 masks -> (flow_lr, flow_up),
+        or in train mode the stacked flows; `flow_init` as in
+        `RAFT.forward`."""
         cfg = self.cfg
         if iters is None:
             iters = cfg.iters
@@ -116,3 +134,12 @@ class FFRaft(nn.Module):
         return self.flow_net(scale(image1), scale(image2), scale(mask1),
                              scale(mask2), iters=iters, dtype=compute_dtype(cfg),
                              flow_init=flow_init)
+
+    def freeze_bn(self) -> "FFRaft":
+        """Put every batch norm in eval mode (the reference's `freeze_bn`):
+        a training forward then normalises with the running statistics and
+        leaves them as they are."""
+        for m in self.modules():
+            if isinstance(m, Norm) and m.kind == "batch":
+                m.eval()
+        return self

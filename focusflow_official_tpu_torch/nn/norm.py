@@ -5,7 +5,12 @@ kept `channels_last`, so `x.permute(0, 2, 3, 1)` is the NHWC tensor the
 instance-norm kernels read without a copy.
 
 - 'group'    : GroupNorm, affine, eps 1e-5
-- 'batch'    : BatchNorm in eval (running stats), affine, eps 1e-5
+- 'batch'    : BatchNorm, affine, eps 1e-5: in eval mode over the running
+               stats; in train mode over the batch's f32 stats (biased
+               variance), updating the running averages in f32 with
+               momentum 0.1 and the unbiased variance, as torch does. A
+               frozen BN (the reference's `freeze_bn()`) is a batch Norm
+               in eval mode inside a training model.
 - 'instance' : InstanceNorm, no affine, no running stats, eps 1e-5;
                on a CUDA tensor kernel C1 (stats) then kernel C2 (normalize)
 - 'none'     : identity
@@ -23,6 +28,8 @@ import torch
 from torch import nn
 
 from ..kernels.instance_norm import instance_norm
+
+MOMENTUM = 0.1  # torch's: running = (1 - m) * running + m * batch
 
 
 class Norm(nn.Module):
@@ -54,8 +61,11 @@ class Norm(nn.Module):
             return torch.relu(x) if relu else x
         col = lambda t: t.to(d)[None, :, None, None]
         if kind == "batch":
-            inv = torch.rsqrt(self.running_var.float() + self.eps)
-            y = ((x - col(self.running_mean)) * col(inv) * col(self.weight)
+            mean, var = self.running_mean, self.running_var.float()
+            if self.training:
+                mean, var = self._batch_stats(x)
+            inv = torch.rsqrt(var + self.eps)
+            y = ((x - col(mean)) * col(inv) * col(self.weight)
                  + col(self.bias))
         else:  # group
             b, c, h, w = x.shape
@@ -69,3 +79,17 @@ class Norm(nn.Module):
             y = ((xg - mean.to(d)) * inv.to(d)).reshape(b, c, h, w)
             y = y * col(self.weight) + col(self.bias)
         return torch.relu(y) if relu else y
+
+    def _batch_stats(self, x: torch.Tensor):
+        """The batch's f32 (mean, biased variance) over (B, H, W); the
+        running averages take them with momentum 0.1 (the variance
+        unbiased)."""
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = xf.var(dim=(0, 2, 3), unbiased=False)
+        n = xf.numel() // xf.shape[1]
+        with torch.no_grad():
+            for run, new in ((self.running_mean, mean),
+                             (self.running_var, var * (n / max(n - 1, 1)))):
+                run.copy_((1 - MOMENTUM) * run + MOMENTUM * new)
+        return mean, var

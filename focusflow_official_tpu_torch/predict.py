@@ -135,6 +135,23 @@ def load_weights(path: str, model: nn.Module) -> dict:
     raise ValueError(f"{path}: expected .npz, or {', '.join(_TORCH_SUFFIXES)}")
 
 
+# the modules whose parameters run in the compute type; norms and free
+# parameters stay f32 and cast at use
+CAST_MODULES = (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)
+
+
+def for_inference(model: nn.Module, dtype: torch.dtype, device) -> nn.Module:
+    """`model` moved to `device` in eval mode, its `CAST_MODULES` cast to
+    the compute type `dtype` (convs `channels_last`). Returns the same
+    module."""
+    model.to(device).eval()
+    for m in model.modules():
+        if isinstance(m, CAST_MODULES):
+            m.to(dtype, **({} if isinstance(m, nn.Linear)
+                           else {"memory_format": torch.channels_last}))
+    return model
+
+
 class FlowPredictor:
     """Load a config and weights once; call on frame pairs.
 
@@ -166,15 +183,7 @@ class FlowPredictor:
         self.iters = iters or cfg_iters
         self.pad_to = pad_to
         model.load_state_dict(load_weights(weights, model), strict=True)
-        model.to(self.device).eval()
-        # convs and dense layers run in the compute type; norms and free
-        # parameters stay f32 and cast at use
-        for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-                m.to(compute_dtype(cfg), memory_format=torch.channels_last)
-            elif isinstance(m, nn.Linear):
-                m.to(compute_dtype(cfg))
-        self.model = model
+        self.model = for_inference(model, compute_dtype(cfg), self.device)
 
     def _pad(self, *tensors: torch.Tensor):
         """Edge-pad NHWC tensors at the bottom and right to `pad_to`."""

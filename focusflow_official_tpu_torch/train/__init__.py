@@ -1,2 +1,3 @@
-"""Evaluation: the validation protocol and the benchmark submission
-writers."""
+"""Training (the loop, its schedule, checkpoints, metrics and parameter
+surgery), evaluation (the validation protocol) and the benchmark
+submission writers."""

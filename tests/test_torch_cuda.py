@@ -1064,3 +1064,173 @@ def test_validate_kitti_card_against_cpu(dev):
     for k in want:
         assert np.isfinite(got[k]) and abs(got[k] - want[k]) <= 1e-3 * max(1.0, abs(want[k])), (
             k, got[k], want[k])
+
+
+# ---- training: each Function's backward on the card against autograd
+# through its plain version on the same inputs (the plain versions run on
+# the card too); one small shape and one of the training step's (B=10 at
+# 368x496: a 46x62 grid; the fnet at B=20). bf16 gradients within one bf16
+# ulp of the largest plain gradient (2^-7 of it), f32 within 1e-5 of it.
+GRAD_SHAPES = {"small": (2, 8, 16), "train": (10, 46, 62)}
+
+
+def _grad_tol(want):
+    return (2.0 ** -7 if want.dtype == torch.bfloat16 else 1e-5) * float(want.float().abs().max())
+
+
+def _grad_pair(fn, plain, inputs, cot):
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    got = torch.autograd.grad(fn(*leaves), leaves, cot)
+    ref = [t.detach().requires_grad_(True) for t in inputs]
+    want = torch.autograd.grad(plain(*ref), ref, cot)
+    return got, want
+
+
+def _grad_levels(g, b, h1, w1, dtype, dev):
+    corr = torch.randn((b, h1 * w1, h1, w1), generator=g, device=dev)
+    levels = corr_pyramid(corr, 4, dtype)
+    coords = _hard_coords(g, b, h1, w1, max(h1, w1), dev)
+    return levels, coords
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size", sorted(GRAD_SHAPES))
+def test_lookup_fold_backward(dev, dtype, size):
+    """G's Function: a grad_fn on a CUDA tensor with grad enabled, and the
+    weight's, the bias's and every level's gradient against autograd
+    through `lookup_fold_plain`; its backward launches kernel A once."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    b, h1, w1 = GRAD_SHAPES[size]
+    levels, coords = _grad_levels(g, b, h1, w1, dtype, dev)
+    w = (torch.randn((256, 324), generator=g, device=dev) / 18).to(dtype)
+    bias = (torch.randn(256, generator=g, device=dev) * 0.1).to(dtype)
+    cot = torch.randn((b, h1, w1, 256), generator=g, device=dev).to(dtype)
+    out = klf.lookup_fold([lv.requires_grad_(True) for lv in levels], coords, 4,
+                          w.requires_grad_(True), bias)
+    assert out.grad_fn is not None
+    before = launch_counts["lookup"]
+    out.backward(cot)
+    assert launch_counts["lookup"] == before + 1
+    got, want = _grad_pair(lambda w_, b_, *lv: klf.lookup_fold(lv, coords, 4, w_, b_),
+                           lambda w_, b_, *lv: klf.lookup_fold_plain(lv, coords, 4, w_, b_),
+                           [w, bias, *levels], cot)
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype and torch.isfinite(a).all()
+        assert float((a.float() - e.float()).abs().max()) <= _grad_tol(e)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size", sorted(GRAD_SHAPES))
+def test_lookup_backward(dev, dtype, size):
+    """A's Function: the levels' and (f32) the coordinates' gradients
+    against autograd through `lookup_plain`."""
+    g = torch.Generator(device=dev).manual_seed(32)
+    b, h1, w1 = GRAD_SHAPES[size]
+    levels, coords = _grad_levels(g, b, h1, w1, dtype, dev)
+    coords = (coords.clamp(-30, 90) + 0.37).contiguous()  # no coordinate on a tent's kink
+    cot = torch.randn((b, h1, w1, 324), generator=g, device=dev).to(dtype)
+    inputs = [*levels] + ([coords] if dtype == torch.float32 else [])
+    split = (lambda a: (a[:4], a[4] if len(a) > 4 else coords))
+    got, want = _grad_pair(lambda *a: kl.lookup(split(a)[0], split(a)[1], 4),
+                           lambda *a: kl.lookup_plain(split(a)[0], split(a)[1], 4),
+                           inputs, cot)
+    assert kl.lookup([lv.requires_grad_(True) for lv in levels], coords, 4).grad_fn is not None
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype and torch.isfinite(a).all()
+        assert float((a.float() - e.float()).abs().max()) <= _grad_tol(e)
+
+
+def test_fold_backward(dev):
+    g = torch.Generator(device=dev).manual_seed(33)
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.randn((7040, 324), generator=g, device=dev).to(dtype)
+        w = (torch.randn((256, 324), generator=g, device=dev) / 18).to(dtype)
+        bias = torch.randn(256, generator=g, device=dev).to(dtype)
+        cot = torch.randn((7040, 256), generator=g, device=dev).to(dtype)
+        assert kf.fold(a.requires_grad_(True), w, bias).grad_fn is not None
+        got, want = _grad_pair(kf.fold, kf.fold_plain, [a, w, bias], cot)
+        for x, e in zip(got, want):
+            assert float((x.float() - e.float()).abs().max()) <= _grad_tol(e)
+
+
+IN_GRAD_SHAPES = {"small": (2, 9, 13, 64), "train": (20, 46, 62, 128)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size", sorted(IN_GRAD_SHAPES))
+def test_instance_norm_stats_backward(dev, dtype, size):
+    g = torch.Generator(device=dev).manual_seed(34)
+    x = (torch.randn(IN_GRAD_SHAPES[size], generator=g, device=dev) * 3 + 1).to(dtype)
+    b, c = x.shape[0], x.shape[3]
+    cot = (torch.randn((b, c), generator=g, device=dev), torch.randn((b, c), generator=g, device=dev))
+    assert kin.instance_norm_stats(x.requires_grad_(True))[0].grad_fn is not None
+    (got,), (want,) = _grad_pair(kin.instance_norm_stats, kin.stats_plain, [x], cot)
+    assert got.dtype == x.dtype
+    assert float((got.float() - want.float()).abs().max()) <= _grad_tol(want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size", sorted(IN_GRAD_SHAPES))
+@pytest.mark.parametrize("form", ["plain", "residual"])
+def test_instance_norm_backward(dev, dtype, size, form):
+    """C1 then C2 with ReLU: x's gradient against autograd through the
+    plain version in f32 from the same inputs (the bf16 plain version
+    masks its ReLU on the rounded output, which the f32 VJP does not), the
+    residual form's ReLU masked where the forward's output is > 0, and the
+    residual's gradient that masked cotangent to the bit."""
+    g = torch.Generator(device=dev).manual_seed(35)
+    shape = IN_GRAD_SHAPES[size]
+    x = (torch.randn(shape, generator=g, device=dev) * 3 + 1).to(dtype)
+    r = torch.randn(shape, generator=g, device=dev).to(dtype) if form == "residual" else None
+    cot = torch.randn(shape, generator=g, device=dev).to(dtype)
+    leaves = [x.detach().requires_grad_(True)] + ([] if r is None else [r.detach().requires_grad_(True)])
+    y = kin.instance_norm(leaves[0], 1e-5, True, *leaves[1:])
+    assert y.grad_fn is not None
+    got = torch.autograd.grad(y, leaves, cot)
+    g_in = cot if r is None else torch.where(y.detach() > 0, cot, torch.zeros_like(cot))
+    if r is not None:
+        assert torch.equal(got[1], g_in)
+    x32 = x.detach().float().requires_grad_(True)
+    (want,) = torch.autograd.grad(kin.apply_plain(x32, *kin.stats_plain(x32), True), x32,
+                                  g_in.float())
+    assert got[0].dtype == dtype
+    assert float((got[0].float() - want).abs().max()) <= _grad_tol(want.to(dtype))
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One f32 step of the trained fixture on two 64x96 samples: the loss
+    within 1e-4 and the gradient's cosine >= 0.9999 against the CPU; the
+    bf16 step's loss within 2% and every gradient finite, in f32."""
+    from focusflow_official_tpu_torch.compat.weights import load_npz
+    from focusflow_official_tpu_torch.data.synthetic import chairs_layout
+    from focusflow_official_tpu_torch.losses import build_sequence_loss
+    from focusflow_official_tpu_torch.models import FFRaft, FFRaftConfig
+    from focusflow_official_tpu_torch.train.loop import forward_loss
+
+    ds = chairs_layout(0, n=2, h=64, w=96)
+    batch = {k: torch.as_tensor(np.stack([ds[i][k] for i in range(2)]))
+             for k in ("image1", "image2", "mask1", "mask2", "flow", "valid")}
+    fixture = os.path.join(os.path.dirname(__file__), "fixtures", "trained_smoke.npz")
+
+    def step(device, dtype):
+        model = FFRaft(FFRaftConfig(fusion="parallel", fuse_cnet=True, iters=4,
+                                    compute_dtype=dtype))
+        model.load_state_dict(load_npz(fixture), strict=True)
+        model.to(device)
+        if device != "cpu":
+            model.to(memory_format=torch.channels_last)
+        model.train()
+        loss, _ = forward_loss(model, build_sequence_loss("MixLoss"),
+                               {k: v.to(device) for k, v in batch.items()}, iters=4,
+                               dtype=getattr(torch, dtype))
+        loss.backward()
+        grads = [p.grad for p in model.parameters()]
+        assert all(gr.dtype == torch.float32 and torch.isfinite(gr).all() for gr in grads)
+        return float(loss.detach()), torch.cat([gr.flatten().cpu() for gr in grads])
+
+    cpu_loss, cpu_grad = step("cpu", "float32")
+    loss, grad = step(dev, "float32")
+    assert abs(loss - cpu_loss) <= 1e-4 * abs(cpu_loss)
+    assert float(F.cosine_similarity(grad.double(), cpu_grad.double(), dim=0)) >= 0.9999
+    bf_loss, _ = step(dev, "bfloat16")
+    assert abs(bf_loss - loss) <= 0.02 * abs(loss)
