@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it: FF-RAFT,
 FF-FlowFormer and FF-PWCNet inference, the evaluation entry point and
-FF-RAFT training.
+the training of all three.
 
     python3 chip_smoke.py
 
@@ -124,7 +124,31 @@ Phases (any failure raises and exits non-zero; no result is printed):
    steps 4-13 are timed on the host clock, step 15 is profiled, and one
    more step is profiled in its forward, backward and optimizer parts.
 
-Outside the phase under default flags, f32 matmuls and convolutions run
+10. FF-PWCNet training (`train_phase` with `pwc_train_rows`), after
+    phase 9: the trainer on `ffpwc_chairs.yaml` at full width (B=8,
+    368x496 resized to 384x512 inside, MixLoss in 'pretrain' mode, noise,
+    bf16) from `trained_smoke_pwc.npz`, with phase 9's cuts and gates:
+    every step launches D 5 times, all in the leaky-ReLU form; the f32
+    agreement step runs under PyTorch's default TF32 flags, which the
+    step must turn off itself. Then D at the counted step's own launch
+    keys (the five levels of B=8) in both forms, each held and timed with
+    its Function's backward.
+11. FF-FlowFormer training (`train_phase` with `ff_train_rows`): the
+    trainer on `ff_chairs.yaml` at full width and depth (B=6, 368x496,
+    encoder depth 3, 12 refinements, MixLoss, noise, bf16) from
+    `trained_smoke_ff.npz` with its layer 0 copied into layers 1 and 2;
+    every step launches A 12, B 24, E 27 and F 11 times. Its agreement
+    gates run at the fixture's own depth (encoder depth 1, 2
+    refinements) at the full crop and its descent on JAX's own descent
+    test (fresh weights, constant lr 1e-4, no noise, 16 steps): the
+    fixture predicts about zero flow on this input. Then A, B, E and F at
+    every (kernel, shape) key of the counted step, each held and timed
+    with its Function's backward, beside SDPA's (E) or SDPA's with the
+    window partition and merge (F) through autograd.
+The `kernels` line gives each kernel's launches on every path,
+`ff_pwcnet_train` and `ff_flowformer_train` among them.
+
+Outside the phases under default flags, f32 matmuls and convolutions run
 in full f32 here (TF32 off), so the f32 comparisons are not blurred by
 TF32's 10-bit mantissa. Needs one card.
 """
@@ -431,12 +455,17 @@ PWC_LEVELS = ((1, 7, 16, 196), (1, 14, 32, 128), (1, 28, 64, 96),
               (1, 56, 128, 64), (1, 112, 256, 32))
 
 
-def _local_corr_row(torch, g, dev, shape, dtype, label: str, slope=None) -> dict:
+def _local_corr_row(torch, g, dev, shape, dtype, label: str, slope=None,
+                    backward: bool = False) -> dict:
     """Kernel D on random (B, H, W, C) maps against its plain version, with
     the launch plan it ran. With a slope, the fused form (leaky ReLU in the
     epilogue), which must also equal the plain-form kernel then
     F.leaky_relu (two launches, `two_step_ms`) to the bit. No single PyTorch
-    call computes this function, so there is no yardstick."""
+    call computes this function, so there is no yardstick. With `backward`,
+    the Function's gradients against autograd through the plain version
+    (`_backward_check`), timed, with the backward's bound: the maps, the
+    cotangent (and the fused form's output) read once, both gradients
+    written once, two products a shift and channel."""
     import torch.nn.functional as F
 
     from focusflow_official_tpu_torch.kernels import local_corr as klc
@@ -465,6 +494,7 @@ def _local_corr_row(torch, g, dev, shape, dtype, label: str, slope=None) -> dict
         # bf16 ulp of the largest output
         tol = _bf16_ulp(float(want.float().abs().max()))
     _check(label, err, tol)
+    es = f1.element_size()
     extra = {}
     if slope is not None:
         two_step = lambda: F.leaky_relu(klc.local_corr(f1, f2, r), slope)
@@ -474,9 +504,19 @@ def _local_corr_row(torch, g, dev, shape, dtype, label: str, slope=None) -> dict
         extra = dict(vs_two_step="bit-equal", two_step_ms=_time_ms(torch, two_step))
     ms = _time_ms(torch, call)
     plain_ms = _time_ms(torch, lambda: klc.local_corr_plain(f1, f2, r, slope), reps=10)
-    es = f1.element_size()
     bound, by = _bound_ms((2 * f1.numel() + got.numel()) * es, 2.0 * got.numel() * shape[3],
                           PEAK_F32 if dtype == torch.float32 else PEAK_BF16)
+    if backward:
+        cot = torch.randn(got.shape, generator=g, device=dev).to(dtype)
+        saved = None if slope is None else got
+        extra.update(_backward_check(
+            torch, lambda a, b: klc.local_corr(a, b, r, negative_slope=slope),
+            lambda a, b: klc.local_corr_plain(a, b, r, slope), [f1, f2], cot,
+            lambda: klc.local_corr_vjp(f1, f2, r, cot, saved, slope), label))
+        extra.update(_backward_bound(
+            (4 * f1.numel() + (2 if slope is not None else 1) * got.numel()) * es,
+            4.0 * got.numel() * shape[3], dtype),
+            library_backward_ms=None, library_backward="none: no PyTorch call computes it")
     form = "plain" if slope is None else f"leaky_relu {slope}"
     return dict(shape=f"{tuple(shape)} x2 -> 81, {str(dtype).split('.')[1]}, {form}",
                 label=label, key=key, design=plan["entry"], plan=plan, max_abs_err=err,
@@ -534,6 +574,15 @@ def _backward_check(torch, fn, plain, inputs, g, vjp, label: str) -> dict:
     return dict(grad_max_abs_err=errs, grad_tol=tols, backward_ms=_time_ms(torch, vjp, reps=10),
                 plain_backward_ms=_time_ms(
                     torch, lambda: torch.autograd.grad(out, ref, g, retain_graph=True), reps=10))
+
+
+def _backward_bound(nbytes: float, flops: float, dtype) -> dict:
+    """A backward's bound: its inputs read once and its gradients written
+    once, over the memory rate, or its operations over the inputs' type's
+    peak (bf16: the tensor cores), whichever is longer."""
+    bound, by = _bound_ms(nbytes, flops, PEAK_F32 if str(dtype) == "torch.float32"
+                          else PEAK_BF16)
+    return dict(backward_bound_ms=bound, backward_bound_by=by)
 
 
 def _instance_norm_backward(torch, g, dev, x, r, label: str) -> dict:
@@ -751,12 +800,17 @@ def kernel_phase(torch, dev):
 
 
 def _attention_row(torch, g, dev, b, n, m, c, heads, label, design: str,
-                   dtype=None) -> dict:
+                   dtype=None, backward: bool = False) -> dict:
     """Kernel E on random q (B, N, C), k, v (B, M, C) (bf16 unless `dtype`)
     against its plain version, timed beside F.scaled_dot_product_attention
     on (B, heads, N, d) views of the same tensors. `design` is the entry
     these inputs must run: `mma` (tensor cores), `staged` (N < 64: each
-    entry's keys staged once) or `tiled` (f32 FMA)."""
+    entry's keys staged once) or `tiled` (f32 FMA). With `backward`, the
+    Function's gradients against autograd through the plain version
+    (`_backward_check`), timed beside autograd through
+    F.scaled_dot_product_attention, with the backward's bound: q, k, v and
+    the cotangent read once, three gradients written once, five products
+    and one exponential a score."""
     import torch.nn.functional as F
 
     from focusflow_official_tpu_torch.kernels import attention as ka
@@ -806,22 +860,43 @@ def _attention_row(torch, g, dev, b, n, m, c, heads, label, design: str,
         qh, kh, vh, scale=scale))
     nbytes = (q.numel() + k.numel() + v.numel() + got.numel()) * q.element_size()
     scores = float(b) * heads * n * m
+    peak = PEAK_F32 if dtype == torch.float32 else PEAK_BF16
+    extra = {}
+    if backward:
+        cot = torch.randn(got.shape, generator=g, device=dev).to(dtype)
+        extra = _backward_check(
+            torch, lambda *t: ka.small_kv_attention(*t, heads, scale),
+            lambda *t: ka.small_kv_attention_plain(*t, heads, scale), [q, k, v], cot,
+            lambda: ka.attention_vjp(q, k, v, heads, scale, cot), label)
+        bound = _attention_bound(torch, 2 * nbytes, scores * 5 * 2 * d, scores, peak)
+        extra.update(backward_bound_ms=bound["bound_ms"], backward_bound_by=bound["bound_by"],
+                     backward_bound_term=bound["bound_term"])
+        lq, lk, lv = (t.detach().clone().requires_grad_(True) for t in (qh, kh, vh))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, scale=scale)
+        go = cot.view(b, n, heads, d).transpose(1, 2)
+        extra["library_backward_ms"], extra["library_backward_error"] = _library_ms(
+            torch, lambda: torch.autograd.grad(lo, (lq, lk, lv), go, retain_graph=True))
+        extra["library_backward"] = "autograd through F.scaled_dot_product_attention"
+        del lq, lk, lv, lo
     return dict(shape=f"q ({b}, {n}, {c}) x kv ({b}, {m}, {c}), {heads} heads, "
                       f"{str(dtype).split('.')[1]}", label=label, key=key,
                 design=ran, plan=plan, largest_err_over_its_bound=over, max_abs_err=err,
                 tol=tol, ms=ms, plain_ms=plain_ms,
-                **_attention_bound(torch, nbytes, scores * 2 * 2 * d, scores,
-                                   PEAK_F32 if dtype == torch.float32 else PEAK_BF16),
-                library_ms=lib_ms, library_error=lib_err)
+                **_attention_bound(torch, nbytes, scores * 2 * 2 * d, scores, peak),
+                library_ms=lib_ms, library_error=lib_err, **extra)
 
 
-def _window_row(torch, g, dev, b, hp, wp, c, heads, label) -> dict:
+def _window_row(torch, g, dev, b, hp, wp, c, heads, label, backward: bool = False) -> dict:
     """Kernel F on random bf16 (B, Hp, Wp, C) q, k, v against its plain
     version, timed beside F.scaled_dot_product_attention on the window-
     partitioned (B*nwin, heads, 49, d) tensors (partitioned before the
     timed window; a second time includes the partition and the merge).
     Every bf16 shape of the path runs the tensor-core entry (`mma`), held
-    at every output to `bf16_bound`."""
+    at every output to `bf16_bound`. With `backward`, the Function's
+    gradients against autograd through the plain version
+    (`_backward_check`), timed beside autograd through the partition,
+    F.scaled_dot_product_attention and the merge, with the backward's
+    bound (as E's)."""
     import torch.nn.functional as F
 
     from focusflow_official_tpu_torch.kernels import window_attention as kw
@@ -857,7 +932,7 @@ def _window_row(torch, g, dev, b, hp, wp, c, heads, label) -> dict:
         t = t.view(b, nh, ws, nw, ws, heads, d).permute(0, 1, 3, 5, 2, 4, 6)
         return t.reshape(b * nh * nw, heads, ws * ws, d)
 
-    def sdpa_merged():
+    def sdpa_merged(q, k, v):
         o = F.scaled_dot_product_attention(part(q), part(k), part(v), scale=scale)
         o = o.view(b, nh, nw, heads, ws, ws, d).permute(0, 1, 4, 2, 5, 3, 6)
         return o.reshape(b, hp, wp, c)
@@ -865,14 +940,31 @@ def _window_row(torch, g, dev, b, hp, wp, c, heads, label) -> dict:
     qw, kw_, vw = part(q), part(k), part(v)
     lib_ms, lib_err = _library_ms(torch, lambda: F.scaled_dot_product_attention(
         qw, kw_, vw, scale=scale))
-    lib_full_ms, _ = _library_ms(torch, sdpa_merged)
+    lib_full_ms, _ = _library_ms(torch, lambda: sdpa_merged(q, k, v))
     scores = float(b * nh * nw) * heads * (ws * ws) ** 2
+    extra = {}
+    if backward:
+        cot = torch.randn(q.shape, generator=g, device=dev).to(bf16)
+        extra = _backward_check(
+            torch, lambda *t: kw.window_attention(*t, ws, heads, scale),
+            lambda *t: kw.window_attention_plain(*t, ws, heads, scale), [q, k, v], cot,
+            lambda: kw.window_attention_vjp(q, k, v, ws, heads, scale, cot), label)
+        bound = _attention_bound(torch, 2 * 4 * q.numel() * 2, scores * 5 * 2 * d, scores)
+        extra.update(backward_bound_ms=bound["bound_ms"], backward_bound_by=bound["bound_by"],
+                     backward_bound_term=bound["bound_term"])
+        lq, lk, lv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        lo = sdpa_merged(lq, lk, lv)
+        extra["library_backward_ms"], extra["library_backward_error"] = _library_ms(
+            torch, lambda: torch.autograd.grad(lo, (lq, lk, lv), cot, retain_graph=True))
+        extra["library_backward"] = ("autograd through the partition, "
+                                     "F.scaled_dot_product_attention and the merge")
+        del lq, lk, lv, lo
     return dict(shape=f"({b}, {hp}, {wp}, {c}), {heads} heads, bf16", label=label,
                 key=key, design=key[-1], largest_err_over_its_bound=over,
                 max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                 **_attention_bound(torch, 4 * q.numel() * 2, scores * 2 * 2 * d, scores),
                 library_ms=lib_ms, library_error=lib_err,
-                library_with_partition_ms=lib_full_ms)
+                library_with_partition_ms=lib_full_ms, **extra)
 
 
 def ff_kernel_phase(torch, dev) -> dict:
@@ -1700,36 +1792,159 @@ def train_kernel_rows(torch, dev) -> dict:
     shapes = [(2 * TB, TH // 2, TW // 2, 64), (2 * TB, TH // 4, TW // 4, 96),
               (2 * TB, TH // 8, TW // 8, 128)]
     rows.update(_instance_norm_rows(torch, g, dev, shapes, backward=True))
-    for name in rows:
-        for row in rows[name]:
-            _emit(dict(phase="train_kernels", name=name, **{k: v for k, v in row.items()
-                                                            if k != "key"}, key=list(row["key"])))
+    _emit_train_rows("ff_raft_train", rows)
     torch.cuda.empty_cache()
     return rows
 
 
+def _emit_train_rows(path: str, rows: dict) -> None:
+    for name in rows:
+        for row in rows[name]:
+            _emit(dict(phase="train_kernels", path=path, name=name,
+                       **{k: v for k, v in row.items() if k not in ("key", "out")},
+                       key=list(row["key"])))
+
+
+def pwc_train_rows(torch, dev, step_shapes: dict) -> dict:
+    """D at the shapes of the FF-PWCNet training step's own launch keys
+    (the five decoder levels of B=8 at 384x512, bf16), in both forms (the
+    step runs the leaky-ReLU form), each held and timed as the kernel
+    phase holds it, with its Function's backward (`_local_corr_row`)."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    rows = []
+    keys = sorted((k for k in step_shapes if k[0] == "local_corr"), key=lambda k: -k[4])
+    for key in keys:
+        b, h, w, c, r = key[1:6]
+        dtype = getattr(torch, key[6].split(".")[1])
+        for slope in (None, 0.1):
+            form = "plain" if slope is None else "leaky_relu"
+            rows.append(_local_corr_row(torch, g, dev, (b, h, w, c), dtype,
+                                        f"local_corr train {h}x{w}, {form}", slope,
+                                        backward=True))
+            torch.cuda.empty_cache()
+    out = {"local_corr": rows}
+    _emit_train_rows("ff_pwcnet_train", out)
+    return out
+
+
+def ff_train_rows(torch, dev, step_shapes: dict) -> dict:
+    """A, B, E and F at the shapes of the FF-FlowFormer training step's own
+    launch keys (B=6 at 368x496: the Twins towers over 6 and 12 frames,
+    the perceiver and the decoder over 6 x 2852 queries, the 46x62 cost
+    maps), each held and timed as the kernel phase holds it, with its
+    Function's backward against autograd through the plain version
+    (`_backward_check`) and the backward's time, bound and library time."""
+    import torch.nn.functional as F
+
+    from focusflow_official_tpu_torch.kernels import fold as kf
+    from focusflow_official_tpu_torch.kernels import lookup as kl
+    from focusflow_official_tpu_torch.ops.coords import coords_grid
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    dtype_of = lambda text: getattr(torch, text.split(".")[1])
+    rows = {"lookup": [], "fold": [], "attention": [], "window_attention": []}
+    for key in sorted(step_shapes, key=str):
+        name = key[0]
+        if name == "attention":
+            _, b, n, m, c, cv, heads, dt, entry = key
+            if cv != c:
+                raise AssertionError(f"{key}: the row takes v as wide as k")
+            row = _attention_row(torch, g, dev, b, n, m, c, heads, f"attention train {key[1:4]}",
+                                 entry, dtype_of(dt), backward=True)
+        elif name == "window_attention":
+            _, b, hp, wp, c, heads, dt, entry = key
+            if dt != "torch.bfloat16":
+                raise AssertionError(f"{key}: the row runs bf16")
+            row = _window_row(torch, g, dev, b, hp, wp, c, heads,
+                              f"window train {key[1:4]}", backward=True)
+        elif name == "lookup":
+            _, b, q, h1, w1, dt = key
+            level = torch.randn((b, q, h1, w1), generator=g, device=dev).to(dtype_of(dt))
+            coords = (coords_grid(b, h1, w1, device=dev)
+                      + torch.randn((b, h1, w1, 2), generator=g, device=dev) * 8).contiguous()
+            label = f"lookup train (1 level {tuple(level.shape)})"
+            row = _lookup_row(torch, [level], coords, 4, label)
+            out = row.pop("out")
+            cot = torch.randn(out.shape, generator=g, device=dev).to(level.dtype)
+            row.update(shape=f"1 level {tuple(level.shape)} {dt}, Q={b * q}",
+                       library="F.grid_sample x1 level (f32)", **_backward_check(
+                           torch, lambda lv: kl.lookup([lv], coords, 4),
+                           lambda lv: kl.lookup_plain([lv], coords, 4), [level], cot,
+                           lambda: kl.lookup_vjp([level], coords, 4, cot), label),
+                       **_backward_bound((out.numel() + level.numel()) * level.element_size()
+                                         + coords.numel() * 4, 8.0 * out.numel(), level.dtype),
+                       library_backward_ms=None,
+                       library_backward="none: grid_sample's backward takes other inputs")
+            del level, coords, out, cot
+        elif name == "fold":
+            _, m, k, n, dt = key
+            dt = dtype_of(dt)
+            a = torch.randn((m, k), generator=g, device=dev).to(dt)
+            w = (torch.randn((n, k), generator=g, device=dev) / k ** 0.5).to(dt)
+            bias = (torch.randn(n, generator=g, device=dev) * 0.1).to(dt)
+            label = f"fold train ({m}, {k}) -> {n}"
+            row = _fold_row(torch, a, w, bias, label, "mma" if dt == torch.bfloat16 else "fma")
+            cot = torch.randn((m, n), generator=g, device=dev).to(dt)
+            la, lw = (t.detach().clone().requires_grad_(True) for t in (a, w))
+            lo = F.linear(la, lw, bias)
+            lib_ms, lib_err = _library_ms(torch, lambda: torch.autograd.grad(
+                lo, (la, lw), cot, retain_graph=True))
+            row.update(shape=f"({m}, {k}) @ ({n}, {k}).T {dt}", library="F.linear",
+                       **_backward_check(
+                           torch, lambda a_, w_: kf.fold(a_, w_, bias),
+                           lambda a_, w_: kf.fold_plain(a_, w_, bias), [a, w], cot,
+                           lambda: kf.fold_vjp(a, w, cot), label),
+                       **_backward_bound((2 * (m * k + n * k) + m * n) * a.element_size(),
+                                         4.0 * m * n * k, dt),
+                       library_backward_ms=lib_ms, library_backward_error=lib_err,
+                       library_backward="autograd through F.linear")
+            del a, w, la, lw, lo, cot
+        else:
+            continue
+        rows[name].append(row)
+        torch.cuda.empty_cache()
+    out = {k: v for k, v in rows.items() if v}
+    _emit_train_rows("ff_flowformer_train", out)
+    return out
+
+
 def _flat_grad(torch, model) -> "torch.Tensor":
-    return torch.cat([p.grad.detach().float().flatten().cpu() for p in model.parameters()])
+    # a parameter the loss does not reach (GMA's position tables) counts as 0
+    return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                      .detach().float().flatten().cpu() for p in model.parameters()])
 
 
-def _two_sample_grads(torch, cfg, batch: dict, device, dtype):
-    """The fixture's FF-RAFT (f32 parameters, train mode) on `batch`, no
-    noise: one forward in `dtype` and the loss's backward -> (loss, flat
-    gradient on the CPU)."""
+def _trained_model(torch, cfg, weights: str, device, dtype: str):
+    """The YAML's model from `weights` (f32 parameters, train mode, on
+    `device`; `channels_last` on the card) -> (model, loss, iters)."""
     from focusflow_official_tpu_torch.cli.train import build_model
-    from focusflow_official_tpu_torch.compat.weights import load_npz
-    from focusflow_official_tpu_torch.train.loop import forward_loss
+    from focusflow_official_tpu_torch.predict import load_weights
 
-    _, model, loss_fn, iters = build_model(
-        cfg, {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype])
-    model.load_state_dict(load_npz(FIXTURE), strict=True)
+    _, model, loss_fn, iters = build_model(cfg, dtype)
+    model.load_state_dict(load_weights(weights, model), strict=True)
     model.to(device)
     if torch.device(device).type == "cuda":
         model.to(memory_format=torch.channels_last)
-    model.train()
-    loss, _ = forward_loss(model, loss_fn, {k: v.to(device) for k, v in batch.items()},
-                           iters=iters, dtype=dtype)
-    loss.backward()
+    return model.train(), loss_fn, iters
+
+
+def _two_sample_grads(torch, cfg, weights: str, batch: dict, device, dtype, flags=None):
+    """The model from `weights` on `batch`, no noise: one forward in `dtype`
+    and the loss's backward (`train/loop.py::forward_backward`) -> (loss,
+    flat gradient on the CPU). `flags`: (matmul, cuDNN) TF32 flags set
+    around the step and put back after, None to leave them."""
+    from focusflow_official_tpu_torch.train.loop import forward_backward
+
+    model, loss_fn, iters = _trained_model(
+        torch, cfg, weights, device, {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype])
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    if flags is not None:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    try:
+        loss, _ = forward_backward(model, loss_fn, {k: v.to(device) for k, v in batch.items()},
+                                   iters=iters, dtype=dtype)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
     return float(loss.detach()), _flat_grad(torch, model)
 
 
@@ -1737,30 +1952,106 @@ def _cosine(torch, a, b) -> float:
     return float(torch.nn.functional.cosine_similarity(a.double(), b.double(), dim=0))
 
 
-def train_phase(torch, card: str, held: set) -> tuple:
-    """FF-RAFT training on the card through the trainer's body
-    (`cli/train.py::train`), the chairs stage of `ffraft_chairs_orb.yaml` at
-    full width: B=10, 368x496 crops, 12 refinements, MixLoss, noise, the
-    cnet's batch norm in train mode, AdamW + OneCycle, bf16, from the
-    trained fixture (PRETRAIN; the YAML's LOAD_MODULE, pretrain/raft-chairs.pth,
-    is not in the repository), NUM_STEPS cut to 16, on one fixed batch of 10
-    in-memory multi-pixel affine pairs with 3% keypoint masks
-    (`data/synthetic.py`; no host augmentation).
+PWC_TRAIN_YAML = os.path.join(ROOT, "configs", "ff-pwcnet", "ffpwc_chairs.yaml")
+FF_TRAIN_YAML = os.path.join(ROOT, "configs", "ff-flowformer", "ff_chairs.yaml")
+FF_TRAIN_WEIGHTS = os.path.join(OUT_DIR, "trained_smoke_ff_depth3.npz")
 
-    Gates: every step's loss and gradient norm finite; every step launches
-    G 12, A 12, C1 30, C2 30 (12 in the residual form); the mean of the last
-    four losses under 0.98 x the first (JAX's own descent test); the final
+
+def _ff_depth3_weights() -> str:
+    """The FlowFormer fixture (encoder_depth 1) with its latent and
+    vertical layer 0 copied into layers 1 and 2, for the shipped depth 3
+    -> the `.npz` path."""
+    with np.load(FIXTURE_FF) as raw:
+        flat = {k: raw[k] for k in raw.files}
+    for k in [k for k in flat if "encoder_layers_0/" in k]:
+        for i in (1, 2):
+            flat[k.replace("encoder_layers_0/", f"encoder_layers_{i}/")] = flat[k]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    np.savez(FF_TRAIN_WEIGHTS, **flat)
+    return FF_TRAIN_WEIGHTS
+
+
+def _train_specs() -> dict:
+    """path -> what its training phase drives: the YAML, the weights it
+    starts from (the YAMLs' LOAD_MODULE and load_former files are not in
+    the repository), the stage's batch and crop, the refinements, the
+    launches every step must make and, where a kernel has forms, the count
+    of each a step."""
+    return {
+        "ff_raft_train": dict(
+            yaml=TRAIN_YAML, weights=FIXTURE, batch=TB, crop=(TH, TW),
+            iters=ITERS, want=TRAIN_WANT, forms=("in_normalize", {"plain": 18, "residual": 12}),
+            profile="chip_smoke_profile_train.txt", flags=None, agree=None,
+            descent="trainer"),
+        "ff_pwcnet_train": dict(
+            yaml=PWC_TRAIN_YAML, weights=FIXTURE_PWC, batch=8,
+            crop=(368, 496), iters=None, want={"local_corr": 5},
+            forms=("local_corr", {"leaky_relu": 5}),
+            profile="chip_smoke_profile_train_pwc.txt", flags="defaults", agree=None,
+            descent="trainer"),
+        "ff_flowformer_train": dict(
+            yaml=FF_TRAIN_YAML, weights=None, batch=6,
+            crop=(368, 496), iters=12, want=_ff_launches(3, 12), forms=None,
+            profile="chip_smoke_profile_train_ff.txt", flags="defaults",
+            # the agreement gates at the fixture's own depth: past the 2
+            # refinements it was trained at, its f32 gradient depends on
+            # the order of f32 sums (JAX's and the port's f32 steps:
+            # cosine 0.9974 at 12 refinements, 64x96)
+            agree=dict(MODEL=dict(encoder_depth=1, decoder_depth=2), weights=FIXTURE_FF),
+            # descent held on JAX's own descent test (fresh weights): the
+            # fixture predicts about zero flow on this input (each
+            # refinement's EPE within 0.7 px of |flow|) and its batch loss
+            # moves by 0.02% in 5 steps (the port's trainer takes JAX's
+            # steps, loss for loss, on the CPU)
+            descent="recipe"),
+    }
+
+
+def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaults=None,
+                rows_for=None) -> tuple:
+    """Training on the card through the trainer's body
+    (`cli/train.py::train`) at the YAML's full width and its stage's batch
+    and crop (`_train_specs`): FF-RAFT's `ffraft_chairs_orb.yaml` (B=10,
+    368x496 crops, 12 refinements, the cnet's batch norm in train mode),
+    FF-PWCNet's `ffpwc_chairs.yaml` (B=8, 368x496 resized to 384x512
+    inside, the multiscale MixLoss in 'pretrain' mode) or FF-FlowFormer's
+    `ff_chairs.yaml` (B=6, 368x496, encoder_depth 3, decoder_depth 12,
+    the sequence MixLoss); noise, AdamW + OneCycle, bf16, from the trained
+    fixture (PRETRAIN; the YAMLs' LOAD_MODULE and load_former files are
+    not in the repository; FF-FlowFormer's fixture has encoder_depth 1,
+    its layer 0 copied into layers 1 and 2), NUM_STEPS cut to 16, on one
+    fixed batch of in-memory multi-pixel affine pairs with 3% keypoint
+    masks (`data/synthetic.py`; no host augmentation).
+
+    Gates: every step's loss and gradient norm finite; every step makes
+    the path's launches (FF-RAFT: G 12, A 12, C1 30, C2 30 of which 12 in
+    the residual form; FF-PWCNet: D 5, all in the leaky-ReLU form;
+    FF-FlowFormer: A 12, B 24, E 27, F 11); the mean of the last four
+    losses under 0.98 x the first (JAX's own descent test; FF-FlowFormer's
+    on 16 more steps as that test takes them: fresh weights, a constant lr
+    of 1e-4, no noise, `_descent_recipe`; its fixture predicts about zero
+    flow on this input and its batch loss does not move in 16 steps); the final
     validation (`validate_chairs` on phase 8's chairs layout) finite. Then,
-    on two of the samples with no noise: the f32 step's loss (TF32 off)
-    within 1e-4 of the port's f32 step on the CPU and the cosine of their
-    flat gradients >= 0.9999; the bf16 step's loss within 2% of the f32
-    step's and the gradient cosine >= 0.99. Prints ms a step (host clock,
-    the median of steps 4-13), samples/s, the device breakdown of step 15
-    (profiled; its idle share also against the unprofiled median) with the
-    forward / backward / optimizer split of one more step (each part
-    profiled alone), and the peak memory. Every (kernel, shape) launched that no
-    kernel row holds (`held`) is held once against its plain version.
-    -> (counts, launches by shape key) of step 4, the counted step."""
+    on two of the samples with no noise: the f32 step's loss within 1e-4 of
+    the port's f32 step on the CPU and the cosine of their flat gradients
+    >= 0.9999 (FF-RAFT with TF32 off for the script; the other two under
+    PyTorch's default flags `defaults`, which the f32 step must turn off
+    itself); the bf16 step's loss within 2% of the f32 step's and the
+    gradient cosine >= 0.99. FF-FlowFormer's agreement runs at the
+    fixture's own depth (encoder_depth 1, 2 refinements, its weights as
+    they are) at the full crop: past the 2 refinements it was trained at,
+    its f32 gradient depends on the order of f32 sums (on the CPU at 64x96
+    and 12 refinements, JAX's f32 step against the port's: cosine 0.9974;
+    the port's bf16 step against its f32 step: 0.16-0.45). Prints ms a step (host clock, the median of
+    steps 4-13), samples/s, the device breakdown of step 15 (profiled; its
+    idle share also against the unprofiled median) with the forward /
+    backward / optimizer split of one more step (each part profiled
+    alone), and the peak memory. `rows_for(launches by shape key of the
+    counted step)` -> {kernel: rows} builds the path's kernel rows from
+    the step's own launch keys; every other (kernel, shape) launched that
+    no row holds (`held`) is held once against its plain version.
+    -> ((counts, launches by shape key) of step 4, the counted step; the
+    rows of `rows_for`)."""
     import copy
 
     from focusflow_official_tpu_torch.cli.train import train as run_trainer
@@ -1772,19 +2063,23 @@ def train_phase(torch, card: str, held: set) -> tuple:
     from focusflow_official_tpu_torch.train import evaluate as tev
     from torch.profiler import ProfilerActivity, profile
 
+    spec = _train_specs()[path]
+    weights = spec["weights"] or _ff_depth3_weights()
+    batch, (th, tw), want = spec["batch"], spec["crop"], spec["want"]
     dev = torch.device("cuda", 0)
     bf16 = torch.bfloat16
     t_phase = time.perf_counter()
-    cfg = load_yaml_config(TRAIN_YAML)
+    cfg = load_yaml_config(spec["yaml"])
     cfg.TRAIN.NUM_STEPS = TRAIN_STEPS
-    cfg.MODEL.PRETRAIN = FIXTURE
+    cfg.MODEL.PRETRAIN = weights
     cfg.MODEL.LOAD_MODULE = None
+    cfg.MODEL.load_former = None
     cfg.GLOBAL.NUM_WORKERS = 2
-    if (int(cfg.TRAIN.BATCH_SIZE), tuple(cfg.TRAIN.IMAGE_SIZE)) != (TB, (TH, TW)):
-        raise AssertionError(f"{TRAIN_YAML}: batch {cfg.TRAIN.BATCH_SIZE}, crop "
-                             f"{cfg.TRAIN.IMAGE_SIZE}, not {TB} at {TH}x{TW}")
+    if (int(cfg.TRAIN.BATCH_SIZE), tuple(cfg.TRAIN.IMAGE_SIZE)) != (batch, (th, tw)):
+        raise AssertionError(f"{spec['yaml']}: batch {cfg.TRAIN.BATCH_SIZE}, crop "
+                             f"{cfg.TRAIN.IMAGE_SIZE}, not {batch} at {th}x{tw}")
     t0 = time.perf_counter()
-    data = sy.chairs_layout(5, n=TB, h=TH, w=TW)
+    data = sy.chairs_layout(5, n=batch, h=th, w=tw)
     chairs = sy.chairs_layout(0)
     data_s = time.perf_counter() - t0
     shapes_seen: dict = {}
@@ -1799,7 +2094,7 @@ def train_phase(torch, card: str, held: set) -> tuple:
         st["per_step"].append({k: v for k, v in counts.items() if v})
         st["metrics"].append(metrics)
         if not all(np.isfinite(v) for v in metrics.values()):
-            raise AssertionError(f"step {step}: metrics {metrics} not finite")
+            raise AssertionError(f"{path} step {step}: metrics {metrics} not finite")
         if step == COUNTED_STEP:
             st["counted"] = (counts, dict(launch_shapes))
             st["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1820,47 +2115,59 @@ def train_phase(torch, card: str, held: set) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    result = run_trainer(cfg, data, validate=validate, log_dir=os.path.join(OUT_DIR, "train_runs"),
-                         device="cuda", compute_dtype="bfloat16", val_freq=10 ** 9,
-                         on_step=on_step)
+    result = run_trainer(cfg, data, validate=validate,
+                         log_dir=os.path.join(OUT_DIR, "train_runs"), device="cuda",
+                         compute_dtype="bfloat16", val_freq=10 ** 9, on_step=on_step)
     train_s = time.perf_counter() - t0
     for key, n in launch_shapes.items():  # the final validation's launches
         shapes_seen[key] = shapes_seen.get(key, 0) + n
     for i, c in enumerate(st["per_step"], start=1):
-        if c != TRAIN_WANT:
-            raise AssertionError(f"training step {i}: launches {c} != {TRAIN_WANT}")
+        if c != want:
+            raise AssertionError(f"{path} step {i}: launches {c} != {want}")
     counts, step_shapes = st["counted"]
     forms = {}
-    for key, n in step_shapes.items():
-        if key[0] == "in_normalize":
-            forms[key[-1]] = forms.get(key[-1], 0) + n
-    if forms != {"plain": 18, "residual": 12}:
-        raise AssertionError(f"training step: in_normalize forms {forms}, not 18 plain, 12 residual")
+    if spec["forms"]:
+        kernel, want_forms = spec["forms"]
+        for key, n in step_shapes.items():
+            if key[0] == kernel:
+                forms[key[-1]] = forms.get(key[-1], 0) + n
+        if forms != want_forms:
+            raise AssertionError(f"{path} step: {kernel} forms {forms}, not {want_forms}")
     losses = [m["loss"] for m in st["metrics"]]
-    if not float(np.mean(losses[-4:])) < 0.98 * losses[0]:
-        raise AssertionError(f"no descent over {TRAIN_STEPS} steps: {losses}")
+    descent = losses
+    if spec["descent"] == "recipe":
+        descent = _descent_recipe(torch, cfg, data)
+    if not float(np.mean(descent[-4:])) < 0.98 * descent[0]:
+        raise AssertionError(f"{path}: no descent over {TRAIN_STEPS} steps: {descent}")
     final = result["final"]
     if not np.isfinite(list(final.values())).all():
-        raise AssertionError(f"validation on the trained weights: {final}")
+        raise AssertionError(f"{path}: validation on the trained weights: {final}")
     step_ms = np.diff(st["times"]) * 1e3  # step_ms[i] is step i + 2
     timed = step_ms[COUNTED_STEP - 2:COUNTED_STEP + 8]  # steps 4-13
     ms = float(np.median(timed))
     breakdown = _device_breakdown(torch, st["prof"], st["profiled_ms"])
     # the profiler slows the host: the busy share of an unprofiled step too
     breakdown["idle_share_of_unprofiled_step"] = max(0.0, 1 - breakdown["device_busy_ms"] / ms)
-    with open(os.path.join(OUT_DIR, "chip_smoke_profile_train.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, spec["profile"]), "w") as f:
         f.write(st["prof"].key_averages().table(sort_by="self_device_time_total", row_limit=60))
-    split = _train_step_split(torch, cfg, data)
+    st["prof"] = None
+    split = _train_step_split(torch, cfg, weights, data)
 
-    # f32 (TF32 off) on the card against the CPU, then bf16 against f32
+    # f32 on the card against the CPU, then bf16 against f32
     two = {k: torch.as_tensor(np.stack([data[i][k] for i in range(2)]))
            for k in ("image1", "image2", "mask1", "mask2", "flow", "valid")}
+    flags = defaults if spec["flags"] == "defaults" else None
+    acfg, aweights = cfg, weights
+    if spec["agree"]:
+        acfg, aweights = copy.deepcopy(cfg), spec["agree"]["weights"]
+        for k, v in spec["agree"]["MODEL"].items():
+            setattr(acfg.MODEL, k, v)
     t0 = time.perf_counter()
-    cpu_loss, cpu_grad = _two_sample_grads(torch, cfg, two, "cpu", torch.float32)
+    cpu_loss, cpu_grad = _two_sample_grads(torch, acfg, aweights, two, "cpu", torch.float32)
     cpu_s = time.perf_counter() - t0
     reset_launch_counts()
-    f32_loss, f32_grad = _two_sample_grads(torch, cfg, two, dev, torch.float32)
-    bf_loss, bf_grad = _two_sample_grads(torch, cfg, two, dev, bf16)
+    f32_loss, f32_grad = _two_sample_grads(torch, acfg, aweights, two, dev, torch.float32, flags)
+    bf_loss, bf_grad = _two_sample_grads(torch, acfg, aweights, two, dev, bf16)
     for key, n in launch_shapes.items():
         shapes_seen[key] = shapes_seen.get(key, 0) + n
     agree = dict(cpu_f32_loss=cpu_loss, card_f32_loss=f32_loss, card_bf16_loss=bf_loss,
@@ -1868,46 +2175,79 @@ def train_phase(torch, card: str, held: set) -> tuple:
                  f32_grad_cosine=_cosine(torch, f32_grad, cpu_grad),
                  bf16_loss_rel=abs(bf_loss - f32_loss) / abs(f32_loss),
                  bf16_grad_cosine=_cosine(torch, bf_grad, f32_grad),
-                 cpu_f32_step_seconds=cpu_s)
+                 cpu_f32_step_seconds=cpu_s,
+                 f32_card_flags="PyTorch's defaults (matmul TF32 {}, cuDNN TF32 {})".format(
+                     *flags) if flags else "TF32 off for the script",
+                 model=spec["agree"]["MODEL"] if spec["agree"] else "the phase's")
     if not (agree["f32_loss_rel"] <= 1e-4 and agree["f32_grad_cosine"] >= 0.9999
             and agree["bf16_loss_rel"] <= 0.02 and agree["bf16_grad_cosine"] >= 0.99
             and torch.isfinite(bf_grad).all()):
-        raise AssertionError(f"training agreement: {agree}")
+        raise AssertionError(f"{path} training agreement: {agree}")
+    del cpu_grad, f32_grad, bf_grad
+    torch.cuda.empty_cache()
 
+    rows = rows_for(step_shapes) if rows_for is not None else {}
+    held = held | {r["key"] for rs in rows.values() for r in rs}
     g = torch.Generator(device=dev).manual_seed(4)
     new = sorted((k for k in shapes_seen if k not in held), key=str)
     new_rows = [dict(_hold_shape(torch, g, dev, k), launches=shapes_seen[k]) for k in new]
-    out = dict(phase="train", card=card, yaml=os.path.relpath(TRAIN_YAML, ROOT),
-               batch=TB, crop=[TH, TW], iters=ITERS, dtype="bfloat16", steps=TRAIN_STEPS,
-               ms_per_step=ms, ms_steps_4_13=timed.tolist(), samples_per_s=TB * 1e3 / ms,
+    out = dict(phase=path.replace("ff_raft_train", "train"), path=path, card=card,
+               yaml=os.path.relpath(spec["yaml"], ROOT), batch=batch, crop=[th, tw],
+               iters=spec["iters"], dtype="bfloat16", steps=TRAIN_STEPS,
+               ms_per_step=ms, ms_steps_4_13=timed.tolist(), samples_per_s=batch * 1e3 / ms,
                first_steps_ms=step_ms[:COUNTED_STEP - 2].tolist(), losses=losses,
                last4_over_first=float(np.mean(losses[-4:])) / losses[0],
+               **({"descent_recipe_losses": descent,
+                   "descent_recipe_last4_over_first": float(np.mean(descent[-4:])) / descent[0]}
+                  if spec["descent"] == "recipe" else {}),
                grad_norms=[m["grad_norm"] for m in st["metrics"]],
-               final_validation=final, launches_per_step=TRAIN_WANT,
-               in_normalize_forms=forms, peak_mem_gib=st["peak_gib"],
+               final_validation=final, launches_per_step=want,
+               **({f"{spec['forms'][0]}_forms": forms} if forms else {}),
+               peak_mem_gib=st["peak_gib"],
                peak_mem_gib_run=torch.cuda.max_memory_allocated() / 2 ** 30,
                profile=breakdown, split=split, agreement=agree,
                new_shapes_held=new_rows, data_seconds=data_s, trainer_seconds=train_s,
                phase_seconds=time.perf_counter() - t_phase)
     _emit(out)
     torch.cuda.empty_cache()
-    return counts, step_shapes
+    return (counts, step_shapes), rows
 
 
-def _train_step_split(torch, cfg, data) -> dict:
+def _descent_recipe(torch, cfg, data) -> list:
+    """JAX's own descent test (`tests/test_train.py`,
+    `test_loss_decreases_and_multichip`) at the phase's shape: 16 steps of
+    `train/loop.py::train_step` on the fixed batch from fresh weights
+    (PyTorch's default initialisation under seed 0), bf16, at a constant
+    lr of 1e-4, global clip 1.0, no noise -> the losses."""
+    from focusflow_official_tpu_torch.cli.train import build_model
+    from focusflow_official_tpu_torch.train.loop import build_optimizer, train_step
+
+    dev = torch.device("cuda", 0)
+    torch.manual_seed(0)
+    _, model, loss_fn, iters = build_model(cfg, "bfloat16")
+    model.to(dev).to(memory_format=torch.channels_last).train()
+    opt = build_optimizer(model, 1e-4, weight_decay=0.0)
+    constant = torch.optim.lr_scheduler.LambdaLR(opt, lambda _: 1.0)
+    batch = {k: torch.as_tensor(np.stack([data[i][k] for i in range(len(data))]), device=dev)
+             for k in ("image1", "image2", "mask1", "mask2", "flow", "valid")}
+    losses = [float(train_step(model, opt, constant, loss_fn, batch, iters=iters,
+                               dtype=torch.bfloat16, clip=1.0)["loss"])
+              for _ in range(TRAIN_STEPS)]
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _train_step_split(torch, cfg, weights: str, data) -> dict:
     """One more step on the fixed batch in three parts, each profiled on
     its own and ended by a device sync: the forward with the loss, the
     backward, the clip with AdamW -> each part's `_device_breakdown`."""
-    from focusflow_official_tpu_torch.cli.train import build_model
-    from focusflow_official_tpu_torch.compat.weights import load_npz
     from focusflow_official_tpu_torch.train.loop import (
         build_optimizer, clip_by_global_norm, forward_loss)
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda", 0)
-    _, model, loss_fn, iters = build_model(cfg, "bfloat16")
-    model.load_state_dict(load_npz(FIXTURE), strict=True)
-    model.to(dev).to(memory_format=torch.channels_last).train()
+    model, loss_fn, iters = _trained_model(torch, cfg, weights, dev, "bfloat16")
     opt = build_optimizer(model, 1e-5)
     batch = {k: torch.as_tensor(np.stack([data[i][k] for i in range(len(data))]), device=dev)
              for k in ("image1", "image2", "mask1", "mask2", "flow", "valid")}
@@ -1923,7 +2263,8 @@ def _train_step_split(torch, cfg, data) -> dict:
         held.pop("loss").backward()
 
     def optimizer():
-        clip_by_global_norm([p.grad for p in model.parameters()], 1.0)
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        clip_by_global_norm(grads, 1.0)
         opt.step()
 
     parts = (("forward", forward), ("backward", backward), ("optimizer", optimizer))
@@ -1938,6 +2279,8 @@ def _train_step_split(torch, cfg, data) -> dict:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         out[name] = _device_breakdown(torch, prof, wall_ms)
+    del model, opt, batch
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1949,12 +2292,14 @@ def _worst(rows: list) -> dict:
 
 
 def _row_keys(raft: list, ff_rows: dict, pwc_rows: list, train_rows: dict) -> set:
-    """The launch key of every row the kernel phases hold."""
+    """The launch key of every row the kernel phases hold (`train_rows`:
+    path -> {kernel: rows})."""
     keys = set()
     for kr in raft:
         keys.update(r["key"] for r in kr.get("per_shape", ()))
         keys.update(k for k in (kr.get("key"), kr.get("f32", {}).get("key")) if k)
-    for rows in (*ff_rows.values(), pwc_rows, *train_rows.values()):
+    for rows in (*ff_rows.values(), pwc_rows,
+                 *(rs for by_kernel in train_rows.values() for rs in by_kernel.values())):
         keys.update(r["key"] for r in rows)
     return keys
 
@@ -1971,8 +2316,10 @@ def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, train_rows: dict,
     (`launches_by_path`); a shape's are read from the same forwards by the
     key its wrapper counted it under in the kernel phase, with launches x
     (ms - bound_ms). Every shape a path launched must be held here. The
-    training step's rows (`train_rows`, path "ff_raft_train") carry their
-    backward's time and gradient check beside the forward's."""
+    training steps' rows (`train_rows`: path -> {kernel: rows}, for the
+    paths "ff_raft_train", "ff_pwcnet_train" and "ff_flowformer_train")
+    carry their backward's time and gradient check beside the forward's;
+    a kernel's `train` entry gives each training path's first row."""
     table = []
     for kr in raft:
         if "per_shape" not in kr:
@@ -2014,16 +2361,24 @@ def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, train_rows: dict,
         design=top["design"], two_step_ms=top["two_step_ms"],
         shape=top["shape"], per_shape=[dict(r, path="ff_pwcnet") for r in pwc_rows]))
     for kr in table:
-        rows = [dict(r, path="ff_raft_train") for r in train_rows.get(kr["name"], ())]
-        if rows:
+        for path, by_kernel in train_rows.items():
+            rows = [dict(r, path=path) for r in by_kernel.get(kr["name"], ())]
+            if not rows:
+                continue
             kr["per_shape"] += rows
-            kr["backward_ms"] = rows[0]["backward_ms"]
-            kr["plain_backward_ms"] = rows[0]["plain_backward_ms"]
-            kr["train_shape"] = rows[0]["shape"]
+            head = rows[0]  # the training rows of each path: its first shape's backward
+            kr.setdefault("train", {})[path] = {
+                k: head[k] for k in ("shape", "ms", "backward_ms", "plain_backward_ms",
+                                     "backward_bound_ms", "library_backward_ms")
+                if k in head}
+            kr.setdefault("backward_ms", head["backward_ms"])
+            kr.setdefault("plain_backward_ms", head["plain_backward_ms"])
+            kr.setdefault("train_shape", head["shape"])
             worst = _worst(kr["per_shape"])
             kr["max_abs_err"], kr["tol"] = worst["max_abs_err"], worst["tol"]
     # `launches` sums these
-    paths = ("ff_raft", "ff_flowformer", "ff_pwcnet", "ff_raft_train")
+    paths = ("ff_raft", "ff_flowformer", "ff_pwcnet", "ff_raft_train", "ff_pwcnet_train",
+             "ff_flowformer_train")
     held = set()
     for kr in table:
         by_path = {path: drives[path][0].get(kr["name"], 0) for path in paths}
@@ -2088,9 +2443,14 @@ def main() -> int:
               "ff_flowformer_depth3": ff_shipped_depth_phase(torch, card),
               "ff_pwcnet": pwc_end_to_end_phase(torch, card)}
     torch.cuda.empty_cache()
-    train_rows = train_kernel_rows(torch, dev)
-    drives["ff_raft_train"] = train_phase(
+    train_rows = {"ff_raft_train": train_kernel_rows(torch, dev)}
+    drives["ff_raft_train"], _ = train_phase(
         torch, card, _row_keys(raft_kernels, ff_rows, pwc_rows, train_rows))
+    for path, rows_for in (("ff_pwcnet_train", pwc_train_rows),
+                           ("ff_flowformer_train", ff_train_rows)):
+        drives[path], train_rows[path] = train_phase(
+            torch, card, _row_keys(raft_kernels, ff_rows, pwc_rows, train_rows), path,
+            defaults, lambda shapes, fn=rows_for: fn(torch, dev, shapes))
     kernels = _kernel_table(raft_kernels, ff_rows, pwc_rows, train_rows, drives, card)
     # the fused kernel inside the profiled FF-RAFT forward, where its inputs
     # are not the same on every call as in the kernel phase

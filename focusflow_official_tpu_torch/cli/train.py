@@ -6,13 +6,25 @@
         [--profile-dir <dir> --profile-start 10 --profile-steps 5] \\
         [--tensorboard] [--device cuda|cpu]
 
-The reference's training interface on the reference YAML schema: TRAIN
-picks the stage's dataset curriculum (`data/datasets.py::fetch_dataset`,
-with the host augmentation), the batch, the steps, the noise augmentation
-and the sequence loss; OPTIMIZER and SCHEDULER the AdamW step and its
-OneCycle schedule over NUM_STEPS + 100 steps; MODEL the weights to start
-from (PRETRAIN, LOAD_MODULE into `flow_net`, LOAD_MODULE_TO_BRANCH) and
-the parameter groups (FREEZE_MODULE, TRAIN.SEPARATE_LR). Each step is
+The reference's training interface on the reference YAML schema, one
+trainer for the three families (FF-RAFT, FF-PWCNet with the vanilla
+PWC-Net, FF-FlowFormer), picked from the file's shape as
+`config.py::detect_family` picks it. TRAIN picks the stage's dataset
+curriculum (`data/datasets.py::fetch_dataset`, with the host
+augmentation), the batch, the steps, the noise augmentation and the loss:
+the sequence loss for FF-RAFT and FF-FlowFormer, the multiscale loss
+(`losses/multiscale.py`, sparse targets at the kitti stage) for PWC-Net.
+OPTIMIZER and SCHEDULER (FF-FlowFormer: TRAINER) give the AdamW step and
+its OneCycle schedule over NUM_STEPS + 100 steps; MODEL the weights to
+start from (PRETRAIN, the whole model; LOAD_MODULE, a reference `.pth`,
+into `flow_net` for FF-RAFT and over the whole model for PWC-Net, keeping
+what the file lacks; LOAD_MODULE_TO_BRANCH; FF-FlowFormer's load_former,
+a reference `.pth` over the whole model, keeping what it lacks) and the
+parameter groups (FREEZE_MODULE over TRAIN.SEPARATE_LR's `flow_net` at lr
+/ 10, or FF-FlowFormer's TRAINER.twins_lr_factor on its Twins towers).
+FF-FlowFormer's MODEL.pretrain (timm ImageNet weights for the towers) is
+ignored, as the JAX trainer ignores it: `compat/timm_twins.py` maps such
+weights, but nothing here downloads them. Each step is
 `train/loop.py::train_step`. Every `--val-freq` steps a checkpoint is
 written and the CRITERION.VAL_DATASET validation runs
 (`train/evaluate.py`); at the end the final validation, a last checkpoint
@@ -21,8 +33,7 @@ which the port's `--checkpoint`, `FlowPredictor` and the JAX package
 load). The run directory `<log-dir>/<time>_<NAME>/` holds `metrics.jsonl`,
 `train.log`, `config.yaml`, `checkpoints/` and the export.
 
-FF-RAFT only: the FF-PWCNet and FF-FlowFormer families raise
-NotImplementedError. `--gpus` is accepted and ignored (one card), as is
+`--gpus` is accepted and ignored (one card), as is
 `--corr-impl` (the port has one lookup). `--device-aug` and `--multihost`
 raise, naming their ROADMAP items. File datasets need cv2 and PIL, the
 YAML needs PyYAML.
@@ -39,12 +50,12 @@ import torch
 from torch import nn
 
 from ..compat.torch_import import load_torch_pretrained
-from ..config import (ConfigNode, detect_family, load_yaml_config, loss_kwargs_from_yaml,
-                      model_config_from_yaml, model_from_config,
-                      optimizer_kwargs_from_yaml)
+from ..config import (ConfigNode, config_from_yaml, detect_family, load_yaml_config,
+                      loss_kwargs_from_yaml, model_from_config,
+                      multiscale_loss_kwargs_from_yaml, optimizer_kwargs_from_yaml)
 from ..data.datasets import KITTI, FlyingChairs, MpiSintel, fetch_dataset
 from ..data.loader import Loader
-from ..losses import build_sequence_loss
+from ..losses import build_multiscale_loss, build_sequence_loss
 from ..models.ff_raft import DTYPES
 from ..predict import for_inference, load_weights
 from ..train import evaluate as eval_mod
@@ -52,7 +63,8 @@ from ..train.checkpoints import CheckpointManager, save_params_only
 from ..train.loop import build_optimizer, train_step
 from ..train.metrics import MetricsLogger
 from ..train.schedule import one_cycle
-from ..train.surgery import copy_to_branch, flow_net_lr_labels, freeze_mask_for_parallel
+from ..train.surgery import (copy_to_branch, encoder_lr_labels, flow_net_lr_labels,
+                             freeze_mask_for_parallel)
 from .evaluate import DEFAULT_DATA_ROOT, mask_roots
 
 _BATCH_KEYS = ("image1", "image2", "mask1", "mask2", "flow", "valid")
@@ -60,54 +72,65 @@ _BATCH_KEYS = ("image1", "image2", "mask1", "mask2", "flow", "valid")
 _QUEUE = "ROADMAP.md queue 1"
 
 
-def _raft_only(cfg: ConfigNode) -> None:
-    family = detect_family(cfg)
-    if family != "raft":
-        raise NotImplementedError(
-            f"training the {family} family: {_QUEUE}, 'FF-PWCNet and FF-FlowFormer "
-            "training', brings it")
-
-
 def build_model(cfg: ConfigNode, compute_dtype: str):
-    """The FF-RAFT model of the YAML (f32 parameters) -> (its config, the
-    model, the sequence loss, its refinements a step)."""
-    _raft_only(cfg)
-    model_cfg = model_config_from_yaml(cfg, compute_dtype=compute_dtype)
+    """The YAML's model (f32 parameters) -> (its config, the model, its
+    loss, its refinements a step: FF-RAFT's ITERS, FF-FlowFormer's
+    decoder_depth, None for PWC-Net, which has no refinement loop)."""
+    model_cfg = config_from_yaml(cfg, compute_dtype=compute_dtype)
     model, iters = model_from_config(model_cfg)
+    if detect_family(cfg) == "pwcnet":
+        kw = multiscale_loss_kwargs_from_yaml(cfg, sparse=cfg.TRAIN.get("STAGE") == "kitti")
+        return model_cfg, model, build_multiscale_loss(kw.pop("loss_type"), **kw), iters
     kw = loss_kwargs_from_yaml(cfg)
     return model_cfg, model, build_sequence_loss(kw.pop("loss_type"), **kw), iters
 
 
 def load_initial_weights(cfg: ConfigNode, model: nn.Module) -> None:
     """MODEL.PRETRAIN (the whole model: the port's `.npz` or a reference
-    `.pth`), then MODEL.LOAD_MODULE (a bare RAFT `.pth` into `flow_net`,
-    the rest kept) and LOAD_MODULE_TO_BRANCH (the CCE mask branches start
-    from the image branches)."""
+    `.pth`), then MODEL.LOAD_MODULE (a reference `.pth`: FF-RAFT's bare
+    RAFT into `flow_net`, PWC-Net's over the whole model; what the file
+    lacks keeps its weights) and LOAD_MODULE_TO_BRANCH (the CCE mask
+    branches start from the image branches), then FF-FlowFormer's
+    MODEL.load_former (a reference `.pth` over the whole model, what it
+    lacks kept)."""
     m = cfg.MODEL
     if m.get("PRETRAIN"):
         model.load_state_dict(load_weights(m.PRETRAIN, model), strict=True)
     if m.get("LOAD_MODULE"):
-        model.load_state_dict(load_torch_pretrained(m.LOAD_MODULE, model, prefix="flow_net.",
+        prefix = "flow_net." if detect_family(cfg) == "raft" else ""
+        model.load_state_dict(load_torch_pretrained(m.LOAD_MODULE, model, prefix=prefix,
                                                     strict=False), strict=True)
         if m.get("LOAD_MODULE_TO_BRANCH"):
             model.load_state_dict(copy_to_branch(model.state_dict()), strict=True)
+    if m.get("load_former"):
+        model.load_state_dict(load_torch_pretrained(m.load_former, model, strict=False),
+                              strict=True)
 
 
-def param_labels(cfg: ConfigNode, model: nn.Module) -> Optional[Dict[str, str]]:
-    """Each parameter's group: 'frozen' (MODEL.FREEZE_MODULE) over
-    'encoder' (TRAIN.SEPARATE_LR: `flow_net` at lr / 10) over 'trainable';
-    None where neither is set."""
+def param_labels(cfg: ConfigNode, model: nn.Module) -> tuple[Optional[Dict[str, str]], float]:
+    """Each parameter's group and the 'encoder' group's learning-rate
+    factor: 'frozen' (MODEL.FREEZE_MODULE) over 'encoder' (TRAIN.SEPARATE_LR:
+    `flow_net` at lr / 10; else FF-FlowFormer's TRAINER.twins_lr_factor: the
+    Twins towers at lr x that factor) over 'trainable'; None where none of
+    these is set."""
     names = [n for n, _ in model.named_parameters()]
     freeze = bool(cfg.MODEL.get("FREEZE_MODULE", False))
     separate = bool(cfg.TRAIN.get("SEPARATE_LR", False))
-    if not (freeze or separate):
-        return None
-    labels = flow_net_lr_labels(names) if separate else {n: "trainable" for n in names}
+    trainer = cfg.get("TRAINER")
+    twins = trainer.get("twins_lr_factor") if trainer is not None else None
+    if separate:
+        labels, factor = flow_net_lr_labels(names), 0.1
+    elif twins:
+        labels, factor = encoder_lr_labels(names), float(twins)
+    elif freeze:
+        labels, factor = {n: "trainable" for n in names}, 0.1
+    else:
+        return None, 0.1
     if freeze:
         for n, lbl in freeze_mask_for_parallel(names).items():
             if lbl == "frozen":
                 labels[n] = "frozen"
-    return labels
+    return labels, factor
 
 
 def run_validation(cfg: ConfigNode, model: nn.Module, data_root: Dict[str, str],
@@ -150,7 +173,7 @@ def train(cfg: ConfigNode, dataset, *, validate: Callable[[nn.Module], Dict],
           profile_dir: Optional[str] = None, profile_start: int = 10,
           profile_steps: int = 5, tensorboard: bool = False,
           on_step: Optional[Callable[[int, Dict], None]] = None) -> Dict:
-    """The trainer: TRAIN.NUM_STEPS steps of the YAML's FF-RAFT over
+    """The trainer: TRAIN.NUM_STEPS steps of the YAML's model over
     `dataset` (samples as `data/datasets.py` gives them, batched by the
     `Loader`), from RESTORE_CHECKPOINT's step where set. `validate(model)`
     -> metrics runs every `val_freq` steps (after a checkpoint) and at the
@@ -172,7 +195,9 @@ def train(cfg: ConfigNode, dataset, *, validate: Callable[[nn.Module], Dict],
     opt = optimizer_kwargs_from_yaml(cfg)
     clip = opt.pop("clip")
     lr = opt.pop("lr")
-    optimizer = build_optimizer(model, lr, labels=param_labels(cfg, model), **opt)
+    labels, encoder_factor = param_labels(cfg, model)
+    optimizer = build_optimizer(model, lr, labels=labels, encoder_lr_factor=encoder_factor,
+                                **opt)
     num_steps = int(cfg.TRAIN.NUM_STEPS)
     scheduler = one_cycle(optimizer, num_steps + 100)
     noise = None
@@ -188,7 +213,7 @@ def train(cfg: ConfigNode, dataset, *, validate: Callable[[nn.Module], Dict],
 
     def train_mode():
         model.train()
-        if model_cfg.freeze_bn:
+        if getattr(model_cfg, "freeze_bn", False):  # FF-RAFT past the chairs stage
             model.freeze_bn()
 
     loader = Loader(dataset, int(cfg.TRAIN.BATCH_SIZE), seed=seed,
@@ -257,11 +282,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         raise NotImplementedError(f"--device-aug: {_QUEUE}, 'The device half of the data "
                                   "path' (data/device_aug.py), brings it")
     if args.multihost:
-        raise NotImplementedError(f"--multihost: {_QUEUE}, 'FF-RAFT training' (train/mesh.py "
-                                  "as torch DDP), brings it")
+        raise NotImplementedError(f"--multihost: {_QUEUE}, 'Multi-card training' "
+                                  "(train/mesh.py as torch DDP), brings it")
 
     cfg = load_yaml_config(args.yaml)
-    _raft_only(cfg)  # before the data is read
     data_root = dict(DEFAULT_DATA_ROOT)
     for kv in args.data_root or ():
         k, v = kv.split("=", 1)

@@ -174,6 +174,24 @@ def loss_kwargs_from_yaml(cfg: ConfigNode) -> Dict:
     )
 
 
+def multiscale_loss_kwargs_from_yaml(cfg: ConfigNode, sparse: bool = False) -> Dict:
+    """FF-PWCNet's multiscale loss of TRAIN: its type and settings, for
+    `losses.build_multiscale_loss` (`loss_type` first); `LOSS_Q: null` and
+    `LOSS_EPSILON: null` read as 0.4 and 0.01. `sparse`: KITTI targets."""
+    t = cfg.TRAIN
+    return dict(
+        loss_type=t.get("LOSS_TYPE", "EPELoss"),
+        weights=[float(x) for x in t.LOSS_WEIGHTS],
+        mode=t.get("LOSS_MODE", "pretrain"),
+        q=float(t.get("LOSS_Q") or 0.4),
+        eps=float(t.get("LOSS_EPSILON") or 0.01),
+        kernel_size=int(t.get("LOSS_KERNEL_SIZE", 5)),
+        sigma=float(t.get("LOSS_SIGMA", 1.7)),
+        lamda=float(t.get("LOSS_LAMDA", 0.8)),
+        sparse=sparse,
+    )
+
+
 def optimizer_kwargs_from_yaml(cfg: ConfigNode) -> Dict:
     """lr, weight decay, eps and the clip from OPTIMIZER + SCHEDULER
     (FF-RAFT, FF-PWCNet) or FF-FlowFormer's TRAINER block."""

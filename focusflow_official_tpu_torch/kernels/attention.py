@@ -19,6 +19,14 @@ row sum is of the unrounded weights): against the plain version that is
 up to 2^-8 relative on each weight (`bf16_bound` is the bound that follows
 for the output). Elsewhere ("staged", "tiled", "direct") the weights stay
 f32.
+
+`small_kv_attention` is differentiable in q, k and v (a
+`torch.autograd.Function`): its backward is `attention_vjp`, plain PyTorch
+on every device, the JAX package's `kernels/attention.py::_attention_bwd`:
+the softmax recomputed in f32 from q and k, then dv = Pᵀg, dP = g·vᵀ,
+dS = P ⊙ (dP − rowsum(dP ⊙ P)), dq = dS·k·scale, dk = dSᵀ·q·scale, all in
+f32, a few batch entries at a time (`VJP_CHUNK_BYTES` of P), each result
+cast to its input's type.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ STAGED_THREADS = 256  # a block
 STAGED_STAGES = 2  # chunks in the ring
 STAGED_KEYS = 32  # the most keys a chunk
 STAGED_SMEM = 72 * 1024  # what a block's stages aim at (the registers allow two an SM)
+VJP_CHUNK_BYTES = 1 << 28  # f32 softmax weights the backward holds at a time, at most
 
 
 @functools.cache
@@ -171,10 +180,60 @@ def bf16_bound(want: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
         q.float(), k.float(), v.float().abs(), heads, scale))
 
 
+def attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                  scale: float, g: torch.Tensor):
+    """The VJP of `small_kv_attention`: g (B, N, Cv) -> (dq, dk, dv) in
+    q's, k's and v's types, in f32, over chunks of batch entries whose f32
+    softmax weights (chunk x heads x N x M) fit `VJP_CHUNK_BYTES`."""
+    b, n, c = q.shape
+    m, cv = k.shape[1], v.shape[2]
+    d, dv_ = c // heads, cv // heads
+    chunk = max(1, VJP_CHUNK_BYTES // max(1, heads * n * m * 4))
+    dq = torch.empty((b, n, c), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, m, c), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, m, cv), dtype=v.dtype, device=v.device)
+    for s in range(0, b, chunk):
+        e = min(b, s + chunk)
+        heads_of = lambda t, rows, width: t[s:e].float().reshape(
+            e - s, rows, heads, width).transpose(1, 2)
+        qh, kh, vh = heads_of(q, n, d), heads_of(k, m, d), heads_of(v, m, dv_)
+        gh = heads_of(g, n, dv_)
+        p = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale, dim=-1)
+        dvh = torch.matmul(p.transpose(-1, -2), gh)
+        dp = torch.matmul(gh, vh.transpose(-1, -2))
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+        del p, dp
+        dq[s:e] = (torch.matmul(ds, kh) * scale).transpose(1, 2).reshape(e - s, n, c)
+        dk[s:e] = (torch.matmul(ds.transpose(-1, -2), qh) * scale).transpose(1, 2).reshape(
+            e - s, m, c)
+        dv[s:e] = dvh.transpose(1, 2).reshape(e - s, m, cv)
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, heads, scale):
+        ctx.heads, ctx.scale = heads, scale
+        ctx.save_for_backward(q, k, v)
+        return _launch(q, k, v, heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*attention_vjp(q, k, v, ctx.heads, ctx.scale, g.contiguous()), None, None)
+
+
 def small_kv_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        heads: int, scale: float) -> torch.Tensor:
     """q (B, N, C), k (B, M, C), v (B, M, Cv) of one type (bf16 or f32)
-    -> (B, N, Cv)."""
+    -> (B, N, Cv). Differentiable in q, k and v (`attention_vjp`)."""
+    return _Attention.apply(q, k, v, heads, scale)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+            scale: float) -> torch.Tensor:
+    """The forward: the kernel on CUDA tensors (contiguous, 16-byte
+    aligned), `small_kv_attention_plain` on the CPU."""
     if q.device.type == "cpu":
         return small_kv_attention_plain(q, k, v, heads, scale)
     if q.device.type != "cuda":

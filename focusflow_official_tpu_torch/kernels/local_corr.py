@@ -8,6 +8,11 @@ Products are summed in f32; the output has the inputs' type. Given a
 bf16 runs on the tensor cores (`local_corr_mma`) as `plan` lays the launch
 out from the shape and the card's SM count; f32 runs the FMA entry, whose
 dy split `plan` also gives.
+
+`local_corr` is differentiable in both maps (a `torch.autograd.Function`):
+its backward is `local_corr_vjp`, plain PyTorch on every device, the VJP
+of the plain correlation in f32 that the JAX package differentiates
+(`ops/pallas_local_corr.py::_bwd`), cast to the maps' types.
 """
 
 from __future__ import annotations
@@ -123,11 +128,64 @@ def local_corr_plain(fmap1: torch.Tensor, fmap2: torch.Tensor, radius: int = 4,
     return out if negative_slope is None else F.leaky_relu(out, negative_slope)
 
 
+def local_corr_vjp(fmap1: torch.Tensor, fmap2: torch.Tensor, radius: int,
+                   g: torch.Tensor, out: Optional[torch.Tensor] = None,
+                   negative_slope: Optional[float] = None):
+    """The VJP of `local_corr`: g (B, H, W, (2r+1)^2) -> (dfmap1, dfmap2) in
+    the maps' types, in f32 over the (2r+1)^2 shifts. With a slope, `out`
+    is the forward's output: the slope is positive, so its sign is the
+    pre-activation's, and g passes where out > 0 and is scaled by the slope
+    elsewhere. fmap1's gradient sums each shift's cotangent times the
+    shifted fmap2; fmap2's is the scatter of each cotangent times fmap1 back
+    to the shifted place."""
+    b, h, w, c = fmap1.shape
+    r = radius
+    gf = g.float()
+    if negative_slope is not None:
+        gf = torch.where(out > 0, gf, gf * negative_slope)
+    gf = gf * (1.0 / c)
+    f1 = fmap1.float()
+    f2p = F.pad(fmap2.float(), (0, 0, r, r, r, r))
+    df1 = torch.zeros_like(f1)
+    df2p = torch.zeros_like(f2p)
+    k = 0
+    for dy in range(2 * r + 1):
+        for dx in range(2 * r + 1):
+            gk = gf[..., k:k + 1]
+            df1 += gk * f2p[:, dy:dy + h, dx:dx + w]
+            df2p[:, dy:dy + h, dx:dx + w] += gk * f1
+            k += 1
+    return df1.to(fmap1.dtype), df2p[:, r:r + h, r:r + w].to(fmap2.dtype)
+
+
+class _LocalCorr(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, fmap1, fmap2, radius, negative_slope):
+        out = _launch(fmap1, fmap2, radius, negative_slope)
+        ctx.radius, ctx.slope = radius, negative_slope
+        ctx.save_for_backward(fmap1, fmap2, None if negative_slope is None else out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        fmap1, fmap2, out = ctx.saved_tensors
+        df1, df2 = local_corr_vjp(fmap1, fmap2, ctx.radius, g.contiguous(), out, ctx.slope)
+        return df1, df2, None, None
+
+
 def local_corr(fmap1: torch.Tensor, fmap2: torch.Tensor, radius: int = 4,
                negative_slope: Optional[float] = None) -> torch.Tensor:
     """fmap1, fmap2: (B, H, W, C) of one type (bf16 or f32), contiguous on the
     card -> (B, H, W, (2r+1)^2) in that type; leaky_relu(·, negative_slope)
-    of it where a slope is given."""
+    of it where a slope is given. Differentiable in both maps
+    (`local_corr_vjp`)."""
+    return _LocalCorr.apply(fmap1, fmap2, radius, negative_slope)
+
+
+def _launch(fmap1: torch.Tensor, fmap2: torch.Tensor, radius: int,
+            negative_slope: Optional[float]) -> torch.Tensor:
+    """The forward: the kernel on CUDA tensors, `local_corr_plain` on the
+    CPU."""
     if fmap1.device.type == "cpu":
         return local_corr_plain(fmap1, fmap2, radius, negative_slope)
     if fmap1.device.type != "cuda":

@@ -12,6 +12,13 @@ FlowFormer path goes through here: Twins LSA and the vertical local layer.
 widths 16 or 32: every shape of the path) on the tensor cores, which
 rounds the softmax weights to bf16 before the value sum and is held to
 `bf16_bound`; "fma" (f32, or a head width of 8) on the f32 units.
+
+`window_attention` is differentiable in q, k and v (a
+`torch.autograd.Function`; q and k may come from one projection and v
+from another, each takes its own gradient): its backward is
+`window_attention_vjp`, plain PyTorch on every device, the VJP of
+`window_attention_plain` in f32, as the JAX package's
+`kernels/window_attention.py::_attention_bwd`, cast to the inputs' types.
 """
 
 from __future__ import annotations
@@ -76,9 +83,43 @@ def bf16_bound(want: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
         q.float(), k.float(), v.float().abs(), WS, heads, scale))
 
 
+def window_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ws: int,
+                         heads: int, scale: float, g: torch.Tensor):
+    """The VJP of `window_attention`: g (B, Hp, Wp, C) -> (dq, dk, dv), autograd
+    through `window_attention_plain` on f32 copies, cast to each input's
+    type."""
+    with torch.enable_grad():
+        qf, kf, vf = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+        out = window_attention_plain(qf, kf, vf, ws, heads, scale)
+        grads = torch.autograd.grad(out, (qf, kf, vf), g.float())
+    return tuple(d.to(t.dtype) for d, t in zip(grads, (q, k, v)))
+
+
+class _WindowAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, ws, heads, scale):
+        ctx.ws, ctx.heads, ctx.scale = ws, heads, scale
+        ctx.save_for_backward(q, k, v)
+        return _launch(q, k, v, ws, heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*window_attention_vjp(q, k, v, ctx.ws, ctx.heads, ctx.scale, g.contiguous()),
+                None, None, None)
+
+
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      ws: int, heads: int, scale: float) -> torch.Tensor:
-    """q, k, v (B, Hp, Wp, C) of one type (bf16 or f32) -> (B, Hp, Wp, C)."""
+    """q, k, v (B, Hp, Wp, C) of one type (bf16 or f32) -> (B, Hp, Wp, C).
+    Differentiable in q, k and v (`window_attention_vjp`)."""
+    return _WindowAttention.apply(q, k, v, ws, heads, scale)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ws: int, heads: int,
+            scale: float) -> torch.Tensor:
+    """The forward: the kernel on CUDA tensors, `window_attention_plain` on
+    the CPU."""
     if q.dim() != 4 or q.shape[1] % ws or q.shape[2] % ws:
         raise ValueError(f"window_attention: (B, Hp, Wp, C) with Hp, Wp "
                          f"multiples of {ws}, got {tuple(q.shape)}")

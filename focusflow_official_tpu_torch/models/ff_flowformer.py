@@ -1,4 +1,4 @@
-"""FF-FlowFormer inference: keypoint-conditioned FlowFormer, in test mode.
+"""FF-FlowFormer: keypoint-conditioned FlowFormer.
 
 - context: a CCE Twins tower over image 1 and its mask;
 - memory: a CCE Twins tower over both frames batched, a 1x1 to
@@ -11,14 +11,20 @@
   then a 1x1), cross-attends to the
   query's latent tokens (kernel E, keys and values computed once before
   the loop) and runs the GMA update block (convc1's window half as kernel
-  B). Only the final low-resolution flow is convex-upsampled.
+  B). In eval mode only the final low-resolution flow is convex-upsampled;
+  in train mode every refinement makes its up-mask and the forward returns
+  each one's convex-upsampled flow, (iters, B, 8H1, 8W1, 2) f32, the form
+  FF-RAFT's train mode returns and the sequence losses take. Each
+  refinement starts from detached coordinates, as the JAX package's
+  `stop_gradient` and the reference's `detach` do.
 
 With B > 1 the vertical layers see each sample's own context (a
 sample-major repeat), the JAX package's fix of the reference's pairing.
 
-This slice covers `fusion='parallel'`, GMA, attention latent layers and
-vertical attention, cost heads 1; `forward` returns (flow_lr, flow_up) as
-the port's FF-RAFT does (the JAX model returns them the other way round).
+This port covers `fusion='parallel'`, GMA, attention latent layers and
+vertical attention, cost heads 1; the eval-mode `forward` returns
+(flow_lr, flow_up) as the port's FF-RAFT does (the JAX model returns them
+the other way round).
 """
 
 from __future__ import annotations
@@ -144,7 +150,8 @@ class MemoryDecoder(nn.Module):
                 flow_init: Optional[torch.Tensor] = None):
         """cost_memory (B*Q, K, D), cost_maps (B, Q, H1, W1), context NHWC
         (B, H1, W1, 256) -> (flow_lr (B, H1, W1, 2), flow_up (B, 8H1, 8W1, 2))
-        after `iters` refinements from `coords0 + flow_init`."""
+        after `iters` refinements from `coords0 + flow_init`; in train mode
+        every refinement's flow_up, stacked (iters, B, 8H1, 8W1, 2)."""
         b, h1, w1, _ = context.shape
         d = cost_maps.dtype
         context = conv1x1_nhwc(self.proj, context)
@@ -158,16 +165,23 @@ class MemoryDecoder(nn.Module):
         coords0 = coords_grid(b, h1, w1, device=context.device)
         coords1 = (coords0.contiguous() if flow_init is None
                    else (coords0 + flow_init.float()).contiguous())
-        up_mask = None
+        up_mask, flows = None, []
         for it in range(iters):
+            if self.training:
+                coords1 = coords1.detach()
             window = lookup([cost_maps], coords1, _RADIUS)  # (B, H1, W1, 81) in d
             cost_global = self._cost_global(window.reshape(b * h1 * w1, -1),
                                             coords1, k_mem, v_mem)
             net, up_mask, delta = self.update_block(
                 net, inp, cost_global.reshape(b, h1, w1, -1), window,
-                (coords1 - coords0).to(d), attention, mask_needed=it == iters - 1)
+                (coords1 - coords0).to(d), attention,
+                mask_needed=self.training or it == iters - 1)
             coords1 = coords1 + delta.float()
+            if self.training:
+                flows.append(convex_upsample(coords1 - coords0, up_mask.float()))
 
+        if self.training:
+            return torch.stack(flows)
         flow_lr = coords1 - coords0
         return flow_lr, convex_upsample(flow_lr, up_mask.float())
 
@@ -189,7 +203,8 @@ class FFFlowFormer(nn.Module):
     def forward(self, image1, image2, mask1, mask2, iters: Optional[int] = None,
                 flow_init: Optional[torch.Tensor] = None):
         """NHWC images (0..255) and raw 0/255 masks -> (flow_lr, flow_up), f32,
-        after `iters` refinements (default `decoder_depth`; the parameters are
+        or in train mode every refinement's flow_up stacked, after `iters`
+        refinements (default `decoder_depth`; the parameters are
         shared, so any count >= 1 runs) from `coords0 + flow_init` (the
         warm start, (B, H/8, W/8, 2))."""
         cfg = self.cfg

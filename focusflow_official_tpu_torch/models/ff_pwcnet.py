@@ -9,9 +9,11 @@
   (one launch of kernel D a level), then the refiner adds to the level-2
   flow.
 
-The forward returns (flow, flows): the test-mode flow (B, H, W, 2) at the
-input's size, and the five-level list (finest first, level 2 refined) in
-pixels of the resized frames at each level's scale, all f32.
+In eval mode the forward returns (flow, flows): the test-mode flow
+(B, H, W, 2) at the input's size, and the five-level list (finest first,
+level 2 refined) in pixels of the resized frames at each level's scale,
+all f32. In train mode it returns the five-level list alone, what the
+multiscale losses (`losses/multiscale.py`) take.
 """
 
 from __future__ import annotations
@@ -51,6 +53,8 @@ class _PWCBase(nn.Module):
             flows.insert(0, prev[0])
         flows[0] = flows[0] + self.netRefiner(prev[1])
         flows = [f.permute(0, 2, 3, 1).float() for f in flows]
+        if self.training:
+            return flows
         out = resize_bilinear(flows[0], (h, w))
         out = out * torch.tensor([w / nw, h / nh], device=out.device)
         return out, flows
@@ -65,8 +69,9 @@ class PWCNet(_PWCBase):
         self.netExtractor = PWCExtractor()
 
     def forward(self, image1, image2, mask1=None, mask2=None):
-        """NHWC images (0..255) -> (flow (B, H, W, 2), five-level list). The
-        masks are accepted, so both variants are called alike, and ignored."""
+        """NHWC images (0..255) -> (flow (B, H, W, 2), five-level list), in
+        train mode the list alone. The masks are accepted, so both variants
+        are called alike, and ignored."""
         _, h, w, _ = image1.shape
         new_hw = _padded_size(h, w)
         ten_one = resize_bilinear(image1, new_hw).to(self.dtype)
@@ -88,7 +93,7 @@ class FFPWCNet(_PWCBase):
 
     def forward(self, image1, image2, mask1, mask2):
         """NHWC images (0..255) and raw 0/255 masks -> (flow (B, H, W, 2),
-        five-level list)."""
+        five-level list), in train mode the list alone."""
         cfg = self.cfg
         d = compute_dtype(cfg)
         _, h, w, _ = image1.shape

@@ -7,7 +7,10 @@ names (`flow_net.fnet.layer1_0.conv1.weight`, the flax module names):
   the image branches of fnet and cnet and for the update block's encoder
   and GRU, 'trainable' for the rest;
 - `flow_net_lr_labels`: TRAIN.SEPARATE_LR's labels, 'encoder' (lr / 10)
-  under `flow_net`, 'trainable' elsewhere.
+  under `flow_net`, 'trainable' elsewhere;
+- `encoder_lr_labels`: FF-FlowFormer's TRAINER.twins_lr_factor labels,
+  'encoder' on the pretrained Twins towers (a name component containing
+  `feat_encoder` or `context_encoder`), 'trainable' elsewhere.
 
 The rules are the JAX package's (`train/surgery.py`), applied to the
 components of each name. `drop_first_convs` is in
@@ -68,4 +71,13 @@ def freeze_mask_for_parallel(names: Iterable[str]) -> Dict[str, str]:
 def flow_net_lr_labels(names: Iterable[str]) -> Dict[str, str]:
     """name -> 'encoder' under `flow_net` (lr / 10), else 'trainable'."""
     return {name: "encoder" if "flow_net" in name.split(".") else "trainable"
+            for name in names}
+
+
+def encoder_lr_labels(names: Iterable[str]) -> Dict[str, str]:
+    """name -> 'encoder' where a component of the dotted name contains
+    `feat_encoder` or `context_encoder` (the Twins towers, at lr x
+    twins_lr_factor), else 'trainable'."""
+    return {name: "encoder" if any("feat_encoder" in c or "context_encoder" in c
+                                   for c in name.split(".")) else "trainable"
             for name in names}

@@ -1234,3 +1234,158 @@ def test_train_step_on_card_matches_cpu(dev):
     assert float(F.cosine_similarity(grad.double(), cpu_grad.double(), dim=0)) >= 0.9999
     bf_loss, _ = step(dev, "bfloat16")
     assert abs(bf_loss - loss) <= 0.02 * abs(loss)
+
+
+# ---- training FF-PWCNet and FF-FlowFormer: D's, E's and F's Functions on
+# the card against autograd through their plain versions on the card, at a
+# small shape and at shapes of the training steps (PWC B=8 at 384x512: its
+# finest and coarsest levels; FlowFormer B=6 at 368x496: the Twins stage-1
+# attentions over both frames, B=12, and the decoder's cross-attention,
+# B x Q = 6 x 2852 entries). Bounds as above.
+CORR_GRAD_SHAPES = {"small": (2, 9, 13, 24), "train_level2": (8, 96, 128, 32),
+                    "train_level6": (8, 6, 8, 196)}
+
+
+@pytest.mark.parametrize("slope", [None, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size", sorted(CORR_GRAD_SHAPES))
+def test_local_corr_backward(dev, dtype, size, slope):
+    g = torch.Generator(device=dev).manual_seed(41)
+    shape = CORR_GRAD_SHAPES[size]
+    f1, f2 = (torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(2))
+    cot = torch.randn((*shape[:3], 81), generator=g, device=dev).to(dtype)
+    out = klc.local_corr(f1.detach().requires_grad_(True), f2, 4, negative_slope=slope)
+    assert out.grad_fn is not None
+    got, want = _grad_pair(lambda a, b: klc.local_corr(a, b, 4, negative_slope=slope),
+                           lambda a, b: klc.local_corr_plain(a, b, 4, slope), [f1, f2], cot)
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype == dtype and torch.isfinite(a).all()
+        assert float((a.float() - e.float()).abs().max()) <= _grad_tol(e)
+
+
+# (b, n, m, c, heads)
+ATTN_GRAD_SHAPES = {"small": (3, 70, 20, 64, 4), "train_twins1": (12, 11408, 192, 128, 4),
+                    "train_decoder": (17112, 1, 8, 64, 8)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size", sorted(ATTN_GRAD_SHAPES))
+def test_attention_backward(dev, dtype, size):
+    g = torch.Generator(device=dev).manual_seed(42)
+    b, n, m, c, heads = ATTN_GRAD_SHAPES[size]
+    q = torch.randn((b, n, c), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, m, c), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, m, c), generator=g, device=dev).to(dtype)
+    cot = torch.randn((b, n, c), generator=g, device=dev).to(dtype)
+    scale = (c // heads) ** -0.5
+    assert ka.small_kv_attention(q.detach().requires_grad_(True), k, v, heads,
+                                 scale).grad_fn is not None
+    got, want = _grad_pair(lambda *t: ka.small_kv_attention(*t, heads, scale),
+                           lambda *t: ka.small_kv_attention_plain(*t, heads, scale),
+                           [q, k, v], cot)
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype == dtype and torch.isfinite(a).all()
+        assert float((a.float() - e.float()).abs().max()) <= _grad_tol(e)
+
+
+WINDOW_GRAD_SHAPES = {"small": (2, 14, 21, 64, 4), "train_twins1": (12, 98, 126, 128, 4)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size", sorted(WINDOW_GRAD_SHAPES))
+def test_window_attention_backward(dev, dtype, size):
+    g = torch.Generator(device=dev).manual_seed(43)
+    b, hp, wp, c, heads = WINDOW_GRAD_SHAPES[size]
+    q, k, v, cot = (torch.randn((b, hp, wp, c), generator=g, device=dev).to(dtype)
+                    for _ in range(4))
+    scale = (c // heads) ** -0.5
+    assert kw.window_attention(q.detach().requires_grad_(True), k, v, 7, heads,
+                               scale).grad_fn is not None
+    got, want = _grad_pair(lambda *t: kw.window_attention(*t, 7, heads, scale),
+                           lambda *t: kw.window_attention_plain(*t, 7, heads, scale),
+                           [q, k, v], cot)
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype == dtype and torch.isfinite(a).all()
+        assert float((a.float() - e.float()).abs().max()) <= _grad_tol(e)
+
+
+def _family_step(family, device, dtype):
+    """One forward and backward (`train/loop.py::forward_backward`) of a
+    trained fixture on two samples, no noise -> (loss, the flat gradient
+    on the CPU, the TF32 settings inside the forward). FF-RAFT 64x96 with
+    4 refinements, FF-PWCNet 64x128, FF-FlowFormer 64x96 with 2."""
+    from focusflow_official_tpu_torch.compat.weights import load_npz
+    from focusflow_official_tpu_torch.data.synthetic import chairs_layout
+    from focusflow_official_tpu_torch.losses import build_multiscale_loss, build_sequence_loss
+    from focusflow_official_tpu_torch.models import (FFPWCNet, FFPWCNetConfig, FFRaft,
+                                                     FFRaftConfig, FFFlowFormer,
+                                                     FlowFormerConfig)
+    from focusflow_official_tpu_torch.train.loop import forward_backward
+
+    fixtures = os.path.join(os.path.dirname(__file__), "fixtures")
+    if family == "raft":
+        model = FFRaft(FFRaftConfig(fusion="parallel", fuse_cnet=True, iters=4,
+                                    compute_dtype=dtype))
+        fixture, w, iters, loss_fn = "trained_smoke.npz", 96, 4, build_sequence_loss("MixLoss")
+    elif family == "pwc":
+        model = FFPWCNet(FFPWCNetConfig(compute_dtype=dtype))
+        fixture, w, iters = "trained_smoke_pwc.npz", 128, None
+        loss_fn = build_multiscale_loss("MixLoss", weights=[0.005, 0.01, 0.02, 0.08, 0.32])
+    else:
+        model = FFFlowFormer(FlowFormerConfig(encoder_depth=1, decoder_depth=2,
+                                              compute_dtype=dtype))
+        fixture, w, iters, loss_fn = "trained_smoke_ff.npz", 96, 2, build_sequence_loss("MixLoss")
+    model.load_state_dict(load_npz(os.path.join(fixtures, fixture)), strict=True)
+    model.to(device)
+    if device != "cpu":
+        model.to(memory_format=torch.channels_last)
+    model.train()
+    inside = []
+    model.register_forward_hook(lambda *_: inside.append(
+        (torch.backends.cuda.matmul.fp32_precision, torch.backends.cudnn.conv.fp32_precision)))
+    ds = chairs_layout(0, n=2, h=64, w=w)
+    batch = {k: torch.as_tensor(np.stack([ds[i][k] for i in range(2)])).to(device)
+             for k in ("image1", "image2", "mask1", "mask2", "flow", "valid")}
+    loss, _ = forward_backward(model, loss_fn, batch, iters=iters, dtype=getattr(torch, dtype))
+    # GMA's relative position tables take no gradient: zeros, as the step gives them
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in model.parameters()]
+    assert all(gr.dtype == torch.float32 and torch.isfinite(gr).all() for gr in grads)
+    return float(loss.detach()), torch.cat([gr.flatten().cpu() for gr in grads]), inside
+
+
+@pytest.mark.parametrize("family", ["pwc", "flowformer"])
+def test_family_train_step_on_card_matches_cpu(dev, family):
+    """One f32 step of FF-PWCNet (kernel D) and FF-FlowFormer (A, B, E, F,
+    each backward through its Function) on the card against the CPU: the
+    loss within 1e-4 and the gradient's cosine >= 0.9999; the bf16 step's
+    loss within 2% of the f32 step's and every gradient finite, in f32."""
+    names = {"pwc": ("local_corr",),
+             "flowformer": ("lookup", "fold", "attention", "window_attention")}[family]
+    cpu_loss, cpu_grad, _ = _family_step(family, "cpu", "float32")
+    before = dict(launch_counts)
+    loss, grad, _ = _family_step(family, dev, "float32")
+    assert all(launch_counts[n] > before[n] for n in names)
+    assert abs(loss - cpu_loss) <= 1e-4 * abs(cpu_loss)
+    assert float(F.cosine_similarity(grad.double(), cpu_grad.double(), dim=0)) >= 0.9999
+    bf_loss, _, _ = _family_step(family, dev, "bfloat16")
+    assert abs(bf_loss - loss) <= 0.02 * abs(loss)
+
+
+@pytest.mark.parametrize("family", ["raft", "pwc", "flowformer"])
+def test_f32_train_step_under_default_tf32_matches_cpu(dev, family):
+    """An f32 training step under PyTorch's default flags (cuDNN's TF32 on;
+    the fixture `dev` turns it off) runs its forward and backward in full
+    f32 (each backend's `fp32_precision` "ieee" inside), puts the flags
+    back, and matches the CPU step: the loss within 1e-4, the gradient's
+    cosine >= 0.9999."""
+    cpu_loss, cpu_grad, _ = _family_step(family, "cpu", "float32")
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        loss, grad, inside = _family_step(family, dev, "float32")
+        assert inside == [("ieee", "ieee")]
+        assert torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    assert abs(loss - cpu_loss) <= 1e-4 * abs(cpu_loss)
+    assert float(F.cosine_similarity(grad.double(), cpu_grad.double(), dim=0)) >= 0.9999

@@ -14,8 +14,8 @@
 - `fetch_dataset` and the `Loader` give the JAX package's first batches,
   bit for bit, for the same seed; mixed resolutions pad as JAX pads.
 - LOAD_MODULE: a bare RAFT checkpoint loads into `flow_net`; the trainer
-  refuses what it does not have (other families, `--device-aug`,
-  `--multihost`, `no_aug`).
+  refuses what it does not have (`--device-aug`, `--multihost`, `no_aug`)
+  and builds the other families (FF-FlowFormer from `ff_chairs.yaml`).
 """
 
 import json
@@ -234,9 +234,10 @@ def test_refusals(tmp_path):
         cli_train.main(["--yaml", YAML, "--device-aug", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="DDP"):
         cli_train.main(["--yaml", YAML, "--multihost", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="FlowFormer training"):
-        cli_train.main(["--yaml", os.path.join(ROOT, "configs", "ff-flowformer", "ff_chairs.yaml"),
-                        "--device", "cpu"])
+    _, model, _, iters = cli_train.build_model(
+        load_yaml_config(os.path.join(ROOT, "configs", "ff-flowformer", "ff_chairs.yaml")),
+        "float32")
+    assert type(model).__name__ == "FFFlowFormer" and iters == 12
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         tds.fetch_dataset({}, {}, stage="chairs", image_size=(64, 96), no_aug=True)
 
