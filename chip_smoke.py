@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it: FF-RAFT,
-FF-FlowFormer and FF-PWCNet inference, the evaluation entry point and
-the training of all three.
+FF-FlowFormer and FF-PWCNet inference, the evaluation entry point, the
+training of all three, and the paper's baselines (plain RAFT, vanilla
+FlowFormer) and fusion ablation (CA, SA, concat).
 
     python3 chip_smoke.py
 
@@ -145,8 +146,32 @@ Phases (any failure raises and exits non-zero; no result is printed):
     every (kernel, shape) key of the counted step, each held and timed
     with its Function's backward, beside SDPA's (E) or SDPA's with the
     window partition and merge (F) through autograd.
+12. The baselines and the fusion ablation. Serving (`baseline_phase`,
+    after phase 6): plain RAFT (`raft_CTK.yaml`), FF-RAFT with the CA, SA
+    and concat units (`ablation/fusion/{CA,SA,conv}.yaml`) and vanilla
+    FlowFormer (`ff-flowformer/chairs.yaml`: encoder depth 3, 12
+    refinements) through `FlowPredictor`, 1024x436, B=1, bf16. RAFT
+    weights from `trained_smoke.npz` where names carry over, a concat
+    unit derived from the fixture's 1x1conv unit, the CA and SA units
+    seeded small (`_raft_variant_weights`); vanilla FlowFormer seeded, its
+    flow head scaled by 0.1 (`_vanilla_ff_weights`). Gates as phase 3's
+    without the shift: finite flow, agreement with the f32 CPU run on the
+    same weights, the launches a forward (G 12; C1 and C2 15 for a plain
+    fnet, 9 plain and 6 residual, else 30; FlowFormer A 12, B 24, E 23, F
+    7), each launched shape held by the kernel phase; ms a pair, busy ms,
+    idle share and kernel count (CA, SA and concat: one timed pass each,
+    the median of ten for the others). Training (`train_phase`, after
+    phase 11):
+    `raft_CTK.yaml` (plain RAFT, B=6, 368x496, EPELoss, frozen batch
+    norms; G, A, C1 and C2 rows of its own at B=6) and vanilla
+    FlowFormer's `chairs.yaml` (B=6, 368x496, depth 3), each from its
+    serving weights with phase 11's cuts and gates: the f32 and bf16
+    agreement steps at 184x248 (the f32 CPU step at full depth; plain
+    RAFT's on the recipe's fresh weights: on the fixture's image half its
+    saturated GRU puts its bf16 gradient 0.985 from the f32 one), descent
+    on JAX's fresh-weight recipe.
 The `kernels` line gives each kernel's launches on every path,
-`ff_pwcnet_train` and `ff_flowformer_train` among them.
+the training paths and phase 12's among them.
 
 Outside the phases under default flags, f32 matmuls and convolutions run
 in full f32 here (TF32 off), so the f32 comparisons are not blurred by
@@ -1108,10 +1133,10 @@ def _device_breakdown(torch, prof, wall_ms: float) -> dict:
                       sorted(port.items(), key=lambda kv: -kv[1][1])])
 
 
-def _drive(torch, p, inputs, want: dict, profile_name: str):
+def _drive(torch, p, inputs, want: dict, profile_name: str, timed: int = 10):
     """Warm up, then one forward of the path with every launch count set
-    to 0 just before and read just after (it must equal `want`), then ten
-    timed calls and one profiled call. Returns (flow (H, W, 2) of the
+    to 0 just before and read just after (it must equal `want`), then
+    `timed` timed calls and one profiled call. Returns (flow (H, W, 2) of the
     counted forward, (counts, the same launches split by shape key), median
     ms, all ms, device breakdown)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1129,7 +1154,7 @@ def _drive(torch, p, inputs, want: dict, profile_name: str):
         raise AssertionError(f"{profile_name}: launches per forward {counts} != {want}")
 
     times = []
-    for _ in range(10):
+    for _ in range(timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         p(*inputs)  # returns numpy: ends in a device sync
@@ -1145,6 +1170,15 @@ def _drive(torch, p, inputs, want: dict, profile_name: str):
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=60))
     return flow, (counts, shapes), float(np.median(times)), times, breakdown
+
+
+def _count_forms(shapes: dict, kernel: str) -> dict:
+    """Launches of `kernel` by form: the last item of its shape keys."""
+    forms = {}
+    for key, n in shapes.items():
+        if key[0] == kernel:
+            forms[key[-1]] = forms.get(key[-1], 0) + n
+    return forms
 
 
 def _cpu_flow(cfg, fixture: str, inputs):
@@ -1211,10 +1245,7 @@ def end_to_end_phase(torch, card: str):
             raise AssertionError(f"profiled forward: {name} launches {got} != [30]")
     # the 12 ResidualBlocks of the fnet (image and mask branch, both frames
     # batched) take their shortcut add and ReLU in C2's residual form
-    forms = {}
-    for key, n in counts[1].items():
-        if key[0] == "in_normalize":
-            forms[key[-1]] = forms.get(key[-1], 0) + n
+    forms = _count_forms(counts[1], "in_normalize")
     if forms != {"plain": 18, "residual": 12}:
         raise AssertionError(f"in_normalize forms {forms} != 18 plain, 12 residual")
     cpu = _cpu_flow(cfg, FIXTURE, inputs)
@@ -1285,14 +1316,16 @@ def _textured_inputs(h: int, w: int, seed: int = 0):
     return (img1[None], img2[None], m1[None], m2[None]), (dx, dy)
 
 
-def _ff_launches(encoder_depth: int, iters: int) -> dict:
+def _ff_launches(encoder_depth: int, iters: int, fused: bool = True) -> dict:
     """Launches of one FF-FlowFormer forward: E in the 8 Twins GSAs (two
     stages of the context's and the features' image and mask towers), the
     perceiver's input layer, each latent self-attention and vertical global
     layer and each decoder step; F in the 8 Twins LSAs and each vertical
-    local layer; A once and B twice a decoder step."""
-    return {"attention": 8 + 1 + 2 * encoder_depth + iters,
-            "window_attention": 8 + encoder_depth,
+    local layer; A once and B twice a decoder step. Vanilla FlowFormer
+    (`fused=False`) has no mask towers: 4 GSAs and 4 LSAs."""
+    towers = 8 if fused else 4
+    return {"attention": towers + 1 + 2 * encoder_depth + iters,
+            "window_attention": towers + encoder_depth,
             "lookup": iters, "fold": 2 * iters}
 
 
@@ -1328,10 +1361,7 @@ def pwc_end_to_end_phase(torch, card: str):
         torch, p, inputs, {"local_corr": 5}, "chip_smoke_profile_pwc")
     gates = _gates(flow, None, _cpu_flow(cfg, FIXTURE_PWC, inputs))
     # every launch of D is the fused form: no leaky ReLU runs on the volume
-    forms = {}
-    for key, n in counts[1].items():
-        if key[0] == "local_corr":
-            forms[key[-1]] = forms.get(key[-1], 0) + n
+    forms = _count_forms(counts[1], "local_corr")
     if forms != {"leaky_relu": 5}:
         raise AssertionError(f"local_corr forms {forms} != 5 leaky_relu")
     d_prof = [r_ for r_ in breakdown["port_kernels"] if r_[0].startswith("local_corr")]
@@ -1401,6 +1431,122 @@ def ff_shipped_depth_phase(torch, card: str):
                pairs_per_s=1e3 / ms, ms_all=times, profile=breakdown,
                launches=counts[0], mean_abs_flow=float(np.abs(flow).mean())))
     return counts
+
+
+RAFT_CTK_YAML = os.path.join(ROOT, "configs", "ff-raft", "experiment", "raft_CTK.yaml")
+ABLATION_YAMLS = {t: os.path.join(ROOT, "configs", "ff-raft", "ablation", "fusion", f)
+                  for t, f in (("CA", "CA.yaml"), ("SA", "SA.yaml"), ("concat", "conv.yaml"))}
+VANILLA_FF_YAML = os.path.join(ROOT, "configs", "ff-flowformer", "chairs.yaml")
+
+
+def _raft_variant_weights(torch, cfg, path: str) -> dict:
+    """Weights for a RAFT variant (plain RAFT, or FF-RAFT with another
+    fusion unit) from `trained_smoke.npz`: every tensor whose name and
+    shape carry over (plain RAFT's encoders carry the CCE image branch's
+    names), and for the rest: a `concat` unit's weight derived from the
+    fixture's 1x1conv unit at the same place ([identity | its weight], its
+    bias as it is, so the unit computes q + W v + b, what the 1x1conv unit
+    computed), every other tensor (the CA and SA units') drawn from a
+    seeded torch.Generator, weights 0.1 x N(0, 1/fan_in), biases
+    0.01 x N(0, 1), so the unit is q plus a small term. Saved as the .npz
+    of flat flax variables -> {"seeded": names, "derived": names}."""
+    from focusflow_official_tpu_torch.compat.weights import load_npz, params_to_jax
+    from focusflow_official_tpu_torch.config import model_from_config
+
+    model, _ = model_from_config(cfg)
+    src = load_npz(FIXTURE)
+    g = torch.Generator().manual_seed(12)
+    sd, seeded, derived = {}, [], []
+    for k, t in model.state_dict().items():
+        if k in src and src[k].shape == t.shape:
+            sd[k] = src[k]
+        elif cfg.fusion_type == "concat" and k.endswith(".conv.weight"):
+            w = src[k]  # the 1x1conv unit's (C, C, 1, 1) under the same name
+            sd[k] = torch.cat([torch.eye(w.shape[0])[:, :, None, None], w], 1)
+            derived.append(k)
+        else:
+            scale = 0.1 / float(np.sqrt(t[0].numel())) if t.dim() > 1 else 0.01
+            sd[k] = scale * torch.randn(t.shape, generator=g)
+            seeded.append(k)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    np.savez(path, **params_to_jax(sd))
+    return dict(seeded=seeded, derived=derived)
+
+
+def _vanilla_ff_weights(torch, path: str) -> dict:
+    """Vanilla FlowFormer at encoder depth 3: phase 5's seeded draw
+    (`_random_ff_weights`) without the mask towers and fusion units, the
+    GMA flow head's weights and biases scaled by 0.1. (The FF fixture's
+    image half is no model: on its own it predicts flows of about 80 px on
+    this input, and its bf16 and f32 runs part by more than the agreement
+    bound. A flow head at full scale makes the 12 refinements of seeded
+    weights chaotic the same way.) -> {"seeded": names}."""
+    _random_ff_weights(torch, path, 3)
+    with np.load(path) as raw:
+        flat = {k: raw[k] * (0.1 if "/flow_head/" in k else 1.0) for k in raw.files
+                if "_svt/mask_" not in k and "/fusion_blks_" not in k}
+    np.savez(path, **flat)
+    return dict(seeded=sorted(flat), flow_head_scale=0.1)
+
+
+def baseline_phase(torch, card: str) -> dict:
+    """Phase 12, serving: plain RAFT (`raft_CTK.yaml`'s model), FF-RAFT with
+    the CA, SA and concat units (the fusion ablation's YAMLs) and vanilla
+    FlowFormer (`configs/ff-flowformer/chairs.yaml`: encoder depth 3, 12
+    refinements), each through `FlowPredictor` at 1024x436, B=1, bf16
+    (`_raft_variant_weights`, `_vanilla_ff_weights`). Gates: finite flow;
+    the bf16 card run against the f32 CPU run on the same weights within
+    phase 3's bounds; the counted forward's launches equal the model's
+    (RAFT: G 12; C1 and C2 30 a CCE fnet, 18 plain and 12 residual, or 15
+    a plain fnet, 9 and 6; FlowFormer: `_ff_launches(3, 12, fused=False)`).
+    -> path -> (launch counts, launches by shape key) of the counted
+    forward."""
+    from focusflow_official_tpu_torch.config import config_from_yaml, load_yaml_config
+    from focusflow_official_tpu_torch.predict import FlowPredictor
+
+    models = [("raft", RAFT_CTK_YAML)] + [(f"raft_{t.lower()}", y)
+                                          for t, y in ABLATION_YAMLS.items()]
+    models.append(("flowformer", VANILLA_FF_YAML))
+    drives = {}
+    for path, yaml in models:
+        cfg = config_from_yaml(load_yaml_config(yaml), compute_dtype="bfloat16")
+        weights = os.path.join(OUT_DIR, f"{path}_weights.npz")
+        if path == "flowformer":
+            made = _vanilla_ff_weights(torch, weights)
+            want = _ff_launches(cfg.encoder_depth, cfg.decoder_depth, fused=False)
+            inputs, _ = _textured_inputs(H, W)
+            forms = None
+        else:
+            made = _raft_variant_weights(torch, cfg, weights)
+            plain = cfg.fusion is None
+            n_in = 15 if plain else 30
+            want = {"lookup_fold": cfg.iters, "in_stats": n_in, "in_normalize": n_in}
+            forms = {"plain": 9, "residual": 6} if plain else {"plain": 18, "residual": 12}
+            inputs, _ = _shift_inputs(H, W)
+        p = FlowPredictor(cfg, weights, device="cuda", dtype=torch.bfloat16)
+        torch.cuda.reset_peak_memory_stats()
+        # the ablation's units: one timed pass each, to keep the phase short
+        flow, counts, ms, times, breakdown = _drive(
+            torch, p, inputs, want, f"chip_smoke_profile_{path}",
+            timed=1 if path in ("raft_ca", "raft_sa", "raft_concat") else 10)
+        if forms is not None and _count_forms(counts[1], "in_normalize") != forms:
+            raise AssertionError(f"{path}: in_normalize forms "
+                                 f"{_count_forms(counts[1], 'in_normalize')} != {forms}")
+        gates = _gates(flow, None, _cpu_flow(cfg, weights, inputs))
+        del p
+        _emit(dict(phase="baselines", model=path, yaml=os.path.relpath(yaml, ROOT), card=card,
+                   shape=[1, H, W], iters=getattr(cfg, "iters", getattr(cfg, "decoder_depth", None)),
+                   dtype="bfloat16", ms_per_pair=ms, pairs_per_s=1e3 / ms,
+                   device_busy_ms=breakdown["device_busy_ms"],
+                   idle_share=breakdown["idle_share"], kernel_count=breakdown["kernel_count"],
+                   ms_all=times, profile=breakdown, launches=counts[0],
+                   weights={k: (dict(count=len(v), first=v[:2]) if isinstance(v, list) else v)
+                            for k, v in made.items()},
+                   **gates, cpu_f32_size="full frame",
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
+        drives[path] = counts
+        torch.cuda.empty_cache()
+    return drives
 
 
 def _hold_shape(torch, g, dev, key: tuple) -> dict:
@@ -1742,13 +1888,14 @@ COUNTED_STEP, PROFILED_STEP = 4, 15  # steps 1-3 warm up; 4-13 timed
 TRAIN_WANT = {"lookup_fold": ITERS, "lookup": ITERS, "in_stats": 30, "in_normalize": 30}
 
 
-def train_kernel_rows(torch, dev) -> dict:
-    """G, A, C1 and C2 at the training step's shapes (B=10 at 368x496,
-    bf16: the pyramid of a 46x62 grid; the fnet's three shapes over both
-    frames, B=20), held and timed as the kernel phase holds them, each row
-    with its Function's backward: the gradients against autograd through
-    the plain version (`_backward_check`, `_instance_norm_backward`) and
-    the backward's time -> kernel name -> rows."""
+def train_kernel_rows(torch, dev, batch: int = TB, path: str = "ff_raft_train") -> dict:
+    """G, A, C1 and C2 at a RAFT training step's shapes (FF-RAFT: B=10 at
+    368x496, bf16: the pyramid of a 46x62 grid; the fnet's three shapes over
+    both frames, B=20; plain RAFT's step: B=6 and 12), held and timed as the
+    kernel phase holds them, each row with its Function's backward: the
+    gradients against autograd through the plain version
+    (`_backward_check`, `_instance_norm_backward`) and the backward's time
+    -> kernel name -> rows."""
     from focusflow_official_tpu_torch.compat.weights import load_npz
     from focusflow_official_tpu_torch.kernels import lookup as kl
     from focusflow_official_tpu_torch.kernels import lookup_fold as klf
@@ -1759,12 +1906,12 @@ def train_kernel_rows(torch, dev) -> dict:
     bf16 = torch.bfloat16
     h1, w1, r = TH // 8, TW // 8, 4
     q = h1 * w1
-    corr0 = torch.randn((TB, q, h1, w1), generator=g, device=dev)
+    corr0 = torch.randn((batch, q, h1, w1), generator=g, device=dev)
     levels = corr_pyramid(corr0, 4, bf16)
     del corr0
-    coords = (coords_grid(TB, h1, w1, device=dev)
-              + torch.randn((TB, h1, w1, 2), generator=g, device=dev) * 8).contiguous()
-    shape = f"levels {[tuple(lv.shape) for lv in levels]} bf16, Q={TB * q}"
+    coords = (coords_grid(batch, h1, w1, device=dev)
+              + torch.randn((batch, h1, w1, 2), generator=g, device=dev) * 8).contiguous()
+    shape = f"levels {[tuple(lv.shape) for lv in levels]} bf16, Q={batch * q}"
 
     row = _lookup_row(torch, levels, coords, r, "lookup train")
     win = row.pop("out")
@@ -1779,8 +1926,8 @@ def train_kernel_rows(torch, dev) -> dict:
     wc = sd["flow_net.update_block.encoder.convc1.weight"].reshape(256, 324).to(dev, bf16)
     bc = sd["flow_net.update_block.encoder.convc1.bias"].to(dev, bf16)
     row = _lookup_fold_row(torch, levels, coords, r, wc.contiguous(), bc, "lookup_fold train")
-    cot = torch.randn((TB, h1, w1, 256), generator=g, device=dev).to(bf16)
-    row.update(shape=f"{shape}, (256, 324) weight -> ({TB * q}, 256) bf16", **_backward_check(
+    cot = torch.randn((batch, h1, w1, 256), generator=g, device=dev).to(bf16)
+    row.update(shape=f"{shape}, (256, 324) weight -> ({batch * q}, 256) bf16", **_backward_check(
         torch, lambda w_, b_, *lv: klf.lookup_fold(lv, coords, r, w_, b_),
         lambda w_, b_, *lv: klf.lookup_fold_plain(lv, coords, r, w_, b_),
         [wc, bc, *levels], cot, lambda: klf.lookup_fold_vjp(levels, coords, r, wc, cot),
@@ -1789,10 +1936,10 @@ def train_kernel_rows(torch, dev) -> dict:
     del levels, coords, cot
     torch.cuda.empty_cache()
 
-    shapes = [(2 * TB, TH // 2, TW // 2, 64), (2 * TB, TH // 4, TW // 4, 96),
-              (2 * TB, TH // 8, TW // 8, 128)]
+    shapes = [(2 * batch, TH // 2, TW // 2, 64), (2 * batch, TH // 4, TW // 4, 96),
+              (2 * batch, TH // 8, TW // 8, 128)]
     rows.update(_instance_norm_rows(torch, g, dev, shapes, backward=True))
-    _emit_train_rows("ff_raft_train", rows)
+    _emit_train_rows(path, rows)
     torch.cuda.empty_cache()
     return rows
 
@@ -2004,7 +2151,58 @@ def _train_specs() -> dict:
             # moves by 0.02% in 5 steps (the port's trainer takes JAX's
             # steps, loss for loss, on the CPU)
             descent="recipe"),
+        # phase 12: the baselines, each trained from phase 12's serving
+        # weights (`_raft_variant_weights`, `_vanilla_ff_weights`), their
+        # descent on JAX's fresh-weight recipe, their agreement steps at
+        # 184x248 (the f32 CPU step at full depth and 12 refinements).
+        # Plain RAFT's agreement runs on the recipe's fresh weights: on the
+        # fixture's image half its GRU saturates, and its bf16 gradient is
+        # 0.985 from the f32 one in cosine at 368x496 (f32 card against the
+        # CPU: 0.99999994), as FF-RAFT's fixture shows on the CPU (0.9964);
+        # fresh, 0.9997 on the CPU
+        "raft_train": dict(
+            yaml=RAFT_CTK_YAML, batch=6, crop=(368, 496), iters=ITERS,
+            weights=lambda torch: _baseline_weights(torch, "raft"),
+            want={"lookup_fold": ITERS, "lookup": ITERS, "in_stats": 15, "in_normalize": 15},
+            forms=("in_normalize", {"plain": 9, "residual": 6}),
+            profile="chip_smoke_profile_train_raft.txt", flags="defaults",
+            agree=dict(MODEL={}, crop=(184, 248),
+                       weights=lambda torch: _fresh_weights(torch, RAFT_CTK_YAML, "raft")),
+            descent="recipe"),
+        "flowformer_train": dict(
+            yaml=VANILLA_FF_YAML, batch=6, crop=(368, 496), iters=12,
+            weights=lambda torch: _baseline_weights(torch, "flowformer"),
+            want=_ff_launches(3, 12, fused=False), forms=None,
+            profile="chip_smoke_profile_train_flowformer.txt", flags="defaults",
+            agree=dict(MODEL={}, crop=(184, 248)), descent="recipe"),
     }
+
+
+def _fresh_weights(torch, yaml: str, path: str) -> str:
+    """The YAML's model at PyTorch's default initialisation under seed 0
+    (`_descent_recipe`'s start) -> the .npz path."""
+    from focusflow_official_tpu_torch.cli.train import build_model
+    from focusflow_official_tpu_torch.compat.weights import params_to_jax
+    from focusflow_official_tpu_torch.config import load_yaml_config
+
+    torch.manual_seed(0)
+    _, model, _, _ = build_model(load_yaml_config(yaml), "float32")
+    out = os.path.join(OUT_DIR, f"{path}_fresh.npz")
+    np.savez(out, **params_to_jax(model.state_dict()))
+    return out
+
+
+def _baseline_weights(torch, path: str) -> str:
+    """Phase 12's serving weights of `path` ("raft" or "flowformer") -> the
+    .npz path."""
+    from focusflow_official_tpu_torch.config import config_from_yaml, load_yaml_config
+
+    out = os.path.join(OUT_DIR, f"{path}_weights.npz")
+    if path == "flowformer":
+        _vanilla_ff_weights(torch, out)
+    else:
+        _raft_variant_weights(torch, config_from_yaml(load_yaml_config(RAFT_CTK_YAML)), out)
+    return out
 
 
 def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaults=None,
@@ -2064,7 +2262,9 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
     from torch.profiler import ProfilerActivity, profile
 
     spec = _train_specs()[path]
-    weights = spec["weights"] or _ff_depth3_weights()
+    weights = spec["weights"]
+    weights = (_ff_depth3_weights() if weights is None
+               else weights(torch) if callable(weights) else weights)
     batch, (th, tw), want = spec["batch"], spec["crop"], spec["want"]
     dev = torch.device("cuda", 0)
     bf16 = torch.bfloat16
@@ -2128,9 +2328,7 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
     forms = {}
     if spec["forms"]:
         kernel, want_forms = spec["forms"]
-        for key, n in step_shapes.items():
-            if key[0] == kernel:
-                forms[key[-1]] = forms.get(key[-1], 0) + n
+        forms = _count_forms(step_shapes, kernel)
         if forms != want_forms:
             raise AssertionError(f"{path} step: {kernel} forms {forms}, not {want_forms}")
     losses = [m["loss"] for m in st["metrics"]]
@@ -2154,12 +2352,14 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
     split = _train_step_split(torch, cfg, weights, data)
 
     # f32 on the card against the CPU, then bf16 against f32
-    two = {k: torch.as_tensor(np.stack([data[i][k] for i in range(2)]))
+    ch, cw = (spec["agree"] or {}).get("crop", (th, tw))
+    two = {k: torch.as_tensor(np.stack([data[i][k][:ch, :cw] for i in range(2)]))
            for k in ("image1", "image2", "mask1", "mask2", "flow", "valid")}
     flags = defaults if spec["flags"] == "defaults" else None
     acfg, aweights = cfg, weights
     if spec["agree"]:
-        acfg, aweights = copy.deepcopy(cfg), spec["agree"]["weights"]
+        acfg, aweights = copy.deepcopy(cfg), spec["agree"].get("weights", weights)
+        aweights = aweights(torch) if callable(aweights) else aweights
         for k, v in spec["agree"]["MODEL"].items():
             setattr(acfg.MODEL, k, v)
     t0 = time.perf_counter()
@@ -2178,7 +2378,8 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
                  cpu_f32_step_seconds=cpu_s,
                  f32_card_flags="PyTorch's defaults (matmul TF32 {}, cuDNN TF32 {})".format(
                      *flags) if flags else "TF32 off for the script",
-                 model=spec["agree"]["MODEL"] if spec["agree"] else "the phase's")
+                 model=spec["agree"]["MODEL"] if spec["agree"] else "the phase's",
+                 weights=os.path.relpath(aweights, ROOT), crop=[ch, cw])
     if not (agree["f32_loss_rel"] <= 1e-4 and agree["f32_grad_cosine"] >= 0.9999
             and agree["bf16_loss_rel"] <= 0.02 and agree["bf16_grad_cosine"] >= 0.99
             and torch.isfinite(bf_grad).all()):
@@ -2312,14 +2513,17 @@ def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, train_rows: dict,
     (`design`), the error and tolerance of its worst shape, and every shape
     held under `per_shape` with its own tolerance. `drives` is path ->
     (launch counts, launches by shape key) of that path's counted forward.
-    A kernel's `launches` are summed over the three paths
-    (`launches_by_path`); a shape's are read from the same forwards by the
-    key its wrapper counted it under in the kernel phase, with launches x
-    (ms - bound_ms). Every shape a path launched must be held here. The
-    training steps' rows (`train_rows`: path -> {kernel: rows}, for the
-    paths "ff_raft_train", "ff_pwcnet_train" and "ff_flowformer_train")
-    carry their backward's time and gradient check beside the forward's;
-    a kernel's `train` entry gives each training path's first row."""
+    A kernel's `launches` are summed over the serving paths (phase 12's
+    baselines among them) and the training paths (`launches_by_path`); a
+    shape's are read from the same forwards by the key its wrapper counted
+    it under in the kernel phase, with launches x (ms - bound_ms). Every
+    shape a path launched must be held here. The training steps' rows
+    (`train_rows`: path -> {kernel: rows}, for the paths "ff_raft_train",
+    "ff_pwcnet_train", "ff_flowformer_train" and "raft_train";
+    "flowformer_train" launches shapes that "ff_flowformer_train"'s rows
+    hold) carry their backward's time and gradient check beside the
+    forward's; a kernel's `train` entry gives each training path's first
+    row."""
     table = []
     for kr in raft:
         if "per_shape" not in kr:
@@ -2377,8 +2581,9 @@ def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, train_rows: dict,
             worst = _worst(kr["per_shape"])
             kr["max_abs_err"], kr["tol"] = worst["max_abs_err"], worst["tol"]
     # `launches` sums these
-    paths = ("ff_raft", "ff_flowformer", "ff_pwcnet", "ff_raft_train", "ff_pwcnet_train",
-             "ff_flowformer_train")
+    paths = ("ff_raft", "ff_flowformer", "ff_pwcnet", "raft", "raft_ca", "raft_sa",
+             "raft_concat", "flowformer", "ff_raft_train", "ff_pwcnet_train",
+             "ff_flowformer_train", "raft_train", "flowformer_train")
     held = set()
     for kr in table:
         by_path = {path: drives[path][0].get(kr["name"], 0) for path in paths}
@@ -2443,14 +2648,22 @@ def main() -> int:
               "ff_flowformer_depth3": ff_shipped_depth_phase(torch, card),
               "ff_pwcnet": pwc_end_to_end_phase(torch, card)}
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    drives.update(baseline_phase(torch, card))
+    _emit(dict(phase="baselines", part="serving", seconds=time.perf_counter() - t0))
+    torch.cuda.empty_cache()
     train_rows = {"ff_raft_train": train_kernel_rows(torch, dev)}
     drives["ff_raft_train"], _ = train_phase(
         torch, card, _row_keys(raft_kernels, ff_rows, pwc_rows, train_rows))
-    for path, rows_for in (("ff_pwcnet_train", pwc_train_rows),
-                           ("ff_flowformer_train", ff_train_rows)):
+    for path, rows_for in (
+            ("ff_pwcnet_train", pwc_train_rows), ("ff_flowformer_train", ff_train_rows),
+            # phase 12: plain RAFT's step runs G, A, C1 and C2 at B=6 (rows of
+            # its own); vanilla FlowFormer's launches shapes phase 11 holds
+            ("raft_train", lambda t, d, _: train_kernel_rows(t, d, 6, "raft_train")),
+            ("flowformer_train", None)):
         drives[path], train_rows[path] = train_phase(
             torch, card, _row_keys(raft_kernels, ff_rows, pwc_rows, train_rows), path,
-            defaults, lambda shapes, fn=rows_for: fn(torch, dev, shapes))
+            defaults, rows_for and (lambda shapes, fn=rows_for: fn(torch, dev, shapes)))
     kernels = _kernel_table(raft_kernels, ff_rows, pwc_rows, train_rows, drives, card)
     # the fused kernel inside the profiled FF-RAFT forward, where its inputs
     # are not the same on every call as in the kernel phase

@@ -8,9 +8,11 @@
 Runs the validation protocol (`train/evaluate.py`) on the datasets that
 the YAML's CRITERION.VAL_DATASET names (or `--datasets`), with the masks of
 TRAIN.MASK_TYPE from the mask tree beside each data root, and prints one
-JSON line of metrics. Refinements: the protocol's (chairs 12, Sintel and
-KITTI 32) for FF-RAFT, the config's `decoder_depth` for FF-FlowFormer,
-`--iters` for every dataset where given. File datasets need cv2 and PIL,
+JSON line of metrics. Any YAML under `configs/` runs, the baselines and
+the fusion ablation among them (a baseline ignores the masks). Refinements:
+the protocol's (chairs 12, Sintel and KITTI 32) for FF-RAFT and plain
+RAFT, the config's `decoder_depth` for FF-FlowFormer and vanilla
+FlowFormer, `--iters` for every dataset where given. File datasets need cv2 and PIL,
 and the YAML needs PyYAML.
 """
 

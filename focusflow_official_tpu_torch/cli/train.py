@@ -7,9 +7,10 @@
         [--tensorboard] [--device cuda|cpu]
 
 The reference's training interface on the reference YAML schema, one
-trainer for the three families (FF-RAFT, FF-PWCNet with the vanilla
-PWC-Net, FF-FlowFormer), picked from the file's shape as
-`config.py::detect_family` picks it. TRAIN picks the stage's dataset
+trainer for the three families (FF-RAFT with plain RAFT and the fusion
+ablation, FF-PWCNet with the vanilla PWC-Net, FF-FlowFormer with vanilla
+FlowFormer), picked from the file's shape as `config.py::detect_family`
+picks it, every YAML under `configs/` among them. TRAIN picks the stage's dataset
 curriculum (`data/datasets.py::fetch_dataset`, with the host
 augmentation), the batch, the steps, the noise augmentation and the loss:
 the sequence loss for FF-RAFT and FF-FlowFormer, the multiscale loss
@@ -17,13 +18,15 @@ the sequence loss for FF-RAFT and FF-FlowFormer, the multiscale loss
 OPTIMIZER and SCHEDULER (FF-FlowFormer: TRAINER) give the AdamW step and
 its OneCycle schedule over NUM_STEPS + 100 steps; MODEL the weights to
 start from (PRETRAIN, the whole model; LOAD_MODULE, a reference `.pth`,
-into `flow_net` for FF-RAFT and over the whole model for PWC-Net, keeping
-what the file lacks; LOAD_MODULE_TO_BRANCH; FF-FlowFormer's load_former,
+into `flow_net` for every RAFT variant and over the whole model for
+PWC-Net, keeping what the file lacks; LOAD_MODULE_TO_BRANCH, which changes
+nothing on a model without mask branches; FF-FlowFormer's load_former,
 a reference `.pth` over the whole model, keeping what it lacks) and the
 parameter groups (FREEZE_MODULE over TRAIN.SEPARATE_LR's `flow_net` at lr
 / 10, or FF-FlowFormer's TRAINER.twins_lr_factor on its Twins towers).
-FF-FlowFormer's MODEL.pretrain (timm ImageNet weights for the towers) is
-ignored, as the JAX trainer ignores it: `compat/timm_twins.py` maps such
+FlowFormer's MODEL.pretrain (timm ImageNet weights for the towers, which
+vanilla FlowFormer's `chairs.yaml` sets) is ignored, as the JAX trainer
+ignores it: `compat/timm_twins.py` maps such
 weights, but nothing here downloads them. Each step is
 `train/loop.py::train_step`. Every `--val-freq` steps a checkpoint is
 written and the CRITERION.VAL_DATASET validation runs

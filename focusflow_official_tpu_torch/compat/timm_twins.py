@@ -1,5 +1,6 @@
 """timm `twins_svt_large` weights into the port's Twins towers
-(`nn/twins.py::TwinsSVT2StageCCE`).
+(`nn/twins.py::TwinsSVT2Stage`, vanilla FlowFormer's, and
+`TwinsSVT2StageCCE`).
 
 The reference starts its FlowFormer encoders from timm's ImageNet-trained
 Twins-SVT-Large, cut to its first two stages. This maps such a state dict
@@ -43,7 +44,8 @@ def port_key(timm_key: str) -> str | None:
 
 def timm_twins_to_state_dict(state_dict: Mapping, template: Mapping[str, torch.Tensor],
                              mask_branch: bool = False) -> Dict[str, torch.Tensor]:
-    """A copy of `template` (a `TwinsSVT2StageCCE` state dict) with every
+    """A copy of `template` (a `TwinsSVT2Stage` or `TwinsSVT2StageCCE`
+    state dict) with every
     tensor that the timm `state_dict` holds for its first two stages in
     place, in the template's type; a shape that differs raises
     ValueError."""

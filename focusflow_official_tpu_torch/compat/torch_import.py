@@ -14,7 +14,11 @@ reference key:
 one's reference key and takes the tensor as it is: both sides are PyTorch,
 so no kernel is transposed. The reference's shared downsample norm
 (`downsample.1` is the same module as `norm3` / `norm4`) is read under
-either name, and DDP's `module.` prefix is stripped.
+either name, and DDP's `module.` prefix is stripped. Every model the port
+builds maps this way: FF-RAFT and plain RAFT (`fnet.layer1.0.conv1`,
+`channel_pjt.conv1`, the fusion units' `conv_v.0`, `c_map.0`, `s_map.0`),
+FF-PWCNet and PWC-Net, FF-FlowFormer and vanilla FlowFormer
+(`context_encoder.svt.*`, `memory_encoder.feat_encoder.svt.*`).
 """
 
 from __future__ import annotations

@@ -5,15 +5,17 @@ The reference's flat YAML (sections GLOBAL / TRAIN / MODEL / CRITERION /
 OPTIMIZER / SCHEDULER, or TRAINER for FF-FlowFormer) loads into a
 dot-accessible `ConfigNode`. `config_from_yaml` picks the family from the
 file's shape and builds `FFRaftConfig`, `FFPWCNetConfig` or
-`FlowFormerConfig`; `model_from_config` builds the model and says how many
-refinements it runs.
+`FlowFormerConfig`; `model_from_config` builds the model (plain RAFT,
+vanilla PWC-Net and vanilla FlowFormer where `FUSION` is null) and says
+how many refinements it runs.
 
 The port's configs hold only the fields the port has. A field that selects
 a variant the port lacks is read only to refuse it: any value other than
-the ported one raises `NotImplementedError` naming the `ROADMAP.md` item
-that brings it, so a file is never run as a different model. The TPU
-layout knobs of the JAX package (`corr_impl`, the `FF_*` variables) are not
-read. PyYAML is imported when a file is read, not with this module.
+the ported ones raises `NotImplementedError` naming the `ROADMAP.md` item
+that brings it, so a file is never run as a different model; so does a
+dropout other than 0. The TPU layout knobs of the JAX package
+(`corr_impl`, the `FF_*` variables) are not read. PyYAML is imported when
+a file is read, not with this module.
 """
 
 from __future__ import annotations
@@ -21,12 +23,16 @@ from __future__ import annotations
 import types
 from typing import Any, Dict, Optional
 
-from .models import FFFlowFormer, FFPWCNet, FFRaft, PWCNet
+from .models import FFFlowFormer, FFPWCNet, FFRaft, FlowFormer, PWCNet
 from .models.config import FFPWCNetConfig, FFRaftConfig, FlowFormerConfig
 from .models.ff_raft import compute_dtype
+from .nn.fusion_units import FUSION_TYPES
 
-# where ROADMAP.md queues the inference variants the port lacks
+# where ROADMAP.md queues the inference variants the port lacks, dropout
+# and the small model
 _VARIANTS_ITEM = "ROADMAP.md queue 1, 'The remaining inference variants',"
+_DROPOUT_ITEM = "ROADMAP.md queue 1, 'Dropout',"
+_SMALL_ITEM = "ROADMAP.md queue 1, 'The `small` model',"
 
 
 class ConfigNode(types.SimpleNamespace):
@@ -64,17 +70,21 @@ def detect_family(cfg: ConfigNode) -> str:
     return "raft"
 
 
-def _refuse(section: ConfigNode, key: str, ported: Any, default: Any = None) -> None:
-    """Raise unless `section.key` (absent: `default`) is the ported value,
-    read as the ported value's type where that is bool or int (as the
-    reference reads it: `gma: GMA` is true)."""
+def _refuse(section: ConfigNode, key: str, ported: Any, default: Any = None,
+            item: str = _VARIANTS_ITEM) -> Any:
+    """Raise unless `section.key` (absent: `default`) is the ported value
+    or one of a tuple of them, read as the ported value's type where that
+    is bool, int or float (as the reference reads it: `gma: GMA` is true);
+    -> the value."""
     value = section.get(key, default)
-    if isinstance(ported, (bool, int)) and value is not None:
-        value = type(ported)(value)
-    if value != ported:
+    allowed = ported if isinstance(ported, tuple) else (ported,)
+    if isinstance(allowed[0], (bool, int, float)) and value is not None:
+        value = type(allowed[0])(value)
+    if value not in allowed:
         raise NotImplementedError(
             f"{key}: {value!r} selects a variant this port lacks (it has "
-            f"{ported!r}); {_VARIANTS_ITEM} brings it")
+            f"{' or '.join(map(repr, allowed))}); {item} brings it")
+    return value
 
 
 def _mask_fields(train: ConfigNode, model: Optional[ConfigNode] = None) -> Dict:
@@ -90,41 +100,39 @@ def _mask_fields(train: ConfigNode, model: Optional[ConfigNode] = None) -> Dict:
 
 def model_config_from_yaml(cfg: ConfigNode, *,
                            compute_dtype: str = "float32") -> FFRaftConfig:
-    """FF-RAFT: the CCE model (`FUSION: parallel`) with the context encoder
-    fused (`FUSE_CNET: true`) at full width; the other front ends, `SMALL`,
-    `ABANDON_FNET` and `ALT_CORR` are refused."""
+    """FF-RAFT (`FUSION: parallel`) or plain RAFT (`FUSION: null`) at full
+    width, with any CCE fusion type, the context encoder fused or not
+    (`FUSE_CNET`) and the fnet as it is or `ChannelProject`
+    (`ABANDON_FNET`); the other front ends, `SMALL`, `ALT_CORR` and
+    dropout are refused."""
     model = cfg.MODEL
-    _refuse(model, "FUSION", "parallel")
-    _refuse(model, "FUSE_CNET", True, False)
-    for key in ("SMALL", "ABANDON_FNET", "ALT_CORR"):
-        _refuse(model, key, False, False)
-    fusion_type = model.get("FUSION_TYPE", "1x1conv")
-    if fusion_type not in ("1x1conv", "1x1conv-unidirection"):
-        _refuse(model, "FUSION_TYPE", "1x1conv")
-    return FFRaftConfig(fusion="parallel", fusion_type=fusion_type, small=False,
-                        fuse_cnet=True, iters=int(model.get("ITERS", 12)),
+    fusion = _refuse(model, "FUSION", ("parallel", None))
+    _refuse(model, "SMALL", False, False, _SMALL_ITEM)
+    _refuse(model, "ALT_CORR", False, False)
+    _refuse(model, "DROPOUT", 0.0, 0.0, _DROPOUT_ITEM)
+    return FFRaftConfig(fusion=fusion,
+                        fusion_type=_refuse(model, "FUSION_TYPE", FUSION_TYPES, "1x1conv"),
+                        small=False, abandon_fnet=bool(model.get("ABANDON_FNET", False)),
+                        fuse_cnet=bool(model.get("FUSE_CNET", False)),
+                        iters=int(model.get("ITERS", 12)),
                         freeze_bn=cfg.TRAIN.get("STAGE", "chairs") != "chairs",
                         compute_dtype=compute_dtype, **_mask_fields(cfg.TRAIN))
 
 
 def pwcnet_config_from_yaml(cfg: ConfigNode, *,
                             compute_dtype: str = "float32") -> FFPWCNetConfig:
-    """FF-PWCNet (`FUSION: parallel`) or the vanilla PWC-Net (`FUSION:
-    null`), with the `1x1conv` fusion units."""
+    """FF-PWCNet (`FUSION: parallel`) with any CCE fusion type, or the
+    vanilla PWC-Net (`FUSION: null`); dropout is refused."""
     model = cfg.MODEL
-    fusion = model.get("FUSION")
-    if fusion is not None:
-        _refuse(model, "FUSION", "parallel")
-    fusion_type = model.get("FUSION_TYPE", "1x1conv")
-    if fusion_type not in ("1x1conv", "1x1conv-unidirection"):
-        _refuse(model, "FUSION_TYPE", "1x1conv")
-    return FFPWCNetConfig(fusion=fusion, fusion_type=fusion_type,
+    _refuse(model, "DROPOUT", 0.0, 0.0, _DROPOUT_ITEM)
+    return FFPWCNetConfig(fusion=_refuse(model, "FUSION", ("parallel", None)),
+                          fusion_type=_refuse(model, "FUSION_TYPE", FUSION_TYPES, "1x1conv"),
                           compute_dtype=compute_dtype, **_mask_fields(cfg.TRAIN))
 
 
 # FlowFormer's `latentcostformer` keys that select a variant, with the ported
 # value and the reference default where a file leaves the key out
-_FF_FIXED = (("FUSION", "parallel", None), ("pe", "linear", "linear"),
+_FF_FIXED = (("pe", "linear", "linear"),
              ("cost_heads_num", 1, 1), ("patch_size", 8, 8), ("gma", True, True),
              ("use_mlp", False, False), ("vertical_conv", False, False),
              ("only_global", False, False), ("cost_encoder_res", True, True),
@@ -133,12 +141,16 @@ _FF_FIXED = (("FUSION", "parallel", None), ("pe", "linear", "linear"),
 
 def flowformer_config_from_yaml(cfg: ConfigNode, *,
                                 compute_dtype: str = "float32") -> FlowFormerConfig:
-    """FF-FlowFormer with the CCE Twins towers, GMA, attention latent layers
-    and the rest of the reference's default `latentcostformer` block."""
+    """FF-FlowFormer with the CCE Twins towers (`FUSION: parallel`) or
+    vanilla FlowFormer (`FUSION: null`), GMA, attention latent layers and
+    the rest of the reference's default `latentcostformer` block; dropout
+    is refused."""
     m = cfg.MODEL
     for key, ported, default in _FF_FIXED:
         _refuse(m, key, ported, default)
+    _refuse(m, "dropout", 0.0, 0.0, _DROPOUT_ITEM)
     return FlowFormerConfig(
+        fusion=_refuse(m, "FUSION", ("parallel", None)),
         encoder_latent_dim=int(m.get("encoder_latent_dim", 256)),
         query_latent_dim=int(m.get("query_latent_dim", 64)),
         cost_latent_input_dim=int(m.get("cost_latent_input_dim", 64)),
@@ -214,11 +226,14 @@ def optimizer_kwargs_from_yaml(cfg: ConfigNode) -> Dict:
 def model_from_config(model_cfg):
     """The model a port config describes, with its refinement count: FF-RAFT
     `iters`, FF-FlowFormer `decoder_depth`, FF-PWCNet None (it has no
-    refinement loop)."""
+    refinement loop). `fusion=None` picks the vanilla model: `FFRaft`
+    builds plain RAFT itself, FlowFormer and PWC-Net are classes of their
+    own."""
     if isinstance(model_cfg, FFRaftConfig):
         return FFRaft(model_cfg), model_cfg.iters
     if isinstance(model_cfg, FlowFormerConfig):
-        return FFFlowFormer(model_cfg), model_cfg.decoder_depth
+        model = FlowFormer if model_cfg.fusion is None else FFFlowFormer
+        return model(model_cfg), model_cfg.decoder_depth
     if isinstance(model_cfg, FFPWCNetConfig):
         if model_cfg.fusion is None:
             return PWCNet(compute_dtype(model_cfg)), None

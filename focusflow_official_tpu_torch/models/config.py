@@ -1,12 +1,13 @@
 """Model configurations: the fields of the reference YAML schema that the
 inference and training paths read.
 
-- `FFRaftConfig`: the MODEL and TRAIN mask sections of FF-RAFT;
+- `FFRaftConfig`: the MODEL and TRAIN mask sections of FF-RAFT and of
+  plain RAFT (`fusion=None`);
 - `FFPWCNetConfig`: what FF-PWCNet reads of the same two sections;
-- `FlowFormerConfig`: the fields of FF-FlowFormer's `latentcostformer`
-  block (`config/ff_chairs.yaml:41-76` in the reference) that the ported
-  variant leaves free, with the JAX package's defaults, which equal that
-  file.
+- `FlowFormerConfig`: the fields of the `latentcostformer` block of
+  FF-FlowFormer and vanilla FlowFormer (`config/ff_chairs.yaml:41-76` in
+  the reference) that the ported variants leave free, with the JAX
+  package's defaults, which equal that file.
 """
 
 from __future__ import annotations
@@ -19,8 +20,12 @@ from typing import Optional
 class FFRaftConfig:
     # MODEL section
     fusion: Optional[str] = "parallel"  # 'parallel' (CCE) | None (plain RAFT)
-    fusion_type: str = "1x1conv"  # '1x1conv' | '1x1conv-unidirection'
+    # '1x1conv' | '1x1conv-unidirection' | 'concat' | 'SA' | 'CA'
+    fusion_type: str = "1x1conv"
     small: bool = False
+    # the fnet is `ChannelProject` (a resize and a 1x1 conv)
+    abandon_fnet: bool = False
+    # the cnet is the CCE too (with fusion='parallel'); else a BasicEncoder
     fuse_cnet: bool = False
     iters: int = 12
     # training: keep the batch norms' running statistics (every stage but
@@ -43,7 +48,8 @@ class FFPWCNetConfig:
     which reads only `compute_dtype`)."""
 
     fusion: Optional[str] = "parallel"
-    fusion_type: str = "1x1conv"  # '1x1conv' | '1x1conv-unidirection'
+    # '1x1conv' | '1x1conv-unidirection' | 'concat' | 'SA' | 'CA'
+    fusion_type: str = "1x1conv"
 
     mask_modal: str = "point"
     mask_channel: int = 3
@@ -56,11 +62,15 @@ class FFPWCNetConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FlowFormerConfig:
-    """The fields with more than one value in use. The ported variant is
-    fixed: CCE Twins towers (`fusion='parallel'`), GMA, pe 'linear', one
-    cost head, patch size 8, attention latent layers, vertical local and
-    global attention, the encoder residual and the flow token in the
-    decoder query. An unknown field raises TypeError."""
+    """The fields with more than one value in use: FF-FlowFormer with the
+    CCE Twins towers (`fusion='parallel'`) or vanilla FlowFormer with
+    plain ones (`fusion=None`, which reads no mask field). The rest is
+    fixed: GMA, pe 'linear', one cost head, patch size 8, attention latent
+    layers, vertical local and global attention, the encoder residual and
+    the flow token in the decoder query. An unknown field raises
+    TypeError."""
+
+    fusion: Optional[str] = "parallel"  # 'parallel' | None (vanilla)
 
     # mask handling (TRAIN-level in the reference FF yaml)
     mask_modal: str = "point"

@@ -1,7 +1,9 @@
-"""FF-FlowFormer: keypoint-conditioned FlowFormer.
+"""FF-FlowFormer, keypoint-conditioned FlowFormer, and vanilla FlowFormer.
 
-- context: a CCE Twins tower over image 1 and its mask;
-- memory: a CCE Twins tower over both frames batched, a 1x1 to
+- context: a Twins tower over image 1 (FF-FlowFormer: the CCE tower over
+  image 1 and its mask);
+- memory: a Twins tower over both frames batched (FF-FlowFormer: the CCE
+  tower over the frames and their masks), a 1x1 to
   `encoder_latent_dim`, the all-pairs cost volume (no sqrt scaling, stored
   in the compute type), and the cost perceiver, which compresses each
   query's cost map into K latent tokens;
@@ -21,10 +23,11 @@
 With B > 1 the vertical layers see each sample's own context (a
 sample-major repeat), the JAX package's fix of the reference's pairing.
 
-This port covers `fusion='parallel'`, GMA, attention latent layers and
-vertical attention, cost heads 1; the eval-mode `forward` returns
-(flow_lr, flow_up) as the port's FF-RAFT does (the JAX model returns them
-the other way round).
+This port covers `fusion='parallel'` (`FFFlowFormer`) and None
+(`FlowFormer`, which ignores the masks it is given), GMA, attention latent
+layers and vertical attention, cost heads 1; the eval-mode `forward`
+returns (flow_lr, flow_up) as the port's FF-RAFT does (the JAX model
+returns them the other way round).
 """
 
 from __future__ import annotations
@@ -41,7 +44,8 @@ from ..nn.gma import GMAAttention, GMAUpdateBlock
 from ..nn.latent_cost import (BroadCrossAttentionLayer, CostPatchEmbed,
                               SelfAttentionLayer, VerticalSelfAttentionLayer,
                               linear_position_embedding_sine)
-from ..nn.twins import LayerNorm, TwinsSVT2StageCCE, conv1x1_nhwc, gelu
+from ..nn.twins import (LayerNorm, TwinsSVT2Stage, TwinsSVT2StageCCE, conv1x1_nhwc,
+                        gelu)
 from ..ops.coords import coords_grid
 from ..ops.upsample import convex_upsample
 from .config import FlowFormerConfig
@@ -91,16 +95,22 @@ class CostPerceiverEncoder(nn.Module):
         return x + short_cut
 
 
-class FusionMemoryEncoder(nn.Module):
-    def __init__(self, cfg: FlowFormerConfig):
+class MemoryEncoder(nn.Module):
+    """`feat_encoder_svt` (the given tower, default a plain
+    `TwinsSVT2Stage`) over both frames batched, the 1x1
+    `channel_convertor`, the cost volume and the perceiver."""
+
+    def __init__(self, cfg: FlowFormerConfig, feat_encoder: Optional[nn.Module] = None):
         super().__init__()
-        self.feat_encoder_svt = TwinsSVT2StageCCE(3, cfg.mask_channel)
+        self.feat_encoder_svt = feat_encoder if feat_encoder is not None else TwinsSVT2Stage(3)
         self.channel_convertor = nn.Conv2d(256, cfg.encoder_latent_dim, 1, bias=False)
         self.cost_perceiver_encoder = CostPerceiverEncoder(cfg)
 
-    def forward(self, img1, img2, mask1, mask2, context):
-        """-> (latent memory (B*Q, K, D), cost maps (B, Q, H1, W1))."""
-        feats = self.feat_encoder_svt(torch.cat([img1, img2]), torch.cat([mask1, mask2]))
+    def forward(self, img1, img2, context, mask1=None, mask2=None):
+        """-> (latent memory (B*Q, K, D), cost maps (B, Q, H1, W1)); the
+        masks go to a CCE tower, which takes them."""
+        masks = () if mask1 is None else (torch.cat([mask1, mask2]),)
+        feats = self.feat_encoder_svt(torch.cat([img1, img2]), *masks)
         feats = conv1x1_nhwc(self.channel_convertor, feats)
         f1, f2 = feats.chunk(2)
         cost_maps = cost_volume(f1, f2)
@@ -186,9 +196,9 @@ class MemoryDecoder(nn.Module):
         return flow_lr, convex_upsample(flow_lr, up_mask.float())
 
 
-class FFFlowFormer(nn.Module):
-    """Mask modality preparation, [-1, 1] scaling, the CCE context tower,
-    the memory encoder and the decoder."""
+class FlowFormer(nn.Module):
+    """Vanilla FlowFormer: [-1, 1] scaling, the Twins context tower, the
+    memory encoder and the decoder. The masks are not read."""
 
     def __init__(self, cfg: FlowFormerConfig):
         super().__init__()
@@ -196,11 +206,18 @@ class FFFlowFormer(nn.Module):
             raise ValueError(f"decoder_depth {cfg.decoder_depth}: at least one "
                              "refinement makes the upsampling mask")
         self.cfg = cfg
-        self.context_encoder_svt = TwinsSVT2StageCCE(3, cfg.mask_channel)
-        self.memory_encoder = FusionMemoryEncoder(cfg)
+        self.context_encoder_svt = self._tower()
+        self.memory_encoder = MemoryEncoder(cfg, self._tower())
         self.memory_decoder = MemoryDecoder(cfg)
 
-    def forward(self, image1, image2, mask1, mask2, iters: Optional[int] = None,
+    def _tower(self) -> nn.Module:
+        return TwinsSVT2Stage(3)
+
+    def _masks(self, image1, image2, mask1, mask2) -> tuple:
+        """The masks the towers read, prepared: none here."""
+        return ()
+
+    def forward(self, image1, image2, mask1=None, mask2=None, iters: Optional[int] = None,
                 flow_init: Optional[torch.Tensor] = None):
         """NHWC images (0..255) and raw 0/255 masks -> (flow_lr, flow_up), f32,
         or in train mode every refinement's flow_up stacked, after `iters`
@@ -214,12 +231,25 @@ class FFFlowFormer(nn.Module):
             raise ValueError(f"iters must be >= 1, got {iters}: the last "
                              "refinement makes the upsampling mask")
         d = compute_dtype(cfg)
+        masks = self._masks(image1, image2, mask1, mask2)
+        image1, image2 = ((2 * (t / 255.0) - 1.0).to(d) for t in (image1, image2))
+        context = self.context_encoder_svt(image1, *masks[:1])
+        memory, cost_maps = self.memory_encoder(image1, image2, context, *masks)
+        return self.memory_decoder(memory, cost_maps, context, iters, flow_init)
+
+
+class FFFlowFormer(FlowFormer):
+    """FlowFormer with CCE Twins towers: mask modality preparation and
+    [-1, 1] scaling of the masks, which both towers read."""
+
+    def _tower(self) -> nn.Module:
+        return TwinsSVT2StageCCE(3, self.cfg.mask_channel)
+
+    def _masks(self, image1, image2, mask1, mask2) -> tuple:
+        cfg = self.cfg
         mask1, mask2 = init_mask(
             image1, image2, mask1, mask2, mask_modal=cfg.mask_modal,
             mask_channel=cfg.mask_channel, mask_dilate=cfg.mask_dilate,
             kernel_size=cfg.kernel_size, kernel_sigma=cfg.kernel_sigma)
-        image1, image2, mask1, mask2 = (
-            (2 * (t / 255.0) - 1.0).to(d) for t in (image1, image2, mask1, mask2))
-        context = self.context_encoder_svt(image1, mask1)
-        memory, cost_maps = self.memory_encoder(image1, image2, mask1, mask2, context)
-        return self.memory_decoder(memory, cost_maps, context, iters, flow_init)
+        d = compute_dtype(cfg)
+        return tuple((2 * (t / 255.0) - 1.0).to(d) for t in (mask1, mask2))

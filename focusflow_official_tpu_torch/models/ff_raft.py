@@ -1,5 +1,5 @@
 """FF-RAFT: keypoint-conditioned RAFT with the Condition Control Encoder,
-in test mode and in train mode.
+and plain RAFT, in test mode and in train mode.
 
 The feature encoder runs once over both frames batched together (exact
 for the instance-norm fnet); the all-pairs volume and its 4-level pyramid
@@ -10,6 +10,13 @@ start of every step, as the reference does. Test mode convex-upsamples
 only the final low-resolution flow; train mode runs the mask head on every
 step and returns every step's upsampled flow, stacked.
 
+The encoders follow the config, as the JAX package picks them:
+- fnet: `ChannelProject` (`channel_pjt`) with `abandon_fnet`; else the
+  CCE with `fusion='parallel'`; else an instance-norm `BasicEncoder`;
+- cnet: the CCE with `fusion='parallel'` and `fuse_cnet`; else a
+  batch-norm `BasicEncoder` over the image.
+With `fusion=None` (plain RAFT) the masks are not read.
+
 Train mode is the module's `training` flag (`model.train()`); the cnet's
 batch norms then use the batch's statistics unless `freeze_bn()` put them
 back in eval mode. The module holds its parameters in f32; a bf16 forward
@@ -17,8 +24,8 @@ takes its convolutions' weights in bf16 (`train/loop.py::compute_params`
 casts them at use for training, `FlowPredictor` casts the module once for
 inference).
 
-This slice covers `fusion='parallel'`, `fuse_cnet=True`, the full-width
-model (`small=False`) and the `1x1conv` fusion units.
+This port covers the full-width model (`small=False`) with every CCE
+fusion type (`nn/fusion_units.py`).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 from torch import nn
 
 from ..nn.cce import BasicParallelFusionLayer
+from ..nn.encoders import BasicEncoder, ChannelProject
 from ..nn.norm import Norm
 from ..nn.update import BasicUpdateBlock
 from ..ops.coords import coords_grid
@@ -49,40 +57,62 @@ def compute_dtype(cfg: FFRaftConfig) -> torch.dtype:
 
 
 class RAFT(nn.Module):
-    """RAFT core with CCE feature and context encoders."""
+    """RAFT core; its encoders as the module docstring says."""
 
     hdim = cdim = 128
     corr_levels, corr_radius = 4, 4
 
-    def __init__(self, mask_channel: int = 3, fusion_type: str = "1x1conv"):
+    def __init__(self, mask_channel: int = 3, fusion_type: str = "1x1conv",
+                 fusion: Optional[str] = "parallel", fuse_cnet: bool = True,
+                 abandon_fnet: bool = False):
         super().__init__()
-        self.fnet = BasicParallelFusionLayer(3, mask_channel, 256, "instance",
-                                             fusion_type)
-        self.cnet = BasicParallelFusionLayer(3, mask_channel,
-                                             self.hdim + self.cdim, "batch",
-                                             fusion_type)
+        parallel = fusion == "parallel"
+        if abandon_fnet:
+            self.channel_pjt = ChannelProject(3, 256)
+        elif parallel:
+            self.fnet = BasicParallelFusionLayer(3, mask_channel, 256, "instance",
+                                                 fusion_type)
+        else:
+            self.fnet = BasicEncoder(3, 256, "instance")
+        cdim = self.hdim + self.cdim
+        if parallel and fuse_cnet:
+            self.cnet = BasicParallelFusionLayer(3, mask_channel, cdim, "batch",
+                                                 fusion_type)
+        else:
+            self.cnet = BasicEncoder(3, cdim, "batch")
         self.update_block = BasicUpdateBlock(self.corr_levels, self.corr_radius,
                                              self.hdim)
 
-    def forward(self, image1, image2, mask1, mask2, iters: int = 12,
+    def forward(self, image1, image2, mask1=None, mask2=None, iters: int = 12,
                 dtype: torch.dtype = torch.float32,
                 flow_init: Optional[torch.Tensor] = None):
-        """NHWC inputs scaled to [-1, 1] -> (flow_lr (B, H/8, W/8, 2),
-        flow_up (B, H, W, 2)), both f32; in train mode every step's
-        upsampled flow, (iters, B, H, W, 2) f32. `flow_init`
-        (B, H/8, W/8, 2), the warm start, is added to the starting
-        coordinates."""
+        """NHWC inputs scaled to [-1, 1] (masks: those the CCE encoders
+        read, else None) -> (flow_lr (B, H/8, W/8, 2), flow_up
+        (B, H, W, 2)), both f32; in train mode every step's upsampled
+        flow, (iters, B, H, W, 2) f32. `flow_init` (B, H/8, W/8, 2), the
+        warm start, is added to the starting coordinates."""
         if iters < 1:
             raise ValueError(f"iters must be >= 1, got {iters}")
         image1, image2 = image1.to(dtype), image2.to(dtype)
-        mask1, mask2 = mask1.to(dtype), mask2.to(dtype)
+        if mask1 is not None:
+            mask1, mask2 = mask1.to(dtype), mask2.to(dtype)
 
-        fmaps = self.fnet(torch.cat([image1, image2]), torch.cat([mask1, mask2]))
+        images = torch.cat([image1, image2])
+        if hasattr(self, "channel_pjt"):
+            fmaps = self.channel_pjt(images)
+        elif isinstance(self.fnet, BasicParallelFusionLayer):
+            fmaps = self.fnet(images, torch.cat([mask1, mask2]))
+        else:
+            fmaps = self.fnet(images)
         fmap1, fmap2 = fmaps.float().chunk(2)
         levels = corr_pyramid(all_pairs_corr(fmap1, fmap2), self.corr_levels,
                               dtype)
 
-        cnet = self.cnet(image1, mask1).permute(0, 3, 1, 2)
+        if isinstance(self.cnet, BasicParallelFusionLayer):
+            cnet = self.cnet(image1, mask1)
+        else:
+            cnet = self.cnet(image1)
+        cnet = cnet.permute(0, 3, 1, 2)
         net = torch.tanh(cnet[:, :self.hdim])
         inp = torch.relu(cnet[:, self.hdim:])
 
@@ -107,32 +137,38 @@ class RAFT(nn.Module):
 
 
 class FFRaft(nn.Module):
-    """Mask modality preparation, [-1, 1] scaling and the RAFT core."""
+    """Mask modality preparation (the CCE models), [-1, 1] scaling and the
+    RAFT core."""
 
     def __init__(self, cfg: FFRaftConfig):
         super().__init__()
-        if cfg.fusion != "parallel" or not cfg.fuse_cnet or cfg.small:
+        if cfg.fusion not in ("parallel", None) or cfg.small:
             raise NotImplementedError(
-                "this port covers fusion='parallel', fuse_cnet=True, "
-                f"small=False; got {cfg}")
+                "this port covers fusion 'parallel' or None at full width "
+                f"(small=False); got {cfg}")
         self.cfg = cfg
-        self.flow_net = RAFT(cfg.mask_channel, cfg.fusion_type)
+        self.flow_net = RAFT(cfg.mask_channel, cfg.fusion_type, cfg.fusion,
+                             cfg.fuse_cnet, cfg.abandon_fnet)
 
     def forward(self, image1, image2, mask1, mask2,
                 iters: Optional[int] = None, flow_init: Optional[torch.Tensor] = None):
-        """NHWC images (0..255) and raw 0/255 masks -> (flow_lr, flow_up),
-        or in train mode the stacked flows; `flow_init` as in
-        `RAFT.forward`."""
+        """NHWC images (0..255) and raw 0/255 masks (plain RAFT ignores
+        them) -> (flow_lr, flow_up), or in train mode the stacked flows;
+        `flow_init` as in `RAFT.forward`."""
         cfg = self.cfg
         if iters is None:
             iters = cfg.iters
-        mask1, mask2 = init_mask(
-            image1, image2, mask1, mask2, mask_modal=cfg.mask_modal,
-            mask_channel=cfg.mask_channel, mask_dilate=cfg.mask_dilate,
-            kernel_size=cfg.kernel_size, kernel_sigma=cfg.kernel_sigma)
         scale = lambda t: 2 * (t / 255.0) - 1.0
-        return self.flow_net(scale(image1), scale(image2), scale(mask1),
-                             scale(mask2), iters=iters, dtype=compute_dtype(cfg),
+        if cfg.fusion is None:
+            mask1 = mask2 = None
+        else:
+            mask1, mask2 = init_mask(
+                image1, image2, mask1, mask2, mask_modal=cfg.mask_modal,
+                mask_channel=cfg.mask_channel, mask_dilate=cfg.mask_dilate,
+                kernel_size=cfg.kernel_size, kernel_sigma=cfg.kernel_sigma)
+            mask1, mask2 = scale(mask1), scale(mask2)
+        return self.flow_net(scale(image1), scale(image2), mask1, mask2,
+                             iters=iters, dtype=compute_dtype(cfg),
                              flow_init=flow_init)
 
     def freeze_bn(self) -> "FFRaft":

@@ -1,4 +1,5 @@
-"""The 7x7/2 stem and the residual block of the stride-8 encoders.
+"""The 7x7/2 stem, the residual block and the three residual stages of
+the stride-8 encoders (`nn/cce.py`'s two branches, `nn/encoders.py`).
 
 As in the reference, the downsample branch is normalised by the block's
 `norm3`, so checkpoint names map one to one. The shortcut add and the
@@ -38,3 +39,19 @@ class ResidualBlock(nn.Module):
         if self.stride != 1:
             x = self.norm3(self.downsample_conv(x))
         return self.norm2(self.conv2(y), relu=True, residual=x)
+
+
+STAGES = ((64, 64, 1), (64, 96, 2), (96, 128, 2))  # (in, out, stride)
+
+
+def add_stage(encoder: nn.Module, li: int, norm_fn: str, prefix: str = "") -> None:
+    """Stage `li` (1-3): two ResidualBlocks named `{prefix}layer{li}_0`
+    and `{prefix}layer{li}_1`, the first with the stage's stride."""
+    cin, cout, stride = STAGES[li - 1]
+    encoder.add_module(f"{prefix}layer{li}_0", ResidualBlock(cin, cout, norm_fn, stride))
+    encoder.add_module(f"{prefix}layer{li}_1", ResidualBlock(cout, cout, norm_fn, 1))
+
+
+def run_stage(encoder: nn.Module, li: int, x: torch.Tensor, prefix: str = "") -> torch.Tensor:
+    block = lambda j: getattr(encoder, f"{prefix}layer{li}_{j}")
+    return block(1)(block(0)(x))

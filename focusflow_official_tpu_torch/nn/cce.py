@@ -12,11 +12,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .blocks import ResidualBlock, stem
+from .blocks import STAGES, add_stage, run_stage, stem
 from .fusion_units import FusionUnit
 from .norm import Norm
-
-_DIMS = ((64, 64, 1), (64, 96, 2), (96, 128, 2))
 
 
 class BasicParallelFusionLayer(nn.Module):
@@ -29,12 +27,9 @@ class BasicParallelFusionLayer(nn.Module):
         self.norm1 = Norm(norm_fn, 64, 8)
         self.mask_norm1 = Norm(norm_fn, 64, 8)
         self.fusion1 = FusionUnit(64, fusion_type, True)
-        for li, (cin, cout, stride) in enumerate(_DIMS, start=1):
+        for li, (_, cout, _) in enumerate(STAGES, start=1):
             for prefix in ("", "mask_"):
-                self.add_module(f"{prefix}layer{li}_0",
-                                ResidualBlock(cin, cout, norm_fn, stride))
-                self.add_module(f"{prefix}layer{li}_1",
-                                ResidualBlock(cout, cout, norm_fn, 1))
+                add_stage(self, li, norm_fn, prefix)
             self.add_module(f"fusion{li + 1}", FusionUnit(cout, fusion_type, True))
         self.conv2 = nn.Conv2d(128, output_dim, 1)
         self.mask_conv2 = nn.Conv2d(128, output_dim, 1)
@@ -48,13 +43,9 @@ class BasicParallelFusionLayer(nn.Module):
         mask = self.mask_norm1(self.mask_conv1(mask), relu=True)
         x = self.norm1(self.conv1(x), relu=True)
         mask, x = self.fusion1(mask, x)
-        for li in range(1, len(_DIMS) + 1):
-            blocks = lambda p: (getattr(self, f"{p}layer{li}_0"),
-                                getattr(self, f"{p}layer{li}_1"))
-            for blk in blocks("mask_"):
-                mask = blk(mask)
-            for blk in blocks(""):
-                x = blk(x)
+        for li in range(1, len(STAGES) + 1):
+            mask = run_stage(self, li, mask, "mask_")
+            x = run_stage(self, li, x)
             mask, x = getattr(self, f"fusion{li + 1}")(mask, x)
         mask = self.mask_conv2(mask)
         x = self.conv2(x)

@@ -1,0 +1,51 @@
+"""The stride-8 encoders of plain RAFT.
+
+- `BasicEncoder`: the 7x7/2 stem, `norm1` with ReLU, the three residual
+  stages of `nn/blocks.py` (64, 96, 128 channels; strides 1, 2, 2) and a
+  1x1 `conv2`: the image branch of the CCE (`nn/cce.py`) alone, built from
+  the same stage code. Its norms are
+  `nn/norm.py::Norm` ('instance': kernels C1 and C2 on the card; 'batch';
+  'none').
+- `ChannelProject` (ABANDON_FNET): a half-pixel bilinear resize to H/8 x
+  W/8, then a 1x1 `conv1`.
+
+Both take NHWC (B, H, W, C) and return NHWC (B, H/8, W/8, output_dim).
+The `small` model's `SmallEncoder` is not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.coords import resize_bilinear
+from .blocks import STAGES, add_stage, run_stage, stem
+from .norm import Norm
+
+
+class BasicEncoder(nn.Module):
+    def __init__(self, in_channel: int = 3, output_dim: int = 128,
+                 norm_fn: str = "batch"):
+        super().__init__()
+        self.conv1 = stem(in_channel)
+        self.norm1 = Norm(norm_fn, 64, 8)
+        for li in range(1, len(STAGES) + 1):
+            add_stage(self, li, norm_fn)
+        self.conv2 = nn.Conv2d(128, output_dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.norm1(self.conv1(x.permute(0, 3, 1, 2)), relu=True)
+        for li in range(1, len(STAGES) + 1):
+            x = run_stage(self, li, x)
+        return self.conv2(x).permute(0, 2, 3, 1)
+
+
+class ChannelProject(nn.Module):
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        _, h, w, _ = x.shape
+        x = resize_bilinear(x, (h // 8, w // 8)).permute(0, 3, 1, 2)
+        return self.conv1(x).permute(0, 2, 3, 1)

@@ -1,5 +1,6 @@
-"""Twins-SVT, truncated to two stages, with the Condition Control Encoder's
-mirrored mask pyramid (`TwinsSVT2StageCCE`), in token layout.
+"""Twins-SVT, truncated to two stages (`TwinsSVT2Stage`, vanilla
+FlowFormer's towers), and with the Condition Control Encoder's mirrored
+mask pyramid (`TwinsSVT2StageCCE`), in token layout.
 
 Per stage: a patch embed (4x4, then 2x2) and two blocks, a locally grouped
 7x7-window attention (LSA, kernel F) and then a global sub-sampled
@@ -7,7 +8,8 @@ attention (GSA, kernel E, keys and values from an sr x sr strided conv), a
 depthwise 3x3 position conv after the first block. Dims 128/256, heads
 4/8, sr 8/4, MLP ratio 4, LayerNorm eps 1e-6. The CCE variant runs the same
 pyramid over the mask and fuses after each stage with a 1x1conv unit
-(bidirectional at stage 0, mask-to-image only at stage 1). Output is the
+(bidirectional at stage 0, mask-to-image only at stage 1); both towers
+build and run their stages with the same two functions. Output is the
 stride-8, 256-channel NHWC feature map.
 
 The strided convs (patch embeds, the GSA `sr` conv) pad as flax's default
@@ -188,39 +190,62 @@ _STAGE_DEPTH = (2, 2)
 _WS = 7
 
 
+def _add_stage(tower: nn.Module, s: int, in_chans: int, prefix: str = "") -> None:
+    """Stage `s`'s patch embed, blocks and position conv, named
+    `{prefix}patch_embeds_{s}`, `{prefix}blocks_{s}_{j}`,
+    `{prefix}pos_block_{s}`."""
+    dim = _STAGE_DIMS[s]
+    tower.add_module(f"{prefix}patch_embeds_{s}", TwinsPatchEmbed(_STAGE_PATCH[s], in_chans, dim))
+    for j in range(_STAGE_DEPTH[s]):
+        tower.add_module(f"{prefix}blocks_{s}_{j}", TwinsBlock(
+            dim, _STAGE_HEADS[s], _STAGE_SR[s], _WS if j % 2 == 0 else 1))
+    tower.add_module(f"{prefix}pos_block_{s}", PosConv(dim))
+
+
+def _run_stage(tower: nn.Module, s: int, x: torch.Tensor, prefix: str = "") -> torch.Tensor:
+    """Stage `s` over NHWC `x` -> NHWC (B, h, w, dim): the patch embed, the
+    blocks, the position conv after the first."""
+    m = lambda name: getattr(tower, prefix + name)
+    x, size = m(f"patch_embeds_{s}")(x)
+    for j in range(_STAGE_DEPTH[s]):
+        x = m(f"blocks_{s}_{j}")(x, size)
+        if j == 0:
+            x = m(f"pos_block_{s}")(x, size)
+    return x.reshape(x.shape[0], *size, -1)
+
+
+class TwinsSVT2Stage(nn.Module):
+    """The image pyramid alone -> (B, H/8, W/8, 256)."""
+
+    def __init__(self, in_chans: int = 3):
+        super().__init__()
+        for s in range(2):
+            _add_stage(self, s, in_chans if s == 0 else _STAGE_DIMS[0])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC image (B, H, W, in_chans)."""
+        for s in range(2):
+            x = _run_stage(self, s, x)
+        return x
+
+
 class TwinsSVT2StageCCE(nn.Module):
     """Image and mask pyramids, fused after each stage -> (B, H/8, W/8, 256)."""
 
     def __init__(self, in_chans: int = 3, mask_chans: int = 3):
         super().__init__()
         for s in range(2):
-            dim, heads = _STAGE_DIMS[s], _STAGE_HEADS[s]
             cin = (in_chans, mask_chans) if s == 0 else (_STAGE_DIMS[0],) * 2
             for prefix, ci in zip(("", "mask_"), cin):
-                self.add_module(f"{prefix}patch_embeds_{s}",
-                                TwinsPatchEmbed(_STAGE_PATCH[s], ci, dim))
-                for j in range(_STAGE_DEPTH[s]):
-                    self.add_module(f"{prefix}blocks_{s}_{j}", TwinsBlock(
-                        dim, heads, _STAGE_SR[s], _WS if j % 2 == 0 else 1))
-                self.add_module(f"{prefix}pos_block_{s}", PosConv(dim))
+                _add_stage(self, s, ci, prefix)
             self.add_module(f"fusion_blks_{s}",
-                            FusionUnit(dim, "1x1conv", bi_direction=s == 0))
+                            FusionUnit(_STAGE_DIMS[s], "1x1conv", bi_direction=s == 0))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """NHWC image (B, H, W, 3) and mask (B, H, W, mask_chans)."""
         for s in range(2):
-            m = lambda name: getattr(self, name)
-            x, size = m(f"patch_embeds_{s}")(x)
-            mask, msize = m(f"mask_patch_embeds_{s}")(mask)
-            for j in range(_STAGE_DEPTH[s]):
-                x = m(f"blocks_{s}_{j}")(x, size)
-                mask = m(f"mask_blocks_{s}_{j}")(mask, msize)
-                if j == 0:
-                    x = m(f"pos_block_{s}")(x, size)
-                    mask = m(f"mask_pos_block_{s}")(mask, msize)
-            b = x.shape[0]
-            x = x.reshape(b, *size, -1).permute(0, 3, 1, 2)
-            mask = mask.reshape(b, *msize, -1).permute(0, 3, 1, 2)
-            mask, x = m(f"fusion_blks_{s}")(mask, x)
+            x = _run_stage(self, s, x).permute(0, 3, 1, 2)
+            mask = _run_stage(self, s, mask, "mask_").permute(0, 3, 1, 2)
+            mask, x = getattr(self, f"fusion_blks_{s}")(mask, x)
             x, mask = x.permute(0, 2, 3, 1), mask.permute(0, 2, 3, 1)
         return x

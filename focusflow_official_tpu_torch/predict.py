@@ -12,9 +12,10 @@
     flows = p.sequence(frames)                     # warm-started video
 
 The config's type picks the model: `FFRaftConfig` -> FF-RAFT,
-`FlowFormerConfig` -> FF-FlowFormer, `FFPWCNetConfig` -> FF-PWCNet (the
-vanilla PWC-Net with `fusion=None`). A YAML path is read into one of them
-(`config.py`). Weights are an `.npz` of flat flax variables (the JAX
+`FlowFormerConfig` -> FF-FlowFormer, `FFPWCNetConfig` -> FF-PWCNet; with
+`fusion=None` each is the paper's baseline (plain RAFT, vanilla
+FlowFormer, the vanilla PWC-Net), which ignores the masks it is given. A
+YAML path is read into one of them (`config.py`). Weights are an `.npz` of flat flax variables (the JAX
 package's `scripts/export_fixture.py` writes one from an orbax
 checkpoint) or a reference `.pth` / `.pth.tar` / `.pt`.
 

@@ -2,7 +2,8 @@
 under `configs/`: where the port has the variant a file selects, its
 config equals the JAX config on every field both have (exact: the same
 parsed values); where it does not, the reader raises NotImplementedError
-and names the ROADMAP item that brings the variant."""
+and names the ROADMAP item that brings the variant. Every file under
+`configs/` has its variant in the port."""
 
 import dataclasses
 import glob
@@ -18,17 +19,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAMLS = sorted(os.path.relpath(p, ROOT)
                for p in glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"), recursive=True))
 
-# the files whose variant the port lacks, and why
-UNSUPPORTED = {
-    "configs/ff-flowformer/chairs.yaml": "FUSION",  # vanilla FlowFormer
-    "configs/ff-flowformer/kitti.yaml": "FUSION",
-    "configs/ff-flowformer/sintel.yaml": "FUSION",
-    "configs/ff-raft/ablation/fusion/CA.yaml": "FUSION_TYPE",
-    "configs/ff-raft/ablation/fusion/SA.yaml": "FUSION_TYPE",
-    "configs/ff-raft/ablation/fusion/conv.yaml": "FUSION_TYPE",  # concat
-    "configs/ff-raft/experiment/raft_CTK.yaml": "FUSION",  # plain RAFT
-    "configs/ff-raft/experiment/raft_CTS.yaml": "FUSION",
-}
+# the files whose variant the port lacks, and why: none
+UNSUPPORTED = {}
 
 
 def _jax_config(cfg, family):
@@ -66,24 +58,61 @@ def test_yaml_reads_as_jax_or_is_refused(path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("SMALL", True), ("ALT_CORR", True), ("ABANDON_FNET", True), ("FUSE_CNET", False),
-    ("FUSION", None), ("FUSION", "attention"), ("FUSION_TYPE", "SA")])
+    ("SMALL", True), ("ALT_CORR", True), ("FUSION", "attention"), ("FUSION", "conv"),
+    ("DROPOUT", 0.1)])
 def test_raft_variants_are_refused(key, value):
     cfg = tcfg.load_yaml_config(os.path.join(ROOT, "configs/smoke_chairs.yaml"))
     setattr(cfg.MODEL, key, value)
-    with pytest.raises(NotImplementedError, match=key):
+    with pytest.raises(NotImplementedError, match=key) as e:
         tcfg.config_from_yaml(cfg)
+    item = {"DROPOUT": "'Dropout'", "SMALL": "'The `small` model'"}.get(
+        key, "'The remaining inference variants'")
+    assert f"ROADMAP.md queue 1, {item}" in str(e.value)
+
+
+@pytest.mark.parametrize("key,value", [
+    ("FUSE_CNET", False), ("FUSION", None), ("FUSION_TYPE", "SA"), ("ABANDON_FNET", True),
+    ("FUSION_TYPE", "CA"), ("FUSION_TYPE", "concat")])
+def test_raft_variants_are_accepted(key, value):
+    """Plain RAFT, the unfused context encoder, ChannelProject and the
+    fusion ablation's units: the fields equal JAX's and the model builds."""
+    cfg = tcfg.load_yaml_config(os.path.join(ROOT, "configs/smoke_chairs.yaml"))
+    setattr(cfg.MODEL, key, value)
+    ours = tcfg.config_from_yaml(cfg)
+    theirs = jcfg.model_config_from_yaml(cfg)
+    field = {"FUSE_CNET": "fuse_cnet", "FUSION": "fusion", "FUSION_TYPE": "fusion_type",
+             "ABANDON_FNET": "abandon_fnet"}[key]
+    assert getattr(ours, field) == getattr(theirs, field) == value
+    for f in dataclasses.fields(ours):
+        assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
+    model, iters = tcfg.model_from_config(ours)
+    assert type(model).__name__ == "FFRaft" and iters == ours.iters
 
 
 @pytest.mark.parametrize("key,value", [
     ("use_mlp", True), ("gma", False), ("vertical_conv", True), ("only_global", True),
     ("cost_heads_num", 2), ("patch_size", 4), ("pe", "exp"), ("cost_encoder_res", False),
-    ("add_flow_token", False), ("feat_cross_attn", True)])
+    ("add_flow_token", False), ("feat_cross_attn", True), ("dropout", 0.1)])
 def test_flowformer_variants_are_refused(key, value):
     cfg = tcfg.load_yaml_config(os.path.join(ROOT, "configs/smoke_flowformer.yaml"))
     setattr(cfg.MODEL, key, value)
     with pytest.raises(NotImplementedError, match=key):
         tcfg.config_from_yaml(cfg)
+
+
+@pytest.mark.parametrize("key,value", [("FUSION", None)])
+def test_flowformer_variants_are_accepted(key, value):
+    """Vanilla FlowFormer: the fields equal JAX's and the model is
+    `FlowFormer`."""
+    cfg = tcfg.load_yaml_config(os.path.join(ROOT, "configs/smoke_flowformer.yaml"))
+    setattr(cfg.MODEL, key, value)
+    ours = tcfg.config_from_yaml(cfg)
+    theirs = jcfg.flowformer_config_from_yaml(cfg)
+    assert ours.fusion == theirs.fusion == value
+    for f in dataclasses.fields(ours):
+        assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
+    model, _ = tcfg.model_from_config(ours)
+    assert type(model).__name__ == "FlowFormer"
 
 
 def test_compute_dtype():

@@ -1389,3 +1389,119 @@ def test_f32_train_step_under_default_tf32_matches_cpu(dev, family):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
     assert abs(loss - cpu_loss) <= 1e-4 * abs(cpu_loss)
     assert float(F.cosine_similarity(grad.double(), cpu_grad.double(), dim=0)) >= 0.9999
+
+
+# ---- the baselines and the fusion ablation (plain RAFT, FF-RAFT with
+# `fuse_cnet=False`, `abandon_fnet`, the CA, SA and concat units, vanilla
+# FlowFormer): the predictor and one training step on the card against the
+# CPU. RAFT weights: the trained fixture where names and shapes carry over,
+# the rest seeded small (each new unit is q plus a small term); vanilla
+# FlowFormer: seeded, its flow head scaled by 0.1 (the FF fixture's image
+# half is no model, and seeded weights at full scale make the refinements
+# chaotic).
+BASELINES = {
+    "raft": dict(fusion=None, fuse_cnet=True),
+    "fuse_cnet_false": dict(fusion="parallel", fuse_cnet=False),
+    "abandon_fnet": dict(fusion=None, abandon_fnet=True),
+    "CA": dict(fusion="parallel", fuse_cnet=True, fusion_type="CA"),
+    "SA": dict(fusion="parallel", fuse_cnet=True, fusion_type="SA"),
+    "concat": dict(fusion="parallel", fuse_cnet=True, fusion_type="concat"),
+}
+
+
+def _baseline_model(variant, dtype="float32", iters=4):
+    """The variant's port model on the CPU, with its weights -> (model,
+    refinements)."""
+    from focusflow_official_tpu_torch.compat.weights import load_npz
+    from focusflow_official_tpu_torch.models import (FFRaft, FFRaftConfig, FlowFormer,
+                                                     FlowFormerConfig)
+
+    fixtures = os.path.join(os.path.dirname(__file__), "fixtures")
+    g = torch.Generator().manual_seed(3)
+    if variant == "flowformer":
+        model = FlowFormer(FlowFormerConfig(fusion=None, encoder_depth=1, decoder_depth=iters,
+                                            compute_dtype=dtype))
+        src = {}
+    else:
+        model = FFRaft(FFRaftConfig(iters=iters, compute_dtype=dtype, **BASELINES[variant]))
+        src = load_npz(os.path.join(fixtures, "trained_smoke.npz"))
+    sd = {}
+    for k, t in model.state_dict().items():
+        if k in src and src[k].shape == t.shape:
+            sd[k] = src[k]
+        elif t.dim() == 1 and k.endswith("weight"):  # FlowFormer's LayerNorm scales
+            sd[k] = 1 + 0.1 * torch.randn(t.shape, generator=g)
+        else:
+            scale = 1 / math.sqrt(t[0].numel()) if t.dim() > 1 else 0.1
+            if variant != "flowformer":
+                scale *= 0.1
+            elif "flow_head" in k:
+                scale *= 0.1
+            sd[k] = scale * torch.randn(t.shape, generator=g)
+    model.load_state_dict(sd, strict=True)
+    return model, iters
+
+
+@pytest.mark.parametrize("variant", sorted(BASELINES) + ["flowformer"])
+def test_baseline_predictor_on_card_matches_cpu(dev, variant, tmp_path):
+    """The variant's f32 forward on the card (its kernels launched: G, and
+    C1 and C2 where an fnet normalises by instance; A, B, E and F for
+    FlowFormer) against the same forward on the CPU at 96x128 (FlowFormer
+    64x96), 4 refinements: 1e-2 px, the port's parity bound."""
+    from focusflow_official_tpu_torch.compat.weights import params_to_jax
+    from focusflow_official_tpu_torch.predict import FlowPredictor
+
+    model, _ = _baseline_model(variant)
+    path = tmp_path / "weights.npz"
+    np.savez(path, **params_to_jax(model.state_dict()))
+    h, w = (64, 96) if variant == "flowformer" else (96, 128)
+    rng = np.random.RandomState(4)
+    i1 = (rng.rand(h, w, 3) * 255).astype(np.float32)
+    i2 = np.roll(np.roll(i1, -2, 0), 3, 1)
+    m1 = ((rng.rand(h, w, 1) > 0.97) * 255).astype(np.float32)
+    m2 = ((rng.rand(h, w, 1) > 0.97) * 255).astype(np.float32)
+    names = (("lookup", "fold", "attention", "window_attention") if variant == "flowformer"
+             else ("lookup_fold",) if variant == "abandon_fnet"
+             else ("lookup_fold", "in_stats", "in_normalize"))
+    before = dict(launch_counts)
+    on_card = FlowPredictor(model.cfg, str(path), device=dev)(i1, i2, m1, m2)
+    assert all(launch_counts[n] > before.get(n, 0) for n in names), names
+    on_cpu = FlowPredictor(model.cfg, str(path), device="cpu")(i1, i2, m1, m2)
+    assert np.isfinite(on_card).all()
+    assert float(np.abs(on_card - on_cpu).max()) <= 1e-2
+
+
+def _baseline_step(variant, device, dtype):
+    """One forward and backward of the variant on two 64x96 samples, 2
+    refinements, no noise -> (loss, the flat gradient on the CPU)."""
+    from focusflow_official_tpu_torch.data.synthetic import chairs_layout
+    from focusflow_official_tpu_torch.losses import build_sequence_loss
+    from focusflow_official_tpu_torch.train.loop import forward_backward
+
+    model, iters = _baseline_model(variant, dtype, iters=2)
+    model.to(device)
+    if device != "cpu":
+        model.to(memory_format=torch.channels_last)
+    model.train()
+    ds = chairs_layout(0, n=2, h=64, w=96)
+    batch = {k: torch.as_tensor(np.stack([ds[i][k] for i in range(2)])).to(device)
+             for k in ("image1", "image2", "mask1", "mask2", "flow", "valid")}
+    loss, _ = forward_backward(model, build_sequence_loss("MixLoss"), batch, iters=iters,
+                               dtype=getattr(torch, dtype))
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in model.parameters()]
+    assert all(gr.dtype == torch.float32 and torch.isfinite(gr).all() for gr in grads)
+    return float(loss.detach()), torch.cat([gr.flatten().cpu() for gr in grads])
+
+
+@pytest.mark.parametrize("variant", ["raft", "flowformer"])
+def test_baseline_train_step_on_card_matches_cpu(dev, variant):
+    """One f32 step of plain RAFT (G, A, C1, C2 through their Functions)
+    and vanilla FlowFormer (A, B, E, F) on the card against the CPU: the
+    loss within 1e-4 and the gradient's cosine >= 0.9999; the bf16 step's
+    loss within 2% of the f32 step's and every gradient finite."""
+    cpu_loss, cpu_grad = _baseline_step(variant, "cpu", "float32")
+    loss, grad = _baseline_step(variant, dev, "float32")
+    assert abs(loss - cpu_loss) <= 1e-4 * abs(cpu_loss)
+    assert float(F.cosine_similarity(grad.double(), cpu_grad.double(), dim=0)) >= 0.9999
+    bf_loss, _ = _baseline_step(variant, dev, "bfloat16")
+    assert abs(bf_loss - loss) <= 0.02 * abs(loss)

@@ -175,10 +175,11 @@ def test_predictor_pads_to_eight():
 
 def test_unported_options_raise():
     """The unported variants have no field (the frozen dataclass refuses
-    them), and a model with no refinement has no upsampling mask."""
-    for kw in ({"gma": False}, {"use_mlp": True}, {"fusion": None},
-               {"cost_heads_num": 2}):
+    them; `fusion` is a field since vanilla FlowFormer is ported), and a
+    model with no refinement has no upsampling mask."""
+    for kw in ({"gma": False}, {"use_mlp": True}, {"cost_heads_num": 2}):
         with pytest.raises(TypeError):
             FlowFormerConfig(**kw)
+    assert FlowFormerConfig(fusion=None).fusion is None
     with pytest.raises(ValueError):
         FFFlowFormer(FlowFormerConfig(decoder_depth=0))
