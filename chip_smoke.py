@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it: FF-RAFT,
 FF-FlowFormer and FF-PWCNet inference, the evaluation entry point, the
-training of all three, and the paper's baselines (plain RAFT, vanilla
-FlowFormer) and fusion ablation (CA, SA, concat).
+training of all three, the paper's baselines (plain RAFT, vanilla
+FlowFormer) and fusion ablation (CA, SA, concat), and training at scale
+(the on-card augmentation, data parallelism).
 
     python3 chip_smoke.py
 
@@ -170,8 +171,36 @@ Phases (any failure raises and exits non-zero; no result is printed):
     RAFT's on the recipe's fresh weights: on the fixture's image half its
     saturated GRU puts its bf16 gradient 0.985 from the f32 one), descent
     on JAX's fresh-weight recipe.
+13. Training at scale, after phase 12 (`device_aug_phase`, `ddp_phase`).
+    13a, the on-card augmentation (`data/device_aug.py`): on a raw chairs
+    batch (B=10, 384x512 -> 368x496, `ffraft_chairs_orb.yaml`'s recipe)
+    and a mixed kitti-stage batch (`ffraft_CTK.yaml`: two dense pairs at
+    436x1024 beside two sparse ones at 375x1242, zero-padded, with `sizes`
+    and `recipe`), every draw in its recipe's range and the card's `apply`
+    against the CPU's on the same draws (images and masks within 1e-3 on
+    the 0-255 scale, flow within 1e-4 of max(1, |flow|), valid and the
+    sparse counts exact); its median ms a batch (CUDA events), kernels and
+    busy ms. Then 16 steps of the trainer with `device_aug` on 20 raw
+    pairs (B=10, bf16, from the fixture): every step phase 9's launches,
+    finite losses, ms a step beside phase 9's in the same run, samples/s,
+    the profiled step's busy ms, idle share and the augmentation's device
+    ms. 13b, data parallelism on one card: two ranks over gloo on card 0
+    (NCCL refuses two ranks on one device; the same `train/mesh.py` runs
+    under both), this script run as `--ddp-rank R STORE OUT` with a file
+    store and a 120 s timeout, against one process on the global batch
+    (FF-RAFT chairs, fresh weights, the cnet's batch norm in train mode,
+    MixLoss, noise, f32 with TF32 off, B=4 at 184x248, keypoint sums that
+    differ between the ranks' rows): the loss within 1e-5, the gradient's
+    cosine >= 0.99999 and each tensor within 1e-4 of its largest plus 1e-4
+    of the model's largest gradient, the parameters after one AdamW step
+    and the running statistics within 1e-4 of each tensor's largest (2 x
+    lr more where the gradient is within its bound of 0). Then the trainer
+    over a world-size-1 NCCL group joined from torchrun's variables
+    (`train/mesh.py::init_from_env`, as `cli/train.py --multihost` joins
+    it): 6 steps at B=10, 368x496, bf16, ms a step (steps 2-5) beside
+    phase 9's, and step 6 profiled: busy ms, idle share, NCCL's kernels.
 The `kernels` line gives each kernel's launches on every path,
-the training paths and phase 12's among them.
+the training paths and phase 12's and 13's among them.
 
 Outside the phases under default flags, f32 matmuls and convolutions run
 in full f32 here (TF32 off), so the f32 comparisons are not blurred by
@@ -1098,11 +1127,14 @@ def _category(name: str) -> str:
 def _device_breakdown(torch, prof, wall_ms: float) -> dict:
     """Device time of one profiled forward by kernel category, the top
     kernels, and the share of the call's wall time the device was idle
-    (the union of kernel intervals against the host-clock window)."""
+    (the union of kernel intervals against the host-clock window). A
+    `record_function` range (the optimizer's step, `device_aug`) also
+    shows on the device as an annotation spanning its first kernel to its
+    last, gaps included: it is not a kernel and is left out."""
     from torch.autograd import DeviceType
 
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not e.name.startswith("Activity Buffer")]
+            and not e.is_user_annotation and not e.name.startswith("Activity Buffer")]
     by_cat, by_name, port = {}, {}, {}
     spans = []
     for e in kern:
@@ -2411,7 +2443,7 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
                phase_seconds=time.perf_counter() - t_phase)
     _emit(out)
     torch.cuda.empty_cache()
-    return (counts, step_shapes), rows
+    return (counts, step_shapes), rows, out
 
 
 def _descent_recipe(torch, cfg, data) -> list:
@@ -2483,6 +2515,490 @@ def _train_step_split(torch, cfg, weights: str, data) -> dict:
     del model, opt, batch
     torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------------ phase 13: training at scale
+CTK_YAML = os.path.join(ROOT, "configs", "ff-raft", "experiment", "ffraft_CTK.yaml")
+AUG_STEPS = 16
+DDP_WORLD, DDP_B, DDP_CROP = 2, 4, (184, 248)
+DDP_DEADLINE_S = 300
+NCCL_STEPS = 6  # steps 2-5 timed, step 6 profiled
+
+
+def _tagged(samples, recipe: int) -> list:
+    return [dict(s, recipe=np.int32(recipe)) for s in samples]
+
+
+def _raw_chairs(n: int, seed: int):
+    """`n` raw chairs-size pairs (384x512, keypoint masks), tagged for the
+    chairs recipe, as `fetch_dataset(stage="chairs", no_aug=True)` gives
+    them -> the dataset (with `device_recipes`)."""
+    from focusflow_official_tpu_torch.data import synthetic as sy
+    from focusflow_official_tpu_torch.data.datasets import RecipeTagged
+    from focusflow_official_tpu_torch.data.device_aug import dense_recipe
+
+    ds = RecipeTagged(sy.chairs_layout(seed, n=n, h=384, w=512), 0)
+    ds.device_recipes = [dense_recipe(-0.1, 1.0)]
+    return ds
+
+
+def _check_draws(torch, aug, draws: dict, sizes, recipe, label: str) -> dict:
+    """Every draw within its recipe's range -> the shares drawn."""
+    rp = {k: v.cpu().double() for k, v in aug._recipe(recipe.cpu()).items()}
+    d = {k: v.cpu() for k, v in draws.items()}
+    sizes = sizes.cpu()
+    lo = lambda x: torch.clamp(1 - x, min=0.0)
+    jit = d["jitter"].double()
+    ok = []
+    for k, name in enumerate(("brightness", "contrast", "saturation")):
+        ok.append(bool((jit[..., k] >= lo(rp[name])[:, None] - 1e-6).all()
+                       and (jit[..., k] <= 1 + rp[name][:, None] + 1e-6).all()))
+    ok.append(bool((jit[..., 3].abs() <= rp["hue"][:, None] + 1e-6).all()))
+    ok.append(bool((d["order"].sort(dim=-1).values == torch.arange(4)).all()))
+    sc = d["scale"].double()
+    ok.append(bool((sc >= 2 ** rp["min_scale"] * (1 - 1e-6)).all()
+                   and (sc <= 2 ** rp["max_scale"] * (1 + 1e-6)).all()))
+    st = d["stretch"].double()
+    ok.append(bool((st >= 2 ** -0.2 * (1 - 1e-6)).all() and (st <= 2 ** 0.2 * (1 + 1e-6)).all()))
+    ok.append(bool((d["n_rect"] >= 1).all() and (d["n_rect"] <= 2).all()))
+    r = d["rects"]
+    ok.append(bool((r[..., 0] >= 0).all() and (r[..., 0] < sizes[:, 1:2]).all()
+                   and (r[..., 1] >= 0).all() and (r[..., 1] < sizes[:, 0:1]).all()
+                   and (r[..., 2:] >= 50).all() and (r[..., 2:] < 100).all()))
+    for key, prob in ((d["flip"][:, 0], "h_flip_prob"), (d["flip"][:, 1], "v_flip_prob"),
+                      (d["do_stretch"], "stretch_prob"), (d["asym"], "asym_prob")):
+        ok.append(bool((~key | (rp[prob] > 0)).all()))  # no event where its probability is 0
+    _, _, resized = aug._resize(d, sizes, {k: v.float() for k, v in rp.items()})
+    span = torch.clamp(resized - torch.tensor(aug.crop_size), min=1)
+    ok.append(bool((d["offset"] >= 0).all() and (d["offset"] < span).all()))
+    if not all(ok):
+        raise AssertionError(f"{label}: draws outside their recipes' ranges: {ok}")
+    return {k: float(d[k].float().mean()) for k in ("asym", "erase", "do_stretch", "do_spatial")}
+
+
+def _aug_agreement(torch, aug, batch: dict, draws: dict, label: str, dev) -> dict:
+    """`apply` on `dev` (the card) against `apply` on the CPU on the same
+    draws: images and masks within 1e-3 (0-255 scale), flow within 1e-4 of
+    max(1, |flow|), valid and the valid counts exact."""
+    card = aug.apply({k: torch.as_tensor(v, device=dev) for k, v in batch.items()}, draws)
+    cpu = aug.apply({k: torch.as_tensor(v) for k, v in batch.items()},
+                    {k: v.cpu() for k, v in draws.items()})
+    err = {k: float((card[k].cpu() - cpu[k]).abs().max())
+           for k in ("image1", "image2", "mask1", "mask2", "flow", "valid")}
+    flow_tol = 1e-4 * max(1.0, float(cpu["flow"].abs().max()))
+    counts = (card["valid"].sum(dim=(1, 2)).cpu().tolist(), cpu["valid"].sum(dim=(1, 2)).tolist())
+    out = dict(max_abs_err=err, flow_tol=flow_tol, valid_counts=counts[0],
+               shape=list(card["image1"].shape))
+    if not (max(err[k] for k in ("image1", "image2", "mask1", "mask2")) <= 1e-3
+            and err["flow"] <= flow_tol and err["valid"] == 0 and counts[0] == counts[1]
+            and all(bool(torch.isfinite(card[k]).all()) for k in card)):
+        raise AssertionError(f"{label}: card apply against the CPU's: {out}")
+    return out
+
+
+def _mixed_kitti_batch() -> dict:
+    """One raw batch of the kitti stage (`ffraft_CTK.yaml`): two dense
+    Sintel-size pairs (436x1024) beside two sparse KITTI-size ones
+    (375x1242), zero-padded to 436x1242 by the loader, with `sizes` and
+    `recipe`."""
+    from focusflow_official_tpu_torch.data import synthetic as sy
+    from focusflow_official_tpu_torch.data.loader import Loader
+
+    sintel = sy.sintel_layout(21, n_frames=3)[0]["clean"]
+    kitti = sy.kitti_layout(22, shapes=((375, 1242),) * 2)
+    samples = (_tagged([sintel[i] for i in range(2)], 0)
+               + _tagged([kitti[i] for i in range(2)], 1))
+    return Loader(samples, len(samples))._collate(samples)
+
+
+def device_aug_phase(torch, card: str, phase9: dict) -> tuple:
+    """13a: the on-card augmentation. The augmentor alone on a raw chairs
+    batch (B=10, 384x512 -> 368x496) and on a mixed kitti-stage batch
+    (`_mixed_kitti_batch`, ffraft_CTK.yaml's recipes and crop): draws in
+    their recipes' ranges, the card's `apply` against the CPU's on the
+    same draws, its median ms a batch (CUDA events, draw included), its
+    kernel count and busy ms (one profiled call). Then the trainer
+    (`cli/train.py::train`, `device_aug=True`) on `ffraft_chairs_orb.yaml`
+    at B=10, bf16, from the fixture, over 20 raw pairs: 16 steps, each with
+    phase 9's launches (G 12, A 12, C1 30, C2 30), finite losses; ms a step
+    (median of steps 4-13) beside phase 9's from this run, samples/s, the
+    busy ms and idle share of profiled step 15 and the augmentation's
+    device ms in it (its `device_aug` range). -> (counts, launches by
+    shape key) of step 4."""
+    import copy
+
+    from focusflow_official_tpu_torch.cli.train import train as run_trainer
+    from focusflow_official_tpu_torch.config import load_yaml_config
+    from focusflow_official_tpu_torch.data.device_aug import (
+        DeviceFlowAugmentor, dense_recipe, sparse_recipe)
+    from focusflow_official_tpu_torch.data.loader import Loader
+    from focusflow_official_tpu_torch.kernels import (
+        launch_counts, launch_shapes, reset_launch_counts)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = dict(phase="device_aug", card=card)
+    raw = _raw_chairs(20, 31)
+    data_s = time.perf_counter() - t_phase
+    chairs = DeviceFlowAugmentor((TH, TW), recipes=raw.device_recipes)
+    ctk = load_yaml_config(CTK_YAML)
+    kitti = DeviceFlowAugmentor(tuple(ctk.TRAIN.IMAGE_SIZE),
+                                recipes=[dense_recipe(-0.2, 0.6), sparse_recipe(-0.3, 0.5)])
+    for label, aug, batch in (
+            ("chairs", chairs, Loader(raw, TB)._collate([raw[i] for i in range(TB)])),
+            ("kitti_mixed", kitti, _mixed_kitti_batch())):
+        on_card = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        b = on_card["image1"].shape[0]
+        draws = aug.draw(gen, b, on_card["sizes"].long(), on_card["recipe"].long())
+        row = dict(raw_shape=list(batch["image1"].shape),
+                   shares=_check_draws(torch, aug, draws, on_card["sizes"], on_card["recipe"],
+                                       label),
+                   agreement=_aug_agreement(torch, aug, batch, draws, label, dev))
+        call = lambda: aug(gen, on_card)
+        row["ms"] = _time_ms(torch, call, reps=10)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        bd = _device_breakdown(torch, prof, wall)
+        row.update(kernels=bd["kernel_count"], busy_ms=bd["device_busy_ms"], wall_ms=wall,
+                   ms_by_category=bd["ms_by_category"])
+        out[label] = row
+        del on_card, draws
+    torch.cuda.empty_cache()
+
+    cfg = load_yaml_config(TRAIN_YAML)
+    cfg.TRAIN.NUM_STEPS = AUG_STEPS
+    cfg.MODEL.PRETRAIN = FIXTURE
+    cfg.MODEL.LOAD_MODULE = None
+    cfg.GLOBAL.NUM_WORKERS = 2
+    st = dict(times=[], losses=[], per_step=[], counted=None, prof=None)
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        st["times"].append(time.perf_counter())
+        st["per_step"].append({k: v for k, v in launch_counts.items() if v})
+        st["losses"].append(metrics["loss"])
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"device_aug step {step}: metrics {metrics} not finite")
+        if step == COUNTED_STEP:
+            st["counted"] = (dict(launch_counts), dict(launch_shapes))
+        if step == PROFILED_STEP:
+            st["prof"].stop()
+            st["profiled_ms"] = (st["times"][-1] - st["times"][-2]) * 1e3
+        reset_launch_counts()
+        if step == PROFILED_STEP - 1:
+            st["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            st["prof"].start()
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    run_trainer(cfg, raw, validate=lambda model: {}, log_dir=os.path.join(OUT_DIR, "train_runs"),
+                device="cuda", compute_dtype="bfloat16", val_freq=10 ** 9, on_step=on_step,
+                device_aug=True)
+    train_s = time.perf_counter() - t0
+    for i, c in enumerate(st["per_step"], start=1):
+        if c != TRAIN_WANT:
+            raise AssertionError(f"device_aug step {i}: launches {c} != {TRAIN_WANT}")
+    step_ms = np.diff(st["times"]) * 1e3
+    timed = step_ms[COUNTED_STEP - 2:COUNTED_STEP + 8]
+    ms = float(np.median(timed))
+    bd = _device_breakdown(torch, st["prof"], st["profiled_ms"])
+    # the `device_aug` range of `train_step`: its device annotation spans
+    # its first kernel to its last, gaps included; the kernels inside that
+    # span are its own (one stream, and the step before ended in a sync).
+    # The host range's device time (its ops' kernels) is printed beside.
+    events = st["prof"].events()
+    (span,) = [e.time_range for e in events if e.name == "device_aug"
+               and e.device_type == DeviceType.CUDA]
+    aug_ms = sum(e.time_range.elapsed_us() for e in events
+                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+                 and span.start <= e.time_range.start < span.end) / 1e3
+    aug_host_range_ms = sum(e.device_time_total for e in events if e.name == "device_aug"
+                            and e.device_type == DeviceType.CPU) / 1e3
+    with open(os.path.join(OUT_DIR, "chip_smoke_profile_train_aug.txt"), "w") as f:
+        f.write(st["prof"].key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    st["prof"] = None
+    out["train"] = dict(
+        yaml=os.path.relpath(TRAIN_YAML, ROOT), batch=TB, raw=[384, 512], crop=[TH, TW],
+        dtype="bfloat16", steps=AUG_STEPS, ms_per_step=ms, ms_steps_4_13=timed.tolist(),
+        samples_per_s=TB * 1e3 / ms, losses=st["losses"], launches_per_step=TRAIN_WANT,
+        profiled_step=dict(busy_ms=bd["device_busy_ms"], wall_ms=bd["wall_ms"],
+                           idle_share=bd["idle_share"], kernels=bd["kernel_count"],
+                           device_aug_ms=aug_ms, device_aug_span_ms=span.elapsed_us() / 1e3,
+                           device_aug_host_range_device_ms=aug_host_range_ms,
+                           device_aug_share_of_busy=aug_ms / bd["device_busy_ms"]),
+        idle_share_of_unprofiled_step=max(0.0, 1 - bd["device_busy_ms"] / ms),
+        phase9_ms_per_step=phase9["ms_per_step"],
+        phase9_busy_ms=phase9["profile"]["device_busy_ms"],
+        over_phase9=ms / phase9["ms_per_step"], trainer_seconds=train_s)
+    out.update(data_seconds=data_s, phase_seconds=time.perf_counter() - t_phase)
+    _emit(out)
+    torch.cuda.empty_cache()
+    return st["counted"]
+
+
+def _ddp_global_batch() -> dict:
+    """FF-RAFT chairs pairs at 184x248, B=4; rank 1's rows (1 and 3) keep
+    a tenth of their keypoints, so the ranks' mask sums differ."""
+    from focusflow_official_tpu_torch.data import synthetic as sy
+
+    ds = sy.chairs_layout(41, n=DDP_B, h=DDP_CROP[0], w=DDP_CROP[1])
+    keys = ("image1", "image2", "mask1", "mask2", "flow", "valid")
+    batch = {k: np.stack([ds[i][k] for i in range(DDP_B)]).astype(np.float32) for k in keys}
+    rng = np.random.RandomState(42)
+    for k in ("mask1", "mask2"):
+        batch[k][1::2] *= rng.rand(*batch[k][1::2].shape) < 0.1
+    return batch
+
+
+def _ddp_step(torch, mesh, dev) -> dict:
+    """One f32 step of `ffraft_chairs_orb.yaml`'s FF-RAFT on the card
+    (fresh weights under seed 0, the cnet's batch norm in train mode,
+    MixLoss, noise, AdamW at lr 4e-4, clip 1.0; TF32 off) on the global
+    batch, or on `mesh`'s rows of it, on `dev` -> metrics, gradients,
+    state and the launches by shape key, on the CPU. The one process takes
+    the batch statistics in the ranks' form (sums through an identity);
+    torch's mean and variance, which one card takes without a mesh, differ
+    from it by f32 rounding that the mask branch's batch norms amplify in
+    the gradients (`tests/test_torch_distributed.py`)."""
+    from focusflow_official_tpu_torch.cli.train import build_model
+    from focusflow_official_tpu_torch.config import load_yaml_config
+    from focusflow_official_tpu_torch.kernels import launch_shapes, reset_launch_counts
+    from focusflow_official_tpu_torch.train.loop import build_optimizer, train_step
+    from focusflow_official_tpu_torch.train.mesh import sync_batch_norms
+
+    torch.manual_seed(0)
+    _, model, loss_fn, iters = build_model(load_yaml_config(TRAIN_YAML), "float32", mesh)
+    if mesh is None:  # the ranks' form of the batch statistics, on the whole batch
+        sync_batch_norms(model, lambda t: t)
+    model.to(dev).to(memory_format=torch.channels_last).train()
+    opt = build_optimizer(model, 4e-4)
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda _: 1.0)
+    rows = slice(None) if mesh is None else slice(mesh.rank, None, mesh.world)
+    batch = {k: torch.as_tensor(v[rows], device=dev) for k, v in _ddp_global_batch().items()}
+    reset_launch_counts()
+    m = train_step(model, opt, sched, loss_fn, batch, iters=iters, clip=1.0,
+                   noise=torch.Generator(device=dev).manual_seed(7), mesh=mesh)
+    return dict(metrics={k: float(v) for k, v in m.items()},
+                grads={n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+                state={k: v.detach().cpu() for k, v in model.state_dict().items()},
+                shapes=dict(launch_shapes))
+
+
+def ddp_rank_main(rank: int, store: str, out_path: str) -> int:
+    """One rank of 13b (`chip_smoke.py --ddp-rank R STORE OUT`): gloo on
+    card 0 through a file store, `_ddp_step` on its rows, its result
+    saved to OUT."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from focusflow_official_tpu_torch.train.mesh import Mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=DDP_WORLD, timeout=datetime.timedelta(seconds=120))
+    dev = torch.device("cuda", 0)
+    try:
+        torch.save(_ddp_step(torch, Mesh(rank, DDP_WORLD, dev), dev), out_path)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _ddp_gates(torch, got: dict, want: dict) -> dict:
+    """Two ranks against one process: the loss within 1e-5 relative; the
+    flat gradient's cosine >= 0.99999 and each tensor within 1e-4 of its
+    largest magnitude plus 1e-4 of the model's largest gradient (f32
+    rounding of sums taken in another order, amplified by the norms'
+    backward: `tests/test_torch_distributed.py`); parameters after the
+    step and running statistics within 1e-4 of each tensor's largest
+    (2 x lr more where the gradient lies within its bound of 0: Adam's
+    first step is about lr x sign(g))."""
+    names = sorted(want["grads"])
+    fg = torch.cat([got["grads"][n].flatten() for n in names]).double()
+    fw = torch.cat([want["grads"][n].flatten() for n in names]).double()
+    top = float(fw.abs().max())
+    err = {n: float((got["grads"][n] - want["grads"][n]).abs().max()) for n in names}
+    own = {n: float(want["grads"][n].abs().max()) for n in names}
+    grad_ratio = max(err[n] / (1e-4 * (own[n] + top)) for n in names)
+    # printed, not gated: the worst against 1e-4 of its own largest alone,
+    # over the tensors whose gradient is more than rounding
+    own_ratio = max(err[n] / (1e-4 * own[n]) for n in names if own[n] > 1e-7 * top)
+    state_ratio = 0.0
+    for k, t in want["state"].items():
+        diff = (got["state"][k] - t).abs()
+        if k in want["grads"]:
+            g = want["grads"][k].abs()
+            diff = torch.where(g <= 1e-4 * (float(g.max()) + top),
+                               torch.clamp(diff - 2 * 4e-4, min=0.0), diff)
+        state_ratio = max(state_ratio, float(diff.max()) / (1e-4 * max(float(t.abs().max()),
+                                                                       1e-30)))
+    lw, lg = want["metrics"]["loss"], got["metrics"]["loss"]
+    out = dict(loss_one_process=lw, loss_two_ranks=lg, loss_rel=abs(lg - lw) / abs(lw),
+               grad_cosine=float(torch.nn.functional.cosine_similarity(fg, fw, dim=0)),
+               grad_err_over_bound=grad_ratio, grad_err_over_own_bound=own_ratio,
+               state_err_over_bound=state_ratio,
+               metrics_rel={k: abs(got["metrics"][k] - v) / max(abs(v), 1e-6)
+                            for k, v in want["metrics"].items()})
+    if not (out["loss_rel"] <= 1e-5 and out["grad_cosine"] >= 0.99999 and grad_ratio <= 1
+            and state_ratio <= 1):
+        raise AssertionError(f"13b: two ranks against one process: {out}")
+    return out
+
+
+def ddp_phase(torch, card: str, held: set, phase9: dict) -> tuple:
+    """13b: data parallelism on one card. Two ranks over gloo on card 0
+    (NCCL refuses two ranks on one device; the same `train/mesh.py` code
+    runs under both), spawned as `--ddp-rank` processes with a file store
+    and a 120 s timeout, against one process on the global batch
+    (`_ddp_step`, `_ddp_gates`); every (kernel, shape) the three runs
+    launched that no row holds is held once against its plain version.
+    Then a world-size-1 NCCL group from torchrun's variables
+    (`train/mesh.py::init_from_env`, as `cli/train.py --multihost` starts
+    it) under the trainer on `ffraft_chairs_orb.yaml` at B=10, 368x496,
+    bf16 on phase 9's fixed batch: 6 steps with phase 9's launches, ms a
+    step (the median of steps 2-5) beside phase 9's, step 6 profiled (busy
+    ms, idle share, NCCL's kernels and their ms). -> (counts, launches
+    by shape key) of its step 2."""
+    import shutil
+    import socket
+
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from focusflow_official_tpu_torch.cli.train import train as run_trainer
+    from focusflow_official_tpu_torch.config import load_yaml_config
+    from focusflow_official_tpu_torch.data import synthetic as sy
+    from focusflow_official_tpu_torch.kernels import (
+        launch_counts, launch_shapes, reset_launch_counts)
+    from focusflow_official_tpu_torch.train.mesh import init_from_env
+
+    t_phase = time.perf_counter()
+    work = os.path.join(OUT_DIR, "ddp")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    procs = []
+    for r in range(DDP_WORLD):
+        with open(os.path.join(work, f"rank{r}.log"), "wb") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--ddp-rank", str(r),
+                 os.path.join(work, "store"), os.path.join(work, f"rank{r}.pt")],
+                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT))
+    try:
+        want = _ddp_step(torch, None, torch.device("cuda", 0))  # one process, meanwhile
+        t_end = time.monotonic() + DDP_DEADLINE_S
+        for p in procs:
+            p.wait(timeout=max(1.0, t_end - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                raise AssertionError(f"13b rank {r} exited {p.returncode}: {f.read()[-3000:]}")
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=True)
+             for r in range(DDP_WORLD)]
+    gates = _ddp_gates(torch, ranks[0], want)
+    for k, t in ranks[0]["state"].items():
+        if not torch.equal(ranks[1]["state"][k], t):
+            raise AssertionError(f"13b: the ranks' {k} differ after the step")
+    seen = {}
+    for run in (want, *ranks):
+        for key, n in run["shapes"].items():
+            seen[key] = seen.get(key, 0) + n
+    g = torch.Generator(device="cuda").manual_seed(5)
+    new = [dict(_hold_shape(torch, g, torch.device("cuda", 0), key), launches=seen[key])
+           for key in sorted(seen, key=str) if key not in held]
+    gloo_s = time.perf_counter() - t_phase
+
+    # world size 1 over NCCL, as `cli/train.py --multihost` joins it
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(port))
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    cfg = load_yaml_config(TRAIN_YAML)
+    cfg.TRAIN.NUM_STEPS = NCCL_STEPS
+    cfg.MODEL.PRETRAIN = FIXTURE
+    cfg.MODEL.LOAD_MODULE = None
+    cfg.GLOBAL.NUM_WORKERS = 2
+    st = dict(times=[], per_step=[], losses=[], prof=None)
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        st["times"].append(time.perf_counter())
+        st["per_step"].append({k: v for k, v in launch_counts.items() if v})
+        st["losses"].append(metrics["loss"])
+        if step == 2:
+            st["counted"] = (dict(launch_counts), dict(launch_shapes))
+        reset_launch_counts()
+        if step == NCCL_STEPS:
+            st["prof"].stop()
+        if step == NCCL_STEPS - 1:
+            st["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            st["prof"].start()
+
+    mesh = init_from_env("cuda")
+    try:
+        if (dist.get_backend(), mesh.world) != ("nccl", 1):
+            raise AssertionError(f"13b: {dist.get_backend()} at world size {mesh.world}")
+        reset_launch_counts()
+        run_trainer(cfg, sy.chairs_layout(5, n=TB, h=TH, w=TW), validate=lambda model: {},
+                    log_dir=os.path.join(OUT_DIR, "train_runs"), compute_dtype="bfloat16",
+                    val_freq=10 ** 9, on_step=on_step, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    for i, c in enumerate(st["per_step"], start=1):
+        if c != TRAIN_WANT:
+            raise AssertionError(f"13b NCCL step {i}: launches {c} != {TRAIN_WANT}")
+    if not np.isfinite(st["losses"]).all():
+        raise AssertionError(f"13b NCCL losses {st['losses']}")
+    step_ms = np.diff(st["times"]) * 1e3  # step_ms[i] is step i + 2
+    ms = float(np.median(step_ms[:-1]))  # steps 2 to NCCL_STEPS - 1
+    bd = _device_breakdown(torch, st["prof"], float(step_ms[-1]))
+    nccl = [e for e in st["prof"].events() if e.device_type == DeviceType.CUDA
+            and "nccl" in e.name.lower()]
+    st["prof"] = None
+    _emit(dict(phase="ddp", card=card, gloo_two_ranks=dict(
+        backend="gloo", world=DDP_WORLD, device="cuda:0", batch=DDP_B, crop=list(DDP_CROP),
+        dtype="float32", tf32="off", weights="fresh (seed 0)", gates=gates,
+        new_shapes_held=new, seconds=gloo_s),
+        nccl_world1=dict(yaml=os.path.relpath(TRAIN_YAML, ROOT), batch=TB, crop=[TH, TW],
+                         dtype="bfloat16", steps=NCCL_STEPS, losses=st["losses"],
+                         ms_steps=step_ms.tolist(), ms_per_step=ms,
+                         phase9_ms_per_step=phase9["ms_per_step"],
+                         over_phase9=ms / phase9["ms_per_step"],
+                         profiled_step=dict(busy_ms=bd["device_busy_ms"], wall_ms=bd["wall_ms"],
+                                            idle_share=bd["idle_share"],
+                                            kernels=bd["kernel_count"],
+                                            nccl_kernels=len(nccl),
+                                            nccl_ms=sum(e.time_range.end - e.time_range.start
+                                                        for e in nccl) / 1e3,
+                                            ms_by_category=bd["ms_by_category"]),
+                         phase9_busy_ms=phase9["profile"]["device_busy_ms"]),
+        phase_seconds=time.perf_counter() - t_phase))
+    torch.cuda.empty_cache()
+    return st["counted"]
 
 
 def _worst(rows: list) -> dict:
@@ -2583,7 +3099,8 @@ def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, train_rows: dict,
     # `launches` sums these
     paths = ("ff_raft", "ff_flowformer", "ff_pwcnet", "raft", "raft_ca", "raft_sa",
              "raft_concat", "flowformer", "ff_raft_train", "ff_pwcnet_train",
-             "ff_flowformer_train", "raft_train", "flowformer_train")
+             "ff_flowformer_train", "raft_train", "flowformer_train", "ff_raft_train_aug",
+             "ff_raft_train_nccl1")
     held = set()
     for kr in table:
         by_path = {path: drives[path][0].get(kr["name"], 0) for path in paths}
@@ -2653,7 +3170,7 @@ def main() -> int:
     _emit(dict(phase="baselines", part="serving", seconds=time.perf_counter() - t0))
     torch.cuda.empty_cache()
     train_rows = {"ff_raft_train": train_kernel_rows(torch, dev)}
-    drives["ff_raft_train"], _ = train_phase(
+    drives["ff_raft_train"], _, phase9 = train_phase(
         torch, card, _row_keys(raft_kernels, ff_rows, pwc_rows, train_rows))
     for path, rows_for in (
             ("ff_pwcnet_train", pwc_train_rows), ("ff_flowformer_train", ff_train_rows),
@@ -2661,9 +3178,15 @@ def main() -> int:
             # its own); vanilla FlowFormer's launches shapes phase 11 holds
             ("raft_train", lambda t, d, _: train_kernel_rows(t, d, 6, "raft_train")),
             ("flowformer_train", None)):
-        drives[path], train_rows[path] = train_phase(
+        drives[path], train_rows[path], _ = train_phase(
             torch, card, _row_keys(raft_kernels, ff_rows, pwc_rows, train_rows), path,
             defaults, rows_for and (lambda shapes, fn=rows_for: fn(torch, dev, shapes)))
+    # phase 13: the on-card augmentation, then data parallelism on one card
+    t0 = time.perf_counter()
+    drives["ff_raft_train_aug"] = device_aug_phase(torch, card, phase9)
+    drives["ff_raft_train_nccl1"] = ddp_phase(
+        torch, card, _row_keys(raft_kernels, ff_rows, pwc_rows, train_rows), phase9)
+    _emit(dict(phase="training_at_scale", seconds=time.perf_counter() - t0))
     kernels = _kernel_table(raft_kernels, ff_rows, pwc_rows, train_rows, drives, card)
     # the fused kernel inside the profiled FF-RAFT forward, where its inputs
     # are not the same on every call as in the kernel phase
@@ -2684,4 +3207,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-rank"]:  # one rank of phase 13b
+        sys.exit(ddp_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -268,11 +268,6 @@ class RecipeTagged:
         return s
 
 
-# where ROADMAP.md queues the on-device augmentation (raw frames, the
-# augmentation inside the step)
-_DEVICE_AUG_ITEM = "ROADMAP.md queue 1, 'The device half of the data path' (data/device_aug.py)"
-
-
 def fetch_dataset(data_root: Dict[str, str], mask_root: Dict[str, str], *,
                   stage: str, image_size, mask_type: str = "orb",
                   train_ds: Optional[str] = "C+T+S", seed: Optional[int] = 0,
@@ -282,37 +277,56 @@ def fetch_dataset(data_root: Dict[str, str], mask_root: Dict[str, str], *,
     scale range, flips): chairs; things (clean + final passes); sintel
     (`train_ds` None: Sintel clean + final; 'C+T+S': 100 x each Sintel
     pass + Things clean; 'C+T+S+K': also 200 x KITTI, sparse); kitti (100 x
-    each Sintel pass + 200 x KITTI). `no_aug` (raw frames for an
-    augmentation inside the step) is not ported: it raises."""
-    if no_aug:
-        raise NotImplementedError(f"no_aug (raw frames for the on-device augmentation): "
-                                  f"{_DEVICE_AUG_ITEM} brings it")
-    dense = lambda lo, hi: dict(crop_size=image_size, min_scale=lo, max_scale=hi,
-                                do_flip=True)
+    each Sintel pass + 200 x KITTI).
+
+    `no_aug=True` gives raw full-size samples for the on-card augmentation
+    (`data/device_aug.py`): every sample tagged with its dataset's row of
+    the stage's recipe table (`RecipeTagged`), the table as the result's
+    `device_recipes`: one dense row, and for the stages with KITTI a
+    sparse one."""
+    from .device_aug import dense_recipe, sparse_recipe
+
+    aug = lambda lo, hi: None if no_aug else dict(crop_size=image_size, min_scale=lo,
+                                                  max_scale=hi, do_flip=True)
+    things = lambda lo, hi, p: FlyingThings3D(data_root["things"], mask_root["things"],
+                                               aug(lo, hi), dstype=f"frames_{p}pass",
+                                               mask_type=mask_type, seed=seed)
     if stage == "chairs":
-        return FlyingChairs(data_root["chairs"], mask_root["chairs"], dense(-0.1, 1.0),
-                            split="training", mask_type=mask_type, seed=seed)
-    if stage == "things":
-        clean, final = (FlyingThings3D(data_root["things"], mask_root["things"],
-                                       dense(-0.4, 0.8), dstype=f"frames_{p}pass",
-                                       mask_type=mask_type, seed=seed)
-                        for p in ("clean", "final"))
-        return WeightedConcat([(clean, 1), (final, 1)])
-    if stage not in ("sintel", "kitti"):
-        raise NotImplementedError(f"Stage {stage} not supported.")
-    clean, final = (MpiSintel(data_root["sintel"], mask_root["sintel"], dense(-0.2, 0.6),
-                              dstype=t, mask_type=mask_type, seed=seed)
-                    for t in ("clean", "final"))
-    kitti = lambda: KITTI(data_root["kitti"], mask_root["kitti"], dense(-0.3, 0.5),
+        ds = FlyingChairs(data_root["chairs"], mask_root["chairs"], aug(-0.1, 1.0),
                           split="training", mask_type=mask_type, seed=seed)
-    if stage == "kitti":
-        return WeightedConcat([(clean, 100), (final, 100), (kitti(), 200)])
-    if train_ds is None:
-        return WeightedConcat([(clean, 1), (final, 1)])
-    things = FlyingThings3D(data_root["things"], mask_root["things"], dense(-0.2, 0.6),
-                            dstype="frames_cleanpass", mask_type=mask_type, seed=seed)
-    if train_ds == "C+T+S":
-        return WeightedConcat([(clean, 100), (final, 100), (things, 1)])
-    if train_ds == "C+T+S+K":
-        return WeightedConcat([(things, 1), (clean, 100), (final, 100), (kitti(), 200)])
-    raise ValueError(train_ds)
+        if not no_aug:
+            return ds
+        ds = RecipeTagged(ds, 0)
+        ds.device_recipes = [dense_recipe(-0.1, 1.0)]
+        return ds
+    # (dataset, weight, recipe row)
+    if stage == "things":
+        parts = [(things(-0.4, 0.8, p), 1, 0) for p in ("clean", "final")]
+        recipes = [dense_recipe(-0.4, 0.8)]
+    elif stage in ("sintel", "kitti"):
+        clean, final = (MpiSintel(data_root["sintel"], mask_root["sintel"], aug(-0.2, 0.6),
+                                  dstype=t, mask_type=mask_type, seed=seed)
+                        for t in ("clean", "final"))
+        recipes = [dense_recipe(-0.2, 0.6)]
+        kitti = lambda: (KITTI(data_root["kitti"], mask_root["kitti"], aug(-0.3, 0.5),
+                               split="training", mask_type=mask_type, seed=seed), 200, 1)
+        sintel = [(clean, 100, 0), (final, 100, 0)]
+        if stage == "kitti":
+            parts = sintel + [kitti()]
+        elif train_ds is None:
+            parts = [(clean, 1, 0), (final, 1, 0)]
+        elif train_ds == "C+T+S":
+            parts = sintel + [(things(-0.2, 0.6, "clean"), 1, 0)]
+        elif train_ds == "C+T+S+K":
+            parts = [(things(-0.2, 0.6, "clean"), 1, 0)] + sintel + [kitti()]
+        else:
+            raise ValueError(train_ds)
+        if any(r == 1 for _, _, r in parts):
+            recipes.append(sparse_recipe(-0.3, 0.5))
+    else:
+        raise NotImplementedError(f"Stage {stage} not supported.")
+    if not no_aug:
+        return WeightedConcat([(d, w) for d, w, _ in parts])
+    ds = WeightedConcat([(RecipeTagged(d, r), w) for d, w, r in parts])
+    ds.device_recipes = recipes
+    return ds

@@ -21,6 +21,11 @@ five-level flow list (finest first) that the model returns in train mode.
 Each returns (loss, metrics): `epe`, the finest level upsampled
 bilinearly to the ground truth's size against it (over the valid pixels
 when sparse), and `loss`, as 0-d tensors on the device.
+
+`reduce` (default the identity) takes every denominator: the batch size,
+the masks' mass, the valid count and the pixel count of the EPE's mean.
+Under data parallelism it is `train/mesh.py::Mesh.global_sum`, so a rank's
+loss and metrics are its shares of the global batch's.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.coords import resize_bilinear
-from .sequence import smear_mask
+from .sequence import _global_count, _identity, _mean, smear_mask
 
 
 def area_downsample(x: torch.Tensor, hw) -> torch.Tensor:
@@ -66,12 +71,12 @@ def _epe_map(pred, target, mode: str, q: float, eps: float) -> torch.Tensor:
 
 
 @torch.no_grad()
-def _real_epe(finest, flow_gt, mode, q, eps, sparse) -> torch.Tensor:
+def _real_epe(finest, flow_gt, mode, q, eps, sparse, reduce) -> torch.Tensor:
     m = _epe_map(resize_bilinear(finest, flow_gt.shape[1:3]), flow_gt, mode, q, eps)
     if sparse:
         valid = (~_invalid(flow_gt)).float()
-        return (m * valid).sum() / valid.sum().clamp(min=1)
-    return m.mean()
+        return (m * valid).sum() / reduce(valid.sum()).clamp(min=1)
+    return _mean(m, tuple(range(m.ndim)), reduce)
 
 
 def _mask_weights(mask: torch.Tensor, hw, kernel_size: int, sigma: float) -> torch.Tensor:
@@ -86,30 +91,31 @@ def _levels(flow_preds, weights):
     return zip(flow_preds, weights)
 
 
-def _metrics(flow_preds, flow_gt, loss, mode, q, eps, sparse) -> dict:
-    return {"epe": _real_epe(flow_preds[0], flow_gt, mode, q, eps, sparse),
+def _metrics(flow_preds, flow_gt, loss, mode, q, eps, sparse, reduce) -> dict:
+    return {"epe": _real_epe(flow_preds[0], flow_gt, mode, q, eps, sparse, reduce),
             "loss": loss.detach()}
 
 
 def multiscale_epe_loss(flow_preds: Sequence[torch.Tensor], flow_gt, valid=None, mask=None,
                         *, weights: Sequence[float], mode: str = "pretrain", q: float = 0.4,
-                        eps: float = 0.01, sparse: bool = False):
+                        eps: float = 0.01, sparse: bool = False, reduce=_identity):
     """flow_preds: the levels, finest first, (B, h, w, 2) each; flow_gt
     (B, H, W, 2) -> (loss, metrics). `valid` and `mask` are not read."""
     loss = flow_preds[0].new_zeros(())
+    b = _global_count(flow_gt.shape[0], loss, reduce)
     for pred, wgt in _levels(flow_preds, weights):
-        b, h, w, _ = pred.shape
+        _, h, w, _ = pred.shape
         target = _target(flow_gt, (h, w), sparse)
         m = _epe_map(pred, target, mode, q, eps)
         if sparse:
             m = m * (~_invalid(target))
         loss = loss + wgt * m.sum() / b
-    return loss, _metrics(flow_preds, flow_gt, loss, mode, q, eps, sparse)
+    return loss, _metrics(flow_preds, flow_gt, loss, mode, q, eps, sparse, reduce)
 
 
 def multiscale_cpcl_loss(flow_preds, flow_gt, valid=None, mask=None, *, weights,
                          mode="pretrain", q=0.4, eps=0.01, kernel_size=5, sigma=1.7,
-                         sparse: bool = False):
+                         sparse: bool = False, reduce=_identity):
     """Each level's error map weighted by the smeared keypoint mask
     (B, H, W, 1), over the mask's mass, times h * w."""
     loss = flow_preds[0].new_zeros(())
@@ -120,13 +126,13 @@ def multiscale_cpcl_loss(flow_preds, flow_gt, valid=None, mask=None, *, weights,
         weighted = _epe_map(pred, target, mode, q, eps) * mk
         if sparse:
             weighted = weighted * (~_invalid(target))
-        loss = loss + wgt * weighted.sum() / mk.sum().clamp(min=1e-12) * (h * w)
-    return loss, _metrics(flow_preds, flow_gt, loss, mode, q, eps, sparse)
+        loss = loss + wgt * weighted.sum() / reduce(mk.sum()).clamp(min=1e-12) * (h * w)
+    return loss, _metrics(flow_preds, flow_gt, loss, mode, q, eps, sparse, reduce)
 
 
 def multiscale_mix_loss(flow_preds, flow_gt, valid=None, mask=None, *, weights,
                         mode="pretrain", q=0.4, eps=0.01, kernel_size=5, sigma=1.7,
-                        lamda=0.8, sparse: bool = False):
+                        lamda=0.8, sparse: bool = False, reduce=_identity):
     """Per level: the error map's sum + lamda x the CPCL term (zero for an
     empty mask). The sum keeps the invalid pixels of a sparse target, as
     the reference does."""
@@ -139,18 +145,20 @@ def multiscale_mix_loss(flow_preds, flow_gt, valid=None, mask=None, *, weights,
         weighted = m * mk
         if sparse:
             weighted = weighted * (~_invalid(target))
-        mass = mk.sum()
+        mass = reduce(mk.sum())
         term = torch.where(mass > 0, weighted.sum() / mass.clamp(min=1e-12) * (h * w),
                            torch.zeros_like(mass))
         loss = loss + wgt * (m.sum() + lamda * term)
-    return loss, _metrics(flow_preds, flow_gt, loss, mode, q, eps, sparse)
+    return loss, _metrics(flow_preds, flow_gt, loss, mode, q, eps, sparse, reduce)
 
 
 def build_multiscale_loss(loss_type: str, *, weights, mode="pretrain", q=0.4, eps=0.01,
-                          kernel_size=5, sigma=1.7, lamda=0.8, sparse: bool = False):
+                          kernel_size=5, sigma=1.7, lamda=0.8, sparse: bool = False,
+                          reduce=_identity):
     """'EPELoss', 'CPCL' or 'MixLoss' with its settings -> loss function
-    (flow_preds, flow_gt, valid, mask) -> (loss, metrics)."""
-    common = dict(weights=list(weights), mode=mode, q=q, eps=eps, sparse=sparse)
+    (flow_preds, flow_gt, valid, mask) -> (loss, metrics); `reduce` takes
+    its denominators (the module docstring)."""
+    common = dict(weights=list(weights), mode=mode, q=q, eps=eps, sparse=sparse, reduce=reduce)
     if loss_type == "EPELoss":
         return functools.partial(multiscale_epe_loss, **common)
     if loss_type == "CPCL":

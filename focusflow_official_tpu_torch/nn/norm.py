@@ -10,7 +10,11 @@ instance-norm kernels read without a copy.
                variance), updating the running averages in f32 with
                momentum 0.1 and the unbiased variance, as torch does. A
                frozen BN (the reference's `freeze_bn()`) is a batch Norm
-               in eval mode inside a training model.
+               in eval mode inside a training model. Under data
+               parallelism (`train/mesh.py::sync_batch_norms`) `reduce`
+               sums the statistics' parts over the ranks, so they are the
+               global batch's; without it one card takes torch's mean and
+               variance.
 - 'instance' : InstanceNorm, no affine, no running stats, eps 1e-5;
                on a CUDA tensor kernel C1 (stats) then kernel C2 (normalize)
 - 'none'     : identity
@@ -39,6 +43,7 @@ class Norm(nn.Module):
         if kind not in ("group", "batch", "instance", "none"):
             raise ValueError(f"Unknown norm kind: {kind}")
         self.kind, self.num_groups, self.eps = kind, num_groups, eps
+        self.reduce = None  # the batch norm's sum over the ranks, or None
         if kind in ("group", "batch"):
             self.weight = nn.Parameter(torch.ones(features))
             self.bias = nn.Parameter(torch.zeros(features))
@@ -83,13 +88,23 @@ class Norm(nn.Module):
     def _batch_stats(self, x: torch.Tensor):
         """The batch's f32 (mean, biased variance) over (B, H, W); the
         running averages take them with momentum 0.1 (the variance
-        unbiased)."""
+        unbiased). Without `reduce`, torch's mean and variance (one card).
+        With it, the sum and the count, then the centred second moment,
+        each passed through `reduce`: under data parallelism the sum over
+        the ranks, so the statistics are the global batch's."""
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = xf.var(dim=(0, 2, 3), unbiased=False)
         n = xf.numel() // xf.shape[1]
+        if self.reduce is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = xf.var(dim=(0, 2, 3), unbiased=False)
+            unbiased = n / max(n - 1, 1)
+        else:
+            sums = self.reduce(torch.cat([xf.sum(dim=(0, 2, 3)), xf.new_full((1,), float(n))]))
+            n = sums[-1]
+            mean = sums[:-1] / n
+            var = self.reduce(((xf - mean[None, :, None, None]) ** 2).sum(dim=(0, 2, 3))) / n
+            unbiased = n / torch.clamp(n - 1, min=1)
         with torch.no_grad():
-            for run, new in ((self.running_mean, mean),
-                             (self.running_var, var * (n / max(n - 1, 1)))):
+            for run, new in ((self.running_mean, mean), (self.running_var, var * unbiased)):
                 run.copy_((1 - MOMENTUM) * run + MOMENTUM * new)
         return mean, var

@@ -1,3 +1,3 @@
-"""Training (the loop, its schedule, checkpoints, metrics and parameter
-surgery), evaluation (the validation protocol) and the benchmark
+"""Training (the loop, its schedule, checkpoints, metrics, parameter
+surgery and data parallelism over processes), evaluation (the validation protocol) and the benchmark
 submission writers."""

@@ -2,9 +2,11 @@
 
 `CheckpointManager` writes one `torch.save` file a step,
 `<dir>/<step>.pt`: the step, the model's state (parameters and running
-statistics), the optimizer's and the schedule's states and the noise
-generator's state, so a resumed run takes the same next step. It keeps the
-newest five. Files are read back with `weights_only=True`.
+statistics), the optimizer's and the schedule's states and the states of
+the noise generator and of the on-card augmentation's generator, so a
+resumed run takes the same next step and the same augmentation. It keeps
+the newest five. Files are read back with `weights_only=True`. Under data
+parallelism only rank 0 writes them.
 
 `save_params_only` writes the trained weights as the flat `.npz` of flax
 variables (`params/...`, `batch_stats/...`) that the fixtures use, so the
@@ -42,11 +44,13 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, model: nn.Module, optimizer, scheduler,
-             generator: Optional[torch.Generator] = None) -> str:
+             generator: Optional[torch.Generator] = None,
+             aug_generator: Optional[torch.Generator] = None) -> str:
         path = os.path.join(self.directory, f"{step}.pt")
+        state = lambda g: None if g is None else g.get_state()
         torch.save(dict(step=step, model=model.state_dict(), optimizer=optimizer.state_dict(),
-                        scheduler=scheduler.state_dict(),
-                        generator=None if generator is None else generator.get_state()),
+                        scheduler=scheduler.state_dict(), generator=state(generator),
+                        aug_generator=state(aug_generator)),
                    path + ".tmp")
         os.replace(path + ".tmp", path)
         for old in self.steps()[:-self.MAX_TO_KEEP]:
@@ -54,7 +58,8 @@ class CheckpointManager:
         return path
 
     def restore(self, model: nn.Module, optimizer, scheduler,
-                generator: Optional[torch.Generator] = None) -> int:
+                generator: Optional[torch.Generator] = None,
+                aug_generator: Optional[torch.Generator] = None) -> int:
         """Load the latest checkpoint into the objects -> its step; 0 where
         there is none."""
         step = self.latest_step()
@@ -65,8 +70,9 @@ class CheckpointManager:
         model.load_state_dict(ckpt["model"], strict=True)
         optimizer.load_state_dict(ckpt["optimizer"])
         scheduler.load_state_dict(ckpt["scheduler"])
-        if generator is not None and ckpt["generator"] is not None:
-            generator.set_state(ckpt["generator"])
+        for gen, key in ((generator, "generator"), (aug_generator, "aug_generator")):
+            if gen is not None and ckpt.get(key) is not None:
+                gen.set_state(ckpt[key])
         return int(ckpt["step"])
 
 

@@ -1,13 +1,22 @@
 """One training step of any of the three families, and the optimizer it
 steps.
 
-The step (`train_step`): noise on the frames (one std a step from
-U[0, 5), Gaussian noise, clamped to [0, 255], drawn from the
-caller's `torch.Generator` on the device), the train-mode forward (with
-the refinement count where the family has one), the loss (sequence or
-multiscale), the backward, a global-norm clip of every gradient, one AdamW
-step and one step of the schedule. It returns the loss's metrics and
+The step (`train_step`): the on-card augmentation of a raw batch where
+given (`data/device_aug.py`, from its own generator), noise on the frames
+(one std a step from U[0, 5), Gaussian noise, clamped to [0, 255], drawn
+from the caller's `torch.Generator` on the device), the train-mode forward
+(with the refinement count where the family has one), the loss (sequence
+or multiscale), the backward, a global-norm clip of every gradient, one
+AdamW step and one step of the schedule. It returns the loss's metrics and
 `grad_norm`, the norm before the clip, as 0-d tensors on the device.
+
+Under data parallelism (a `train/mesh.py::Mesh`) the step is the global
+batch's: the augmentation and the noise draw the global batch's random
+quantities on every rank and keep the rank's rows; a parameter the loss
+does not reach takes a zero gradient, then the gradients are summed over
+the ranks (the loss, built with `reduce=mesh.global_sum`, is the rank's
+share), then clipped by their global norm; the metrics are summed over the
+ranks, so every rank returns the global batch's.
 
 Precision: the model holds f32 parameters, gradients, optimizer state and
 running statistics. A bf16 step casts the convolutions' weights at use
@@ -83,23 +92,32 @@ def clip_by_global_norm(grads, clip: float) -> torch.Tensor:
     return norm
 
 
-def add_noise(image: torch.Tensor, std: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
-    """image + std * N(0, 1), clamped to [0, 255]."""
-    noise = torch.randn(image.shape, generator=gen, device=image.device, dtype=image.dtype)
-    return (image + std * noise).clamp(0.0, 255.0)
+def add_noise(image: torch.Tensor, std: torch.Tensor, gen: torch.Generator, *,
+              world: int = 1, rank: int = 0) -> torch.Tensor:
+    """image + std * N(0, 1), clamped to [0, 255]. With `world` > 1 the
+    noise is drawn for the global batch (world x image's batch) and the
+    rank's rows (rank, rank + world, ...: the loader's stride) are kept."""
+    shape = (image.shape[0] * world, *image.shape[1:])
+    noise = torch.randn(shape, generator=gen, device=image.device, dtype=image.dtype)
+    return (image + std * noise[rank::world]).clamp(0.0, 255.0)
+
+
+def _shard(mesh) -> dict:
+    return dict(world=1, rank=0) if mesh is None else dict(world=mesh.world, rank=mesh.rank)
 
 
 def forward_loss(model: nn.Module, loss_fn: Callable, batch: Mapping[str, torch.Tensor], *,
                  iters: Optional[int], dtype: torch.dtype = torch.float32,
-                 noise: Optional[torch.Generator] = None):
-    """The noise augmentation (with a generator), the forward in the
-    compute type (given `iters` refinements; a model without a refinement
-    loop, FF-PWCNet, takes None and is called without it) and the loss
-    -> (loss, metrics)."""
+                 noise: Optional[torch.Generator] = None, mesh=None):
+    """The noise augmentation (with a generator; the global batch's under
+    `mesh`), the forward in the compute type (given `iters` refinements; a
+    model without a refinement loop, FF-PWCNet, takes None and is called
+    without it) and the loss -> (loss, metrics)."""
     img1, img2 = batch["image1"], batch["image2"]
     if noise is not None:
         std = torch.rand((), generator=noise, device=img1.device) * NOISE_MAX_STD
-        img1, img2 = add_noise(img1, std, noise), add_noise(img2, std, noise)
+        img1 = add_noise(img1, std, noise, **_shard(mesh))
+        img2 = add_noise(img2, std, noise, **_shard(mesh))
     flows = torch.func.functional_call(
         model, compute_params(model, dtype),
         (img1, img2, batch["mask1"], batch["mask2"]), {} if iters is None else {"iters": iters})
@@ -108,13 +126,13 @@ def forward_loss(model: nn.Module, loss_fn: Callable, batch: Mapping[str, torch.
 
 def forward_backward(model: nn.Module, loss_fn: Callable, batch: Mapping[str, torch.Tensor], *,
                      iters: Optional[int], dtype: torch.dtype = torch.float32,
-                     noise: Optional[torch.Generator] = None):
+                     noise: Optional[torch.Generator] = None, mesh=None):
     """`forward_loss` and the loss's backward (the gradients add into each
     parameter's `.grad`) -> (loss, metrics). In f32 both run with TF32 off
     in matmuls and convolutions, and the caller's flags are put back."""
     with _no_tf32() if dtype == torch.float32 else contextlib.nullcontext():
         loss, metrics = forward_loss(model, loss_fn, batch, iters=iters, dtype=dtype,
-                                     noise=noise)
+                                     noise=noise, mesh=mesh)
         loss.backward()
     return loss, metrics
 
@@ -122,17 +140,29 @@ def forward_backward(model: nn.Module, loss_fn: Callable, batch: Mapping[str, to
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler,
                loss_fn: Callable, batch: Mapping[str, torch.Tensor], *, iters: Optional[int],
                dtype: torch.dtype = torch.float32, clip: float = 1.0,
-               noise: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+               noise: Optional[torch.Generator] = None, augment: Optional[Callable] = None,
+               aug_gen: Optional[torch.Generator] = None, mesh=None) -> Dict[str, torch.Tensor]:
     """One step on `batch` (NHWC f32 tensors on the model's device:
-    image1, image2, mask1, mask2, flow, valid). `noise`: the generator of
-    the noise augmentation, None for none. `model` is in train mode
-    (frozen batch norms in eval mode)."""
+    image1, image2, mask1, mask2, flow, valid; raw frames with optional
+    valid, sizes and recipe where `augment` is given). `noise`: the
+    generator of the noise augmentation, None for none. `augment`: a
+    `DeviceFlowAugmentor`, drawing from `aug_gen`. `mesh`: this rank's
+    `train/mesh.py::Mesh` under data parallelism, else None. `model` is in
+    train mode (frozen batch norms in eval mode)."""
     optimizer.zero_grad(set_to_none=True)
-    _, metrics = forward_backward(model, loss_fn, batch, iters=iters, dtype=dtype, noise=noise)
+    if augment is not None:  # a profiler range of its own: its share of the step
+        with torch.profiler.record_function("device_aug"):
+            batch = augment(aug_gen, batch, **_shard(mesh))
+    _, metrics = forward_backward(model, loss_fn, batch, iters=iters, dtype=dtype, noise=noise,
+                                  mesh=mesh)
     params = [p for g in optimizer.param_groups for p in g["params"]]
     for p in params:  # a parameter the loss does not reach takes a zero gradient
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if mesh is not None:
+        mesh.all_reduce_grads([p.grad for p in params])
+        names = sorted(metrics)
+        metrics = dict(zip(names, mesh.global_sum(torch.stack([metrics[k] for k in names]))))
     metrics["grad_norm"] = clip_by_global_norm([p.grad for p in params], clip)
     optimizer.step()
     scheduler.step()

@@ -14,8 +14,15 @@
 - `fetch_dataset` and the `Loader` give the JAX package's first batches,
   bit for bit, for the same seed; mixed resolutions pad as JAX pads.
 - LOAD_MODULE: a bare RAFT checkpoint loads into `flow_net`; the trainer
-  refuses what it does not have (`--device-aug`, `--multihost`, `no_aug`)
-  and builds the other families (FF-FlowFormer from `ff_chairs.yaml`).
+  refuses an unknown stage and `device_aug` over samples without a recipe
+  table, and builds the other families (FF-FlowFormer from
+  `ff_chairs.yaml`).
+- `device_aug` on raw in-memory frames: a run resumed from a checkpoint
+  takes the same next step, the augmentation's generator restored with
+  the noise's.
+- `--multihost --device-aug` at world size 1 over gloo (torchrun's
+  variables set by the test) trains, writes its run directory and leaves
+  no process group behind; the global batch rounds up to the ranks.
 """
 
 import json
@@ -230,16 +237,85 @@ def test_load_module_fills_flow_net(tmp_path):
 
 
 def test_refusals(tmp_path):
-    with pytest.raises(NotImplementedError, match="device_aug"):
-        cli_train.main(["--yaml", YAML, "--device-aug", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="DDP"):
-        cli_train.main(["--yaml", YAML, "--multihost", "--device", "cpu"])
     _, model, _, iters = cli_train.build_model(
         load_yaml_config(os.path.join(ROOT, "configs", "ff-flowformer", "ff_chairs.yaml")),
         "float32")
     assert type(model).__name__ == "FFFlowFormer" and iters == 12
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        tds.fetch_dataset({}, {}, stage="chairs", image_size=(64, 96), no_aug=True)
+    with pytest.raises(NotImplementedError, match="Stage"):
+        tds.fetch_dataset({}, {}, stage="virtual_kitti", image_size=(64, 96), no_aug=True)
+    with pytest.raises(ValueError, match="device_recipes"):
+        cli_train.train(_resume_cfg(1), chairs_layout(0, n=2, h=64, w=96),
+                        validate=lambda m: {}, log_dir=str(tmp_path), device="cpu",
+                        compute_dtype="float32", device_aug=True)
+
+
+def _raw_chairs():
+    """Raw 80x112 frames tagged for the chairs recipe, as
+    `fetch_dataset(stage="chairs", no_aug=True)` gives them."""
+    from focusflow_official_tpu_torch.data.device_aug import dense_recipe
+
+    ds = tds.RecipeTagged(chairs_layout(5, n=4, h=80, w=112), 0)
+    ds.device_recipes = [dense_recipe(-0.1, 1.0)]
+    return ds
+
+
+def test_device_aug_resume_reproduces_the_augmentation(tmp_path):
+    """`device_aug` on raw frames: a four-step run that checkpoints at
+    step 3 against one restored from that checkpoint, which must draw the
+    same augmentation (and noise) for step 4: the same metrics, parameters
+    and both generators' states."""
+    import shutil
+
+    data = _raw_chairs()
+    run = lambda cfg, d: cli_train.train(cfg, data, validate=lambda m: {},
+                                         log_dir=str(tmp_path / d), device="cpu",
+                                         compute_dtype="float32", val_freq=3, device_aug=True)
+    straight = run(_resume_cfg(4), "a")
+    ckpts = os.path.join(straight["run_dir"], "checkpoints")
+    os.makedirs(tmp_path / "restore")
+    shutil.copy(os.path.join(ckpts, "3.pt"), tmp_path / "restore" / "3.pt")
+    resumed = run(_resume_cfg(4, str(tmp_path / "restore")), "b")
+    assert resumed["step"] == straight["step"] == 4
+    assert resumed["metrics"] == straight["metrics"]
+    assert all(np.isfinite(v) for v in straight["metrics"].values())
+    want = torch.load(os.path.join(ckpts, "4.pt"), weights_only=True)
+    got = torch.load(os.path.join(resumed["run_dir"], "checkpoints", "4.pt"), weights_only=True)
+    for k, t in want["model"].items():
+        assert torch.equal(got["model"][k], t), k
+    three = torch.load(os.path.join(ckpts, "3.pt"), weights_only=True)
+    assert not torch.equal(three["aug_generator"], want["aug_generator"])  # step 4 drew
+    for key in ("generator", "aug_generator"):
+        assert torch.equal(got[key], want[key]), key
+
+
+def test_multihost_world_size_one_over_gloo(smoke_tree, tmp_path, monkeypatch):
+    """The launch line's path, `--multihost --device-aug`, as one process
+    of torchrun's (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT set here) on
+    the CPU: gloo, the raw smoke tree augmented in the step, the run
+    directory written, the process group destroyed at the end."""
+    import socket
+
+    import torch.distributed as dist
+
+    from focusflow_official_tpu_torch.train.mesh import round_batch
+
+    assert [round_batch(b, n) for b, n in ((3, 2), (10, 4), (4, 2), (6, 1))] == [4, 12, 4, 6]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                     MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    result = cli_train.main([
+        "--yaml", YAML, "--data-root", f"chairs={smoke_tree / 'FlyingChairs_release'}",
+        "--log-dir", str(tmp_path), "--compute-dtype", "float32", "--val-freq", "100",
+        "--multihost", "--device-aug", "--device", "cpu"])
+    assert not dist.is_initialized()
+    assert result["step"] == 3 and all(np.isfinite(v) for v in result["metrics"].values())
+    assert sorted(os.listdir(result["run_dir"])) == sorted(
+        ["checkpoints", "config.yaml", "metrics.jsonl", "smoke_final.npz", "train.log"])
+    ckpt = torch.load(os.path.join(result["run_dir"], "checkpoints", "3.pt"), weights_only=True)
+    assert ckpt["aug_generator"] is not None
 
 
 def test_metrics_logger_jsonl_and_tensorboard(tmp_path, monkeypatch):
