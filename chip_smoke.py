@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it: FF-RAFT,
 FF-FlowFormer and FF-PWCNet inference, the evaluation entry point, the
 training of all three, the paper's baselines (plain RAFT, vanilla
-FlowFormer) and fusion ablation (CA, SA, concat), and training at scale
-(the on-card augmentation, data parallelism).
+FlowFormer) and fusion ablation (CA, SA, concat), training at scale
+(the on-card augmentation, data parallelism), and the FF-RAFT variants
+(ALT_CORR up to 4K, the small model, the attention and conv front ends).
 
     python3 chip_smoke.py
 
@@ -118,8 +119,11 @@ Phases (any failure raises and exits non-zero; no result is printed):
    cut to 16, on one fixed batch of in-memory multi-pixel affine pairs
    with 3% keypoint masks. Gates: finite loss and gradient norm at every
    step; every step launches G 12, A 12 (in G's backward), C1 30 and C2 30
-   (12 residual); the last four losses' mean under 0.98 x the first; the
-   final `validate_chairs` finite; on two samples without noise, the f32
+   (12 residual); descent: the fixed batch's loss after the last step
+   under DESCENT_BOUND x its loss before the first, both taken in f32
+   with TF32 off, no noise and the train-mode batch statistics
+   (`_fixed_batch_loss`; the noisy bf16 losses of the steps swing too far
+   to gate on); the final `validate_chairs` finite; on two samples without noise, the f32
    step (TF32 off) within 1e-4 of the port's f32 CPU step in loss and
    >= 0.9999 in gradient cosine, and the bf16 step within 2% and >= 0.99 of
    the f32 step. Step 4 is the counted step (every count 0 before it),
@@ -199,8 +203,35 @@ Phases (any failure raises and exits non-zero; no result is printed):
     (`train/mesh.py::init_from_env`, as `cli/train.py --multihost` joins
     it): 6 steps at B=10, 368x496, bf16, ms a step (steps 2-5) beside
     phase 9's, and step 6 profiled: busy ms, idle share, NCCL's kernels.
+14. The FF-RAFT variants, after phase 12's serving part
+    (`variant_kernel_rows`, `variants_phase`), each through `FlowPredictor`
+    at B=1, bf16, 12 refinements. First the phase's new (kernel, shape)
+    keys, held and timed as phase 2 holds its rows: G at radius 3 with N =
+    96 (Q = 7040), G at ALT_CORR's full chunk (2048 queries) and tail at
+    1024x436 and 3840x2160, C1 and C2 at RAFT-S's SmallEncoder shapes (32,
+    8, 16, 24, 64 and 96 channels) and at the CCE fnet's 4K shapes. Then:
+    ALT_CORR (the main path's config, `trained_smoke.npz`, phase 3's pair)
+    at 1024x436: the shift gate, agreement with its f32 CPU run and with
+    the card's materialized bf16 flow (phase 3's bounds, the margin
+    printed), G 12 a chunk of 2048 and 12 on the tail, peak memory beside
+    the materialized run's; at 1920x1080 ALT_CORR against the materialized
+    bf16 flow on the same pair; at 3840x2160 (phase 3's white noise and
+    shift): finite flow, the shift gate, peak allocated memory under
+    ALT_PEAK_GIB, the materialized path's volume reckoned beside it (not
+    launched). RAFT-S (`raft_CTK.yaml`) and FF-RAFT-S
+    (`ffraft_chairs_orb.yaml`) with SMALL, and the attention and conv front
+    ends (`ffraft_chairs_orb.yaml` with FUSION attention or conv,
+    FUSION_CHANNEL 256) at 1024x436, on `_raft_variant_weights`: finite
+    flow, agreement with the f32 CPU run on the same weights (the
+    attention front end's on the pair's top left 224x512: its UNet is
+    about 30 TFLOP a pair in f32), the launches (G 12, at radius 3 and N =
+    96 for the small models; C1 and C2 21 for RAFT-S's fnet, 15 plain and 6
+    residual, 30 for a CCE fnet, 15 for a plain one). Each prints ms a
+    pair, busy ms, idle share and kernel count. The 1080p and cut runs are
+    checks, not paths: the shapes they launch that no row holds are held
+    once, untimed.
 The `kernels` line gives each kernel's launches on every path,
-the training paths and phase 12's and 13's among them.
+the training paths and phases 12's, 13's and 14's among them.
 
 Outside the phases under default flags, f32 matmuls and convolutions run
 in full f32 here (TF32 off), so the f32 comparisons are not blurred by
@@ -209,6 +240,7 @@ TF32's 10-bit mantissa. Needs one card.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import math
@@ -765,7 +797,6 @@ def kernel_phase(torch, dev):
     one result per kernel."""
     import torch.nn.functional as F
 
-    from focusflow_official_tpu_torch.kernels import instance_norm as kin
     from focusflow_official_tpu_torch.compat.weights import load_npz
     from focusflow_official_tpu_torch.ops.coords import coords_grid
     from focusflow_official_tpu_torch.ops.corr import corr_pyramid
@@ -1240,17 +1271,25 @@ def _gates(flow, shift, cpu, shape=(H, W, 2)) -> dict:
         if not epe < 6.0:
             raise AssertionError(f"interior EPE {epe} >= 6 px")
     flow_cpu, cpu_s = cpu
-    diff = np.abs(flow - flow_cpu)
-    mag = float(np.abs(flow_cpu).mean())
-    if not (float(diff.mean()) < 0.05 * max(mag, 1.0)
-            and float(np.median(diff)) < 0.1):
-        raise AssertionError(f"card vs f32 CPU: mean {diff.mean()}, "
-                             f"median {np.median(diff)}, |flow| {mag}")
+    agree = _agreement(flow, flow_cpu, "card vs f32 CPU")
     return dict(epe_interior=epe, mean_abs_flow=float(np.abs(flow).mean()),
-                vs_cpu_f32_mean_abs=float(diff.mean()),
-                vs_cpu_f32_median_abs=float(np.median(diff)),
-                vs_cpu_f32_max_abs=float(diff.max()), cpu_f32_mean_abs_flow=mag,
-                cpu_f32_seconds=cpu_s)
+                **{f"vs_cpu_f32_{k}": v for k, v in agree.items() if k != "ref_mean_abs_flow"},
+                cpu_f32_mean_abs_flow=agree["ref_mean_abs_flow"], cpu_f32_seconds=cpu_s)
+
+
+def _agreement(flow, ref, label: str) -> dict:
+    """Phase 3's agreement bounds of `flow` with `ref`: the mean |diff| under
+    0.05 max(mean |ref|, 1) px and the median under 0.1 px; `margin` is the
+    mean over its limit."""
+    diff = np.abs(flow - ref)
+    mag = float(np.abs(ref).mean())
+    limit = 0.05 * max(mag, 1.0)
+    if not (float(diff.mean()) < limit and float(np.median(diff)) < 0.1):
+        raise AssertionError(f"{label}: mean {diff.mean()}, median {np.median(diff)}, "
+                             f"|flow| {mag}")
+    return dict(mean_abs=float(diff.mean()), median_abs=float(np.median(diff)),
+                max_abs=float(diff.max()), margin=float(diff.mean()) / limit,
+                ref_mean_abs_flow=mag)
 
 
 def _raft_cfg():
@@ -1478,31 +1517,43 @@ def _raft_variant_weights(torch, cfg, path: str) -> dict:
     names), and for the rest: a `concat` unit's weight derived from the
     fixture's 1x1conv unit at the same place ([identity | its weight], its
     bias as it is, so the unit computes q + W v + b, what the 1x1conv unit
-    computed), every other tensor (the CA and SA units') drawn from a
-    seeded torch.Generator, weights 0.1 x N(0, 1/fan_in), biases
-    0.01 x N(0, 1), so the unit is q plus a small term. Saved as the .npz
-    of flat flax variables -> {"seeded": names, "derived": names}."""
+    computed), the norms' scales and running statistics and the channel
+    attention's temperatures as the model initialises them (the front
+    ends'), every other tensor (the CA and SA units', the small model's and
+    the front ends') drawn from a seeded torch.Generator, weights 0.1 x
+    N(0, 1/fan_in) (a front end's N(0, 1/fan_in)), biases 0.01 x N(0, 1),
+    so a unit is q plus a small term. Saved as the .npz of flat flax variables -> {"seeded": names,
+    "derived": names, "initial": names}."""
     from focusflow_official_tpu_torch.compat.weights import load_npz, params_to_jax
     from focusflow_official_tpu_torch.config import model_from_config
 
     model, _ = model_from_config(cfg)
     src = load_npz(FIXTURE)
     g = torch.Generator().manual_seed(12)
-    sd, seeded, derived = {}, [], []
+    sd, seeded, derived, initial = {}, [], [], []
     for k, t in model.state_dict().items():
         if k in src and src[k].shape == t.shape:
             sd[k] = src[k]
+        elif (k.endswith(("running_mean", "running_var", "temperature"))
+              or (t.dim() == 1 and k.endswith("weight"))):
+            sd[k] = t
+            initial.append(k)
         elif cfg.fusion_type == "concat" and k.endswith(".conv.weight"):
             w = src[k]  # the 1x1conv unit's (C, C, 1, 1) under the same name
             sd[k] = torch.cat([torch.eye(w.shape[0])[:, :, None, None], w], 1)
             derived.append(k)
         else:
-            scale = 0.1 / float(np.sqrt(t[0].numel())) if t.dim() > 1 else 0.01
+            # a front end stands in for the image as a whole: N(0, 1/fan_in)
+            # keeps its features at the image's scale, where 0.1 x that
+            # shrinks them layer by layer under the RAFT's biases, whose bf16
+            # sum then loses them
+            scale = 1.0 if k.startswith("fusion_layer.") else 0.1
+            scale = scale / float(np.sqrt(t[0].numel())) if t.dim() > 1 else 0.01
             sd[k] = scale * torch.randn(t.shape, generator=g)
             seeded.append(k)
     os.makedirs(OUT_DIR, exist_ok=True)
     np.savez(path, **params_to_jax(sd))
-    return dict(seeded=seeded, derived=derived)
+    return dict(seeded=seeded, derived=derived, initial=initial)
 
 
 def _vanilla_ff_weights(torch, path: str) -> dict:
@@ -1581,6 +1632,253 @@ def baseline_phase(torch, card: str) -> dict:
     return drives
 
 
+# ------------------------------------------------ phase 14: the FF-RAFT variants
+ALT_CHUNK = 2048
+FULL_HD, FOUR_K = (1080, 1920), (2160, 3840)
+ALT_PEAK_GIB = 24.0  # the 4K ALT_CORR run's bound on allocated device memory
+SMALL_FNET_SHAPES = [(2, 220, 512, 32), (2, 220, 512, 8), (2, 220, 512, 16),
+                     (2, 110, 256, 16), (2, 110, 256, 64), (2, 110, 256, 24),
+                     (2, 55, 128, 24), (2, 55, 128, 96)]  # RAFT-S's fnet at 1024x436
+
+
+def _grid(h: int, w: int) -> tuple:
+    """The /8 grid of an (h, w) frame padded to a multiple of 8."""
+    return -(-h // 8), -(-w // 8)
+
+
+def _cce_fnet_shapes(h: int, w: int) -> list:
+    """The CCE fnet's instance-norm shapes (both frames) at an (h, w) frame."""
+    hh, wh = -(-h // 8) * 4, -(-w // 8) * 4
+    return [(2, hh, wh, 64), (2, (hh + 1) // 2, (wh + 1) // 2, 96),
+            (2, (hh + 3) // 4, (wh + 3) // 4, 128)]
+
+
+def _alt_chunks(q: int) -> list:
+    """ALT_CORR's chunk sizes over q queries: the full chunks and the tail."""
+    return sorted({min(ALT_CHUNK, q - s) for s in range(0, q, ALT_CHUNK)}, reverse=True)
+
+
+def variant_kernel_rows(torch, dev) -> dict:
+    """Phase 14's new (kernel, shape) keys, each held against its plain
+    version and timed beside its bound and yardstick, as the kernel phase
+    holds its rows: G at radius 3 with N = 96 (RAFT-S's and FF-RAFT-S's
+    motion encoder, Q = 7040), G at ALT_CORR's full chunk and tail at
+    1024x436 and at 3840x2160 (the chunk's 4 levels over the whole frame,
+    the fixture's convc1), and C1 and C2 (both forms) at RAFT-S's
+    SmallEncoder fnet shapes and at the CCE fnet's 4K shapes ->
+    {kernel: rows}."""
+    from focusflow_official_tpu_torch.compat.weights import load_npz
+    from focusflow_official_tpu_torch.ops.coords import coords_grid
+    from focusflow_official_tpu_torch.ops.corr import corr_pyramid
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    bf16 = torch.bfloat16
+    sd = load_npz(FIXTURE)
+    wc = sd["flow_net.update_block.encoder.convc1.weight"].reshape(256, 324).to(dev, bf16)
+    bc = sd["flow_net.update_block.encoder.convc1.bias"].to(dev, bf16)
+    w96 = (torch.randn((96, 196), generator=g, device=dev) / 14).to(bf16)
+    b96 = (torch.randn((96,), generator=g, device=dev) * 0.1).to(bf16)
+    h0, w0 = _grid(H, W)
+    specs = [("RAFT-S motion encoder, radius 3", (h0, w0), h0 * w0, 3, w96, b96)]
+    for size, label in (((H, W), "1024x436"), (FOUR_K, "3840x2160")):
+        gh, gw = _grid(*size)
+        specs += [(f"ALT_CORR {label}, {q} of {gh * gw} queries", (gh, gw), q, 4, wc, bc)
+                  for q in _alt_chunks(gh * gw)]
+    rows = {"lookup_fold": [], "in_stats": [], "in_normalize": []}
+    for label, (gh, gw), q, r, w, bias in specs:
+        levels = corr_pyramid(torch.randn((1, q, gh, gw), generator=g, device=dev), 4, bf16)
+        coords = (coords_grid(1, gh, gw, device=dev).reshape(1, 1, -1, 2)[:, :, :q]
+                  + torch.randn((1, 1, q, 2), generator=g, device=dev) * 8).contiguous()
+        row = _lookup_fold_row(torch, levels, coords, r, w, bias, label)
+        row.update(shape=f"{label}: levels {[tuple(lv.shape) for lv in levels]} bf16, "
+                         f"({w.shape[0]}, {w.shape[1]}) weight")
+        rows["lookup_fold"].append(row)
+        _emit(dict(phase="variant_kernels", name="lookup_fold", **row))
+        del levels, coords
+        torch.cuda.empty_cache()
+    per_shape = _instance_norm_rows(torch, g, dev, SMALL_FNET_SHAPES + _cce_fnet_shapes(*FOUR_K))
+    for name in ("in_stats", "in_normalize"):
+        rows[name] = per_shape[name]
+        for row in per_shape[name]:
+            _emit(dict(phase="variant_kernels", name=name, **row))
+    return rows
+
+
+def _variant_cfg(yaml: str, **model):
+    """The YAML's port config (bf16) with MODEL keys set."""
+    from focusflow_official_tpu_torch.config import config_from_yaml, load_yaml_config
+
+    cfg = load_yaml_config(yaml)
+    for k, v in model.items():
+        setattr(cfg.MODEL, k, v)
+    return config_from_yaml(cfg, compute_dtype="bfloat16")
+
+
+def _materialized_bytes(h: int, w: int) -> dict:
+    """The all-pairs path's volume at an (h, w) frame, in bytes: the f32
+    product, its three pooled levels in f32, level 0 stored in bf16."""
+    gh, gw = _grid(h, w)
+    q = gh * gw
+    pooled = sum((gh >> lv) * (gw >> lv) for lv in (1, 2, 3))
+    return dict(f32_product=q * q * 4, f32_pooled=q * pooled * 4, bf16_level0=q * q * 2,
+                total=q * q * 6 + q * pooled * 4)
+
+
+def _chunk_launches(shapes: dict) -> dict:
+    """G's launches by the chunk's queries (the key's q)."""
+    out = {}
+    for key, n in shapes.items():
+        if key[0] == "lookup_fold":
+            out[key[2]] = out.get(key[2], 0) + n
+    return out
+
+
+def variants_phase(torch, card: str, held: set) -> dict:
+    """Phase 14, the FF-RAFT variants, through `FlowPredictor`, B=1, bf16, 12
+    refinements (see the module docstring) -> path -> (launch counts,
+    launches by shape key) of each counted forward. Runs that are checks
+    and no path (the 1080p pair, the attention front end's cut pair) have
+    each (kernel, shape) they launch that no row holds (`held`) held once
+    against its plain version."""
+    from focusflow_official_tpu_torch.kernels import launch_shapes, reset_launch_counts
+    from focusflow_official_tpu_torch.predict import FlowPredictor
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    drives, checked = {}, {}
+
+    def checks(fn):
+        """Run `fn` with its launches kept apart from the paths' counts."""
+        reset_launch_counts()
+        out = fn()
+        for key, n in launch_shapes.items():
+            checked[key] = checked.get(key, 0) + n
+        return out
+
+    # ---- 14.1 ALT_CORR at 1024x436, beside the materialized path
+    alt = dataclasses.replace(_raft_cfg(), alt_corr=True, alt_corr_chunk=ALT_CHUNK)
+    inputs, shift = _shift_inputs(H, W)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mat_flow = checks(lambda: FlowPredictor(_raft_cfg(), FIXTURE, device="cuda", dtype=bf16)(
+        *inputs)[0])
+    mat_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    q = int(np.prod(_grid(H, W)))
+    want = {"lookup_fold": ITERS * -(-q // ALT_CHUNK), "in_stats": 30, "in_normalize": 30}
+    p = FlowPredictor(alt, FIXTURE, device="cuda", dtype=bf16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flow, counts, ms, times, breakdown = _drive(torch, p, inputs, want,
+                                                "chip_smoke_profile_alt_corr")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    chunks = _chunk_launches(counts[1])
+    if chunks != {c: ITERS * (q // c if c == ALT_CHUNK else 1) for c in _alt_chunks(q)}:
+        raise AssertionError(f"ALT_CORR 1024x436: G launches by chunk {chunks}")
+    gates = _gates(flow, shift, _cpu_flow(alt, FIXTURE, inputs))
+    _emit(dict(phase="variants", model="ff_raft_alt_corr", card=card, shape=[1, H, W],
+               iters=ITERS, dtype="bfloat16", chunk=ALT_CHUNK, ms_per_pair=ms,
+               device_busy_ms=breakdown["device_busy_ms"], idle_share=breakdown["idle_share"],
+               kernel_count=breakdown["kernel_count"], ms_all=times, profile=breakdown,
+               launches=counts[0], g_launches_by_chunk=chunks, **gates,
+               vs_materialized_bf16=_agreement(flow, mat_flow, "ALT_CORR vs materialized"),
+               peak_mem_gib=peak, materialized_peak_mem_gib=mat_peak))
+    drives["ff_raft_alt_corr"] = counts
+    del p
+
+    # ---- 14.2 ALT_CORR at 1920x1080 against the materialized path, then 4K
+    inputs, shift = _shift_inputs(*FULL_HD)
+    hd = {}
+    for name, cfg in (("materialized", _raft_cfg()), ("alt_corr", alt)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        hd[name] = checks(lambda: FlowPredictor(cfg, FIXTURE, device="cuda", dtype=bf16)(
+            *inputs)[0])
+        hd[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    hd_gates = _agreement(hd["alt_corr"], hd["materialized"], "ALT_CORR vs materialized, 1080p")
+    inputs, shift = _shift_inputs(*FOUR_K)
+    q4 = int(np.prod(_grid(*FOUR_K)))
+    want = {"lookup_fold": ITERS * -(-q4 // ALT_CHUNK), "in_stats": 30, "in_normalize": 30}
+    p = FlowPredictor(alt, FIXTURE, device="cuda", dtype=bf16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flow, counts, ms, times, breakdown = _drive(torch, p, inputs, want,
+                                                "chip_smoke_profile_alt_corr_4k", timed=3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    shape4 = (*FOUR_K, 2)
+    if flow.shape != shape4 or not np.isfinite(flow).all():
+        raise AssertionError(f"ALT_CORR 4K: flow {flow.shape} not finite or not {shape4}")
+    epe = float(np.sqrt(((flow[8:-8, 8:-8] - np.array(shift)) ** 2).sum(-1)).mean())
+    if not (epe < 6.0 and peak < ALT_PEAK_GIB):
+        raise AssertionError(f"ALT_CORR 4K: interior EPE {epe}, peak {peak} GiB")
+    _emit(dict(phase="variants", model="ff_raft_alt_corr_4k", card=card, shape=[1, *FOUR_K],
+               iters=ITERS, dtype="bfloat16", chunk=ALT_CHUNK, ms_per_pair=ms,
+               device_busy_ms=breakdown["device_busy_ms"], idle_share=breakdown["idle_share"],
+               kernel_count=breakdown["kernel_count"], ms_all=times, profile=breakdown,
+               launches=counts[0], g_launches_by_chunk=_chunk_launches(counts[1]),
+               epe_interior=epe, mean_abs_flow=float(np.abs(flow).mean()),
+               peak_mem_gib=peak, peak_bound_gib=ALT_PEAK_GIB,
+               materialized_bytes_reckoned=_materialized_bytes(*FOUR_K),
+               full_hd=dict(shape=[1, *FULL_HD], vs_materialized_bf16=hd_gates,
+                            peak_mem_gib={k: hd[f"{k}_peak_gib"]
+                                          for k in ("materialized", "alt_corr")},
+                            materialized_bytes_reckoned=_materialized_bytes(*FULL_HD))))
+    drives["ff_raft_alt_corr_4k"] = counts
+    del p, hd
+    torch.cuda.empty_cache()
+
+    # ---- 14.3 RAFT-S and FF-RAFT-S; 14.4 the attention and conv front ends
+    cases = (("raft_s", RAFT_CTK_YAML, dict(SMALL=True), 21, (15, 6)),
+             ("ff_raft_s", TRAIN_YAML, dict(SMALL=True), 30, (18, 12)),
+             ("raft_attention", TRAIN_YAML, dict(FUSION="attention", FUSION_CHANNEL=256),
+              15, (9, 6)),
+             ("raft_conv", TRAIN_YAML, dict(FUSION="conv", FUSION_CHANNEL=256), 15, (9, 6)))
+    inputs, _ = _shift_inputs(H, W)
+    for path, yaml, model, n_in, (n_plain, n_res) in cases:
+        cfg = _variant_cfg(yaml, **model)
+        weights = os.path.join(OUT_DIR, f"{path}_weights.npz")
+        made = _raft_variant_weights(torch, cfg, weights)
+        want = {"lookup_fold": cfg.iters, "in_stats": n_in, "in_normalize": n_in}
+        p = FlowPredictor(cfg, weights, device="cuda", dtype=bf16)
+        flow, counts, ms, times, breakdown = _drive(torch, p, inputs, want,
+                                                    f"chip_smoke_profile_{path}")
+        forms = _count_forms(counts[1], "in_normalize")
+        g_keys = {key for key in counts[1] if key[0] == "lookup_fold"}
+        radius, n_out = (3, 96) if cfg.small else (4, 256)
+        if forms != {"plain": n_plain, "residual": n_res} or any(
+                (key[-6], key[-5]) != (radius, n_out) for key in g_keys):
+            raise AssertionError(f"{path}: in_normalize forms {forms}, G keys {g_keys}")
+        cpu_inputs, cpu_note = inputs, "full frame"
+        if cfg.fusion == "attention":
+            # its 256-channel UNet is about 30 TFLOP a pair in f32, minutes on
+            # the card machine's CPU: the agreement runs on the pair's top
+            # left 224x512 (the card's bf16 run of the same crop beside it)
+            cpu_inputs = tuple(a[:, :224, :512] for a in inputs)
+            cpu_note = "top left 224x512, the card's run of the same crop"
+            flow = checks(lambda: p(*cpu_inputs)[0])
+        gates = _gates(flow, None, _cpu_flow(cfg, weights, cpu_inputs),
+                       shape=(*cpu_inputs[0].shape[1:3], 2))
+        del p
+        _emit(dict(phase="variants", model=path, yaml=os.path.relpath(yaml, ROOT),
+                   set=model, card=card, shape=[1, H, W], iters=cfg.iters, dtype="bfloat16",
+                   ms_per_pair=ms, device_busy_ms=breakdown["device_busy_ms"],
+                   idle_share=breakdown["idle_share"], kernel_count=breakdown["kernel_count"],
+                   ms_all=times, profile=breakdown, launches=counts[0],
+                   in_normalize_forms=forms, g_keys=sorted(map(list, g_keys)),
+                   weights={k: dict(count=len(v), first=v[:2]) for k, v in made.items()},
+                   **gates, cpu_f32_size=cpu_note,
+                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
+        drives[path] = counts
+        torch.cuda.empty_cache()
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    new = sorted((k for k in checked if k not in held), key=str)
+    new_rows = [dict(_hold_shape(torch, g, torch.device("cuda", 0), k), launches=checked[k])
+                for k in new]
+    _emit(dict(phase="variants", part="check runs' new shapes held", held=new_rows,
+               phase_seconds=time.perf_counter() - t_phase))
+    return drives
+
+
 def _hold_shape(torch, g, dev, key: tuple) -> dict:
     """One untimed launch of a kernel at the shape of a launch key, on
     seeded inputs, against its plain version, with the tolerance of the
@@ -1607,21 +1905,22 @@ def _hold_shape(torch, g, dev, key: tuple) -> dict:
     if name in ("lookup", "lookup_fold"):
         b, q = key[1], key[2]
         if name == "lookup":
-            dims, dt = key[3:-1], dtype_of(key[-1])
+            dims, r, dt = key[3:-1], 4, dtype_of(key[-1])
         else:
-            dims, n, dt = key[3:-5], key[-5], dtype_of(key[-4])
+            dims, r, n, dt = key[3:-6], key[-6], key[-5], dtype_of(key[-4])
         levels = [rnd(b, q, hl, wl).to(dt) for hl, wl in zip(dims[::2], dims[1::2])]
-        coords = (coords_grid(b, dims[0], dims[1], device=dev)
-                  + rnd(b, dims[0], dims[1], 2) * 8).contiguous()
+        # q queries over level 0 (an ALT_CORR chunk: fewer than its cells)
+        coords = (coords_grid(b, dims[0], dims[1], device=dev).reshape(b, 1, -1, 2)[:, :, :q]
+                  + rnd(b, 1, q, 2) * 8).contiguous()
         if name == "lookup":  # bit-equal in the levels' type, as its row
-            call = lambda: kl.lookup(levels, coords, 4)
-            want, tol = kl.lookup_plain(levels, coords, 4), 0.0
+            call = lambda: kl.lookup(levels, coords, r)
+            want, tol = kl.lookup_plain(levels, coords, r), 0.0
         else:
-            k = 81 * len(levels)
+            k = (2 * r + 1) ** 2 * len(levels)
             w = (rnd(n, k) / k ** 0.5).to(dt).contiguous()
             bias = (rnd(n) * 0.1).to(dt)
-            call = lambda: klf.lookup_fold(levels, coords, 4, w, bias)
-            want = klf.lookup_fold_plain(levels, coords, 4, w, bias)
+            call = lambda: klf.lookup_fold(levels, coords, r, w, bias)
+            want = klf.lookup_fold_plain(levels, coords, r, w, bias)
             tol = rel_tol(want, 1e-4, 2.0 ** -7)
     elif name == "fold":
         m, k, n, dt = key[1], key[2], key[3], dtype_of(key[4])
@@ -1916,6 +2215,9 @@ TRAIN_YAML = os.path.join(ROOT, "configs", "ff-raft", "experiment", "ffraft_chai
 TB, TH, TW = 10, 368, 496  # the chairs stage's batch and crop
 TRAIN_STEPS = 16
 COUNTED_STEP, PROFILED_STEP = 4, 15  # steps 1-3 warm up; 4-13 timed
+# the descent gate: the fixed batch's f32 loss after the last step over the
+# loss before the first (`_descent_gate`)
+DESCENT_BOUND = 0.98
 # each training step: G 12 (forward), A 12 (G's backward), C1 30, C2 30
 TRAIN_WANT = {"lookup_fold": ITERS, "lookup": ITERS, "in_stats": 30, "in_normalize": 30}
 
@@ -2256,11 +2558,12 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
     Gates: every step's loss and gradient norm finite; every step makes
     the path's launches (FF-RAFT: G 12, A 12, C1 30, C2 30 of which 12 in
     the residual form; FF-PWCNet: D 5, all in the leaky-ReLU form;
-    FF-FlowFormer: A 12, B 24, E 27, F 11); the mean of the last four
-    losses under 0.98 x the first (JAX's own descent test; FF-FlowFormer's
-    on 16 more steps as that test takes them: fresh weights, a constant lr
-    of 1e-4, no noise, `_descent_recipe`; its fixture predicts about zero
-    flow on this input and its batch loss does not move in 16 steps); the final
+    FF-FlowFormer: A 12, B 24, E 27, F 11); the fixed batch's f32 loss
+    after the last step under DESCENT_BOUND x its loss before the first
+    (`_descent_gate`; FF-FlowFormer's on 16 more steps of JAX's own
+    descent test: fresh weights, a constant lr of 1e-4, no noise,
+    `_descent_recipe`; its fixture predicts about zero flow on this input
+    and its batch loss does not move in 16 steps); the final
     validation (`validate_chairs` on phase 8's chairs layout) finite. Then,
     on two of the samples with no noise: the f32 step's loss within 1e-4 of
     the port's f32 step on the CPU and the cosine of their flat gradients
@@ -2285,7 +2588,6 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
     import copy
 
     from focusflow_official_tpu_torch.cli.train import train as run_trainer
-    from focusflow_official_tpu_torch.config import load_yaml_config
     from focusflow_official_tpu_torch.data import synthetic as sy
     from focusflow_official_tpu_torch.kernels import (
         launch_counts, launch_shapes, reset_launch_counts)
@@ -2293,27 +2595,14 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
     from focusflow_official_tpu_torch.train import evaluate as tev
     from torch.profiler import ProfilerActivity, profile
 
-    spec = _train_specs()[path]
-    weights = spec["weights"]
-    weights = (_ff_depth3_weights() if weights is None
-               else weights(torch) if callable(weights) else weights)
+    t_phase = time.perf_counter()
+    spec, cfg, weights, data, data_s = _train_setup(torch, path)
     batch, (th, tw), want = spec["batch"], spec["crop"], spec["want"]
     dev = torch.device("cuda", 0)
     bf16 = torch.bfloat16
-    t_phase = time.perf_counter()
-    cfg = load_yaml_config(spec["yaml"])
-    cfg.TRAIN.NUM_STEPS = TRAIN_STEPS
-    cfg.MODEL.PRETRAIN = weights
-    cfg.MODEL.LOAD_MODULE = None
-    cfg.MODEL.load_former = None
-    cfg.GLOBAL.NUM_WORKERS = 2
-    if (int(cfg.TRAIN.BATCH_SIZE), tuple(cfg.TRAIN.IMAGE_SIZE)) != (batch, (th, tw)):
-        raise AssertionError(f"{spec['yaml']}: batch {cfg.TRAIN.BATCH_SIZE}, crop "
-                             f"{cfg.TRAIN.IMAGE_SIZE}, not {batch} at {th}x{tw}")
-    t0 = time.perf_counter()
-    data = sy.chairs_layout(5, n=batch, h=th, w=tw)
     chairs = sy.chairs_layout(0)
-    data_s = time.perf_counter() - t0
+    before = (_fixed_batch_loss(torch, _trained_model(torch, cfg, weights, dev, "float32")[0],
+                                cfg, data) if spec["descent"] == "trainer" else None)
     shapes_seen: dict = {}
     st = dict(times=[], metrics=[], per_step=[], counted=None, prof=None)
 
@@ -2340,7 +2629,9 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
             st["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             st["prof"].start()
 
-    def validate(model):
+    def validate(model):  # once, after the last step
+        if spec["descent"] == "trainer":
+            st["after"] = _fixed_batch_loss(torch, model, cfg, data)
         return tev.validate_chairs(for_inference(copy.deepcopy(model), bf16, dev), chairs)
 
     torch.cuda.empty_cache()
@@ -2364,11 +2655,8 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
         if forms != want_forms:
             raise AssertionError(f"{path} step: {kernel} forms {forms}, not {want_forms}")
     losses = [m["loss"] for m in st["metrics"]]
-    descent = losses
-    if spec["descent"] == "recipe":
-        descent = _descent_recipe(torch, cfg, data)
-    if not float(np.mean(descent[-4:])) < 0.98 * descent[0]:
-        raise AssertionError(f"{path}: no descent over {TRAIN_STEPS} steps: {descent}")
+    descent = (_descent_gate(path, before, st["after"]) if spec["descent"] == "trainer"
+               else _descent_recipe(torch, path, cfg, data))
     final = result["final"]
     if not np.isfinite(list(final.values())).all():
         raise AssertionError(f"{path}: validation on the trained weights: {final}")
@@ -2429,10 +2717,7 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
                iters=spec["iters"], dtype="bfloat16", steps=TRAIN_STEPS,
                ms_per_step=ms, ms_steps_4_13=timed.tolist(), samples_per_s=batch * 1e3 / ms,
                first_steps_ms=step_ms[:COUNTED_STEP - 2].tolist(), losses=losses,
-               last4_over_first=float(np.mean(losses[-4:])) / losses[0],
-               **({"descent_recipe_losses": descent,
-                   "descent_recipe_last4_over_first": float(np.mean(descent[-4:])) / descent[0]}
-                  if spec["descent"] == "recipe" else {}),
+               descent=descent,
                grad_norms=[m["grad_norm"] for m in st["metrics"]],
                final_validation=final, launches_per_step=want,
                **({f"{spec['forms'][0]}_forms": forms} if forms else {}),
@@ -2446,19 +2731,89 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
     return (counts, step_shapes), rows, out
 
 
-def _descent_recipe(torch, cfg, data) -> list:
+def _train_setup(torch, path: str) -> tuple:
+    """A training path's spec (`_train_specs`), its YAML cut to
+    TRAIN_STEPS steps from its weights, and its fixed batch -> (spec, cfg,
+    weights, data, seconds to make the data)."""
+    from focusflow_official_tpu_torch.config import load_yaml_config
+    from focusflow_official_tpu_torch.data import synthetic as sy
+
+    spec = _train_specs()[path]
+    weights = spec["weights"]
+    weights = (_ff_depth3_weights() if weights is None
+               else weights(torch) if callable(weights) else weights)
+    batch, (th, tw) = spec["batch"], spec["crop"]
+    cfg = load_yaml_config(spec["yaml"])
+    cfg.TRAIN.NUM_STEPS = TRAIN_STEPS
+    cfg.MODEL.PRETRAIN = weights
+    cfg.MODEL.LOAD_MODULE = None
+    cfg.MODEL.load_former = None
+    cfg.GLOBAL.NUM_WORKERS = 2
+    if (int(cfg.TRAIN.BATCH_SIZE), tuple(cfg.TRAIN.IMAGE_SIZE)) != (batch, (th, tw)):
+        raise AssertionError(f"{spec['yaml']}: batch {cfg.TRAIN.BATCH_SIZE}, crop "
+                             f"{cfg.TRAIN.IMAGE_SIZE}, not {batch} at {th}x{tw}")
+    t0 = time.perf_counter()
+    data = sy.chairs_layout(5, n=batch, h=th, w=tw)
+    return spec, cfg, weights, data, time.perf_counter() - t0
+
+
+def _fixed_batch_loss(torch, model, cfg, data) -> float:
+    """The loss of `model` on the fixed batch `data`, the descent gate's
+    measure: in f32 with TF32 off, no noise, on an f32 copy of the model
+    in train mode (the batch norms on the batch's statistics as in a step;
+    frozen ones on their running statistics), so that its statistics stay
+    as they were."""
+    from focusflow_official_tpu_torch.cli.train import build_model
+    from focusflow_official_tpu_torch.predict import _no_tf32
+    from focusflow_official_tpu_torch.train.loop import forward_loss
+
+    model_cfg, m, loss_fn, iters = build_model(cfg, "float32")  # its forward in f32
+    m.load_state_dict(model.state_dict(), strict=True)
+    dev = next(model.parameters()).device
+    m.to(dev).train()
+    if dev.type == "cuda":
+        m.to(memory_format=torch.channels_last)
+    if getattr(model_cfg, "freeze_bn", False):
+        m.freeze_bn()
+    batch = {k: torch.as_tensor(np.stack([data[i][k] for i in range(len(data))]), device=dev)
+             for k in ("image1", "image2", "mask1", "mask2", "flow", "valid")}
+    with torch.no_grad(), _no_tf32():
+        loss, _ = forward_loss(m, loss_fn, batch, iters=iters, dtype=torch.float32)
+    del m, batch
+    torch.cuda.empty_cache()
+    return float(loss)
+
+
+def _descent_gate(path: str, before: float, after: float) -> dict:
+    """The fixed batch's f32 loss after the last step over the loss before
+    the first must be under DESCENT_BOUND."""
+    out = dict(loss_before=before, loss_after=after, ratio=after / before,
+               bound=DESCENT_BOUND)
+    print(f"{path}: descent ratio {out['ratio']:.6f} (bound {DESCENT_BOUND})", flush=True)
+    if not out["ratio"] < DESCENT_BOUND:
+        raise AssertionError(f"{path}: no descent over {TRAIN_STEPS} steps: {out}")
+    return out
+
+
+def _descent_recipe(torch, path: str, cfg, data, device="cuda") -> dict:
     """JAX's own descent test (`tests/test_train.py`,
     `test_loss_decreases_and_multichip`) at the phase's shape: 16 steps of
     `train/loop.py::train_step` on the fixed batch from fresh weights
     (PyTorch's default initialisation under seed 0), bf16, at a constant
-    lr of 1e-4, global clip 1.0, no noise -> the losses."""
+    lr of 1e-4, global clip 1.0, no noise; gated on the fixed batch's f32
+    loss before the first step and after the last (`_descent_gate`) ->
+    the gate's numbers and the steps' losses. `device`: the card, or the
+    CPU for the CPU test at a reduced size."""
     from focusflow_official_tpu_torch.cli.train import build_model
     from focusflow_official_tpu_torch.train.loop import build_optimizer, train_step
 
-    dev = torch.device("cuda", 0)
+    dev = torch.device(device)
     torch.manual_seed(0)
     _, model, loss_fn, iters = build_model(cfg, "bfloat16")
-    model.to(dev).to(memory_format=torch.channels_last).train()
+    model.to(dev).train()
+    if dev.type == "cuda":
+        model.to(memory_format=torch.channels_last)
+    before = _fixed_batch_loss(torch, model, cfg, data)
     opt = build_optimizer(model, 1e-4, weight_decay=0.0)
     constant = torch.optim.lr_scheduler.LambdaLR(opt, lambda _: 1.0)
     batch = {k: torch.as_tensor(np.stack([data[i][k] for i in range(len(data))]), device=dev)
@@ -2466,9 +2821,36 @@ def _descent_recipe(torch, cfg, data) -> list:
     losses = [float(train_step(model, opt, constant, loss_fn, batch, iters=iters,
                                dtype=torch.bfloat16, clip=1.0)["loss"])
               for _ in range(TRAIN_STEPS)]
-    del model, opt, batch
+    del opt, batch
+    out = dict(_descent_gate(path, before, _fixed_batch_loss(torch, model, cfg, data)),
+               recipe_losses=losses)
+    del model
     torch.cuda.empty_cache()
-    return losses
+    return out
+
+
+def descent_run(torch, path: str) -> dict:
+    """A training path's descent alone: the trainer's 16 steps from the
+    path's weights (`descent="trainer"`) or the recipe (`"recipe"`), and
+    the gate's numbers (`scripts/descent_forms.py` takes them under two
+    summation forms)."""
+    from focusflow_official_tpu_torch.cli.train import train as run_trainer
+
+    spec, cfg, weights, data, _ = _train_setup(torch, path)
+    if spec["descent"] == "recipe":
+        return _descent_recipe(torch, path, cfg, data)
+    dev = torch.device("cuda", 0)
+    before = _fixed_batch_loss(torch, _trained_model(torch, cfg, weights, dev, "float32")[0],
+                               cfg, data)
+    got = {}
+
+    def validate(model):  # once, after the last step
+        got["after"] = _fixed_batch_loss(torch, model, cfg, data)
+        return {}
+
+    run_trainer(cfg, data, validate=validate, log_dir=os.path.join(OUT_DIR, "train_runs"),
+                device="cuda", compute_dtype="bfloat16", val_freq=10 ** 9)
+    return _descent_gate(path, before, got["after"])
 
 
 def _train_step_split(torch, cfg, weights: str, data) -> dict:
@@ -2625,8 +3007,6 @@ def device_aug_phase(torch, card: str, phase9: dict) -> tuple:
     busy ms and idle share of profiled step 15 and the augmentation's
     device ms in it (its `device_aug` range). -> (counts, launches by
     shape key) of step 4."""
-    import copy
-
     from focusflow_official_tpu_torch.cli.train import train as run_trainer
     from focusflow_official_tpu_torch.config import load_yaml_config
     from focusflow_official_tpu_torch.data.device_aug import (
@@ -2762,21 +3142,16 @@ def _ddp_step(torch, mesh, dev) -> dict:
     (fresh weights under seed 0, the cnet's batch norm in train mode,
     MixLoss, noise, AdamW at lr 4e-4, clip 1.0; TF32 off) on the global
     batch, or on `mesh`'s rows of it, on `dev` -> metrics, gradients,
-    state and the launches by shape key, on the CPU. The one process takes
-    the batch statistics in the ranks' form (sums through an identity);
-    torch's mean and variance, which one card takes without a mesh, differ
-    from it by f32 rounding that the mask branch's batch norms amplify in
-    the gradients (`tests/test_torch_distributed.py`)."""
+    state and the launches by shape key, on the CPU. One process takes the
+    batch statistics as the ranks do, as sums over a count (through the
+    identity)."""
     from focusflow_official_tpu_torch.cli.train import build_model
     from focusflow_official_tpu_torch.config import load_yaml_config
     from focusflow_official_tpu_torch.kernels import launch_shapes, reset_launch_counts
     from focusflow_official_tpu_torch.train.loop import build_optimizer, train_step
-    from focusflow_official_tpu_torch.train.mesh import sync_batch_norms
 
     torch.manual_seed(0)
     _, model, loss_fn, iters = build_model(load_yaml_config(TRAIN_YAML), "float32", mesh)
-    if mesh is None:  # the ranks' form of the batch statistics, on the whole batch
-        sync_batch_norms(model, lambda t: t)
     model.to(dev).to(memory_format=torch.channels_last).train()
     opt = build_optimizer(model, 4e-4)
     sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda _: 1.0)
@@ -3008,21 +3383,22 @@ def _worst(rows: list) -> dict:
     return dict(max_abs_err=r["max_abs_err"], tol=r["tol"])
 
 
-def _row_keys(raft: list, ff_rows: dict, pwc_rows: list, train_rows: dict) -> set:
+def _row_keys(raft: list, ff_rows: dict, pwc_rows: list, train_rows: dict,
+              variant_rows: dict) -> set:
     """The launch key of every row the kernel phases hold (`train_rows`:
-    path -> {kernel: rows})."""
+    path -> {kernel: rows}; `variant_rows`: {kernel: rows})."""
     keys = set()
     for kr in raft:
         keys.update(r["key"] for r in kr.get("per_shape", ()))
         keys.update(k for k in (kr.get("key"), kr.get("f32", {}).get("key")) if k)
-    for rows in (*ff_rows.values(), pwc_rows,
+    for rows in (*ff_rows.values(), pwc_rows, *variant_rows.values(),
                  *(rs for by_kernel in train_rows.values() for rs in by_kernel.values())):
         keys.update(r["key"] for r in rows)
     return keys
 
 
 def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, train_rows: dict,
-                  drives: dict, card: str) -> list:
+                  variant_rows: dict, drives: dict, card: str) -> list:
     """One entry per kernel: the headline shape's times (the FF-RAFT shape
     for A-C2 and the fused lookup + convc1, the first FlowFormer shape for
     E and F, PWC level 2 for D), for E and B the entry that shape ran
@@ -3039,7 +3415,8 @@ def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, train_rows: dict,
     "flowformer_train" launches shapes that "ff_flowformer_train"'s rows
     hold) carry their backward's time and gradient check beside the
     forward's; a kernel's `train` entry gives each training path's first
-    row."""
+    row. Phase 14's rows (`variant_rows`: {kernel: rows}) join their
+    kernel's `per_shape` under the path "ff_raft_variants"."""
     table = []
     for kr in raft:
         if "per_shape" not in kr:
@@ -3051,7 +3428,9 @@ def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, train_rows: dict,
                 kr["per_shape"].append(dict(kr.pop("f32"), path="ff_raft"))
             kr["per_shape"] += [dict(r, path="ff_flowformer")
                                 for r in ff_rows.get(kr["name"], [])]
-            kr.update(_worst(kr["per_shape"]))
+        kr["per_shape"] += [dict(r, path="ff_raft_variants")
+                            for r in variant_rows.get(kr["name"], [])]
+        kr.update(_worst(kr["per_shape"]))
         kr.pop("key", None)
         table.append(kr)
     for name, src, replaces, lib in (
@@ -3098,7 +3477,8 @@ def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, train_rows: dict,
             kr["max_abs_err"], kr["tol"] = worst["max_abs_err"], worst["tol"]
     # `launches` sums these
     paths = ("ff_raft", "ff_flowformer", "ff_pwcnet", "raft", "raft_ca", "raft_sa",
-             "raft_concat", "flowformer", "ff_raft_train", "ff_pwcnet_train",
+             "raft_concat", "flowformer", "ff_raft_alt_corr", "ff_raft_alt_corr_4k", "raft_s",
+             "ff_raft_s", "raft_attention", "raft_conv", "ff_raft_train", "ff_pwcnet_train",
              "ff_flowformer_train", "raft_train", "flowformer_train", "ff_raft_train_aug",
              "ff_raft_train_nccl1")
     held = set()
@@ -3169,9 +3549,16 @@ def main() -> int:
     drives.update(baseline_phase(torch, card))
     _emit(dict(phase="baselines", part="serving", seconds=time.perf_counter() - t0))
     torch.cuda.empty_cache()
-    train_rows = {"ff_raft_train": train_kernel_rows(torch, dev)}
-    drives["ff_raft_train"], _, phase9 = train_phase(
-        torch, card, _row_keys(raft_kernels, ff_rows, pwc_rows, train_rows))
+    # phase 14: the FF-RAFT variants (ALT_CORR, the small model, the front ends)
+    t0 = time.perf_counter()
+    variant_rows = variant_kernel_rows(torch, dev)
+    held = lambda: _row_keys(raft_kernels, ff_rows, pwc_rows, train_rows, variant_rows)
+    train_rows = {}
+    drives.update(variants_phase(torch, card, held()))
+    _emit(dict(phase="variants", seconds=time.perf_counter() - t0))
+    torch.cuda.empty_cache()
+    train_rows["ff_raft_train"] = train_kernel_rows(torch, dev)
+    drives["ff_raft_train"], _, phase9 = train_phase(torch, card, held())
     for path, rows_for in (
             ("ff_pwcnet_train", pwc_train_rows), ("ff_flowformer_train", ff_train_rows),
             # phase 12: plain RAFT's step runs G, A, C1 and C2 at B=6 (rows of
@@ -3179,15 +3566,15 @@ def main() -> int:
             ("raft_train", lambda t, d, _: train_kernel_rows(t, d, 6, "raft_train")),
             ("flowformer_train", None)):
         drives[path], train_rows[path], _ = train_phase(
-            torch, card, _row_keys(raft_kernels, ff_rows, pwc_rows, train_rows), path,
+            torch, card, held(), path,
             defaults, rows_for and (lambda shapes, fn=rows_for: fn(torch, dev, shapes)))
     # phase 13: the on-card augmentation, then data parallelism on one card
     t0 = time.perf_counter()
     drives["ff_raft_train_aug"] = device_aug_phase(torch, card, phase9)
-    drives["ff_raft_train_nccl1"] = ddp_phase(
-        torch, card, _row_keys(raft_kernels, ff_rows, pwc_rows, train_rows), phase9)
+    drives["ff_raft_train_nccl1"] = ddp_phase(torch, card, held(), phase9)
     _emit(dict(phase="training_at_scale", seconds=time.perf_counter() - t0))
-    kernels = _kernel_table(raft_kernels, ff_rows, pwc_rows, train_rows, drives, card)
+    kernels = _kernel_table(raft_kernels, ff_rows, pwc_rows, train_rows, variant_rows, drives,
+                            card)
     # the fused kernel inside the profiled FF-RAFT forward, where its inputs
     # are not the same on every call as in the kernel phase
     (g,) = [kr for kr in kernels if kr["name"] == "lookup_fold"]

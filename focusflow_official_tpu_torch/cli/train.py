@@ -74,6 +74,7 @@ from ..data.datasets import KITTI, FlyingChairs, MpiSintel, fetch_dataset
 from ..data.device_aug import DeviceFlowAugmentor
 from ..data.loader import Loader
 from ..losses import build_multiscale_loss, build_sequence_loss
+from ..models.config import FFRaftConfig
 from ..models.ff_raft import DTYPES
 from ..predict import for_inference, load_weights
 from ..train import evaluate as eval_mod
@@ -88,18 +89,40 @@ from .evaluate import DEFAULT_DATA_ROOT, mask_roots
 
 # raw batches (--device-aug) may lack `valid` and carry `sizes` and `recipe`
 _BATCH_KEYS = ("image1", "image2", "mask1", "mask2", "flow", "valid", "sizes", "recipe")
+# where ROADMAP.md queues the training of the FF-RAFT variants that serve
+_TRAIN_VARIANTS_ITEM = "ROADMAP.md queue 1, 'Training the FF-RAFT variants',"
+
+
+def _refuse_untrained(model_cfg) -> None:
+    """Raise for an FF-RAFT variant that the port serves but does not
+    train: the small model, ALT_CORR and the attention and conv front
+    ends."""
+    if not isinstance(model_cfg, FFRaftConfig):
+        return
+    for key, value, on in (("SMALL", True, model_cfg.small),
+                           ("ALT_CORR", True, model_cfg.alt_corr),
+                           ("FUSION", model_cfg.fusion,
+                            model_cfg.fusion in ("attention", "conv"))):
+        if on:
+            raise NotImplementedError(
+                f"{key}: {value!r} selects a variant the port serves but does not train "
+                f"yet; {_TRAIN_VARIANTS_ITEM} brings it")
 
 
 def build_model(cfg: ConfigNode, compute_dtype: str, mesh: Optional[Mesh] = None):
     """The YAML's model (f32 parameters) -> (its config, the model, its
     loss, its refinements a step: FF-RAFT's ITERS, FF-FlowFormer's
-    decoder_depth, None for PWC-Net, which has no refinement loop). Under
+    decoder_depth, None for PWC-Net, which has no refinement loop); the
+    FF-RAFT variants the port does not train yet are refused. Under
     `mesh` the loss's denominators are the global batch's
     (`mesh.global_sum`) and the batch norms' statistics too."""
     model_cfg = config_from_yaml(cfg, compute_dtype=compute_dtype)
+    _refuse_untrained(model_cfg)
     model, iters = model_from_config(model_cfg)
-    sync_batch_norms(model, None if mesh is None else mesh.differentiable_sum)
-    reduce = {} if mesh is None else {"reduce": mesh.global_sum}
+    reduce = {}
+    if mesh is not None:
+        sync_batch_norms(model, mesh.differentiable_sum)
+        reduce = {"reduce": mesh.global_sum}
     if detect_family(cfg) == "pwcnet":
         kw = multiscale_loss_kwargs_from_yaml(cfg, sparse=cfg.TRAIN.get("STAGE") == "kitti")
         return model_cfg, model, build_multiscale_loss(kw.pop("loss_type"), **kw, **reduce), iters

@@ -17,6 +17,11 @@ so no kernel is transposed. The reference's shared downsample norm
 either name, and DDP's `module.` prefix is stripped. Every model the port
 builds maps this way: FF-RAFT and plain RAFT (`fnet.layer1.0.conv1`,
 `channel_pjt.conv1`, the fusion units' `conv_v.0`, `c_map.0`, `s_map.0`),
+RAFT-S (the bottlenecks' `conv3`, `norm4` read as `downsample.1` too, the
+`ConvGRU`'s `convz`), the attention and conv front ends
+(`fusion_layer.down_path_1.0.image_event_transformer.norm1_image.body`,
+`.attn.temperature`, `.ffn.fc1`, `up_path_1.0.up`,
+`encoder.block1.0.downsample.0`),
 FF-PWCNet and PWC-Net, FF-FlowFormer and vanilla FlowFormer
 (`context_encoder.svt.*`, `memory_encoder.feat_encoder.svt.*`).
 """

@@ -11,7 +11,14 @@ module names, so a path maps to a key by:
   depthwise conv's (kh, kw, 1, C)) transposed to (O, I, kh, kw), a dense
   layer's (I, O) to (O, I); norm `scale` -> `weight`; batch-stat `mean` /
   `var` -> `running_mean` / `running_var`; free parameters
-  (`latent_tokens`, `gamma`, `pos_emb_rel_*`) keep their names.
+  (`latent_tokens`, `gamma`, `pos_emb_rel_*`, the channel attention's
+  `temperature`) keep their names.
+
+A transposed conv (the front ends' `ConvTranspose2x`, flax
+`transpose_kernel=True`) holds its kernel as (kh, kw, O, I), and flax
+flips it spatially inside the call: the same transpose gives torch's
+`ConvTranspose2d` weight (I, O, kh, kw) with no flip of its own
+(`tests/test_torch_frontends.py` holds the outputs equal).
 
 An unknown leaf raises `KeyError`. `params_to_jax` is the inverse: the
 port's `state_dict` back to flat flax variables (the scan scope put back
@@ -28,7 +35,7 @@ import torch
 
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                  **{n: n for n in ("latent_tokens", "gamma", "pos_emb_rel_height",
-                                   "pos_emb_rel_width")}}
+                                   "pos_emb_rel_width", "temperature")}}
 _KERNEL_PERMUTE = {4: (3, 2, 0, 1), 2: (1, 0)}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 

@@ -28,11 +28,9 @@ from .models.config import FFPWCNetConfig, FFRaftConfig, FlowFormerConfig
 from .models.ff_raft import compute_dtype
 from .nn.fusion_units import FUSION_TYPES
 
-# where ROADMAP.md queues the inference variants the port lacks, dropout
-# and the small model
+# where ROADMAP.md queues the inference variants the port lacks and dropout
 _VARIANTS_ITEM = "ROADMAP.md queue 1, 'The remaining inference variants',"
 _DROPOUT_ITEM = "ROADMAP.md queue 1, 'Dropout',"
-_SMALL_ITEM = "ROADMAP.md queue 1, 'The `small` model',"
 
 
 class ConfigNode(types.SimpleNamespace):
@@ -100,22 +98,23 @@ def _mask_fields(train: ConfigNode, model: Optional[ConfigNode] = None) -> Dict:
 
 def model_config_from_yaml(cfg: ConfigNode, *,
                            compute_dtype: str = "float32") -> FFRaftConfig:
-    """FF-RAFT (`FUSION: parallel`) or plain RAFT (`FUSION: null`) at full
-    width, with any CCE fusion type, the context encoder fused or not
-    (`FUSE_CNET`) and the fnet as it is or `ChannelProject`
-    (`ABANDON_FNET`); the other front ends, `SMALL`, `ALT_CORR` and
-    dropout are refused."""
+    """FF-RAFT (`FUSION: parallel`), plain RAFT (`FUSION: null`) or the
+    attention or conv front end before a plain RAFT (`FUSION: attention |
+    conv`, `FUSION_CHANNEL` wide), at full width or small (`SMALL`), with
+    any CCE fusion type, the context encoder fused or not (`FUSE_CNET`),
+    the fnet as it is or `ChannelProject` (`ABANDON_FNET`) and the
+    materialized volume or ALT_CORR; dropout is refused."""
     model = cfg.MODEL
-    fusion = _refuse(model, "FUSION", ("parallel", None))
-    _refuse(model, "SMALL", False, False, _SMALL_ITEM)
-    _refuse(model, "ALT_CORR", False, False)
     _refuse(model, "DROPOUT", 0.0, 0.0, _DROPOUT_ITEM)
-    return FFRaftConfig(fusion=fusion,
+    return FFRaftConfig(fusion=_refuse(model, "FUSION", ("parallel", None, "attention", "conv")),
                         fusion_type=_refuse(model, "FUSION_TYPE", FUSION_TYPES, "1x1conv"),
-                        small=False, abandon_fnet=bool(model.get("ABANDON_FNET", False)),
+                        fusion_channel=int(model.get("FUSION_CHANNEL", 256)),
+                        small=bool(model.get("SMALL", False)),
+                        abandon_fnet=bool(model.get("ABANDON_FNET", False)),
                         fuse_cnet=bool(model.get("FUSE_CNET", False)),
                         iters=int(model.get("ITERS", 12)),
                         freeze_bn=cfg.TRAIN.get("STAGE", "chairs") != "chairs",
+                        alt_corr=bool(model.get("ALT_CORR", False)),
                         compute_dtype=compute_dtype, **_mask_fields(cfg.TRAIN))
 
 

@@ -186,6 +186,6 @@ def _launch(levels: Sequence[torch.Tensor], coords: torch.Tensor, radius: int,
         out.data_ptr(), b * q, radius, n, int(dt == torch.bfloat16), p["grid"] or 0,
         p["slices"] or 0, torch.cuda.current_stream(coords.device).cuda_stream)
     _build.check(err, "ff_lookup_fold")
-    count_launch("lookup_fold", b, q, *dims[:2 * nl], n, str(dt), p["entry"],
+    count_launch("lookup_fold", b, q, *dims[:2 * nl], radius, n, str(dt), p["entry"],
                  p["grid"], p["slices"])
     return out

@@ -16,10 +16,10 @@ end-point error is below 1, 3, 5 px), `loss`, and for CPCL and Mix the
 keypoint EPE `kpt_epe` (valid pixels where the raw mask is > 0).
 
 `reduce` (default the identity) takes every denominator: the mask's mass,
-the valid count and the element count of the EPE's mean. Under data
-parallelism it is `train/mesh.py::Mesh.global_sum`, so a rank's loss and
-metrics are its shares of the global batch's, which add up over the ranks;
-without it the arithmetic is one card's as before.
+the valid count and the element count of the EPE's mean, each a sum over
+a count. Under data parallelism it is `train/mesh.py::Mesh.global_sum`, so
+a rank's loss and metrics are its shares of the global batch's, which add
+up over the ranks; one card runs the same sums through the identity.
 """
 
 from __future__ import annotations
@@ -72,16 +72,13 @@ def _metrics(flow_preds, flow_gt, v, loss, mask=None, reduce=_identity) -> dict:
 
 
 def _global_count(n: int, like: torch.Tensor, reduce):
-    """The count `n` summed over the ranks by `reduce`; without one, `n`
-    itself, so that one card computes as it did before data parallelism."""
-    return n if reduce is _identity else reduce(like.new_full((), float(n)))
+    """The count `n` (a 0-d tensor like `like`) summed over the ranks by
+    `reduce`."""
+    return reduce(like.new_full((), float(n)))
 
 
 def _mean(x: torch.Tensor, dims, reduce) -> torch.Tensor:
-    """x's mean over `dims`; under a `reduce`, its sum over the global
-    element count."""
-    if reduce is _identity:
-        return x.mean(dim=dims)
+    """x's sum over `dims` over the global element count."""
     return x.sum(dim=dims) / _global_count(math.prod(x.shape[d] for d in dims), x, reduce)
 
 

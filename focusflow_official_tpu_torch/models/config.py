@@ -1,8 +1,9 @@
 """Model configurations: the fields of the reference YAML schema that the
 inference and training paths read.
 
-- `FFRaftConfig`: the MODEL and TRAIN mask sections of FF-RAFT and of
-  plain RAFT (`fusion=None`);
+- `FFRaftConfig`: the MODEL and TRAIN mask sections of FF-RAFT, of plain
+  RAFT (`fusion=None`), of the attention and conv front ends and of the
+  small model, with ALT_CORR;
 - `FFPWCNetConfig`: what FF-PWCNet reads of the same two sections;
 - `FlowFormerConfig`: the fields of the `latentcostformer` block of
   FF-FlowFormer and vanilla FlowFormer (`config/ff_chairs.yaml:41-76` in
@@ -19,9 +20,14 @@ from typing import Optional
 @dataclasses.dataclass(frozen=True)
 class FFRaftConfig:
     # MODEL section
-    fusion: Optional[str] = "parallel"  # 'parallel' (CCE) | None (plain RAFT)
+    # 'parallel' (CCE) | None (plain RAFT) | 'attention' | 'conv' (the front
+    # ends of `models/frontends.py`, before a plain RAFT)
+    fusion: Optional[str] = "parallel"
     # '1x1conv' | '1x1conv-unidirection' | 'concat' | 'SA' | 'CA'
     fusion_type: str = "1x1conv"
+    # the front ends' output channels (the plain RAFT's input channels)
+    fusion_channel: int = 256
+    # RAFT-S: hdim 96, cdim 64, radius 3, `SmallEncoder`s, no convex upsample
     small: bool = False
     # the fnet is `ChannelProject` (a resize and a 1x1 conv)
     abandon_fnet: bool = False
@@ -38,6 +44,11 @@ class FFRaftConfig:
     mask_dilate: int = 31
     kernel_size: int = 31
     kernel_sigma: float = 5.0
+
+    # MODEL.ALT_CORR: the lookup without the all-pairs volume, its queries
+    # in chunks of `alt_corr_chunk` (`ops/corr.py::AltCorr`)
+    alt_corr: bool = False
+    alt_corr_chunk: int = 2048
 
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'
 

@@ -1,21 +1,31 @@
 """FF-RAFT: keypoint-conditioned RAFT with the Condition Control Encoder,
-and plain RAFT, in test mode and in train mode.
+plain RAFT, the attention and conv front ends before a plain RAFT, and
+the small model, in test mode and in train mode.
 
 The feature encoder runs once over both frames batched together (exact
 for the instance-norm fnet); the all-pairs volume and its 4-level pyramid
 are built once; then `iters` refinement steps each run the update block,
-whose motion encoder looks up the radius-4 window and applies convc1 in
-one kernel (`kernels/lookup_fold.py`). The coordinates are detached at the
-start of every step, as the reference does. Test mode convex-upsamples
-only the final low-resolution flow; train mode runs the mask head on every
-step and returns every step's upsampled flow, stacked.
+whose motion encoder looks up the window and applies convc1 in one kernel
+(`kernels/lookup_fold.py`). With ALT_CORR (`alt_corr`) no volume is
+built: each step recomputes the volume's rows a chunk of queries at a time
+from the feature maps (`ops/corr.py::AltCorr`). The coordinates are
+detached at the start of every step, as the reference does. Test mode
+upsamples only the final low-resolution flow; train mode returns every
+step's upsampled flow, stacked. The full-width model upsamples convexly
+(the mask head runs where its output is used); the small model (`small`:
+hdim 96, cdim 64, radius 3, no mask head) bilinearly (`upflow8`).
 
 The encoders follow the config, as the JAX package picks them:
 - fnet: `ChannelProject` (`channel_pjt`) with `abandon_fnet`; else the
-  CCE with `fusion='parallel'`; else an instance-norm `BasicEncoder`;
+  CCE with `fusion='parallel'`; else an instance-norm `BasicEncoder`
+  (`SmallEncoder` when small);
 - cnet: the CCE with `fusion='parallel'` and `fuse_cnet`; else a
-  batch-norm `BasicEncoder` over the image.
-With `fusion=None` (plain RAFT) the masks are not read.
+  `BasicEncoder` (`SmallEncoder`) over the image; batch norms at full
+  width, none when small.
+With `fusion=None` (plain RAFT) the masks are not read. With
+`fusion='attention'` or `'conv'` the front end (`models/frontends.py`)
+turns each frame and its mask into a `fusion_channel`-channel feature
+image, and a plain RAFT with that many input channels runs on the two.
 
 Train mode is the module's `training` flag (`model.train()`); the cnet's
 batch norms then use the batch's statistics unless `freeze_bn()` put them
@@ -23,9 +33,6 @@ back in eval mode. The module holds its parameters in f32; a bf16 forward
 takes its convolutions' weights in bf16 (`train/loop.py::compute_params`
 casts them at use for training, `FlowPredictor` casts the module once for
 inference).
-
-This port covers the full-width model (`small=False`) with every CCE
-fusion type (`nn/fusion_units.py`).
 """
 
 from __future__ import annotations
@@ -36,13 +43,14 @@ import torch
 from torch import nn
 
 from ..nn.cce import BasicParallelFusionLayer
-from ..nn.encoders import BasicEncoder, ChannelProject
+from ..nn.encoders import BasicEncoder, ChannelProject, SmallEncoder
 from ..nn.norm import Norm
-from ..nn.update import BasicUpdateBlock
-from ..ops.coords import coords_grid
-from ..ops.corr import all_pairs_corr, corr_pyramid
+from ..nn.update import BasicUpdateBlock, SmallUpdateBlock
+from ..ops.coords import coords_grid, upflow8
+from ..ops.corr import AltCorr, all_pairs_corr, corr_pyramid
 from ..ops.upsample import convex_upsample
 from .config import FFRaftConfig
+from .frontends import ConvFusionLayer, FusionLayer
 from .mask_modal import init_mask
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -57,31 +65,40 @@ def compute_dtype(cfg: FFRaftConfig) -> torch.dtype:
 
 
 class RAFT(nn.Module):
-    """RAFT core; its encoders as the module docstring says."""
+    """RAFT core; its encoders as the module docstring says. `in_channels`:
+    the plain encoders' input channels (a front end's `fusion_channel`)."""
 
-    hdim = cdim = 128
-    corr_levels, corr_radius = 4, 4
+    corr_levels = 4
 
     def __init__(self, mask_channel: int = 3, fusion_type: str = "1x1conv",
                  fusion: Optional[str] = "parallel", fuse_cnet: bool = True,
-                 abandon_fnet: bool = False):
+                 abandon_fnet: bool = False, small: bool = False, in_channels: int = 3,
+                 alt_corr: bool = False, alt_corr_chunk: int = 2048):
         super().__init__()
+        self.small, self.alt_corr, self.alt_corr_chunk = small, alt_corr, alt_corr_chunk
+        self.hdim, cdim, self.corr_radius = (96, 64, 3) if small else (128, 128, 4)
+        encoder = SmallEncoder if small else BasicEncoder
         parallel = fusion == "parallel"
         if abandon_fnet:
-            self.channel_pjt = ChannelProject(3, 256)
+            self.channel_pjt = ChannelProject(in_channels, 128 if small else 256)
         elif parallel:
             self.fnet = BasicParallelFusionLayer(3, mask_channel, 256, "instance",
                                                  fusion_type)
         else:
-            self.fnet = BasicEncoder(3, 256, "instance")
-        cdim = self.hdim + self.cdim
+            self.fnet = encoder(in_channels, 128 if small else 256, "instance")
+        cnet_norm = "none" if small else "batch"
         if parallel and fuse_cnet:
-            self.cnet = BasicParallelFusionLayer(3, mask_channel, cdim, "batch",
+            self.cnet = BasicParallelFusionLayer(3, mask_channel, self.hdim + cdim, cnet_norm,
                                                  fusion_type)
         else:
-            self.cnet = BasicEncoder(3, cdim, "batch")
-        self.update_block = BasicUpdateBlock(self.corr_levels, self.corr_radius,
-                                             self.hdim)
+            self.cnet = encoder(3 if parallel else in_channels, self.hdim + cdim, cnet_norm)
+        self.update_block = (SmallUpdateBlock if small else BasicUpdateBlock)(
+            self.corr_levels, self.corr_radius, self.hdim)
+
+    def upsample(self, flow: torch.Tensor, up_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """(B, H/8, W/8, 2) f32 -> (B, H, W, 2): bilinear when small, else
+        convex with the mask head's logits."""
+        return upflow8(flow) if self.small else convex_upsample(flow, up_mask.float())
 
     def forward(self, image1, image2, mask1=None, mask2=None, iters: int = 12,
                 dtype: torch.dtype = torch.float32,
@@ -104,9 +121,11 @@ class RAFT(nn.Module):
             fmaps = self.fnet(images, torch.cat([mask1, mask2]))
         else:
             fmaps = self.fnet(images)
-        fmap1, fmap2 = fmaps.float().chunk(2)
-        levels = corr_pyramid(all_pairs_corr(fmap1, fmap2), self.corr_levels,
-                              dtype)
+        if self.alt_corr:
+            corr = AltCorr(*fmaps.to(dtype).chunk(2), self.corr_levels, self.alt_corr_chunk)
+        else:
+            corr = corr_pyramid(all_pairs_corr(*fmaps.float().chunk(2)), self.corr_levels,
+                                dtype)
 
         if isinstance(self.cnet, BasicParallelFusionLayer):
             cnet = self.cnet(image1, mask1)
@@ -116,39 +135,45 @@ class RAFT(nn.Module):
         net = torch.tanh(cnet[:, :self.hdim])
         inp = torch.relu(cnet[:, self.hdim:])
 
-        b, h, w = fmap1.shape[:3]
-        coords0 = coords_grid(b, h, w, device=fmap1.device)
+        b, h, w = fmaps.shape[0] // 2, *fmaps.shape[1:3]
+        coords0 = coords_grid(b, h, w, device=fmaps.device)
         coords1 = coords0.clone() if flow_init is None else coords0 + flow_init.float()
         up_mask, flows = None, []
         for it in range(iters):
             coords1 = coords1.detach()
             flow = (coords1 - coords0).to(dtype)
             net, up_mask, delta = self.update_block(
-                net, inp, levels, coords1.contiguous(), flow,
+                net, inp, corr, coords1.contiguous(), flow,
                 mask_needed=self.training or it == iters - 1)
             coords1 = coords1 + delta.float()
             if self.training:
-                flows.append(convex_upsample(coords1 - coords0, up_mask.float()))
+                flows.append(self.upsample(coords1 - coords0, up_mask))
 
         if self.training:
             return torch.stack(flows)
         flow_lr = coords1 - coords0
-        return flow_lr, convex_upsample(flow_lr, up_mask.float())
+        return flow_lr, self.upsample(flow_lr, up_mask)
 
 
 class FFRaft(nn.Module):
-    """Mask modality preparation (the CCE models), [-1, 1] scaling and the
-    RAFT core."""
+    """Mask modality preparation (all but plain RAFT), [-1, 1] scaling, the
+    front end where `fusion` names one, and the RAFT core."""
 
     def __init__(self, cfg: FFRaftConfig):
         super().__init__()
-        if cfg.fusion not in ("parallel", None) or cfg.small:
-            raise NotImplementedError(
-                "this port covers fusion 'parallel' or None at full width "
-                f"(small=False); got {cfg}")
+        if cfg.fusion not in ("parallel", None, "attention", "conv"):
+            raise ValueError(f"fusion must be 'parallel', None, 'attention' or 'conv'; "
+                             f"got {cfg.fusion!r}")
         self.cfg = cfg
-        self.flow_net = RAFT(cfg.mask_channel, cfg.fusion_type, cfg.fusion,
-                             cfg.fuse_cnet, cfg.abandon_fnet)
+        if cfg.fusion == "attention":
+            self.fusion_layer = FusionLayer(3, cfg.mask_channel, cfg.fusion_channel)
+        elif cfg.fusion == "conv":
+            self.fusion_layer = ConvFusionLayer(cfg.fusion_channel, 3, cfg.mask_channel)
+        front = cfg.fusion in ("attention", "conv")
+        self.flow_net = RAFT(cfg.mask_channel, cfg.fusion_type,
+                             None if front else cfg.fusion, cfg.fuse_cnet, cfg.abandon_fnet,
+                             cfg.small, cfg.fusion_channel if front else 3, cfg.alt_corr,
+                             cfg.alt_corr_chunk)
 
     def forward(self, image1, image2, mask1, mask2,
                 iters: Optional[int] = None, flow_init: Optional[torch.Tensor] = None):
@@ -158,6 +183,7 @@ class FFRaft(nn.Module):
         cfg = self.cfg
         if iters is None:
             iters = cfg.iters
+        dtype = compute_dtype(cfg)
         scale = lambda t: 2 * (t / 255.0) - 1.0
         if cfg.fusion is None:
             mask1 = mask2 = None
@@ -167,8 +193,12 @@ class FFRaft(nn.Module):
                 mask_channel=cfg.mask_channel, mask_dilate=cfg.mask_dilate,
                 kernel_size=cfg.kernel_size, kernel_sigma=cfg.kernel_sigma)
             mask1, mask2 = scale(mask1), scale(mask2)
-        return self.flow_net(scale(image1), scale(image2), mask1, mask2,
-                             iters=iters, dtype=compute_dtype(cfg),
+        image1, image2 = scale(image1), scale(image2)
+        if hasattr(self, "fusion_layer"):  # each frame with its mask, as the reference
+            image1 = self.fusion_layer(image1.to(dtype), mask1.to(dtype))
+            image2 = self.fusion_layer(image2.to(dtype), mask2.to(dtype))
+            mask1 = mask2 = None
+        return self.flow_net(image1, image2, mask1, mask2, iters=iters, dtype=dtype,
                              flow_init=flow_init)
 
     def freeze_bn(self) -> "FFRaft":

@@ -60,8 +60,14 @@ def _tile(m: torch.Tensor, channels: int) -> torch.Tensor:
 
 def init_mask(image1, image2, mask1, mask2, *, mask_modal: str,
               mask_channel: int = 3, mask_dilate: int = 31,
-              kernel_size: int = 31, kernel_sigma: float = 5.0):
-    """Prepare (mask1, mask2) conditioning inputs from raw 0/255 NHWC masks."""
+              kernel_size: int = 31, kernel_sigma: float = 5.0,
+              tile_channels: bool = True):
+    """Prepare (mask1, mask2) conditioning inputs from raw 0/255 NHWC masks.
+    `tile_channels=False` keeps the point and neighbour modalities at the
+    raw mask's channels, for a consumer that folds the tiling into its
+    first conv (the context and frame modalities are image-valued)."""
+    if not tile_channels:
+        mask_channel = mask1.shape[-1]
     if mask_modal == "point":
         mask1 = _tile(mask1, mask_channel)
         mask2 = torch.full_like(mask1, 255.0)

@@ -1,4 +1,4 @@
-"""The stride-8 encoders of plain RAFT.
+"""The stride-8 encoders of plain RAFT and of the small model.
 
 - `BasicEncoder`: the 7x7/2 stem, `norm1` with ReLU, the three residual
   stages of `nn/blocks.py` (64, 96, 128 channels; strides 1, 2, 2) and a
@@ -6,11 +6,12 @@
   the same stage code. Its norms are
   `nn/norm.py::Norm` ('instance': kernels C1 and C2 on the card; 'batch';
   'none').
+- `SmallEncoder` (SMALL): the same with a 32-channel stem and three
+  stages of `BottleneckBlock`s (32, 64, 96 channels).
 - `ChannelProject` (ABANDON_FNET): a half-pixel bilinear resize to H/8 x
   W/8, then a 1x1 `conv1`.
 
-Both take NHWC (B, H, W, C) and return NHWC (B, H/8, W/8, output_dim).
-The `small` model's `SmallEncoder` is not ported.
+Each takes NHWC (B, H, W, C) and returns NHWC (B, H/8, W/8, output_dim).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 from torch import nn
 
 from ..ops.coords import resize_bilinear
-from .blocks import STAGES, add_stage, run_stage, stem
+from .blocks import SMALL_STAGES, STAGES, BottleneckBlock, add_stage, run_stage, stem
 from .norm import Norm
 
 
@@ -38,6 +39,19 @@ class BasicEncoder(nn.Module):
         for li in range(1, len(STAGES) + 1):
             x = run_stage(self, li, x)
         return self.conv2(x).permute(0, 2, 3, 1)
+
+
+class SmallEncoder(nn.Module):
+    def __init__(self, in_channel: int = 3, output_dim: int = 128,
+                 norm_fn: str = "batch"):
+        super().__init__()
+        self.conv1 = stem(in_channel, 32)
+        self.norm1 = Norm(norm_fn, 32, 8)
+        for li in range(1, len(SMALL_STAGES) + 1):
+            add_stage(self, li, norm_fn, stages=SMALL_STAGES, block=BottleneckBlock)
+        self.conv2 = nn.Conv2d(96, output_dim, 1)
+
+    forward = BasicEncoder.forward
 
 
 class ChannelProject(nn.Module):

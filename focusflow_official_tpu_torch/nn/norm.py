@@ -13,13 +13,14 @@ instance-norm kernels read without a copy.
                in eval mode inside a training model. Under data
                parallelism (`train/mesh.py::sync_batch_norms`) `reduce`
                sums the statistics' parts over the ranks, so they are the
-               global batch's; without it one card takes torch's mean and
-               variance.
+               global batch's; on one card it is the identity, and the
+               arithmetic is the same sums over the same count.
 - 'instance' : InstanceNorm, no affine, no running stats, eps 1e-5;
                on a CUDA tensor kernel C1 (stats) then kernel C2 (normalize)
 - 'none'     : identity
 
-Statistics are taken in f32; the normalisation itself runs in x's type.
+Statistics are taken in f32 (in f64 for an f64 x); the normalisation
+itself runs in x's type.
 Given a residual (ResidualBlock's shortcut), `forward` returns
 relu(residual + norm(x)): for 'instance' that is C2's residual form, one
 launch, which takes the residual `channels_last` on the card, as it takes
@@ -36,6 +37,10 @@ from ..kernels.instance_norm import instance_norm
 MOMENTUM = 0.1  # torch's: running = (1 - m) * running + m * batch
 
 
+def _identity(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 class Norm(nn.Module):
     def __init__(self, kind: str, features: int, num_groups: int = 8,
                  eps: float = 1e-5):
@@ -43,7 +48,7 @@ class Norm(nn.Module):
         if kind not in ("group", "batch", "instance", "none"):
             raise ValueError(f"Unknown norm kind: {kind}")
         self.kind, self.num_groups, self.eps = kind, num_groups, eps
-        self.reduce = None  # the batch norm's sum over the ranks, or None
+        self.reduce = _identity  # the batch statistics' sum over the ranks
         if kind in ("group", "batch"):
             self.weight = nn.Parameter(torch.ones(features))
             self.bias = nn.Parameter(torch.zeros(features))
@@ -86,24 +91,19 @@ class Norm(nn.Module):
         return torch.relu(y) if relu else y
 
     def _batch_stats(self, x: torch.Tensor):
-        """The batch's f32 (mean, biased variance) over (B, H, W); the
-        running averages take them with momentum 0.1 (the variance
-        unbiased). Without `reduce`, torch's mean and variance (one card).
-        With it, the sum and the count, then the centred second moment,
-        each passed through `reduce`: under data parallelism the sum over
-        the ranks, so the statistics are the global batch's."""
-        xf = x.float()
+        """The batch's (mean, biased variance) over (B, H, W), in f32 (an
+        f64 x: in f64); the running averages take them with momentum 0.1
+        (the variance unbiased). The sum and the count, then the centred
+        second moment, each passed through `reduce`: the identity on one
+        card, the sum over the ranks under data parallelism, so the
+        statistics are the global batch's."""
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         n = xf.numel() // xf.shape[1]
-        if self.reduce is None:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = xf.var(dim=(0, 2, 3), unbiased=False)
-            unbiased = n / max(n - 1, 1)
-        else:
-            sums = self.reduce(torch.cat([xf.sum(dim=(0, 2, 3)), xf.new_full((1,), float(n))]))
-            n = sums[-1]
-            mean = sums[:-1] / n
-            var = self.reduce(((xf - mean[None, :, None, None]) ** 2).sum(dim=(0, 2, 3))) / n
-            unbiased = n / torch.clamp(n - 1, min=1)
+        sums = self.reduce(torch.cat([xf.sum(dim=(0, 2, 3)), xf.new_full((1,), float(n))]))
+        n = sums[-1]
+        mean = sums[:-1] / n
+        var = self.reduce(((xf - mean[None, :, None, None]) ** 2).sum(dim=(0, 2, 3))) / n
+        unbiased = n / torch.clamp(n - 1, min=1)
         with torch.no_grad():
             for run, new in ((self.running_mean, mean), (self.running_var, var * unbiased)):
                 run.copy_((1 - MOMENTUM) * run + MOMENTUM * new)

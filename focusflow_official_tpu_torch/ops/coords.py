@@ -1,6 +1,7 @@
-"""Coordinate grids, the 8x align-corners flow upsampler, the half-pixel
-bilinear resize (NHWC) and the host-side forward splat of a flow field
-(the warm start between frame pairs)."""
+"""Coordinate grids, the align-corners bilinear resize and the 8x flow
+upsampler built on it (the small model's), the half-pixel bilinear resize
+(NHWC) and the host-side forward splat of a flow field (the warm start
+between frame pairs)."""
 
 from __future__ import annotations
 
@@ -17,13 +18,26 @@ def coords_grid(batch: int, ht: int, wd: int, device="cuda",
     return torch.stack([gx, gy], dim=-1)[None].expand(batch, ht, wd, 2)
 
 
+def resize_bilinear_align_corners(x: torch.Tensor, new_hw: tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of (B, H, W, C) or (H, W, C) to the size `new_hw`
+    with `align_corners=True` (the corners' centres map onto each other; a
+    size of 1 samples the first row or column); a non-float x is resized
+    in f32."""
+    squeeze = x.dim() == 3
+    if squeeze:
+        x = x[None]
+    if not x.is_floating_point():
+        x = x.float()
+    out = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(new_hw), mode="bilinear",
+                        align_corners=True).permute(0, 2, 3, 1)
+    return out[0] if squeeze else out
+
+
 def upflow8(flow: torch.Tensor) -> torch.Tensor:
-    """8x bilinear (align_corners=True) upsample of (B, H, W, 2) flow,
-    values scaled by 8."""
+    """8x align-corners bilinear upsample of (B, H, W, 2) flow, values
+    scaled by 8."""
     _, h, w, _ = flow.shape
-    up = F.interpolate(flow.permute(0, 3, 1, 2), size=(8 * h, 8 * w),
-                       mode="bilinear", align_corners=True)
-    return 8.0 * up.permute(0, 2, 3, 1)
+    return 8.0 * resize_bilinear_align_corners(flow, (8 * h, 8 * w))
 
 
 def resize_bilinear(x: torch.Tensor, new_hw: tuple[int, int]) -> torch.Tensor:

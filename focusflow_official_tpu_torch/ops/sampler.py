@@ -12,9 +12,12 @@ from __future__ import annotations
 import torch
 
 
-def bilinear_sample(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+def bilinear_sample(img: torch.Tensor, coords: torch.Tensor, return_mask: bool = False):
     """Sample `img` (B, H, W, C) at pixel coordinates `coords` (B, ..., 2),
-    (x, y) -> (B, ..., C) in img's type. Tap weights and the sum are f32."""
+    (x, y) -> (B, ..., C) in img's type. Tap weights and the sum are f32.
+    With `return_mask`, also (B, ...) in img's type: 1 where the point lies
+    strictly inside the image's corner centres (normalised coordinates in
+    (-1, 1), as the reference's sampler masks), else 0."""
     b, h, w, c = img.shape
     batch_shape = coords.shape[:-1]
     coords = coords.reshape(b, -1, 2).float()
@@ -32,4 +35,9 @@ def bilinear_sample(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
 
     out = (tap(x0, y0, wx0 * wy0) + tap(x0 + 1, y0, wx1 * wy0)
            + tap(x0, y0 + 1, wx0 * wy1) + tap(x0 + 1, y0 + 1, wx1 * wy1))
-    return out.to(img.dtype).reshape(*batch_shape, c)
+    out = out.to(img.dtype).reshape(*batch_shape, c)
+    if not return_mask:
+        return out
+    xg, yg = 2 * x / (w - 1) - 1, 2 * y / (h - 1) - 1
+    mask = (xg > -1) & (yg > -1) & (xg < 1) & (yg < 1)
+    return out, mask.reshape(batch_shape).to(img.dtype)

@@ -27,6 +27,14 @@ def convex_upsample(flow: torch.Tensor, mask: torch.Tensor,
         wk = m[:, :, :, k, :]
         acc_x = acc_x + wk * nb[..., 0:1]
         acc_y = acc_y + wk * nb[..., 1:2]
-    up = torch.stack([acc_x, acc_y], dim=-1)  # (B, H, W, f*f, 2)
-    up = up.reshape(b, h, w, f, f, 2).permute(0, 1, 3, 2, 4, 5)
-    return up.reshape(b, f * h, f * w, 2)
+    return depth_to_space_flow(torch.stack([acc_x, acc_y], dim=-1), f)
+
+
+def depth_to_space_flow(up: torch.Tensor, factor: int = 8) -> torch.Tensor:
+    """(..., H, W, f*f, C) -> (..., f*H, f*W, C), subpixel s = a*f + b at
+    row a, column b of its f x f block."""
+    *lead, h, w, _, c = up.shape
+    f, n = factor, len(lead)
+    up = up.reshape(*lead, h, w, f, f, c)
+    perm = (*range(n), n, n + 2, n + 1, n + 3, n + 4)
+    return up.permute(perm).reshape(*lead, f * h, f * w, c)

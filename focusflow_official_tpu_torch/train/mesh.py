@@ -30,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
-from typing import Callable, Iterable, List, Optional
+from typing import Callable, Iterable, List
 
 import torch
 import torch.distributed as dist
@@ -115,10 +115,10 @@ class _AllReduceSum(torch.autograd.Function):
         return g
 
 
-def sync_batch_norms(model: nn.Module, reduce: Optional[Callable]) -> None:
+def sync_batch_norms(model: nn.Module, reduce: Callable) -> None:
     """Every batch norm of `model` takes its train-mode statistics as sums
-    passed through `reduce` (`Mesh.differentiable_sum`: the global batch's);
-    None puts back torch's mean and variance of the local batch."""
+    passed through `reduce` (`Mesh.differentiable_sum`: the global batch's;
+    a new `Norm` takes the identity, the local batch's)."""
     from ..nn.norm import Norm
 
     for m in model.modules():

@@ -61,27 +61,40 @@ def test_yaml_reads_as_jax_or_is_refused(path):
     ("SMALL", True), ("ALT_CORR", True), ("FUSION", "attention"), ("FUSION", "conv"),
     ("DROPOUT", 0.1)])
 def test_raft_variants_are_refused(key, value):
+    """A dropout above 0 is refused by the reader; the small model, ALT_CORR
+    and the two front ends serve (`test_raft_variants_are_accepted`), and
+    the trainer refuses them, each naming the ROADMAP item that brings it."""
+    from focusflow_official_tpu_torch.cli import train as cli_train
+
     cfg = tcfg.load_yaml_config(os.path.join(ROOT, "configs/smoke_chairs.yaml"))
     setattr(cfg.MODEL, key, value)
+    if key == "DROPOUT":
+        with pytest.raises(NotImplementedError, match=key) as e:
+            tcfg.config_from_yaml(cfg)
+        assert "ROADMAP.md queue 1, 'Dropout'" in str(e.value)
+        return
+    tcfg.config_from_yaml(cfg)
     with pytest.raises(NotImplementedError, match=key) as e:
-        tcfg.config_from_yaml(cfg)
-    item = {"DROPOUT": "'Dropout'", "SMALL": "'The `small` model'"}.get(
-        key, "'The remaining inference variants'")
-    assert f"ROADMAP.md queue 1, {item}" in str(e.value)
+        cli_train.build_model(cfg, "float32")
+    assert "ROADMAP.md queue 1, 'Training the FF-RAFT variants'" in str(e.value)
 
 
 @pytest.mark.parametrize("key,value", [
     ("FUSE_CNET", False), ("FUSION", None), ("FUSION_TYPE", "SA"), ("ABANDON_FNET", True),
-    ("FUSION_TYPE", "CA"), ("FUSION_TYPE", "concat")])
+    ("FUSION_TYPE", "CA"), ("FUSION_TYPE", "concat"), ("SMALL", True), ("ALT_CORR", True),
+    ("FUSION", "attention"), ("FUSION", "conv"), ("FUSION_CHANNEL", 64)])
 def test_raft_variants_are_accepted(key, value):
-    """Plain RAFT, the unfused context encoder, ChannelProject and the
-    fusion ablation's units: the fields equal JAX's and the model builds."""
+    """Plain RAFT, the unfused context encoder, ChannelProject, the fusion
+    ablation's units, the small model, ALT_CORR and the attention and conv
+    front ends (`FUSION_CHANNEL` wide): the fields equal JAX's and the
+    model builds."""
     cfg = tcfg.load_yaml_config(os.path.join(ROOT, "configs/smoke_chairs.yaml"))
     setattr(cfg.MODEL, key, value)
     ours = tcfg.config_from_yaml(cfg)
     theirs = jcfg.model_config_from_yaml(cfg)
     field = {"FUSE_CNET": "fuse_cnet", "FUSION": "fusion", "FUSION_TYPE": "fusion_type",
-             "ABANDON_FNET": "abandon_fnet"}[key]
+             "ABANDON_FNET": "abandon_fnet", "SMALL": "small", "ALT_CORR": "alt_corr",
+             "FUSION_CHANNEL": "fusion_channel"}[key]
     assert getattr(ours, field) == getattr(theirs, field) == value
     for f in dataclasses.fields(ours):
         assert getattr(ours, f.name) == getattr(theirs, f.name), f.name

@@ -241,6 +241,45 @@ def test_lookup_fold_plan_run(dev, b, h1, w1, nl, n):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h1,w1", [
+    (55, 128),   # 1024x436: 3 chunks of 2048 queries and a tail of 896
+    (135, 240),  # 1920x1080: 15 chunks and a tail of 1680
+])
+def test_alt_corr_chunks_match_the_materialized_lookup(dev, dtype, h1, w1):
+    """ALT_CORR (`ops/corr.py::alternate_corr_fold`): G once a chunk, at
+    the full chunk's and the tail's shapes, against G on the materialized
+    pyramid of the same feature maps (bf16 values in both types). f32:
+    1e-4 of the largest output (the same sums, the product taken a chunk
+    at a time). bf16: 2e-2, as `test_lookup_fold_kernel` (the chunk's
+    levels 1-3 pooled from its bf16 level 0, the materialized ones from
+    the f32 product)."""
+    from focusflow_official_tpu_torch.ops.corr import AltCorr, all_pairs_corr, \
+        alternate_corr_fold
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    f1, f2 = (torch.randn((1, h1, w1, 256), generator=g, device=dev).bfloat16()
+              for _ in range(2))
+    w = (torch.randn((256, 324), generator=g, device=dev) * 0.05).to(dtype)
+    bias = torch.randn((256,), generator=g, device=dev).to(dtype)
+    coords = _hard_coords(g, 1, h1, w1, w1, dev)
+    q, chunk = h1 * w1, 2048
+    before = dict(launch_shapes)
+    n = launch_counts["lookup_fold"]
+    got = alternate_corr_fold(AltCorr(f1.to(dtype), f2.to(dtype), 4, chunk), coords, 4, w,
+                              bias)
+    assert launch_counts["lookup_fold"] == n + -(-q // chunk)
+    new = {key: c - before.get(key, 0) for key, c in launch_shapes.items()
+           if c != before.get(key, 0)}
+    assert {key[2]: c for key, c in new.items()} == {chunk: q // chunk, q % chunk: 1}
+    levels = corr_pyramid(all_pairs_corr(f1.float(), f2.float()), 4, dtype)
+    want = klf.lookup_fold(levels, coords, 4, w, bias)
+    del levels
+    top = float(want.float().abs().max())
+    tol = (1e-4 if dtype == torch.float32 else 2e-2) * top
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lookup_fold_refusals(dev, dtype):
     """No plan for a radius the gather is not built for (3 and 4 are), for
     either type; a bf16 weight off a 16-byte boundary is refused. None
@@ -548,6 +587,32 @@ def test_in_normalize_both_forms_each_entry(dev, dtype, relu, b, case):
     assert key[-2:] == (entry, "residual")
     torch.testing.assert_close(yr, kin.apply_plain(x, mean, inv, relu, r), rtol=0, atol=0)
     torch.testing.assert_close(yr, torch.relu(r + y), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 220, 512, 32), (2, 220, 512, 8), (2, 220, 512, 16), (2, 110, 256, 16),
+    (2, 110, 256, 64), (2, 110, 256, 24), (2, 55, 128, 24), (2, 55, 128, 96),
+])
+def test_instance_norm_at_the_small_encoder_widths(dev, dtype, shape):
+    """C1 and C2 (both forms) at the SmallEncoder fnet's shapes (both frames
+    of 1024x436): 32 channels at H/2, the bottlenecks' 8, 16 and 24, and
+    64 and 96. Every width is a whole number of 16-byte vectors, so each
+    takes the vector entry; the stats within f32 rounding and the
+    normalisation bit-equal to the plain version."""
+    g = torch.Generator(device=dev).manual_seed(34)
+    x = (torch.randn(shape, generator=g, device=dev) * 3 + 1).to(dtype)
+    r = torch.randn(shape, generator=g, device=dev).to(dtype)
+    assert kin.design(x) == kin.design(x, r) == "vector"
+    mean, inv, entry = _stats_entry(x)
+    assert entry == "vector"
+    rmean, rinv = kin.stats_plain(x)
+    torch.testing.assert_close(mean, rmean, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(inv, rinv, rtol=1e-4, atol=1e-5)
+    for res in (None, r):
+        y, key = _normalize(x, mean, inv, True, res)
+        assert key[-2:] == ("vector", "plain" if res is None else "residual")
+        torch.testing.assert_close(y, kin.apply_plain(x, mean, inv, True, res), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("shape", [(2, 220, 512, 64), (2, 110, 256, 96), (2, 55, 128, 128)])
@@ -1466,6 +1531,63 @@ def test_baseline_predictor_on_card_matches_cpu(dev, variant, tmp_path):
     before = dict(launch_counts)
     on_card = FlowPredictor(model.cfg, str(path), device=dev)(i1, i2, m1, m2)
     assert all(launch_counts[n] > before.get(n, 0) for n in names), names
+    on_cpu = FlowPredictor(model.cfg, str(path), device="cpu")(i1, i2, m1, m2)
+    assert np.isfinite(on_card).all()
+    assert float(np.abs(on_card - on_cpu).max()) <= 1e-2
+
+
+VARIANTS = {
+    "raft_s": dict(fusion=None, small=True),
+    "ff_raft_s": dict(fusion="parallel", fuse_cnet=True, small=True),
+    "alt_corr": dict(fusion="parallel", fuse_cnet=True, alt_corr=True, alt_corr_chunk=40),
+    "attention": dict(fusion="attention", fusion_channel=32),
+    "conv": dict(fusion="conv", fusion_channel=32),
+}
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_variant_predictor_on_card_matches_cpu(dev, variant, tmp_path):
+    """The FF-RAFT variants' f32 forward on the card (G at radius 3 and N =
+    96 for the small models, G once a chunk for ALT_CORR: 40 queries, 4
+    chunks and a tail of 32; C1 and C2 where an fnet normalises by
+    instance) against the same forward on the CPU at 96x128, 4 refinements:
+    1e-2 px, the port's parity bound. Weights: the fixture's where the name
+    and shape carry over, norms and temperatures at their initialisation,
+    the rest seeded small."""
+    from focusflow_official_tpu_torch.compat.weights import load_npz, params_to_jax
+    from focusflow_official_tpu_torch.models import FFRaft, FFRaftConfig
+    from focusflow_official_tpu_torch.predict import FlowPredictor
+
+    model = FFRaft(FFRaftConfig(iters=4, **VARIANTS[variant]))
+    src = load_npz(os.path.join(os.path.dirname(__file__), "fixtures", "trained_smoke.npz"))
+    g = torch.Generator().manual_seed(5)
+    sd = {}
+    for k, t in model.state_dict().items():
+        if k in src and src[k].shape == t.shape:
+            sd[k] = src[k]
+        elif k.endswith(("running_mean", "running_var", "temperature")) or (
+                t.dim() == 1 and k.endswith("weight")):
+            sd[k] = t
+        else:
+            scale = 0.1 / math.sqrt(t[0].numel()) if t.dim() > 1 else 0.01
+            sd[k] = scale * torch.randn(t.shape, generator=g)
+    path = tmp_path / "weights.npz"
+    np.savez(path, **params_to_jax(sd))
+    rng = np.random.RandomState(6)
+    i1 = (rng.rand(96, 128, 3) * 255).astype(np.float32)
+    i2 = np.roll(np.roll(i1, -2, 0), 3, 1)
+    m1 = ((rng.rand(96, 128, 1) > 0.97) * 255).astype(np.float32)
+    m2 = ((rng.rand(96, 128, 1) > 0.97) * 255).astype(np.float32)
+    before, shapes = launch_counts["lookup_fold"], dict(launch_shapes)
+    on_card = FlowPredictor(model.cfg, str(path), device=dev)(i1, i2, m1, m2)
+    g_keys = {key: c - shapes.get(key, 0) for key, c in launch_shapes.items()
+              if key[0] == "lookup_fold" and c != shapes.get(key, 0)}
+    if variant == "alt_corr":
+        assert {key[2]: c for key, c in g_keys.items()} == {40: 16, 32: 4}
+    else:
+        assert launch_counts["lookup_fold"] == before + 4
+        assert {(key[-6], key[-5]) for key in g_keys} == (
+            {(3, 96)} if model.cfg.small else {(4, 256)})
     on_cpu = FlowPredictor(model.cfg, str(path), device="cpu")(i1, i2, m1, m2)
     assert np.isfinite(on_card).all()
     assert float(np.abs(on_card - on_cpu).max()) <= 1e-2

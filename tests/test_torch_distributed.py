@@ -12,8 +12,8 @@ stride), one thread each.
 Against one process, on the same weights and global batch (B=4 at 64x96),
 each step one `train/loop.py::train_step` with the gradients summed by
 `Mesh.all_reduce_grads` and AdamW after the clip, the model in f64 (its
-batch norms' statistics f32, as they ship; the one process takes torch's
-mean and variance, the ranks the sum form through the gloo sum):
+batch norms' statistics f32, as they ship, from sums accumulated in f64:
+the one process through the identity, the ranks through the gloo sum):
 - `raft`: `configs/smoke_chairs.yaml` (FF-RAFT, the cnet's batch norm in
   train mode, MixLoss, noise on), fresh weights from a seed, keypoint
   masks whose sums differ between the ranks' halves (rank 1's rows carry a
@@ -30,13 +30,11 @@ for rounding (the biases in front of a norm, whose shift the norm takes
 out: 60 tensors of FF-RAFT, at most 1.6e-8 of the model's largest
 gradient, where the smallest other tensor's largest is 6.7e-6 of it) has
 no largest magnitude to be relative to: such a tensor, at most `ZERO` of
-the model's largest gradient, is held to `ZERO` of it. In f32 (the one
-process taking the ranks' sum form) the comparison sits up to 5.6e-3 of
-a cnet weight's own largest gradient apart, and with torch's form 1.8e-4
-of the model's largest: the statistics are summed in another order, and
-the backward
-through the nearly constant features of the fresh mask branch amplifies
-f32 rounding. The parameters after the step and the running statistics
+the model's largest gradient, is held to `ZERO` of it. In f32 the
+comparison sat up to 5.6e-3 of a cnet weight's own largest gradient
+apart (with the batch norms' sums taken in f32): the backward through the
+nearly constant features of the fresh mask branch amplifies f32
+rounding. The parameters after the step and the running statistics
 within 1e-4 of each tensor's largest magnitude, except that Adam's first
 step is lr x g / (|g| + eps), about lr x sign(g): where a gradient lies
 within its tensor's bound of 0 its sign is rounding, and the step may
@@ -308,21 +306,27 @@ def test_two_ranks_step_and_statistics_as_one_process(results, one_process, case
 
 
 def test_sum_form_batch_statistics_match_torch():
-    """A train-mode batch norm with an identity `reduce` (the ranks' form:
-    sum, count, centred second moment) against torch's mean and variance
-    on one process: the output, the statistics and the running averages
-    within f32 rounding, on features far from zero mean."""
+    """A train-mode batch norm (the one form: sum, count and centred second
+    moment, through the identity on one process) against torch's
+    `F.batch_norm` in training mode on one process: the output and the
+    running averages within f32 rounding, on features far from zero
+    mean."""
+    import torch.nn.functional as F
+
     from focusflow_official_tpu_torch.nn.norm import Norm
 
     g = torch.Generator().manual_seed(0)
     x = torch.randn((4, 16, 12, 10), generator=g) * 0.3 + 50.0
-    outs = []
-    for reduce in (None, lambda t: t):
-        norm = Norm("batch", 16).train()
-        norm.reduce = reduce
-        outs.append((norm(x), norm.running_mean.clone(), norm.running_var.clone()))
-    for got, want in zip(outs[1], outs[0]):
-        assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
+    norm = Norm("batch", 16).train()
+    with torch.no_grad():
+        norm.weight.uniform_(0.5, 1.5, generator=g)
+        norm.bias.uniform_(-0.5, 0.5, generator=g)
+    run_mean, run_var = norm.running_mean.clone(), norm.running_var.clone()
+    want = F.batch_norm(x, run_mean, run_var, norm.weight.detach(), norm.bias.detach(),
+                        training=True, momentum=0.1, eps=norm.eps)
+    got = norm(x)
+    for a, b in ((got, want), (norm.running_mean, run_mean), (norm.running_var, run_var)):
+        assert float((a.detach() - b).abs().max()) <= 1e-4 * max(1.0, float(b.abs().max()))
 
 
 def test_trainer_on_two_ranks_takes_the_one_process_steps(results, one_process):

@@ -215,3 +215,46 @@ def test_cli_evaluate_equals_jax_validate_chairs(chairs_tree, capsys, monkeypatc
     for k in want:
         assert abs(got[k] - want[k]) <= 1e-3, (k, got[k], want[k])
     assert got["chairs"] > 1.0  # multi-pixel motion
+
+
+@pytest.mark.parametrize("key,value", [("ALT_CORR", True), ("SMALL", True),
+                                       ("FUSION", "attention"), ("FUSION", "conv")])
+def test_cli_evaluate_runs_the_variants(chairs_tree, tmp_path, capsys, key, value):
+    """`cli.evaluate` on a YAML that sets a variant (`smoke_chairs.yaml` with
+    MODEL.<key>; the front ends at FUSION_CHANNEL 16): finite chairs
+    metrics. ALT_CORR runs the fixture and equals the materialized run
+    within 1e-4 px; the others run weights drawn for their model (the
+    fixture's tensors where the names and shapes carry over)."""
+    import yaml
+
+    from focusflow_official_tpu_torch.compat.weights import load_npz, params_to_jax
+    from focusflow_official_tpu_torch.config import config_from_yaml, load_yaml_config
+    from focusflow_official_tpu_torch.models import FFRaft
+
+    with open(os.path.join(ROOT, "configs", "smoke_chairs.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw["MODEL"].update({key: value}, **({"FUSION_CHANNEL": 16} if key == "FUSION" else {}))
+    path = tmp_path / "variant.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    weights = FIXTURE
+    if key != "ALT_CORR":
+        model = FFRaft(config_from_yaml(load_yaml_config(str(path))))
+        src, g = load_npz(FIXTURE), torch.Generator().manual_seed(8)
+        sd = {k: src[k] if k in src and src[k].shape == t.shape else
+              t if k.endswith(("running_mean", "running_var", "temperature"))
+              or (t.dim() == 1 and k.endswith("weight"))
+              else torch.randn(t.shape, generator=g) * (t[0].numel() ** -0.5 if t.dim() > 1
+                                                         else 0.01)
+              for k, t in model.state_dict().items()}
+        weights = str(tmp_path / "variant.npz")
+        np.savez(weights, **params_to_jax(sd))
+    chairs = str(chairs_tree / "FlyingChairs_release")
+    argv = ["--checkpoint", weights, "--datasets", "chairs", "--data-root",
+            f"chairs={chairs}", "--iters", "2", "--device", "cpu"]
+    got = cli.main(["--yaml", str(path)] + argv)
+    assert set(got) == {"chairs", "chairs-orb"} and np.isfinite(list(got.values())).all()
+    if key == "ALT_CORR":
+        want = cli.main(["--yaml", os.path.join(ROOT, "configs", "smoke_chairs.yaml")] + argv)
+        for k in want:
+            assert abs(got[k] - want[k]) <= 1e-4, (k, got[k], want[k])
+    capsys.readouterr()
