@@ -3,8 +3,11 @@
 FF-FlowFormer and FF-PWCNet inference, the evaluation entry point, the
 training of all three, the paper's baselines (plain RAFT, vanilla
 FlowFormer) and fusion ablation (CA, SA, concat), training at scale
-(the on-card augmentation, data parallelism), and the FF-RAFT variants
-(ALT_CORR up to 4K, the small model, the attention and conv front ends).
+(the on-card augmentation, data parallelism), the FF-RAFT variants
+(ALT_CORR up to 4K, the small model, the attention and conv front ends)
+and FF-FlowFormer's variants (MLP-Mixer, ConvNext, no GMA, only-global,
+patch size 4, no encoder residual, no flow token; group attention and the
+position encodings as modules).
 
     python3 chip_smoke.py
 
@@ -41,8 +44,8 @@ Phases (any failure raises and exits non-zero; no result is printed):
    (`design`: `mma` on the tensor cores, `fma` on the f32 units, and for
    E `staged` and `tiled`): every bf16 path shape of B, D and F and every
    N >= 64 one of E must say `mma`, E's N < 64 shapes `staged` (with its
-   launch plan), and the tensor-core entries of E and F are held at every
-   output to their `bf16_bound`. C1's and C2's rows name their entry
+   launch plan), and the tensor-core entries of E and F and every bf16 row
+   of E are held at every output to their `bf16_bound`. C1's and C2's rows name their entry
    (`vector`: 16-byte accesses); C1's time the whole one-launch call. C2
    runs in its plain form and in its residual form (relu(r + y), the
    ResidualBlock's shortcut) at each shape, each bit-equal to its plain
@@ -230,8 +233,34 @@ Phases (any failure raises and exits non-zero; no result is printed):
     pair, busy ms, idle share and kernel count. The 1080p and cut runs are
     checks, not paths: the shapes they launch that no row holds are held
     once, untimed.
+15. FF-FlowFormer's variants, after phase 13 (`ff_variant_kernel_rows`,
+    `ff_variants_phase`, `ff_variant_train_phase`,
+    `ff_variant_modules_phase`). First the new (kernel, shape) keys, held
+    and timed as phase 2 holds its rows: E's staged entry at the patch-4 perceiver's input
+    layer, (7040, 8) x 448 keys and, in training, (17112, 8) x 192 with its
+    backward; F at group attention's (10, 56, 133, 128). Then three
+    configurations of `ff_chairs.yaml` through `FlowPredictor` at
+    1024x436, B=1, bf16, encoder depth 3, 12 refinements
+    (`FF_VARIANT_PATHS`: MLP-Mixer without GMA, encoder residual or flow
+    token; ConvNext and only-global; patch size 4) on the fixture's
+    weights at depth 3 where names carry over, the basic block's GRU and
+    the only-global convc1 derived from it, the rest seeded
+    (`_ff_variant_weights`): finite flow, agreement with the f32 CPU run
+    (phase 3's bounds, the margin printed), the launches a forward (A 12; B
+    24, 12 only-global; E 27 less the encoder depth for each of MLP-Mixer
+    and ConvNext; F 11 less it for ConvNext); ms a pair, busy ms, idle
+    share, kernel count, peak memory, and ConvNext's depthwise 7x7 (cuDNN)
+    timed alone. Training: the trainer on `ff_chairs.yaml` with MLP-Mixer,
+    ConvNext and no GMA (B=6, 368x496, depth 3, bf16), 6 steps: finite
+    losses and gradient norms, every step's launches (A 12, B 24, E 21, F
+    8), the f32 step (TF32 off) on two samples at 184x248 against the CPU's
+    (1e-4, cosine 0.9999), no descent gate; ms a step, busy ms, peak
+    memory. Last, the modules no path runs, each once in bf16 against the
+    f32 CPU run: `GroupVerticalSelfAttentionLayer` with and without the
+    context (within GROUP_LAYER_TOL of the output's scale) and the three
+    position encodings (a bf16 ulp of each of their two roundings).
 The `kernels` line gives each kernel's launches on every path,
-the training paths and phases 12's, 13's and 14's among them.
+the training paths and phases 12's, 13's, 14's and 15's among them.
 
 Outside the phases under default flags, f32 matmuls and convolutions run
 in full f32 here (TF32 off), so the f32 comparisons are not blurred by
@@ -895,7 +924,8 @@ def _attention_row(torch, g, dev, b, n, m, c, heads, label, design: str,
     (`_backward_check`), timed beside autograd through
     F.scaled_dot_product_attention, with the backward's bound: q, k, v and
     the cotangent read once, three gradients written once, five products
-    and one exponential a score."""
+    and one exponential a score. A bf16 row of any entry is held at every
+    output to `bf16_bound` too."""
     import torch.nn.functional as F
 
     from focusflow_official_tpu_torch.kernels import attention as ka
@@ -935,6 +965,11 @@ def _attention_row(torch, g, dev, b, n, m, c, heads, label, design: str,
         # both take f32 scores, softmax and sums from the same bf16 inputs,
         # in other orders, and round once to bf16: one bf16 ulp
         tol = 2.0 ** -7 * top
+        if dtype == torch.bfloat16:
+            over = float((diff / ka.bf16_bound(want, q, k, v, heads, scale)).max())
+            if not over <= 1.0:
+                raise AssertionError(f"{label}: |kernel - plain| is {over} of bf16_bound "
+                                     "at some output")
     del diff
     _check(label, err, tol)
     ms = _time_ms(torch, lambda: ka.small_kv_attention(q, k, v, heads, scale))
@@ -1877,6 +1912,352 @@ def variants_phase(torch, card: str, held: set) -> dict:
     _emit(dict(phase="variants", part="check runs' new shapes held", held=new_rows,
                phase_seconds=time.perf_counter() - t_phase))
     return drives
+
+
+# ------------------------------------------------ phase 15: the FF-FlowFormer variants
+# path -> MODEL keys set over `ff_chairs.yaml` (encoder depth 3, 12 refinements)
+FF_VARIANT_PATHS = {
+    "ff_mlp_nogma": dict(use_mlp=True, gma=False, cost_encoder_res=False, add_flow_token=False),
+    "ff_convnext_global": dict(vertical_conv=True, only_global=True),
+    "ff_patch4": dict(patch_size=4),
+}
+FF_VARIANT_TRAIN = dict(use_mlp=True, vertical_conv=True, gma=False)
+VARIANT_TRAIN_STEPS = 6  # step 1 warms up, 2-4 timed, 5 profiled
+GROUP_SHAPE = (10, 56, 133, 128)  # group attention's F: B*K = 10 at the 55x128 grid, padded
+# bf16 against f32 through LayerNorm, four products, GELU and F's bf16 softmax
+# weights, the residual's input rounded to 8 significant bits: of the output's scale
+GROUP_LAYER_TOL = 2.0 ** -5
+
+
+def _ff_variant_launches(cfg) -> dict:
+    """`_ff_launches` for a variant: E loses the latent self-attention with
+    `use_mlp` and the vertical global layer with `vertical_conv`, which
+    also takes F's vertical local layer; B runs once a refinement (the
+    flow token alone) with `only_global`."""
+    d = cfg.encoder_depth
+    want = _ff_launches(d, cfg.decoder_depth, fused=cfg.fusion is not None)
+    want["attention"] -= d * (int(cfg.use_mlp) + int(cfg.vertical_conv))
+    want["window_attention"] -= d * int(cfg.vertical_conv)
+    want["fold"] -= cfg.decoder_depth * int(cfg.only_global)
+    return want
+
+
+def _ff_variant_weights(torch, cfg, path: str) -> dict:
+    """Weights for a FlowFormer variant from the fixture at encoder depth 3
+    (`_ff_depth3_weights`: layer 0 copied into layers 1 and 2): every
+    tensor whose name and shape carry over; derived from the fixture, the
+    basic update block's GRU (the GMA GRU reads [net, context, motion,
+    the aggregate]: the aggregate's columns are added to the motion's, so
+    it computes what the GMA GRU computes where the aggregator's gamma is
+    0; the fixture's is 0.0055) and the only-global convc1 (the fixture's
+    without its window columns); seeded from a torch.Generator, the rest
+    (MLP-Mixer and ConvNext layers, the patch-4 convs): weights
+    N(0, 1/fan_in), LayerNorm scales 1 + N(0, 0.1^2), ConvNext's gamma and
+    every bias N(0, 0.1^2). Saved as .npz -> {"seeded", "derived": names}."""
+    from focusflow_official_tpu_torch.compat.weights import load_npz, params_to_jax
+    from focusflow_official_tpu_torch.config import model_from_config
+
+    src = load_npz(_ff_depth3_weights())
+    model, _ = model_from_config(cfg)
+    norms = {n for n, m in model.named_modules() if type(m).__name__ == "LayerNorm"}
+    g = torch.Generator().manual_seed(15)
+    sd, seeded, derived = {}, [], []
+    for k, t in model.state_dict().items():
+        owner, leaf = k.rpartition(".")[::2]
+        if k in src and src[k].shape == t.shape:
+            sd[k] = src[k]
+        elif k in src and ".update_block.gru." in k and leaf == "weight":
+            w = src[k]  # (128, 128 + 384, kh, kw): [net, context, motion, aggregate]
+            sd[k] = torch.cat([w[:, :256], w[:, 256:384] + w[:, 384:]], dim=1)
+            derived.append(k)
+        elif k in src and k.endswith("encoder.convc1.weight"):
+            sd[k] = src[k][:, :t.shape[1]].contiguous()  # the global cost's columns
+            derived.append(k)
+        else:
+            r = torch.randn(t.shape, generator=g)
+            if owner in norms and leaf == "weight":
+                sd[k] = 1 + 0.1 * r
+            elif leaf == "weight" and t.dim() > 1:
+                sd[k] = r / float(np.sqrt(t[0].numel()))
+            else:
+                sd[k] = 0.1 * r
+            seeded.append(k)
+    model.load_state_dict(sd, strict=True)
+    np.savez(path, **params_to_jax(sd))
+    return dict(seeded=seeded, derived=derived)
+
+
+def ff_variant_kernel_rows(torch, dev) -> dict:
+    """Phase 15's new (kernel, shape) keys, held and timed as the kernel
+    phase holds its rows: E's staged entry at the patch-4 perceiver's input
+    layer, (7040, 8) x 448 keys at 1024x436 and (17112, 8) x 192 in
+    training at B=6, 368x496 (with its Function's backward); F at group
+    attention's shape
+    (`GROUP_SHAPE`, 8 heads of 16) -> {kernel: rows}."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    q, tq = 55 * 128, 6 * 46 * 62
+    rows = {"attention": [
+        _attention_row(torch, g, dev, q, 8, 448, 128, 8, "attention input layer, patch 4",
+                       "staged"),
+        _attention_row(torch, g, dev, tq, 8, 192, 128, 8,
+                       "attention train input layer, patch 4", "staged", backward=True)],
+        "window_attention": [_window_row(torch, g, dev, *GROUP_SHAPE, 8,
+                                         "window group attention")]}
+    for name, rs in rows.items():
+        for row in rs:
+            _emit(dict(phase="ff_variant_kernels", name=name, **row))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _dwconv_row(torch, dev, b: int, h: int, w: int, c: int) -> dict:
+    """ConvNext's depthwise 7x7 (cuDNN) on the vertical layer's bf16
+    (b, h, w, c) channels-last grid: median ms beside its bound (input and
+    output once; 2 x 49 operations an output on the f32 units)."""
+    from focusflow_official_tpu_torch.nn.twins import conv_nhwc
+
+    conv = torch.nn.Conv2d(c, c, 7, 1, 3, groups=c).to(dev, torch.bfloat16,
+                                                       memory_format=torch.channels_last)
+    x = torch.randn((b, h, w, c), device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        ms = _time_ms(torch, lambda: conv_nhwc(conv, x))
+    bound, by = _bound_ms(2 * x.numel() * 2, 2 * 49 * x.numel(), PEAK_F32)
+    return dict(shape=f"({b}, {h}, {w}, {c}) bf16, channels last", ms=ms, bound_ms=bound,
+                bound_by=by)
+
+
+def ff_variants_phase(torch, card: str) -> dict:
+    """Phase 15, serving: the three variant configurations of
+    `FF_VARIANT_PATHS` through `FlowPredictor` at 1024x436, B=1, bf16, 12
+    refinements, encoder depth 3, on `_ff_variant_weights`. Gates: finite
+    flow; agreement with the f32 CPU run on the same weights (phase 3's
+    bounds, the margin printed); the launches a forward
+    (`_ff_variant_launches`; B only in its 81 -> 64 form where only-global).
+    -> path -> (launch counts, launches by shape key) of each counted
+    forward."""
+    from focusflow_official_tpu_torch.predict import FlowPredictor
+
+    t_phase = time.perf_counter()
+    inputs, _ = _textured_inputs(H, W)
+    drives = {}
+    for path, model in FF_VARIANT_PATHS.items():
+        cfg = _variant_cfg(FF_TRAIN_YAML, **model)
+        weights = os.path.join(OUT_DIR, f"{path}_weights.npz")
+        made = _ff_variant_weights(torch, cfg, weights)
+        want = _ff_variant_launches(cfg)
+        p = FlowPredictor(cfg, weights, device="cuda", dtype=torch.bfloat16)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        flow, counts, ms, times, breakdown = _drive(torch, p, inputs, want,
+                                                    f"chip_smoke_profile_{path}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        folds = sorted({key[3] for key in counts[1] if key[0] == "fold"})
+        if folds != ([64] if cfg.only_global else [64, 256]):
+            raise AssertionError(f"{path}: fold widths {folds}")
+        extra = {}
+        if cfg.vertical_conv:  # 4 blocks a vertical layer, over B*K = 8 grids
+            extra["convnext_dwconv"] = dict(
+                _dwconv_row(torch, torch.device("cuda", 0), 8, 55, 128, cfg.cost_latent_dim),
+                launches=4 * cfg.encoder_depth)
+        t0 = time.perf_counter()
+        gates = _gates(flow, None, _cpu_flow(cfg, weights, inputs))
+        limit = 0.05 * max(gates["cpu_f32_mean_abs_flow"], 1.0)
+        del p
+        _emit(dict(phase="ff_variants", model=path, yaml=os.path.relpath(FF_TRAIN_YAML, ROOT),
+                   set=model, card=card, shape=[1, H, W], encoder_depth=cfg.encoder_depth,
+                   iters=cfg.decoder_depth, dtype="bfloat16", ms_per_pair=ms,
+                   device_busy_ms=breakdown["device_busy_ms"],
+                   idle_share=breakdown["idle_share"], kernel_count=breakdown["kernel_count"],
+                   peak_mem_gib=peak, launches=counts[0], want=want, fold_widths=folds,
+                   agreement_margin=dict(mean_abs=gates["vs_cpu_f32_mean_abs"], limit=limit,
+                                         share=gates["vs_cpu_f32_mean_abs"] / limit),
+                   ms_all=times, profile=breakdown,
+                   weights={k: dict(count=len(v), first=v[:2]) for k, v in made.items()},
+                   **extra, **gates, cpu_f32_size="full frame",
+                   cpu_check_seconds=time.perf_counter() - t0))
+        drives[path] = counts
+        torch.cuda.empty_cache()
+    _emit(dict(phase="ff_variants", part="serving", seconds=time.perf_counter() - t_phase))
+    return drives
+
+
+def ff_variant_train_phase(torch, card: str, held: set) -> tuple:
+    """Phase 15, training: the trainer's body (`cli/train.py::train`) on
+    `ff_chairs.yaml` with `FF_VARIANT_TRAIN` (MLP-Mixer, ConvNext, no GMA)
+    at full width and depth (B=6, 368x496, encoder depth 3, 12
+    refinements, MixLoss, noise, AdamW + OneCycle, bf16) from
+    `_ff_variant_weights`, NUM_STEPS cut to VARIANT_TRAIN_STEPS, on
+    phase 11's fixed batch. Gates: finite loss and gradient norm at every
+    step; every step's launches (`_ff_variant_launches`); on two samples at
+    184x248 without noise, the f32 step (TF32 off) within 1e-4 of the
+    port's f32 CPU step in loss and >= 0.9999 in gradient cosine (phase
+    11's bounds). No descent gate. Prints ms a step (steps 2-4, host
+    clock), busy ms and idle share of step 5 (profiled), peak memory.
+    Every (kernel, shape) launched that no row holds (`held`) is held once
+    against its plain version. -> ((counts, launches by shape key) of step
+    4, the phase's line)."""
+    from focusflow_official_tpu_torch.cli.train import train as run_trainer
+    from focusflow_official_tpu_torch.config import config_from_yaml, load_yaml_config
+    from focusflow_official_tpu_torch.data import synthetic as sy
+    from focusflow_official_tpu_torch.kernels import (
+        launch_counts, launch_shapes, reset_launch_counts)
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    path, dev = "ff_variant_train", torch.device("cuda", 0)
+    cfg = load_yaml_config(FF_TRAIN_YAML)
+    for k, v in FF_VARIANT_TRAIN.items():
+        setattr(cfg.MODEL, k, v)
+    weights = os.path.join(OUT_DIR, f"{path}_weights.npz")
+    made = _ff_variant_weights(torch, config_from_yaml(cfg), weights)
+    cfg.TRAIN.NUM_STEPS = VARIANT_TRAIN_STEPS
+    cfg.MODEL.PRETRAIN = weights
+    cfg.MODEL.LOAD_MODULE = None
+    cfg.MODEL.load_former = None
+    cfg.GLOBAL.NUM_WORKERS = 2
+    b, (th, tw) = int(cfg.TRAIN.BATCH_SIZE), tuple(cfg.TRAIN.IMAGE_SIZE)
+    want = _ff_variant_launches(config_from_yaml(cfg))
+    data = sy.chairs_layout(5, n=b, h=th, w=tw)
+    st = dict(times=[], per_step=[], metrics=[], prof=None, seen={})
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        st["times"].append(time.perf_counter())
+        st["per_step"].append({k: v for k, v in launch_counts.items() if v})
+        st["metrics"].append(metrics)
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"{path} step {step}: metrics {metrics} not finite")
+        if step == 4:
+            st["counted"] = (dict(launch_counts), dict(launch_shapes))
+        if step == 5:
+            st["prof"].stop()
+            st["profiled_ms"] = (st["times"][-1] - st["times"][-2]) * 1e3
+        for key, n in launch_shapes.items():
+            st["seen"][key] = st["seen"].get(key, 0) + n
+        reset_launch_counts()
+        if step == 4:
+            st["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            st["prof"].start()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    run_trainer(cfg, data, validate=lambda model: {},
+                log_dir=os.path.join(OUT_DIR, "train_runs"), device="cuda",
+                compute_dtype="bfloat16", val_freq=10 ** 9, on_step=on_step)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want_step = {k: v for k, v in want.items() if v}
+    for i, c in enumerate(st["per_step"], start=1):
+        if c != want_step:
+            raise AssertionError(f"{path} step {i}: launches {c} != {want_step}")
+    step_ms = np.diff(st["times"]) * 1e3  # step_ms[i] is step i + 2
+    ms = float(np.median(step_ms[:3]))  # steps 2-4
+    breakdown = _device_breakdown(torch, st["prof"], st["profiled_ms"])
+    breakdown["idle_share_of_unprofiled_step"] = max(0.0, 1 - breakdown["device_busy_ms"] / ms)
+    with open(os.path.join(OUT_DIR, "chip_smoke_profile_train_ff_variant.txt"), "w") as f:
+        f.write(st["prof"].key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    st["prof"] = None
+
+    ch, cw = th // 2, tw // 2
+    two = {k: torch.as_tensor(np.stack([data[i][k][:ch, :cw] for i in range(2)]))
+           for k in ("image1", "image2", "mask1", "mask2", "flow", "valid")}
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grad = _two_sample_grads(torch, cfg, weights, two, "cpu", torch.float32)
+    cpu_s = time.perf_counter() - t0
+    reset_launch_counts()
+    f32_loss, f32_grad = _two_sample_grads(torch, cfg, weights, two, dev, torch.float32)
+    for key, n in launch_shapes.items():
+        st["seen"][key] = st["seen"].get(key, 0) + n
+    agree = dict(cpu_f32_loss=cpu_loss, card_f32_loss=f32_loss,
+                 f32_loss_rel=abs(f32_loss - cpu_loss) / abs(cpu_loss),
+                 f32_grad_cosine=_cosine(torch, f32_grad, cpu_grad), crop=[ch, cw],
+                 cpu_f32_step_seconds=cpu_s, f32_card_flags="TF32 off for the script")
+    if not (agree["f32_loss_rel"] <= 1e-4 and agree["f32_grad_cosine"] >= 0.9999):
+        raise AssertionError(f"{path} training agreement: {agree}")
+    del cpu_grad, f32_grad
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(16)
+    new = sorted((k for k in st["seen"] if k not in held), key=str)
+    new_rows = [dict(_hold_shape(torch, g, dev, k), launches=st["seen"][k]) for k in new]
+    out = dict(phase="ff_variant_train", path=path, card=card,
+               yaml=os.path.relpath(FF_TRAIN_YAML, ROOT), set=FF_VARIANT_TRAIN, batch=b,
+               crop=[th, tw], iters=int(cfg.MODEL.decoder_depth), dtype="bfloat16",
+               steps=VARIANT_TRAIN_STEPS, ms_per_step=ms, step_ms=step_ms.tolist(),
+               samples_per_s=b * 1e3 / ms, device_busy_ms=breakdown["device_busy_ms"],
+               idle_share=breakdown["idle_share"], peak_mem_gib=peak,
+               losses=[m["loss"] for m in st["metrics"]],
+               grad_norms=[m["grad_norm"] for m in st["metrics"]],
+               launches_per_step=want_step, profile=breakdown, agreement=agree,
+               weights={k: dict(count=len(v), first=v[:2]) for k, v in made.items()},
+               new_shapes_held=new_rows, phase_seconds=time.perf_counter() - t_phase)
+    _emit(out)
+    torch.cuda.empty_cache()
+    return st["counted"], out
+
+
+def ff_variant_modules_phase(torch, card: str) -> dict:
+    """Phase 15, the modules no model path runs, once each on the card in
+    bf16 against the f32 CPU run on the same weights and inputs:
+    `GroupVerticalSelfAttentionLayer` (dim 128, 8 heads) on B*K = 10 tokens
+    of the 55x128 grid with the context (vert_c_dim 64, 256 channels,
+    batch 2 tiled to 10) and without it (F at `GROUP_SHAPE`: the launch's
+    key is the kernel phase's row's), within GROUP_LAYER_TOL of the output's
+    scale; the three position encodings on a (2, 55, 128, 256) map, each
+    output within a bf16 ulp of each of its two roundings, the encoding's
+    (|encoding| <= 1) and the sum's: 2^-7 x (1 + |output|) of the CPU's.
+    Checks, not paths: their launches count in no drive."""
+    from focusflow_official_tpu_torch.kernels import launch_shapes, reset_launch_counts
+    from focusflow_official_tpu_torch.nn import position_encoding as tpe
+    from focusflow_official_tpu_torch.nn.latent_cost import GroupVerticalSelfAttentionLayer
+    from focusflow_official_tpu_torch.predict import for_inference
+
+    dev, bf16 = torch.device("cuda", 0), torch.bfloat16
+    g = torch.Generator().manual_seed(17)
+    out = {}
+
+    def both(module, *args):
+        """module on the CPU in f32, then on the card in bf16 -> (card, CPU)."""
+        module.eval()
+        with torch.no_grad():
+            want = module(*args)
+            card = for_inference(module, bf16, dev)(
+                *(a.to(dev, bf16) if torch.is_tensor(a) and a.is_floating_point() else a
+                  for a in args))
+        return card.float().cpu(), want
+
+    h1, w1 = 55, 128
+    for vc in (64, 0):
+        torch.manual_seed(17 + vc)
+        layer = GroupVerticalSelfAttentionLayer(128, vc, context_dim=256)
+        x = torch.randn((10, h1 * w1, 128), generator=g)
+        args = (x, (h1, w1)) + ((torch.randn((2, h1, w1, 256), generator=g),) if vc else ())
+        reset_launch_counts()
+        got, want = both(layer, *args)
+        keys = dict(launch_shapes)
+        key = ("window_attention", *GROUP_SHAPE, 8, "torch.bfloat16", "mma")
+        if keys != {key: 1}:
+            raise AssertionError(f"group layer (vert_c_dim {vc}): launches {keys}")
+        scale = max(1.0, float(want.abs().max()))
+        err = float((got - want).abs().max())
+        if not err <= GROUP_LAYER_TOL * scale:
+            raise AssertionError(f"group layer (vert_c_dim {vc}): {err} > "
+                                 f"{GROUP_LAYER_TOL} x {scale}")
+        out[f"group_vertical_layer_vert_c_{vc}"] = dict(
+            max_abs_err=err, tol=GROUP_LAYER_TOL * scale, mean_abs_err=float(
+                (got - want).abs().mean()), moved_input_by=float((want - x).abs().max()))
+    x = torch.randn((2, h1, w1, 256), generator=g) * 4
+    for name, module in (("sine", tpe.PositionEncodingSine(256)),
+                         ("linear", tpe.LinearPositionEncoding()),
+                         ("learned", tpe.LearnedPositionEncoding(256))):
+        got, want = both(module, x.to(bf16).float())  # the card's input, exactly
+        over = float(((got - want).abs() / (2.0 ** -7 * (1 + want.abs()))).max())
+        if not over <= 1.0:
+            raise AssertionError(f"position encoding {name}: {over} of its bound")
+        out[f"position_{name}"] = dict(largest_err_over_its_bound=over,
+                                       max_abs_err=float((got - want).abs().max()))
+    _emit(dict(phase="ff_variant_modules", card=card, **out))
+    torch.cuda.empty_cache()
+    return out
 
 
 def _hold_shape(torch, g, dev, key: tuple) -> dict:
@@ -3385,14 +3766,15 @@ def _worst(rows: list) -> dict:
 
 def _row_keys(raft: list, ff_rows: dict, pwc_rows: list, train_rows: dict,
               variant_rows: dict) -> set:
-    """The launch key of every row the kernel phases hold (`train_rows`:
-    path -> {kernel: rows}; `variant_rows`: {kernel: rows})."""
+    """The launch key of every row the kernel phases hold (`train_rows` and
+    `variant_rows`: path -> {kernel: rows})."""
     keys = set()
     for kr in raft:
         keys.update(r["key"] for r in kr.get("per_shape", ()))
         keys.update(k for k in (kr.get("key"), kr.get("f32", {}).get("key")) if k)
-    for rows in (*ff_rows.values(), pwc_rows, *variant_rows.values(),
-                 *(rs for by_kernel in train_rows.values() for rs in by_kernel.values())):
+    for rows in (*ff_rows.values(), pwc_rows,
+                 *(rs for by_kernel in (*train_rows.values(), *variant_rows.values())
+                   for rs in by_kernel.values())):
         keys.update(r["key"] for r in rows)
     return keys
 
@@ -3415,8 +3797,9 @@ def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, train_rows: dict,
     "flowformer_train" launches shapes that "ff_flowformer_train"'s rows
     hold) carry their backward's time and gradient check beside the
     forward's; a kernel's `train` entry gives each training path's first
-    row. Phase 14's rows (`variant_rows`: {kernel: rows}) join their
-    kernel's `per_shape` under the path "ff_raft_variants"."""
+    row. The variant phases' rows (`variant_rows`: path -> {kernel: rows},
+    phase 14's "ff_raft_variants", phase 15's "ff_flowformer_variants")
+    join their kernel's `per_shape` under that path."""
     table = []
     for kr in raft:
         if "per_shape" not in kr:
@@ -3428,9 +3811,6 @@ def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, train_rows: dict,
                 kr["per_shape"].append(dict(kr.pop("f32"), path="ff_raft"))
             kr["per_shape"] += [dict(r, path="ff_flowformer")
                                 for r in ff_rows.get(kr["name"], [])]
-        kr["per_shape"] += [dict(r, path="ff_raft_variants")
-                            for r in variant_rows.get(kr["name"], [])]
-        kr.update(_worst(kr["per_shape"]))
         kr.pop("key", None)
         table.append(kr)
     for name, src, replaces, lib in (
@@ -3460,6 +3840,9 @@ def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, train_rows: dict,
         design=top["design"], two_step_ms=top["two_step_ms"],
         shape=top["shape"], per_shape=[dict(r, path="ff_pwcnet") for r in pwc_rows]))
     for kr in table:
+        for path, by_kernel in variant_rows.items():
+            kr["per_shape"] += [dict(r, path=path) for r in by_kernel.get(kr["name"], ())]
+        kr.update(_worst(kr["per_shape"]))
         for path, by_kernel in train_rows.items():
             rows = [dict(r, path=path) for r in by_kernel.get(kr["name"], ())]
             if not rows:
@@ -3480,7 +3863,7 @@ def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, train_rows: dict,
              "raft_concat", "flowformer", "ff_raft_alt_corr", "ff_raft_alt_corr_4k", "raft_s",
              "ff_raft_s", "raft_attention", "raft_conv", "ff_raft_train", "ff_pwcnet_train",
              "ff_flowformer_train", "raft_train", "flowformer_train", "ff_raft_train_aug",
-             "ff_raft_train_nccl1")
+             "ff_raft_train_nccl1", *FF_VARIANT_PATHS, "ff_variant_train")
     held = set()
     for kr in table:
         by_path = {path: drives[path][0].get(kr["name"], 0) for path in paths}
@@ -3551,7 +3934,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 14: the FF-RAFT variants (ALT_CORR, the small model, the front ends)
     t0 = time.perf_counter()
-    variant_rows = variant_kernel_rows(torch, dev)
+    variant_rows = {"ff_raft_variants": variant_kernel_rows(torch, dev)}
     held = lambda: _row_keys(raft_kernels, ff_rows, pwc_rows, train_rows, variant_rows)
     train_rows = {}
     drives.update(variants_phase(torch, card, held()))
@@ -3573,6 +3956,15 @@ def main() -> int:
     drives["ff_raft_train_aug"] = device_aug_phase(torch, card, phase9)
     drives["ff_raft_train_nccl1"] = ddp_phase(torch, card, held(), phase9)
     _emit(dict(phase="training_at_scale", seconds=time.perf_counter() - t0))
+    torch.cuda.empty_cache()
+    # phase 15: the FF-FlowFormer variants (served, trained) and the modules
+    # no path runs
+    t0 = time.perf_counter()
+    variant_rows["ff_flowformer_variants"] = ff_variant_kernel_rows(torch, dev)
+    drives.update(ff_variants_phase(torch, card))
+    drives["ff_variant_train"], _ = ff_variant_train_phase(torch, card, held())
+    ff_variant_modules_phase(torch, card)
+    _emit(dict(phase="ff_flowformer_variants", seconds=time.perf_counter() - t0))
     kernels = _kernel_table(raft_kernels, ff_rows, pwc_rows, train_rows, variant_rows, drives,
                             card)
     # the fused kernel inside the profiled FF-RAFT forward, where its inputs

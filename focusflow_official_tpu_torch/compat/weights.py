@@ -35,7 +35,8 @@ import torch
 
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                  **{n: n for n in ("latent_tokens", "gamma", "pos_emb_rel_height",
-                                   "pos_emb_rel_width", "temperature")}}
+                                   "pos_emb_rel_width", "temperature", "row_embed",
+                                   "col_embed")}}
 _KERNEL_PERMUTE = {4: (3, 2, 0, 1), 2: (1, 0)}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 

@@ -11,9 +11,10 @@ how many refinements it runs.
 
 The port's configs hold only the fields the port has. A field that selects
 a variant the port lacks is read only to refuse it: any value other than
-the ported ones raises `NotImplementedError` naming the `ROADMAP.md` item
-that brings it, so a file is never run as a different model; so does a
-dropout other than 0. The TPU layout knobs of the JAX package
+the ported ones raises `NotImplementedError` with the reason (the
+`ROADMAP.md` item that brings it, or why no item does: the JAX package
+cannot run it either), so a file is never run as a different model; so
+does a dropout other than 0. The TPU layout knobs of the JAX package
 (`corr_impl`, the `FF_*` variables) are not read. PyYAML is imported when
 a file is read, not with this module.
 """
@@ -28,9 +29,10 @@ from .models.config import FFPWCNetConfig, FFRaftConfig, FlowFormerConfig
 from .models.ff_raft import compute_dtype
 from .nn.fusion_units import FUSION_TYPES
 
-# where ROADMAP.md queues the inference variants the port lacks and dropout
-_VARIANTS_ITEM = "ROADMAP.md queue 1, 'The remaining inference variants',"
-_DROPOUT_ITEM = "ROADMAP.md queue 1, 'Dropout',"
+# why a value is refused: no variant of that name exists in either package,
+# or ROADMAP.md queues it
+_UNKNOWN = "the JAX package has no such variant either"
+_DROPOUT_ITEM = "ROADMAP.md queue 1, 'Dropout', brings it"
 
 
 class ConfigNode(types.SimpleNamespace):
@@ -69,11 +71,11 @@ def detect_family(cfg: ConfigNode) -> str:
 
 
 def _refuse(section: ConfigNode, key: str, ported: Any, default: Any = None,
-            item: str = _VARIANTS_ITEM) -> Any:
+            reason: str = _UNKNOWN) -> Any:
     """Raise unless `section.key` (absent: `default`) is the ported value
     or one of a tuple of them, read as the ported value's type where that
     is bool, int or float (as the reference reads it: `gma: GMA` is true);
-    -> the value."""
+    -> the value. The message ends with `reason`."""
     value = section.get(key, default)
     allowed = ported if isinstance(ported, tuple) else (ported,)
     if isinstance(allowed[0], (bool, int, float)) and value is not None:
@@ -81,7 +83,7 @@ def _refuse(section: ConfigNode, key: str, ported: Any, default: Any = None,
     if value not in allowed:
         raise NotImplementedError(
             f"{key}: {value!r} selects a variant this port lacks (it has "
-            f"{' or '.join(map(repr, allowed))}); {item} brings it")
+            f"{' or '.join(map(repr, allowed))}); {reason}")
     return value
 
 
@@ -129,27 +131,41 @@ def pwcnet_config_from_yaml(cfg: ConfigNode, *,
                           compute_dtype=compute_dtype, **_mask_fields(cfg.TRAIN))
 
 
-# FlowFormer's `latentcostformer` keys that select a variant, with the ported
-# value and the reference default where a file leaves the key out
-_FF_FIXED = (("pe", "linear", "linear"),
-             ("cost_heads_num", 1, 1), ("patch_size", 8, 8), ("gma", True, True),
-             ("use_mlp", False, False), ("vertical_conv", False, False),
-             ("only_global", False, False), ("cost_encoder_res", True, True),
-             ("add_flow_token", True, True), ("feat_cross_attn", False, False))
+# FlowFormer's `latentcostformer` keys with one value in both packages: the
+# value, the reference default where a file leaves the key out, and why no
+# other value runs
+_FF_FIXED = (
+    ("pe", "linear", "linear", "the JAX package reads the field and never uses "
+     "it: the linear sine encoding is the only one either package has"),
+    ("cost_heads_num", 1, 1, "the JAX package cannot run it either (its "
+     "CostPerceiverEncoder reshapes the cost maps as one head, "
+     "models/ff_flowformer.py:159)"),
+    ("feat_cross_attn", False, False, "the JAX package raises on it too: the "
+     "reference's layer stack is never constructed (encoder.py:372-380)"))
 
 
 def flowformer_config_from_yaml(cfg: ConfigNode, *,
                                 compute_dtype: str = "float32") -> FlowFormerConfig:
     """FF-FlowFormer with the CCE Twins towers (`FUSION: parallel`) or
-    vanilla FlowFormer (`FUSION: null`), GMA, attention latent layers and
-    the rest of the reference's default `latentcostformer` block; dropout
-    is refused."""
+    vanilla FlowFormer (`FUSION: null`), with every variant of the
+    `latentcostformer` block that the JAX package runs (`gma`, `use_mlp`,
+    `vertical_conv`, `only_global`, `patch_size` 4 or 8,
+    `cost_encoder_res`, `add_flow_token`), read as JAX reads them; `pe`
+    other than 'linear', more than one cost head, `feat_cross_attn` and
+    dropout are refused."""
     m = cfg.MODEL
-    for key, ported, default in _FF_FIXED:
-        _refuse(m, key, ported, default)
+    for key, ported, default, reason in _FF_FIXED:
+        _refuse(m, key, ported, default, reason)
     _refuse(m, "dropout", 0.0, 0.0, _DROPOUT_ITEM)
     return FlowFormerConfig(
         fusion=_refuse(m, "FUSION", ("parallel", None)),
+        patch_size=int(m.get("patch_size", 8)),
+        gma=bool(m.get("gma", True)),
+        use_mlp=bool(m.get("use_mlp", False)),
+        vertical_conv=bool(m.get("vertical_conv", False)),
+        only_global=bool(m.get("only_global", False)),
+        cost_encoder_res=bool(m.get("cost_encoder_res", True)),
+        add_flow_token=bool(m.get("add_flow_token", True)),
         encoder_latent_dim=int(m.get("encoder_latent_dim", 256)),
         query_latent_dim=int(m.get("query_latent_dim", 64)),
         cost_latent_input_dim=int(m.get("cost_latent_input_dim", 64)),

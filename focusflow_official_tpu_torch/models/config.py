@@ -7,8 +7,8 @@ inference and training paths read.
 - `FFPWCNetConfig`: what FF-PWCNet reads of the same two sections;
 - `FlowFormerConfig`: the fields of the `latentcostformer` block of
   FF-FlowFormer and vanilla FlowFormer (`config/ff_chairs.yaml:41-76` in
-  the reference) that the ported variants leave free, with the JAX
-  package's defaults, which equal that file.
+  the reference) that select a variant the JAX package runs, with its
+  defaults, which equal that file.
 """
 
 from __future__ import annotations
@@ -73,13 +73,13 @@ class FFPWCNetConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FlowFormerConfig:
-    """The fields with more than one value in use: FF-FlowFormer with the
-    CCE Twins towers (`fusion='parallel'`) or vanilla FlowFormer with
-    plain ones (`fusion=None`, which reads no mask field). The rest is
-    fixed: GMA, pe 'linear', one cost head, patch size 8, attention latent
-    layers, vertical local and global attention, the encoder residual and
-    the flow token in the decoder query. An unknown field raises
-    TypeError."""
+    """FF-FlowFormer with the CCE Twins towers (`fusion='parallel'`) or
+    vanilla FlowFormer with plain ones (`fusion=None`, which reads no mask
+    field), with every variant of the `latentcostformer` block that the
+    JAX package runs, at JAX's defaults (JAX `ff_flowformer.py:57-93`).
+    One value is fixed where neither package runs another: pe 'linear',
+    one cost head, no feature cross-attention, no dropout; these have no
+    field. An unknown field raises TypeError."""
 
     fusion: Optional[str] = "parallel"  # 'parallel' | None (vanilla)
 
@@ -97,6 +97,13 @@ class FlowFormerConfig:
     cost_latent_dim: int = 128
     encoder_depth: int = 3
     decoder_depth: int = 12  # refinement iterations (parameters are shared)
+    patch_size: int = 8  # the cost maps' patch embed: 8 (three convs) or 4 (two)
+    gma: bool = True  # the GMA update block; else `FFBasicUpdateBlock`
     vert_c_dim: int = 64
+    cost_encoder_res: bool = True  # the perceiver's output adds its input layer's
+    use_mlp: bool = False  # MLP-Mixer latent layers in place of self-attention
+    vertical_conv: bool = False  # ConvNext vertical layers in place of attention
+    only_global: bool = False  # the motion encoder reads the global cost alone
+    add_flow_token: bool = True  # the decoder's query adds the flow token
 
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16'

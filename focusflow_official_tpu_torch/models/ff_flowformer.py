@@ -6,15 +6,22 @@
   tower over the frames and their masks), a 1x1 to
   `encoder_latent_dim`, the all-pairs cost volume (no sqrt scaling, stored
   in the compute type), and the cost perceiver, which compresses each
-  query's cost map into K latent tokens;
+  query's cost map into K latent tokens: the patch embed (patch size 8 or
+  4), the input layer, then `encoder_depth` x (latent self-attention, or
+  MLP-Mixer with `use_mlp`; vertical attention, or ConvNext with
+  `vertical_conv`), and the input layer's output added back unless
+  `cost_encoder_res` is off;
 - decoder: `decoder_depth` refinements (or the forward's `iters`) sharing
   one set of parameters. Each looks up the radius-4 window of the cost
   maps (kernel A, one level), encodes it into a flow token (kernel B,
-  then a 1x1), cross-attends to the
-  query's latent tokens (kernel E, keys and values computed once before
-  the loop) and runs the GMA update block (convc1's window half as kernel
-  B). In eval mode only the final low-resolution flow is convex-upsampled;
-  in train mode every refinement makes its up-mask and the forward returns
+  then a 1x1), cross-attends from the flow token plus the position
+  encoding of the current coordinates (the encoding alone without
+  `add_flow_token`) to the query's latent tokens (kernel E, keys and
+  values computed once before the loop) and runs the update block: GMA's
+  (with `gma`) or the basic one, each over [global cost, window]
+  (convc1's window half as kernel B), or over the global cost alone with
+  `only_global`. In eval mode only the final low-resolution flow is
+  convex-upsampled; in train mode every refinement makes its up-mask and the forward returns
   each one's convex-upsampled flow, (iters, B, 8H1, 8W1, 2) f32, the form
   FF-RAFT's train mode returns and the sequence losses take. Each
   refinement starts from detached coordinates, as the JAX package's
@@ -24,10 +31,10 @@ With B > 1 the vertical layers see each sample's own context (a
 sample-major repeat), the JAX package's fix of the reference's pairing.
 
 This port covers `fusion='parallel'` (`FFFlowFormer`) and None
-(`FlowFormer`, which ignores the masks it is given), GMA, attention latent
-layers and vertical attention, cost heads 1; the eval-mode `forward`
-returns (flow_lr, flow_up) as the port's FF-RAFT does (the JAX model
-returns them the other way round).
+(`FlowFormer`, which ignores the masks it is given) and every variant of
+`FlowFormerConfig`, cost heads 1 (the JAX package runs no other); the
+eval-mode `forward` returns (flow_lr, flow_up) as the port's FF-RAFT does
+(the JAX model returns them the other way round).
 """
 
 from __future__ import annotations
@@ -40,10 +47,10 @@ from torch import nn
 from ..kernels.attention import small_kv_attention
 from ..kernels.fold import fold
 from ..kernels.lookup import lookup
-from ..nn.gma import GMAAttention, GMAUpdateBlock
-from ..nn.latent_cost import (BroadCrossAttentionLayer, CostPatchEmbed,
-                              SelfAttentionLayer, VerticalSelfAttentionLayer,
-                              linear_position_embedding_sine)
+from ..nn.gma import FFBasicUpdateBlock, GMAAttention, GMAUpdateBlock
+from ..nn.latent_cost import (BroadCrossAttentionLayer, ConvNextLayer, CostPatchEmbed,
+                              MLPMixerLayer, SelfAttentionLayer,
+                              VerticalSelfAttentionLayer, linear_position_embedding_sine)
 from ..nn.twins import (LayerNorm, TwinsSVT2Stage, TwinsSVT2StageCCE, conv1x1_nhwc,
                         gelu)
 from ..ops.coords import coords_grid
@@ -68,31 +75,38 @@ class CostPerceiverEncoder(nn.Module):
     def __init__(self, cfg: FlowFormerConfig):
         super().__init__()
         self.cfg = cfg
-        d = cfg.cost_latent_dim
-        self.patch_embed = CostPatchEmbed(1, cfg.cost_latent_input_dim)
-        self.latent_tokens = nn.Parameter(torch.zeros(1, cfg.cost_latent_token_num, d))
+        d, kt = cfg.cost_latent_dim, cfg.cost_latent_token_num
+        self.patch_embed = CostPatchEmbed(1, cfg.cost_latent_input_dim, cfg.patch_size)
+        self.latent_tokens = nn.Parameter(torch.zeros(1, kt, d))
         self.input_layer = BroadCrossAttentionLayer(d, d, d, cfg.cost_latent_input_dim * 2)
         for i in range(cfg.encoder_depth):
-            self.add_module(f"encoder_layers_{i}", SelfAttentionLayer(d))
-            self.add_module(f"vertical_encoder_layers_{i}", VerticalSelfAttentionLayer(
-                d, cfg.vert_c_dim, context_dim=_CONTEXT_DIM))
+            self.add_module(f"encoder_layers_{i}",
+                            MLPMixerLayer(d, kt) if cfg.use_mlp else SelfAttentionLayer(d))
+            self.add_module(f"vertical_encoder_layers_{i}", ConvNextLayer(d)
+                            if cfg.vertical_conv else VerticalSelfAttentionLayer(
+                                d, cfg.vert_c_dim, context_dim=_CONTEXT_DIM))
 
     def forward(self, cost_maps: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         """cost_maps (B, H1*W1, H2, W2), context NHWC (B, H1, W1, 256)
         -> latent memory (B*H1*W1, K, cost_latent_dim)."""
+        cfg = self.cfg
         b, q, h2, w2 = cost_maps.shape
         h1, w1 = context.shape[1:3]
-        kt = self.cfg.cost_latent_token_num
+        kt = cfg.cost_latent_token_num
         x, _ = self.patch_embed(cost_maps.reshape(b * q, h2, w2, 1))
         x = self.input_layer(self.latent_tokens.to(x.dtype), x)
         short_cut = x
-        ctx = context.repeat_interleave(kt, dim=0)  # sample-major
-        for i in range(self.cfg.encoder_depth):
+        ctx = None if cfg.vertical_conv else context.repeat_interleave(kt, dim=0)  # sample-major
+        for i in range(cfg.encoder_depth):
             x = getattr(self, f"encoder_layers_{i}")(x)
             x = x.reshape(b, q, kt, -1).transpose(1, 2).reshape(b * kt, q, -1)
-            x = getattr(self, f"vertical_encoder_layers_{i}")(x, (h1, w1), ctx)
+            vertical = getattr(self, f"vertical_encoder_layers_{i}")
+            if cfg.vertical_conv:
+                x = vertical(x.reshape(b * kt, h1, w1, -1)).reshape(b * kt, q, -1)
+            else:
+                x = vertical(x, (h1, w1), ctx)
             x = x.reshape(b, kt, q, -1).transpose(1, 2).reshape(b * q, kt, -1)
-        return x + short_cut
+        return x + short_cut if cfg.cost_encoder_res else x
 
 
 class MemoryEncoder(nn.Module):
@@ -124,7 +138,8 @@ class MemoryDecoder(nn.Module):
         dim = cfg.query_latent_dim
         k2 = (2 * _RADIUS + 1) ** 2
         self.proj = nn.Conv2d(_CONTEXT_DIM, 256, 1)
-        self.att = GMAAttention(128, 1, 128)
+        if cfg.gma:
+            self.att = GMAAttention(128, 1, 128)
         self.decoder_layer_cross_attend_k = nn.Linear(cfg.cost_latent_dim, dim)
         self.decoder_layer_cross_attend_v = nn.Linear(cfg.cost_latent_dim, dim)
         # the refinement step's modules (one set, shared by every iteration)
@@ -136,7 +151,9 @@ class MemoryDecoder(nn.Module):
         self.decoder_layer_cross_attend_norm2 = LayerNorm(dim, eps=1e-5)
         self.decoder_layer_cross_attend_ffn_0 = nn.Linear(dim, dim)
         self.decoder_layer_cross_attend_ffn_3 = nn.Linear(dim, dim)
-        self.update_block = GMAUpdateBlock(k2 + dim, 128)
+        # only-global: convc1 reads the global cost alone
+        cor_planes = dim if cfg.only_global else k2 + dim
+        self.update_block = (GMAUpdateBlock if cfg.gma else FFBasicUpdateBlock)(cor_planes, 128)
 
     def _cost_global(self, window, coords1, k_mem, v_mem):
         """The flow token of each query cross-attends to its latent memory:
@@ -147,8 +164,9 @@ class MemoryDecoder(nn.Module):
         query = conv1x1_nhwc(self.flow_token_encoder_2, gelu(tok))[:, None]
         qc_enc = linear_position_embedding_sine(coords1.reshape(-1, 1, 2), dim)
         qc_enc = qc_enc.to(query.dtype)
-        qn = self.decoder_layer_cross_attend_norm1(query)
-        q = self.decoder_layer_cross_attend_q(qn + qc_enc)
+        if self.cfg.add_flow_token:
+            qc_enc = self.decoder_layer_cross_attend_norm1(query) + qc_enc
+        q = self.decoder_layer_cross_attend_q(qc_enc)
         x = small_kv_attention(q, k_mem, v_mem, 8, (dim / 8) ** -0.5)
         x = query + self.decoder_layer_cross_attend_proj(torch.cat([x, query], dim=2))
         xn = self.decoder_layer_cross_attend_norm2(x)
@@ -167,7 +185,7 @@ class MemoryDecoder(nn.Module):
         context = conv1x1_nhwc(self.proj, context)
         net = torch.tanh(context[..., :128]).permute(0, 3, 1, 2)
         inp = torch.relu(context[..., 128:])
-        attention = self.att(inp)
+        attention = self.att(inp) if self.cfg.gma else None
         inp = inp.permute(0, 3, 1, 2)
         k_mem = self.decoder_layer_cross_attend_k(cost_memory)
         v_mem = self.decoder_layer_cross_attend_v(cost_memory)
@@ -183,7 +201,8 @@ class MemoryDecoder(nn.Module):
             cost_global = self._cost_global(window.reshape(b * h1 * w1, -1),
                                             coords1, k_mem, v_mem)
             net, up_mask, delta = self.update_block(
-                net, inp, cost_global.reshape(b, h1, w1, -1), window,
+                net, inp, cost_global.reshape(b, h1, w1, -1),
+                None if self.cfg.only_global else window,
                 (coords1 - coords0).to(d), attention,
                 mask_needed=self.training or it == iters - 1)
             coords1 = coords1 + delta.float()

@@ -1,4 +1,4 @@
-"""GMA (global motion aggregation) and FlowFormer's GMA update block.
+"""GMA (global motion aggregation) and FlowFormer's update blocks.
 
 - `GMAAttention`: a content-only (B, heads, Q, Q) softmax map over the
   context features, taken in f32 and stored in the compute type; its
@@ -8,8 +8,12 @@
   `gamma` times the result;
 - `FFBasicMotionEncoder`: the motion encoder over (cost_global, window),
   with convc1 split: the 81-wide window half through kernel B (it carries
-  the bias) and the 64-wide global half as a matrix product;
-- `GMAUpdateBlock`: encoder, aggregator, SepConvGRU, flow head, mask head.
+  the bias) and the 64-wide global half as a matrix product; in the
+  only-global form (`cor_planes` equal to the global cost's width) convc1
+  reads cost_global alone, a matrix product, and takes no window;
+- `GMAUpdateBlock`: encoder, aggregator, SepConvGRU, flow head, mask head;
+- `FFBasicUpdateBlock`: the same without the aggregator (no GMA): the GRU
+  reads [context, motion].
 
 Inside the decoder loop the hidden state and context are NCHW-indexed
 (`channels_last` on the card), as in the RAFT update block.
@@ -83,20 +87,52 @@ class FFBasicMotionEncoder(nn.Module):
         self.conv = nn.Conv2d(64 + 192, 128 - 2, 3, 1, 1)
 
     def forward(self, flow: torch.Tensor, cost_global: torch.Tensor,
-                window: torch.Tensor) -> torch.Tensor:
-        """flow (B, H, W, 2), cost_global (B, H, W, Cg), window (B, H, W, 81),
-        NHWC -> (B, 128, H, W). convc1's input is [cost_global, window]."""
+                window: Optional[torch.Tensor]) -> torch.Tensor:
+        """flow (B, H, W, 2), cost_global (B, H, W, Cg), window (B, H, W, 81)
+        or None (only-global), NHWC -> (B, 128, H, W). convc1's input is
+        [cost_global, window], or cost_global alone."""
         b, h, w, cg = cost_global.shape
         wc = self.convc1.weight.reshape(256, -1)
-        cor = fold(window.reshape(b * h * w, -1), wc[:, cg:].contiguous(),
-                   self.convc1.bias)
-        cor = cor + cost_global.reshape(b * h * w, cg) @ wc[:, :cg].t()
+        if window is None:
+            cor = F.linear(cost_global, wc, self.convc1.bias)
+        else:
+            cor = fold(window.reshape(b * h * w, -1), wc[:, cg:].contiguous(),
+                       self.convc1.bias)
+            cor = cor + cost_global.reshape(b * h * w, cg) @ wc[:, :cg].t()
         cor = torch.relu(_nchw(cor.reshape(b, h, w, 256)))
         cor = torch.relu(self.convc2(cor))
         flow = _nchw(flow)
         flo = torch.relu(self.convf2(torch.relu(self.convf1(flow))))
         out = torch.relu(self.conv(torch.cat([cor, flo], dim=1)))
         return torch.cat([out, flow], dim=1)
+
+
+def _heads(block: nn.Module, net: torch.Tensor, mask_needed: bool):
+    """The flow head's delta (B, H, W, 2) and, where needed, the mask
+    head's up-mask (B, H, W, 576), else None."""
+    delta_flow = block.flow_head(net).permute(0, 2, 3, 1)
+    up_mask: Optional[torch.Tensor] = None
+    if mask_needed:
+        up_mask = 0.25 * block.mask_2(torch.relu(block.mask_0(net)))
+        up_mask = up_mask.permute(0, 2, 3, 1)
+    return up_mask, delta_flow
+
+
+class FFBasicUpdateBlock(nn.Module):
+    def __init__(self, cor_planes: int, hidden_dim: int = 128):
+        super().__init__()
+        self.encoder = FFBasicMotionEncoder(cor_planes)
+        self.gru = SepConvGRU(hidden_dim, 128 + hidden_dim)
+        self.flow_head = FlowHead(hidden_dim, 256)
+        self.mask_0 = nn.Conv2d(128, 256, 3, 1, 1)
+        self.mask_2 = nn.Conv2d(256, 64 * 9, 1)
+
+    def forward(self, net, inp, cost_global, window, flow, attention=None,
+                mask_needed: bool = True):
+        """As `GMAUpdateBlock.forward`; `attention` is not read."""
+        motion = self.encoder(flow, cost_global, window)
+        net = self.gru(net, torch.cat([inp, motion], dim=1))
+        return (net, *_heads(self, net, mask_needed))
 
 
 class GMAUpdateBlock(nn.Module):
@@ -111,7 +147,7 @@ class GMAUpdateBlock(nn.Module):
 
     def forward(self, net, inp, cost_global, window, flow, attention,
                 mask_needed: bool = True):
-        """net, inp: (B, C, H, W); cost_global, window, flow: NHWC;
+        """net, inp: (B, C, H, W); cost_global, window (or None), flow: NHWC;
         attention: (B, 1, H*W, H*W).
 
         Returns (net, up_mask (B, H, W, 576) or None, delta_flow (B, H, W, 2));
@@ -119,9 +155,4 @@ class GMAUpdateBlock(nn.Module):
         motion = self.encoder(flow, cost_global, window)
         motion_global = _nchw(self.aggregator(attention, motion.permute(0, 2, 3, 1)))
         net = self.gru(net, torch.cat([inp, motion, motion_global], dim=1))
-        delta_flow = self.flow_head(net).permute(0, 2, 3, 1)
-        up_mask: Optional[torch.Tensor] = None
-        if mask_needed:
-            up_mask = 0.25 * self.mask_2(torch.relu(self.mask_0(net)))
-            up_mask = up_mask.permute(0, 2, 3, 1)
-        return net, up_mask, delta_flow
+        return (net, *_heads(self, net, mask_needed))

@@ -1,17 +1,24 @@
-"""The cost perceiver's layers (FlowFormer's latent cost encoder), default
-configuration: cost heads 1, pe 'linear', K = 8 latent tokens, attention
-layers (no MLP-Mixer), vertical local + global attention conditioned on
-the context (no ConvNext), vert_c_dim 64.
+"""The cost perceiver's layers (FlowFormer's latent cost encoder): K = 8
+latent tokens, pe 'linear', one cost head, vert_c_dim 64 by default.
 
-- `CostPatchEmbed`: each query's cost map, stride-8 conv stack, then a 1x1
-  over [features, sine encoding of the patch centres] and LayerNorm;
+- `CostPatchEmbed`: each query's cost map, a stride-8 conv stack (three
+  6x6 stride-2 convs; two at patch size 4), then a 1x1 over [features,
+  sine encoding of the patch centres] and LayerNorm;
 - `BroadCrossAttentionLayer`: the K latent tokens cross-attend to a cost
   map's tokens (kernel E);
-- `SelfAttentionLayer`: self-attention over the K tokens (kernel E);
-- `VerticalSelfAttentionLayer`: over the H1 x W1 grid of one latent token,
-  a 7x7-window block (kernel F) and a sub-sampled global block (kernel E),
-  each with a sine position encoding and the projected context added to
-  the query/key input.
+- the latent layers over the K tokens of each query: `SelfAttentionLayer`
+  (kernel E) or `MLPMixerLayer` (`use_mlp`: a dense layer over the K axis,
+  then one over the channels);
+- the vertical layers over the H1 x W1 grid of one latent token:
+  `VerticalSelfAttentionLayer`, a 7x7-window block (kernel F) and a
+  sub-sampled global block (kernel E), each with a sine position encoding
+  and the projected context added to the query/key input; or
+  `ConvNextLayer` (`vertical_conv`: four depthwise 7x7 ConvNext blocks, no
+  context);
+- `GroupVerticalSelfAttentionLayer`: one block of `GroupAttnRPEContext`,
+  window attention whose five batch groups read keys and values one window
+  up, down, left, right or in place (kernel F). The JAX package defines it
+  and wires it into no model; so does the port.
 """
 
 from __future__ import annotations
@@ -38,17 +45,21 @@ def linear_position_embedding_sine(x: torch.Tensor, dim: int,
 
 class CostPatchEmbed(nn.Module):
     """(B*H1*W1, H2, W2, heads) cost maps -> tokens (B*H1*W1, h3*w3, 2*ed):
-    three 6x6 stride-2 convs (patch size 8), then a 1x1 over [features,
-    sine encoding of the patch centres], a 1x1 and LayerNorm (eps 1e-5)."""
+    6x6 stride-2 convs (three at patch size 8: ed/4, ed/2, ed; two at
+    patch size 4: ed/4, ed), then a 1x1 over [features, sine encoding of
+    the patch centres], a 1x1 and LayerNorm (eps 1e-5)."""
 
-    patch_size = 8
-
-    def __init__(self, in_chans: int = 1, embed_dim: int = 64):
+    def __init__(self, in_chans: int = 1, embed_dim: int = 64, patch_size: int = 8):
         super().__init__()
-        self.embed_dim = embed_dim
+        if patch_size not in (4, 8):
+            raise ValueError(f"patch size {patch_size}: 4 or 8")
+        self.embed_dim, self.patch_size = embed_dim, patch_size
         self.proj_0 = nn.Conv2d(in_chans, embed_dim // 4, 6, 2, 2)
-        self.proj_2 = nn.Conv2d(embed_dim // 4, embed_dim // 2, 6, 2, 2)
-        self.proj_4 = nn.Conv2d(embed_dim // 2, embed_dim, 6, 2, 2)
+        if patch_size == 8:
+            self.proj_2 = nn.Conv2d(embed_dim // 4, embed_dim // 2, 6, 2, 2)
+            self.proj_4 = nn.Conv2d(embed_dim // 2, embed_dim, 6, 2, 2)
+        else:
+            self.proj_2 = nn.Conv2d(embed_dim // 4, embed_dim, 6, 2, 2)
         c2 = 2 * embed_dim
         self.ffn_with_coord_0 = nn.Conv2d(c2, c2, 1)
         self.ffn_with_coord_2 = nn.Conv2d(c2, c2, 1)
@@ -57,8 +68,10 @@ class CostPatchEmbed(nn.Module):
     def forward(self, x: torch.Tensor):
         p = self.patch_size
         x = pad_grid(x, p).permute(0, 3, 1, 2)
-        x = torch.relu(self.proj_0(x))
-        x = self.proj_4(torch.relu(self.proj_2(x))).permute(0, 2, 3, 1)
+        x = self.proj_2(torch.relu(self.proj_0(x)))
+        if p == 8:
+            x = self.proj_4(torch.relu(x))
+        x = x.permute(0, 2, 3, 1)
         b, h3, w3, _ = x.shape
         coord = coords_grid(1, h3, w3, device=x.device) * p + p / 2
         enc = linear_position_embedding_sine(coord, self.embed_dim).to(x.dtype)
@@ -128,6 +141,62 @@ class _ContextProj(nn.Module):
         ctx = self.context_proj(context)
         reps = b // context.shape[0]
         return ctx if reps == 1 else ctx.repeat(reps, 1, 1, 1)
+
+
+class MLPMixerLayer(nn.Module):
+    """MLP-Mixer over the K latent tokens of each query, (B, K, D): a dense
+    layer over the K axis (K -> 4K -> K), then one over the channels
+    (D -> 4D -> D), each after a LayerNorm (eps 1e-5) and with a residual."""
+
+    def __init__(self, dim: int, token_num: int, expansion_factor: int = 4):
+        super().__init__()
+        k, ef = token_num, expansion_factor
+        self.mlpmixer_0_norm = LayerNorm(dim, eps=1e-5)
+        self.mlpmixer_0_fn_0 = nn.Linear(k, k * ef)
+        self.mlpmixer_0_fn_3 = nn.Linear(k * ef, k)
+        self.mlpmixer_1_norm = LayerNorm(dim, eps=1e-5)
+        self.mlpmixer_1_fn_0 = nn.Linear(dim, dim * ef)
+        self.mlpmixer_1_fn_3 = nn.Linear(dim * ef, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.mlpmixer_0_norm(x).transpose(1, 2)
+        y = self.mlpmixer_0_fn_3(gelu(self.mlpmixer_0_fn_0(y)))
+        x = x + y.transpose(1, 2)
+        y = self.mlpmixer_1_fn_3(gelu(self.mlpmixer_1_fn_0(self.mlpmixer_1_norm(x))))
+        return x + y
+
+
+class ConvNextBlock(nn.Module):
+    """NHWC (B, H, W, C): depthwise 7x7 conv, LayerNorm (eps 1e-6), a 4x MLP
+    and the layer scale `gamma` (1e-6 at initialisation), plus the input."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dwconv = nn.Conv2d(dim, dim, 7, 1, 3, groups=dim)
+        self.norm = LayerNorm(dim, eps=1e-6)
+        self.pwconv1 = nn.Linear(dim, 4 * dim)
+        self.pwconv2 = nn.Linear(4 * dim, dim)
+        self.gamma = nn.Parameter(torch.full((dim,), 1e-6))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.norm(conv_nhwc(self.dwconv, x))
+        y = self.pwconv2(gelu(self.pwconv1(y)))
+        return (x.float() + self.gamma * y.float()).to(x.dtype)
+
+
+class ConvNextLayer(nn.Module):
+    """`depth` ConvNext blocks (`net_0` ...) over an NHWC grid."""
+
+    def __init__(self, dim: int, depth: int = 4):
+        super().__init__()
+        self.depth = depth
+        for j in range(depth):
+            self.add_module(f"net_{j}", ConvNextBlock(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for j in range(self.depth):
+            x = getattr(self, f"net_{j}")(x)
+        return x
 
 
 class _RPEContextAttn(nn.Module):
@@ -242,3 +311,73 @@ class VerticalSelfAttentionLayer(nn.Module):
     def forward(self, x, size, context):
         x = self.local_block(x, size, context)
         return self.global_block(x, size, context)
+
+
+def _shift_groups(t: torch.Tensor, ws: int) -> torch.Tensor:
+    """NHWC (5g, Hp, Wp, C) -> its five batch groups shifted by one window:
+    up, down, left, right (the edge window repeated) and in place."""
+    g = t.chunk(5)
+    hp, wp = t.shape[1:3]
+    return torch.cat([torch.cat([g[0][:, ws:], g[0][:, hp - ws:]], 1),
+                      torch.cat([g[1][:, :ws], g[1][:, :hp - ws]], 1),
+                      torch.cat([g[2][:, :, ws:], g[2][:, :, wp - ws:]], 2),
+                      torch.cat([g[3][:, :, :ws], g[3][:, :, :wp - ws]], 2),
+                      g[4]])
+
+
+class GroupAttnRPEContext(nn.Module):
+    """Group attention over (B, H*W, C) tokens of an H x W grid, B a multiple
+    of 5: the grid zero-padded to multiples of ws, a sine encoding of every
+    padded position (not per window) added to the query/key input
+    [x, projected context] (`vert_c_dim=0`: x alone, no context), and
+    batch group i's keys and values shifted by one window (up, down, left,
+    right, none). q/k/v act on each token alone and the shift moves whole
+    windows, so this is 7x7 window attention on the padded grid with the
+    shifted k and v: kernel F."""
+
+    def __init__(self, dim: int, num_heads: int, ws: int = 7, vert_c_dim: int = 0,
+                 context_dim: int = 256):
+        super().__init__()
+        self.num_heads, self.ws = num_heads, ws
+        self.c_qk = dim + vert_c_dim
+        self.ctx = _ContextProj(context_dim, vert_c_dim) if vert_c_dim > 0 else None
+        self.q = nn.Linear(self.c_qk, dim)
+        self.k = nn.Linear(self.c_qk, dim)
+        self.v = nn.Linear(dim, dim)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x, size, context=None):
+        b, n, c = x.shape
+        if b % 5:
+            raise ValueError(f"group attention cuts the batch into 5 groups: "
+                             f"batch {b} is no multiple of 5")
+        h, w = size
+        ws = self.ws
+        xg = x.reshape(b, h, w, c)
+        x_qk = xg if self.ctx is None else torch.cat([xg, self.ctx(context, b)], dim=-1)
+        xg, x_qk = pad_grid(xg, ws), pad_grid(x_qk, ws)
+        hp, wp = xg.shape[1:3]
+        enc = linear_position_embedding_sine(coords_grid(1, hp, wp, device=x.device),
+                                             self.c_qk).to(x.dtype)
+        xe = x_qk + enc
+        k, v = _shift_groups(self.k(xe), ws), _shift_groups(self.v(xg), ws)
+        out = window_attention(self.q(xe), k, v, ws, self.num_heads,
+                               (c // self.num_heads) ** -0.5)
+        return self.proj(out[:, :h, :w].reshape(b, n, c))
+
+
+class GroupVerticalSelfAttentionLayer(nn.Module):
+    """One pre-norm block (LayerNorm eps 1e-6) of group attention and the
+    Twins MLP over (B*K, H1*W1, dim) tokens."""
+
+    def __init__(self, dim: int, vert_c_dim: int, num_heads: int = 8,
+                 context_dim: int = 256):
+        super().__init__()
+        self.block_norm1 = LayerNorm(dim)
+        self.block_attn = GroupAttnRPEContext(dim, num_heads, 7, vert_c_dim, context_dim)
+        self.block_norm2 = LayerNorm(dim)
+        self.block_mlp = TwinsMlp(dim, 4 * dim)
+
+    def forward(self, x, size, context=None):
+        x = x + self.block_attn(self.block_norm1(x), size, context)
+        return x + self.block_mlp(self.block_norm2(x))

@@ -2,7 +2,8 @@
 under `configs/`: where the port has the variant a file selects, its
 config equals the JAX config on every field both have (exact: the same
 parsed values); where it does not, the reader raises NotImplementedError
-and names the ROADMAP item that brings the variant. Every file under
+with its reason (the ROADMAP item that brings the variant, or that the JAX
+package cannot run it either). Every file under
 `configs/` has its variant in the port."""
 
 import dataclasses
@@ -41,7 +42,7 @@ def test_yaml_reads_as_jax_or_is_refused(path):
     if path in UNSUPPORTED:
         with pytest.raises(NotImplementedError, match=UNSUPPORTED[path]) as e:
             tcfg.config_from_yaml(cfg)
-        assert "ROADMAP.md queue 1, 'The remaining inference variants'" in str(e.value)
+        assert "JAX package" in str(e.value) or "ROADMAP.md" in str(e.value)
         return
     ours = tcfg.config_from_yaml(cfg)
     assert type(ours) is {"raft": FFRaftConfig, "pwcnet": FFPWCNetConfig,
@@ -107,10 +108,27 @@ def test_raft_variants_are_accepted(key, value):
     ("cost_heads_num", 2), ("patch_size", 4), ("pe", "exp"), ("cost_encoder_res", False),
     ("add_flow_token", False), ("feat_cross_attn", True), ("dropout", 0.1)])
 def test_flowformer_variants_are_refused(key, value):
+    """The variants the JAX package runs read into a config with the field
+    set, as JAX reads them, and the model builds; more than one cost head,
+    `pe` other than 'linear', `feat_cross_attn` and dropout are still
+    refused, each with its reason."""
     cfg = tcfg.load_yaml_config(os.path.join(ROOT, "configs/smoke_flowformer.yaml"))
     setattr(cfg.MODEL, key, value)
-    with pytest.raises(NotImplementedError, match=key):
-        tcfg.config_from_yaml(cfg)
+    reasons = {"cost_heads_num": "JAX package cannot run it either",
+               "pe": "never uses it", "feat_cross_attn": "JAX package raises on it",
+               "dropout": "ROADMAP.md queue 1, 'Dropout'"}
+    if key in reasons:
+        with pytest.raises(NotImplementedError, match=key) as e:
+            tcfg.config_from_yaml(cfg)
+        assert reasons[key] in str(e.value)
+        return
+    ours = tcfg.config_from_yaml(cfg)
+    theirs = jcfg.flowformer_config_from_yaml(cfg)
+    assert getattr(ours, key) == getattr(theirs, key) == value
+    for f in dataclasses.fields(ours):
+        assert getattr(ours, f.name) == getattr(theirs, f.name), f.name
+    model, _ = tcfg.model_from_config(ours)
+    assert type(model).__name__ == "FFFlowFormer"
 
 
 @pytest.mark.parametrize("key,value", [("FUSION", None)])

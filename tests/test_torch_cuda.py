@@ -1627,3 +1627,127 @@ def test_baseline_train_step_on_card_matches_cpu(dev, variant):
     assert float(F.cosine_similarity(grad.double(), cpu_grad.double(), dim=0)) >= 0.9999
     bf_loss, _ = _baseline_step(variant, dev, "bfloat16")
     assert abs(bf_loss - loss) <= 0.02 * abs(loss)
+
+
+@pytest.mark.parametrize("b,n,m", [
+    (7040, 8, 448),    # patch size 4: the input layer at 1024x436 (14x32 patches)
+    (17112, 8, 192),   # and in training, B=6 at 368x496 (12x16 patches)
+    (37, 8, 449),      # a ragged last chunk past 448 keys
+])
+def test_attention_patch4_input_layer(dev, b, n, m):
+    """E's staged entry at the patch-4 perceiver's keys, bf16, 8 heads of 16:
+    the staged plan fits at least two blocks an SM, the launch counts under
+    `staged`, and the output is within the entry's tolerance (f32 weights:
+    `_ATTN_TOL`) and within `bf16_bound` of the plain version."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    q, k, v = (torch.randn((b, nm, 128), generator=g, device=dev).bfloat16()
+               for nm in (n, m, m))
+    assert ka.design(q, k, v, 8) == "staged"
+    assert ka.staged_launch(q, k, v, 8)["blocks_per_sm"] >= 2
+    before = dict(launch_shapes)
+    got = ka.small_kv_attention(q, k, v, 8, 0.25)
+    (key,) = [key for key, c in launch_shapes.items() if c != before.get(key, 0)]
+    assert key == ("attention", b, n, m, 128, 128, 8, "torch.bfloat16", "staged")
+    want = ka.small_kv_attention_plain(q, k, v, 8, 0.25)
+    torch.testing.assert_close(got.float(), want.float(), **_ATTN_TOL[torch.bfloat16])
+    bound = ka.bf16_bound(want, q, k, v, 8, 0.25)
+    assert bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+def test_attention_patch4_backward_is_chunked(dev):
+    """The training input layer's backward at patch size 4, (17112, 8) x 192
+    keys, 8 heads: its f32 softmax weights (841 MB) are taken in chunks of
+    `VJP_CHUNK_BYTES`; the gradients against autograd through the plain
+    version in f32 within 1e-4 of each one's largest."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    b, n, m = 17112, 8, 192
+    q, k, v = (torch.randn((b, nm, 128), generator=g, device=dev).bfloat16()
+               for nm in (n, m, m))
+    cot = torch.randn((b, n, 128), generator=g, device=dev).bfloat16()
+    assert 8 * n * m * 4 * b > ka.VJP_CHUNK_BYTES
+    got = ka.attention_vjp(q, k, v, 8, 0.25, cot)
+    qf, kf_, vf = (t.float().requires_grad_(True) for t in (q, k, v))
+    want = torch.autograd.grad(ka.small_kv_attention_plain(qf, kf_, vf, 8, 0.25),
+                               (qf, kf_, vf), cot.float())
+    for a, w_ in zip(got, want):
+        top = float(w_.abs().max())
+        assert float((a.float() - w_).abs().max()) <= 1e-4 * top + 2.0 ** -8 * top
+
+
+def test_window_attention_group_shapes(dev):
+    """F at group attention's shape, (10, 56, 133, 128), 8 heads of 16, on
+    k and v shifted by one window in five batch groups (`_shift_groups`):
+    the tensor-core entry within `bf16_bound` of the plain version on the
+    same shifted tensors."""
+    from focusflow_official_tpu_torch.nn.latent_cost import _shift_groups
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    q, k, v = (torch.randn((10, 56, 133, 128), generator=g, device=dev).bfloat16()
+               for _ in range(3))
+    _check_window(q, _shift_groups(k, 7), _shift_groups(v, 7), 8, 0.25)
+
+
+FF_VARIANTS = {
+    "no_gma": dict(gma=False),
+    "mlp": dict(use_mlp=True),
+    "convnext": dict(vertical_conv=True),
+    "only_global": dict(only_global=True),
+    "patch4": dict(patch_size=4),
+    "no_res_no_token": dict(cost_encoder_res=False, add_flow_token=False),
+}
+
+
+@pytest.mark.parametrize("variant", sorted(FF_VARIANTS))
+def test_ff_variant_predictor_on_card_matches_cpu(dev, variant, tmp_path):
+    """FF-FlowFormer's variants, f32, on the card against the same forward
+    on the CPU at 64x96, encoder depth 1, 4 refinements: 1e-2 px, the
+    port's parity bound, on seeded weights (ConvNext's gamma at 0.1 so the
+    layer acts). A, E and F launch; B once a refinement in the only-global
+    form (the flow token alone), twice otherwise."""
+    from focusflow_official_tpu_torch.compat.weights import params_to_jax
+    from focusflow_official_tpu_torch.models import FFFlowFormer, FlowFormerConfig
+    from focusflow_official_tpu_torch.predict import FlowPredictor
+
+    cfg = FlowFormerConfig(encoder_depth=1, decoder_depth=4, **FF_VARIANTS[variant])
+    g = torch.Generator().manual_seed(8)
+    sd = {}
+    for k, t in FFFlowFormer(cfg).state_dict().items():
+        if t.dim() == 1 and k.endswith("weight"):  # LayerNorm scales
+            sd[k] = 1 + 0.1 * torch.randn(t.shape, generator=g)
+        else:
+            scale = 1 / math.sqrt(t[0].numel()) if t.dim() > 1 else 0.1
+            sd[k] = scale * (0.1 if "flow_head" in k else 1.0) * torch.randn(
+                t.shape, generator=g)
+    path = tmp_path / "weights.npz"
+    np.savez(path, **params_to_jax(sd))
+    rng = np.random.RandomState(4)
+    i1 = (rng.rand(64, 96, 3) * 255).astype(np.float32)
+    i2 = np.roll(np.roll(i1, -2, 0), 3, 1)
+    m1 = ((rng.rand(64, 96, 1) > 0.97) * 255).astype(np.float32)
+    m2 = ((rng.rand(64, 96, 1) > 0.97) * 255).astype(np.float32)
+    before = dict(launch_counts)
+    on_card = FlowPredictor(cfg, str(path), device=dev)(i1, i2, m1, m2)
+    ran = {n: launch_counts[n] - before.get(n, 0) for n in launch_counts}
+    assert ran["lookup"] == 4 and ran["fold"] == (4 if cfg.only_global else 8)
+    assert ran["attention"] > 0 and ran["window_attention"] > 0
+    on_cpu = FlowPredictor(cfg, str(path), device="cpu")(i1, i2, m1, m2)
+    assert np.isfinite(on_card).all()
+    assert float(np.abs(on_card - on_cpu).max()) <= 1e-2
+
+
+def test_group_vertical_layer_on_card_matches_cpu(dev):
+    """`GroupVerticalSelfAttentionLayer` with the context, f32, on the card
+    (F on the shifted windows) against the CPU: within 1e-4 of the
+    output's scale."""
+    from focusflow_official_tpu_torch.nn.latent_cost import GroupVerticalSelfAttentionLayer
+
+    torch.manual_seed(9)
+    layer = GroupVerticalSelfAttentionLayer(128, 64, context_dim=256).eval()
+    x = torch.randn(10, 11 * 13, 128)
+    ctx = torch.randn(2, 11, 13, 256)
+    with torch.no_grad():
+        want = layer(x, (11, 13), ctx)
+        n = launch_counts["window_attention"]
+        got = layer.to(dev)(x.to(dev), (11, 13), ctx.to(dev)).cpu()
+    assert launch_counts["window_attention"] == n + 1
+    assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))

@@ -174,12 +174,16 @@ def test_predictor_pads_to_eight():
 
 
 def test_unported_options_raise():
-    """The unported variants have no field (the frozen dataclass refuses
-    them; `fusion` is a field since vanilla FlowFormer is ported), and a
-    model with no refinement has no upsampling mask."""
-    for kw in ({"gma": False}, {"use_mlp": True}, {"cost_heads_num": 2}):
+    """More than one cost head, which neither package runs, has no field
+    (the frozen dataclass refuses it; the variants are fields since they
+    are ported), a model at a patch size other than 4 or 8 is refused, and
+    a model with no refinement has no upsampling mask."""
+    for kw in ({"cost_heads_num": 2}, {"pe": "exp"}, {"feat_cross_attn": True}):
         with pytest.raises(TypeError):
             FlowFormerConfig(**kw)
     assert FlowFormerConfig(fusion=None).fusion is None
+    assert not FlowFormerConfig(gma=False, use_mlp=True).gma
+    with pytest.raises(ValueError, match="patch size 16"):
+        FFFlowFormer(FlowFormerConfig(patch_size=16))
     with pytest.raises(ValueError):
         FFFlowFormer(FlowFormerConfig(decoder_depth=0))
