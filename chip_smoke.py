@@ -4,10 +4,12 @@ FF-FlowFormer and FF-PWCNet inference, the evaluation entry point, the
 training of all three, the paper's baselines (plain RAFT, vanilla
 FlowFormer) and fusion ablation (CA, SA, concat), training at scale
 (the on-card augmentation, data parallelism), the FF-RAFT variants
-(ALT_CORR up to 4K, the small model, the attention and conv front ends)
-and FF-FlowFormer's variants (MLP-Mixer, ConvNext, no GMA, only-global,
+(ALT_CORR up to 4K, the small model, the attention and conv front ends),
+FF-FlowFormer's variants (MLP-Mixer, ConvNext, no GMA, only-global,
 patch size 4, no encoder residual, no flow token; group attention and the
-position encodings as modules).
+position encodings as modules) and the training of every FF-RAFT variant
+(ALT_CORR with its chunked backward, RAFT-S, FF-RAFT-S, the front ends,
+FREEZE_BN, dropout).
 
     python3 chip_smoke.py
 
@@ -259,8 +261,45 @@ Phases (any failure raises and exits non-zero; no result is printed):
     f32 CPU run: `GroupVerticalSelfAttentionLayer` with and without the
     context (within GROUP_LAYER_TOL of the output's scale) and the three
     position encodings (a bf16 ulp of each of their two roundings).
+16. Training the FF-RAFT variants, after phase 15
+    (`raft_variant_train_rows`, `variant_train_phase` for each path of
+    `_variant_train_specs`). First the new (kernel, shape) keys, held and
+    timed with their Functions' backwards as phase 9 holds its rows: G at
+    radius 3, N = 96 at B=10 (Q = 28,520); G and A at ALT_CORR's training
+    chunks at the chairs crop (2048 and a tail of 804 queries a sample
+    row); C1 and C2 (both forms) at RAFT-S's SmallEncoder B=10 training
+    shapes. Then the trainer's body on phase 9's fixed batch (368x496,
+    bf16, 12 refinements, noise, AdamW + OneCycle) for each path:
+    ALT_CORR (`ffraft_chairs_orb.yaml` with ALT_CORR, B=10, 16 steps, from
+    `trained_smoke.npz`; G 24 and A 24 a step: two chunks x 12; phase 9's
+    descent gate, its ratio beside phase 9's; its f32 step, TF32 off,
+    against the card's materialized f32 step on the same weights and
+    batch: loss within 1e-5, gradient cosine >= 0.99999, each tensor
+    within 1e-4 of its largest; one step's peak memory beside the
+    materialized step's at B=10, ALT_CORR's no higher, and at 1920x1080,
+    B=1, ALT_CORR's lower by at least the f32 level-0 volume, 32400^2 x
+    4 B); RAFT-S (`raft_CTK.yaml`) and FF-RAFT-S (`ffraft_chairs_orb.yaml`)
+    with SMALL, B=10; the attention and conv front ends
+    (`ffraft_chairs_orb.yaml` with FUSION attention or conv,
+    FUSION_CHANNEL 256, SEPARATE_LR), the attention front end at the
+    largest batch up to 10 whose step fits (`_fitted_batch`: one step's
+    peak at B=1 and 2, FIT_SHARE of the card), the conv front end once
+    more past the chairs stage (FREEZE_BN on the RAFT core: its running
+    statistics stay, the front end's move); FF-RAFT at DROPOUT 0.2 (the
+    kept share of the drawn channels within 4 sigma of 0.8). Each path
+    but dropout: 6 steps (ALT_CORR 16), finite losses and gradient norms,
+    every step's launches, the f32 step (TF32 off) on two samples at
+    184x248 (the attention front end's at 96x128: its UNet is about 30
+    TFLOP a pair at 1024x436 in f32) against the CPU's (1e-4, cosine
+    0.9999) and the bf16 step against the f32 step (2%, cosine 0.99; the
+    front ends' on fresh weights, the attention front end's cosine 0.9,
+    as the JAX package's own bf16 step sits there, `_variant_train_specs`). The
+    variants have no trained weights (`_raft_variant_weights`), so they
+    have no descent gate. Each prints ms a step, samples/s, busy ms and
+    idle share of a profiled step, the forward / backward / optimizer
+    split, peak memory and the launches, and the phase its seconds.
 The `kernels` line gives each kernel's launches on every path,
-the training paths and phases 12's, 13's, 14's and 15's among them.
+the training paths and phases 12's to 16's among them.
 
 Outside the phases under default flags, f32 matmuls and convolutions run
 in full f32 here (TF32 off), so the f32 comparisons are not blurred by
@@ -2260,6 +2299,492 @@ def ff_variant_modules_phase(torch, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------ phase 16: training the FF-RAFT variants
+VARIANT_STEPS = 6  # step 1 warms up, 2-4 timed, 4 counted, 5 profiled
+# the attention front end's batch: the YAML's B=10 where a step's reckoned
+# peak fits under this share of the card's memory, else the largest that does
+FIT_SHARE = 0.85
+DROPOUT_P = 0.2
+AGREE_CROP = (184, 248)
+ATTENTION_AGREE_CROP = (96, 128)  # its UNet: about 30 TFLOP a pair at 1024x436 in f32
+
+
+def _small_fnet_train_shapes(b: int) -> list:
+    """RAFT-S's SmallEncoder fnet over both frames of a B-sample chairs batch:
+    its instance-norm shapes (NHWC), the stem's, layer 1's and the
+    bottlenecks' inner widths."""
+    n, (h2, w2), (h4, w4), (h8, w8) = 2 * b, (TH // 2, TW // 2), (TH // 4, TW // 4), (TH // 8,
+                                                                                      TW // 8)
+    return [(n, h2, w2, 32), (n, h2, w2, 8), (n, h2, w2, 16), (n, h4, w4, 16), (n, h4, w4, 64),
+            (n, h4, w4, 24), (n, h8, w8, 24), (n, h8, w8, 96)]
+
+
+def raft_variant_train_rows(torch, dev) -> dict:
+    """Phase 16's new (kernel, shape) keys, held and timed as phase 9 holds
+    its rows, each with its Function's backward: G at radius 3 with N = 96
+    at B=10 (RAFT-S's and FF-RAFT-S's motion encoder, Q = 28,520); G at
+    ALT_CORR's training chunks at the chairs crop (2048 queries and the
+    tail of 804 a sample row, coordinates (10, 1, n, 2), the fixture's
+    convc1) with A at the same chunks (their backward launches it); C1
+    and C2 (both forms) at RAFT-S's SmallEncoder training shapes (B=20,
+    both frames) -> kernel name -> rows."""
+    from focusflow_official_tpu_torch.compat.weights import load_npz
+    from focusflow_official_tpu_torch.kernels import lookup as kl
+    from focusflow_official_tpu_torch.kernels import lookup_fold as klf
+    from focusflow_official_tpu_torch.ops.coords import coords_grid
+    from focusflow_official_tpu_torch.ops.corr import corr_pyramid
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    bf16 = torch.bfloat16
+    h1, w1 = TH // 8, TW // 8
+    q = h1 * w1
+    sd = load_npz(FIXTURE)
+    wc = sd["flow_net.update_block.encoder.convc1.weight"].reshape(256, 324).to(dev, bf16)
+    bc = sd["flow_net.update_block.encoder.convc1.bias"].to(dev, bf16)
+    w96 = (torch.randn((96, 196), generator=g, device=dev) / 14).to(bf16)
+    b96 = (torch.randn((96,), generator=g, device=dev) * 0.1).to(bf16)
+    grid = coords_grid(TB, h1, w1, device=dev)
+    specs = [("RAFT-S motion encoder train, radius 3", q, 3, w96, b96,
+              grid + torch.randn(grid.shape, generator=g, device=dev) * 8)]
+    starts = dict(zip(_alt_chunks(q), range(0, q, ALT_CHUNK)))
+    for n in _alt_chunks(q):
+        c = grid.reshape(TB, 1, q, 2)[:, :, starts[n]:starts[n] + n]
+        specs.append((f"ALT_CORR train, {n} of {q} queries", n, 4, wc, bc,
+                      c + torch.randn(c.shape, generator=g, device=dev) * 8))
+    rows = {"lookup": [], "lookup_fold": []}
+    for label, n, r, w, bias, coords in specs:
+        coords = coords.contiguous()
+        levels = corr_pyramid(torch.randn((TB, n, h1, w1), generator=g, device=dev), 4, bf16)
+        shape = f"{label}: levels {[tuple(lv.shape) for lv in levels]} bf16"
+        if label.startswith("ALT_CORR"):  # A: launched in the chunk's backward
+            row = _lookup_row(torch, levels, coords, r, f"lookup {label}")
+            win = row.pop("out")
+            cot = torch.randn(win.shape, generator=g, device=dev).to(bf16)
+            row.update(shape=shape, **_backward_check(
+                torch, lambda *lv: kl.lookup(lv, coords, r),
+                lambda *lv: kl.lookup_plain(lv, coords, r), levels, cot,
+                lambda: kl.lookup_vjp(levels, coords, r, cot), f"lookup {label}"))
+            rows["lookup"].append(row)
+            del win, cot
+        row = _lookup_fold_row(torch, levels, coords, r, w.contiguous(), bias, label)
+        cot = torch.randn((*coords.shape[:3], w.shape[0]), generator=g, device=dev).to(bf16)
+        row.update(shape=f"{shape}, {tuple(w.shape)} weight", **_backward_check(
+            torch, lambda w_, b_, *lv: klf.lookup_fold(lv, coords, r, w_, b_),
+            lambda w_, b_, *lv: klf.lookup_fold_plain(lv, coords, r, w_, b_),
+            [w, bias, *levels], cot, lambda: klf.lookup_fold_vjp(levels, coords, r, w, cot),
+            label))
+        rows["lookup_fold"].append(row)
+        del levels, cot
+        torch.cuda.empty_cache()
+    rows.update(_instance_norm_rows(torch, g, dev, _small_fnet_train_shapes(TB), backward=True))
+    _emit_train_rows("raft_variant_train", rows)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _variant_train_cfg(yaml: str, model: dict, train: dict, steps: int, weights):
+    """The YAML with MODEL and TRAIN keys set, cut to `steps` steps at B=10
+    and the chairs crop, from `weights` (a callable of the model's config
+    -> (the .npz path, what `_raft_variant_weights` made)) -> (the YAML's
+    node, the weights' path, what was made)."""
+    from focusflow_official_tpu_torch.config import config_from_yaml, load_yaml_config
+
+    cfg = load_yaml_config(yaml)
+    for k, v in model.items():
+        setattr(cfg.MODEL, k, v)
+    for k, v in train.items():
+        setattr(cfg.TRAIN, k, v)
+    cfg.TRAIN.NUM_STEPS, cfg.TRAIN.BATCH_SIZE, cfg.TRAIN.IMAGE_SIZE = steps, TB, [TH, TW]
+    cfg.MODEL.LOAD_MODULE = None
+    cfg.GLOBAL.NUM_WORKERS = 2
+    path, made = weights(config_from_yaml(cfg))
+    cfg.MODEL.PRETRAIN = path
+    return cfg, path, made
+
+
+def _fixed_batch(torch, data, device, rows=None) -> dict:
+    """The first `rows` samples of `data` (all by default) as one batch on
+    `device`."""
+    n = len(data) if rows is None else rows
+    return {k: torch.as_tensor(np.stack([data[i][k] for i in range(n)])).to(device)
+            for k in ("image1", "image2", "mask1", "mask2", "flow", "valid")}
+
+
+def _one_step_peak(torch, cfg, weights: str, batch: dict, seen: dict) -> dict:
+    """One bf16 `train_step` of the YAML's model from `weights` on `batch`
+    (noise on, as the trainer) with the peak allocated memory reset just
+    before -> its loss and peak GiB; the launches go into `seen`."""
+    from focusflow_official_tpu_torch.kernels import launch_shapes, reset_launch_counts
+    from focusflow_official_tpu_torch.train.loop import build_optimizer, train_step
+
+    dev = torch.device("cuda", 0)
+    model, loss_fn, iters = _trained_model(torch, cfg, weights, dev, "bfloat16", True)
+    opt = build_optimizer(model, 1e-5)
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda _: 1.0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    m = train_step(model, opt, sched, loss_fn, batch, iters=iters, dtype=torch.bfloat16,
+                   noise=torch.Generator(device=dev).manual_seed(0))
+    loss = float(m["loss"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for key, n in launch_shapes.items():
+        seen[key] = seen.get(key, 0) + n
+    del model, opt, m
+    torch.cuda.empty_cache()
+    if not np.isfinite(loss):
+        raise AssertionError(f"one-step peak: loss {loss}")
+    return dict(loss=loss, peak_gib=peak)
+
+
+def _param_grads(torch, cfg, weights: str, batch: dict, dtype) -> tuple:
+    """One forward and backward of the YAML's model from `weights` on the
+    card on `batch`, no noise (`forward_backward`; f32 with TF32 off) ->
+    (loss, {name: gradient on the CPU})."""
+    from focusflow_official_tpu_torch.train.loop import forward_backward
+
+    model, loss_fn, iters = _trained_model(
+        torch, cfg, weights, torch.device("cuda", 0),
+        {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype], True)
+    loss, _ = forward_backward(model, loss_fn, batch, iters=iters, dtype=dtype)
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().float().cpu()
+             for n, p in model.named_parameters()}
+    out = float(loss.detach())
+    del model, loss
+    torch.cuda.empty_cache()
+    return out, grads
+
+
+def _alt_corr_gates(torch, path: str, cfg, weights: str, data, seen: dict) -> dict:
+    """ALT_CORR's own gates: its f32 step (TF32 off) on the fixed batch
+    against the materialized f32 step on the same weights (loss within
+    1e-5, gradient cosine >= 0.99999, each tensor within 1e-4 of its
+    largest; a gradient of rounding alone, at most 1e-7 of the model's
+    largest, within 1e-7 of that); one bf16 step's peak memory beside the
+    materialized step's at B=10 (ALT_CORR's no higher) and at 1920x1080,
+    B=1 (ALT_CORR's lower by at least the f32 level-0 volume, Q^2 x 4
+    bytes, Q = 135 x 240)."""
+    import copy
+
+    from focusflow_official_tpu_torch.data import synthetic as sy
+
+    mat = copy.deepcopy(cfg)
+    mat.MODEL.ALT_CORR = False
+    dev = torch.device("cuda", 0)
+    batch = _fixed_batch(torch, data, dev)
+    alt_loss, alt_g = _param_grads(torch, cfg, weights, batch, torch.float32)
+    mat_loss, mat_g = _param_grads(torch, mat, weights, batch, torch.float32)
+    names = sorted(mat_g)
+    flat_a = torch.cat([alt_g[n].flatten() for n in names])
+    flat_m = torch.cat([mat_g[n].flatten() for n in names])
+    top = float(flat_m.abs().max())
+    worst = 0.0
+    for n in names:
+        own = float(mat_g[n].abs().max())
+        bound = 1e-7 * top if own <= 1e-7 * top else 1e-4 * own
+        worst = max(worst, float((alt_g[n] - mat_g[n]).abs().max()) / bound)
+    gates = dict(f32_loss=alt_loss, materialized_f32_loss=mat_loss,
+                 f32_loss_rel=abs(alt_loss - mat_loss) / abs(mat_loss),
+                 f32_grad_cosine=_cosine(torch, flat_a, flat_m),
+                 worst_tensor_over_its_bound=worst)
+    if not (gates["f32_loss_rel"] <= 1e-5 and gates["f32_grad_cosine"] >= 0.99999
+            and worst <= 1.0):
+        raise AssertionError(f"{path}: f32 step against the materialized step: {gates}")
+    del alt_g, mat_g, flat_a, flat_m
+    batch = _fixed_batch(torch, data, dev)
+    gates["chairs_b10"] = dict(alt_corr=_one_step_peak(torch, cfg, weights, batch, seen),
+                               materialized=_one_step_peak(torch, mat, weights, batch, seen))
+    peaks = gates["chairs_b10"]
+    if peaks["alt_corr"]["peak_gib"] > peaks["materialized"]["peak_gib"]:
+        raise AssertionError(f"{path}: ALT_CORR's step peak above the materialized one's: "
+                             f"{gates['chairs_b10']}")
+    del batch
+    hd = sy.chairs_layout(6, n=1, h=FULL_HD[0], w=FULL_HD[1])
+    batch = _fixed_batch(torch, hd, dev)
+    q = _grid(*FULL_HD)[0] * _grid(*FULL_HD)[1]
+    volume = q * q * 4 / 2 ** 30
+    runs = dict(alt_corr=_one_step_peak(torch, cfg, weights, batch, seen),
+                materialized=_one_step_peak(torch, mat, weights, batch, seen))
+    runs["saved_gib"] = runs["materialized"]["peak_gib"] - runs["alt_corr"]["peak_gib"]
+    runs["f32_level0_gib"] = volume
+    gates["full_hd_b1"] = runs
+    if not runs["saved_gib"] >= volume:
+        raise AssertionError(f"{path}: at 1920x1080 ALT_CORR saves {runs['saved_gib']} GiB, "
+                             f"less than the f32 level 0's {volume}")
+    del batch
+    torch.cuda.empty_cache()
+    return gates
+
+
+def _fitted_batch(torch, cfg, weights: str, data, seen: dict) -> dict:
+    """The largest batch up to the YAML's whose bf16 step fits: one step's
+    peak at B=1 and B=2, a line through them (fixed + per sample x B),
+    and the largest B whose reckoned peak is under FIT_SHARE of the card's
+    memory -> the reckoning."""
+    dev = torch.device("cuda", 0)
+    p1 = _one_step_peak(torch, cfg, weights, _fixed_batch(torch, data, dev, 1), seen)
+    p2 = _one_step_peak(torch, cfg, weights, _fixed_batch(torch, data, dev, 2), seen)
+    per = p2["peak_gib"] - p1["peak_gib"]
+    fixed = p1["peak_gib"] - per
+    total = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+    fit = int((FIT_SHARE * total - fixed) // per) if per > 0 else TB
+    batch = min(TB, fit)
+    if batch < 1:
+        raise AssertionError(f"no batch fits: {p1}, {p2}, {total} GiB")
+    return dict(b1_peak_gib=p1["peak_gib"], b2_peak_gib=p2["peak_gib"], per_sample_gib=per,
+                fixed_gib=fixed, card_gib=total, share=FIT_SHARE, fits=fit, batch=batch,
+                reckoned_peak_gib=fixed + per * batch)
+
+
+def _variant_train_specs() -> dict:
+    """path -> what phase 16 drives: the YAML and the MODEL and TRAIN keys
+    it sets, the steps, the launches every step must make, the agreement
+    crop (None: no agreement gates) and the path's own gates."""
+    cce = {"lookup_fold": ITERS, "lookup": ITERS, "in_stats": 30, "in_normalize": 30}
+    plain = {"lookup_fold": ITERS, "lookup": ITERS, "in_stats": 15, "in_normalize": 15}
+    front = dict(FUSION_CHANNEL=256)
+    return {
+        "alt_corr_train": dict(
+            yaml=TRAIN_YAML, model=dict(ALT_CORR=True), train={}, steps=TRAIN_STEPS,
+            want={"lookup_fold": 2 * ITERS, "lookup": 2 * ITERS, "in_stats": 30,
+                  "in_normalize": 30}, agree=AGREE_CROP, gates="alt_corr"),
+        "raft_s_train": dict(
+            yaml=RAFT_CTK_YAML, model=dict(SMALL=True), train={}, steps=VARIANT_STEPS,
+            want={"lookup_fold": ITERS, "lookup": ITERS, "in_stats": 21, "in_normalize": 21},
+            agree=AGREE_CROP, gates=None),
+        "ff_raft_s_train": dict(
+            yaml=TRAIN_YAML, model=dict(SMALL=True), train={}, steps=VARIANT_STEPS, want=cce,
+            agree=AGREE_CROP, gates=None),
+        # the front ends' agreement steps run on fresh weights, as phase 12's
+        # plain RAFT: behind a front end the fixture's RAFT saturates, and
+        # the bf16 gradient sat 0.81 (attention), 0.82 (conv) and 0.84 (conv
+        # under FREEZE_BN) from the f32 one in cosine on the phase's
+        # weights (f32 card against the CPU: 0.99990, 0.999992, 0.99997).
+        # The attention front end's bf16 gradient is held to a cosine of
+        # 0.9, not 0.99: on fresh weights it sat 0.953 from the f32 one,
+        # and the JAX package's own bf16 step sits 0.960 from its f32 step
+        # on the same weights (CPU, 96x128, B=2, 12 refinements), the cnet
+        # stem's gradient 60% off in both: the front end's output carries
+        # its variation under a per-channel offset that bf16 activations
+        # round away (batch norms normalising in f32 leave it at 0.968)
+        "raft_attention_train": dict(
+            yaml=TRAIN_YAML, model=dict(front, FUSION="attention"),
+            train=dict(SEPARATE_LR=True), steps=VARIANT_STEPS, want=plain,
+            agree=ATTENTION_AGREE_CROP, agree_fresh=True, bf16_cosine=0.9, gates="fit"),
+        "raft_conv_train": dict(
+            yaml=TRAIN_YAML, model=dict(front, FUSION="conv"), train=dict(SEPARATE_LR=True),
+            steps=VARIANT_STEPS, want=plain, agree=AGREE_CROP, agree_fresh=True, gates=None),
+        # the same past the chairs stage: FREEZE_BN on the RAFT core only
+        "raft_conv_freeze_train": dict(
+            yaml=TRAIN_YAML, model=dict(front, FUSION="conv"),
+            train=dict(SEPARATE_LR=True, STAGE="things"), steps=VARIANT_STEPS, want=plain,
+            agree=AGREE_CROP, agree_fresh=True, gates="freeze_bn"),
+        "ff_raft_dropout_train": dict(
+            yaml=TRAIN_YAML, model=dict(DROPOUT=DROPOUT_P), train={}, steps=3, want=cce,
+            agree=None, gates="dropout"),
+    }
+
+
+def variant_train_phase(torch, card: str, held: set, path: str, phase9: dict) -> tuple:
+    """Phase 16, one path: the trainer's body (`cli/train.py::train`) on the
+    path's YAML and keys (`_variant_train_specs`) at full width, B=10 (the
+    attention front end: the largest batch up to 10 that fits,
+    `_fitted_batch`), 368x496, 12 refinements, noise, AdamW + OneCycle,
+    bf16, on phase 9's fixed batch, from `_raft_variant_weights` (the main
+    path's config: the fixture itself). Gates: finite loss and gradient
+    norm at every step; every step's launches; but for dropout, on two
+    samples without noise, the f32 step (TF32 off) against the port's f32
+    CPU step (1e-4, cosine 0.9999) and the bf16 step against the f32 step
+    (2%, cosine 0.99 or the path's `bf16_cosine`; the front ends' on fresh
+    weights, `agree_fresh`); the path's own (ALT_CORR: `_alt_corr_gates` and
+    phase 9's descent gate; FREEZE_BN: the front end's running statistics
+    moved, `flow_net`'s did not; dropout: the kept share of the drawn
+    channels within 4 sigma of 1 - p). The variants have no trained
+    weights, so they have no descent gate; ALT_CORR starts from the
+    fixture and has phase 9's. Prints ms a step (the median of steps 4-13,
+    or 2-4 for 6 steps), samples/s, busy ms and idle share of a profiled
+    step, the forward / backward / optimizer split and peak memory. Every
+    (kernel, shape) launched that no row holds (`held`) is held once
+    against its plain version. -> ((counts, launches by shape key) of the
+    counted step, the path's line, kernel rows of its own: phase 9's at a
+    fitted batch other than 10, else none)."""
+    import copy
+
+    from focusflow_official_tpu_torch.cli.train import train as run_trainer
+    from focusflow_official_tpu_torch.data import synthetic as sy
+    from focusflow_official_tpu_torch.kernels import (
+        launch_counts, launch_shapes, reset_launch_counts)
+    from focusflow_official_tpu_torch.train import loop
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    spec = _variant_train_specs()[path]
+    dev = torch.device("cuda", 0)
+    # the steps' roles: (counted, profiled, the timed steps' first and last)
+    steps = spec["steps"]
+    counted, profiled, first, last = {TRAIN_STEPS: (COUNTED_STEP, PROFILED_STEP, 4, 13),
+                                      VARIANT_STEPS: (4, 5, 2, 4), 3: (2, 3, 2, 2)}[steps]
+    npz = os.path.join(OUT_DIR, f"{path}_weights.npz")
+    cfg, weights, made = _variant_train_cfg(
+        spec["yaml"], spec["model"], spec["train"], steps,
+        lambda model_cfg: (npz, _raft_variant_weights(torch, model_cfg, npz)))
+    seen, extra = {}, {}
+    data = sy.chairs_layout(5, n=TB, h=TH, w=TW)
+    rows = {}
+    if spec["gates"] == "fit":
+        extra["batch_fit"] = _fitted_batch(torch, cfg, weights, data, seen)
+        _emit(dict(phase="raft_variant_train", path=path, card=card,
+                   batch_fit=extra["batch_fit"]))
+        cfg.TRAIN.BATCH_SIZE = extra["batch_fit"]["batch"]
+        data = sy.InMemoryDataset(data.samples[:cfg.TRAIN.BATCH_SIZE])
+        if cfg.TRAIN.BATCH_SIZE != TB:  # phase 9's rows at this batch
+            rows = train_kernel_rows(torch, dev, int(cfg.TRAIN.BATCH_SIZE), path)
+            held = held | {r["key"] for rs in rows.values() for r in rs}
+    batch = int(cfg.TRAIN.BATCH_SIZE)
+    freeze = spec["gates"] == "freeze_bn"
+    if spec["gates"] == "alt_corr":
+        before = _fixed_batch_loss(torch, _trained_model(torch, cfg, weights, dev, "float32")[0],
+                                   cfg, data)
+    st = dict(times=[], per_step=[], metrics=[], prof=None)
+    drawn = []
+    draw = loop.draw_dropout
+
+    def record(model, gen, n, **shard):
+        masks = draw(model, gen, n, **shard)
+        drawn.extend(m.detach().flatten().cpu() for m in masks.values())
+        return masks
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        st["times"].append(time.perf_counter())
+        st["per_step"].append({k: v for k, v in launch_counts.items() if v})
+        st["metrics"].append(metrics)
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"{path} step {step}: metrics {metrics} not finite")
+        if step == counted:
+            st["counted"] = (dict(launch_counts), dict(launch_shapes))
+            st["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if step == profiled:
+            st["prof"].stop()
+            st["profiled_ms"] = (st["times"][-1] - st["times"][-2]) * 1e3
+        for key, n in launch_shapes.items():
+            seen[key] = seen.get(key, 0) + n
+        reset_launch_counts()
+        if step == profiled - 1:
+            st["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            st["prof"].start()
+
+    def validate(model):  # once, after the last step
+        if spec["gates"] == "alt_corr":
+            st["after"] = _fixed_batch_loss(torch, model, cfg, data)
+        return {}
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    loop.draw_dropout = record
+    try:
+        t0 = time.perf_counter()
+        result = run_trainer(cfg, data, validate=validate,
+                             log_dir=os.path.join(OUT_DIR, "train_runs"), device="cuda",
+                             compute_dtype="bfloat16", val_freq=10 ** 9, on_step=on_step)
+        train_s = time.perf_counter() - t0
+    finally:
+        loop.draw_dropout = draw
+    want = {k: v for k, v in spec["want"].items() if v}
+    for i, c in enumerate(st["per_step"], start=1):
+        if c != want:
+            raise AssertionError(f"{path} step {i}: launches {c} != {want}")
+    step_ms = np.diff(st["times"]) * 1e3  # step_ms[i] is step i + 2
+    timed = step_ms[first - 2:last - 1]
+    ms = float(np.median(timed))
+    out = dict(phase="raft_variant_train", path=path, card=card,
+               yaml=os.path.relpath(spec["yaml"], ROOT), model=spec["model"], train=spec["train"],
+               batch=batch, crop=[TH, TW], iters=ITERS, dtype="bfloat16", steps=steps,
+               ms_per_step=ms, timed_steps=[first, last], step_ms=step_ms.tolist(),
+               samples_per_s=batch * 1e3 / ms,
+               peak_mem_gib=st["peak_gib"], losses=[m["loss"] for m in st["metrics"]],
+               grad_norms=[m["grad_norm"] for m in st["metrics"]], launches_per_step=want,
+               weights={k: dict(count=len(v), first=v[:2]) for k, v in made.items()}, **extra)
+    breakdown = _device_breakdown(torch, st["prof"], st["profiled_ms"])
+    breakdown["idle_share_of_unprofiled_step"] = max(0.0, 1 - breakdown["device_busy_ms"] / ms)
+    with open(os.path.join(OUT_DIR, f"chip_smoke_profile_{path}.txt"), "w") as f:
+        f.write(st["prof"].key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    st["prof"] = None
+    out.update(device_busy_ms=breakdown["device_busy_ms"], idle_share=breakdown["idle_share"],
+               profile=breakdown, split=_train_step_split(torch, cfg, weights, data, freeze))
+
+    if spec["gates"] == "alt_corr":
+        out["descent"] = dict(_descent_gate(path, before, st["after"]),
+                              phase9_ratio=phase9["descent"]["ratio"])
+        out["alt_corr"] = _alt_corr_gates(torch, path, cfg, weights, data, seen)
+    if freeze:
+        with np.load(weights) as a, np.load(result["export"]) as b_:
+            stats = [k for k in a.files if k.startswith("batch_stats/")]
+            moved = {k: not np.array_equal(a[k], b_[k]) for k in stats}
+        front = [k for k in stats if k.startswith("batch_stats/fusion_layer/")]
+        out["freeze_bn"] = dict(front_end_stats=len(front), front_end_moved=sum(
+            moved[k] for k in front), flow_net_stats=len(stats) - len(front),
+            flow_net_moved=sum(moved[k] for k in stats if k not in front))
+        if not (front and all(moved[k] for k in front)
+                and not any(moved[k] for k in stats if k not in front)):
+            raise AssertionError(f"{path}: FREEZE_BN moved {out['freeze_bn']}")
+    if spec["gates"] == "dropout":
+        keep = torch.cat(drawn).float()
+        share, sigma = float(keep.mean()), (DROPOUT_P * (1 - DROPOUT_P) / keep.numel()) ** 0.5
+        out["dropout"] = dict(p=DROPOUT_P, channels=keep.numel(), kept_share=share, sigma=sigma,
+                              off_by_sigmas=abs(share - (1 - DROPOUT_P)) / sigma)
+        if not abs(share - (1 - DROPOUT_P)) <= 4 * sigma:
+            raise AssertionError(f"{path}: kept share {out['dropout']}")
+    if spec["agree"]:
+        ch, cw = spec["agree"]
+        two = {k: torch.as_tensor(np.stack([data[i][k][:ch, :cw] for i in range(2)]))
+               for k in ("image1", "image2", "mask1", "mask2", "flow", "valid")}
+        acfg = copy.deepcopy(cfg)
+        if spec.get("agree_fresh"):  # PyTorch's initialisation under seed 0
+            from focusflow_official_tpu_torch.cli.train import build_model
+            from focusflow_official_tpu_torch.compat.weights import params_to_jax
+
+            torch.manual_seed(0)
+            weights = os.path.join(OUT_DIR, f"{path}_fresh.npz")
+            np.savez(weights, **params_to_jax(build_model(acfg, "float32")[1].state_dict()))
+        t0 = time.perf_counter()
+        cpu_loss, cpu_grad = _two_sample_grads(torch, acfg, weights, two, "cpu", torch.float32,
+                                               freeze_bn=True)
+        cpu_s = time.perf_counter() - t0
+        reset_launch_counts()
+        f32_loss, f32_grad = _two_sample_grads(torch, acfg, weights, two, dev, torch.float32,
+                                               freeze_bn=True)
+        bf_loss, bf_grad = _two_sample_grads(torch, acfg, weights, two, dev, torch.bfloat16,
+                                             freeze_bn=True)
+        for key, n in launch_shapes.items():
+            seen[key] = seen.get(key, 0) + n
+        agree = dict(cpu_f32_loss=cpu_loss, card_f32_loss=f32_loss, card_bf16_loss=bf_loss,
+                     f32_loss_rel=abs(f32_loss - cpu_loss) / abs(cpu_loss),
+                     f32_grad_cosine=_cosine(torch, f32_grad, cpu_grad),
+                     bf16_loss_rel=abs(bf_loss - f32_loss) / abs(f32_loss),
+                     bf16_grad_cosine=_cosine(torch, bf_grad, f32_grad),
+                     cpu_f32_step_seconds=cpu_s, f32_card_flags="TF32 off for the script",
+                     crop=[ch, cw], weights=os.path.relpath(weights, ROOT))
+        agree["bf16_grad_cosine_bound"] = spec.get("bf16_cosine", 0.99)
+        out["agreement"] = agree
+        if not (agree["f32_loss_rel"] <= 1e-4 and agree["f32_grad_cosine"] >= 0.9999
+                and agree["bf16_loss_rel"] <= 0.02
+                and agree["bf16_grad_cosine"] >= agree["bf16_grad_cosine_bound"]
+                and torch.isfinite(bf_grad).all()):
+            raise AssertionError(f"{path} training agreement: {agree}")
+        del cpu_grad, f32_grad, bf_grad
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(17)
+    new = sorted((k for k in seen if k not in held), key=str)
+    out["new_shapes_held"] = [dict(_hold_shape(torch, g, dev, k), launches=seen[k]) for k in new]
+    out.update(trainer_seconds=train_s, phase_seconds=time.perf_counter() - t_phase)
+    _emit(out)
+    torch.cuda.empty_cache()
+    return st["counted"], out, rows
+
+
 def _hold_shape(torch, g, dev, key: tuple) -> dict:
     """One untimed launch of a kernel at the shape of a launch key, on
     seeded inputs, against its plain version, with the tolerance of the
@@ -2776,29 +3301,36 @@ def _flat_grad(torch, model) -> "torch.Tensor":
                       .detach().float().flatten().cpu() for p in model.parameters()])
 
 
-def _trained_model(torch, cfg, weights: str, device, dtype: str):
+def _trained_model(torch, cfg, weights: str, device, dtype: str, freeze_bn: bool = False):
     """The YAML's model from `weights` (f32 parameters, train mode, on
-    `device`; `channels_last` on the card) -> (model, loss, iters)."""
+    `device`; `channels_last` on the card; with `freeze_bn`, an FF-RAFT
+    config's FREEZE_BN as the trainer applies it) -> (model, loss, iters)."""
     from focusflow_official_tpu_torch.cli.train import build_model
     from focusflow_official_tpu_torch.predict import load_weights
 
-    _, model, loss_fn, iters = build_model(cfg, dtype)
+    model_cfg, model, loss_fn, iters = build_model(cfg, dtype)
     model.load_state_dict(load_weights(weights, model), strict=True)
     model.to(device)
     if torch.device(device).type == "cuda":
         model.to(memory_format=torch.channels_last)
-    return model.train(), loss_fn, iters
+    model.train()
+    if freeze_bn and getattr(model_cfg, "freeze_bn", False):
+        model.freeze_bn()
+    return model, loss_fn, iters
 
 
-def _two_sample_grads(torch, cfg, weights: str, batch: dict, device, dtype, flags=None):
+def _two_sample_grads(torch, cfg, weights: str, batch: dict, device, dtype, flags=None,
+                      freeze_bn: bool = False):
     """The model from `weights` on `batch`, no noise: one forward in `dtype`
     and the loss's backward (`train/loop.py::forward_backward`) -> (loss,
     flat gradient on the CPU). `flags`: (matmul, cuDNN) TF32 flags set
-    around the step and put back after, None to leave them."""
+    around the step and put back after, None to leave them. `freeze_bn`:
+    as `_trained_model`."""
     from focusflow_official_tpu_torch.train.loop import forward_backward
 
     model, loss_fn, iters = _trained_model(
-        torch, cfg, weights, device, {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype])
+        torch, cfg, weights, device, {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype],
+        freeze_bn)
     saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     if flags is not None:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
@@ -3234,25 +3766,27 @@ def descent_run(torch, path: str) -> dict:
     return _descent_gate(path, before, got["after"])
 
 
-def _train_step_split(torch, cfg, weights: str, data) -> dict:
+def _train_step_split(torch, cfg, weights: str, data, freeze_bn: bool = False) -> dict:
     """One more step on the fixed batch in three parts, each profiled on
     its own and ended by a device sync: the forward with the loss, the
-    backward, the clip with AdamW -> each part's `_device_breakdown`."""
+    backward, the clip with AdamW -> each part's `_device_breakdown`.
+    `freeze_bn`: as `_trained_model`."""
     from focusflow_official_tpu_torch.train.loop import (
         build_optimizer, clip_by_global_norm, forward_loss)
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda", 0)
-    model, loss_fn, iters = _trained_model(torch, cfg, weights, dev, "bfloat16")
+    model, loss_fn, iters = _trained_model(torch, cfg, weights, dev, "bfloat16", freeze_bn)
     opt = build_optimizer(model, 1e-5)
     batch = {k: torch.as_tensor(np.stack([data[i][k] for i in range(len(data))]), device=dev)
              for k in ("image1", "image2", "mask1", "mask2", "flow", "valid")}
     noise = torch.Generator(device=dev).manual_seed(0)
+    drop = torch.Generator(device=dev).manual_seed(1)  # draws only where the model has dropout
     held = {}
 
     def forward():
         held["loss"], _ = forward_loss(model, loss_fn, batch, iters=iters,
-                                       dtype=torch.bfloat16, noise=noise)
+                                       dtype=torch.bfloat16, noise=noise, dropout=drop)
 
     def backward():
         opt.zero_grad(set_to_none=True)
@@ -3863,7 +4397,8 @@ def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, train_rows: dict,
              "raft_concat", "flowformer", "ff_raft_alt_corr", "ff_raft_alt_corr_4k", "raft_s",
              "ff_raft_s", "raft_attention", "raft_conv", "ff_raft_train", "ff_pwcnet_train",
              "ff_flowformer_train", "raft_train", "flowformer_train", "ff_raft_train_aug",
-             "ff_raft_train_nccl1", *FF_VARIANT_PATHS, "ff_variant_train")
+             "ff_raft_train_nccl1", *FF_VARIANT_PATHS, "ff_variant_train",
+             *_variant_train_specs())
     held = set()
     for kr in table:
         by_path = {path: drives[path][0].get(kr["name"], 0) for path in paths}
@@ -3965,6 +4500,19 @@ def main() -> int:
     drives["ff_variant_train"], _ = ff_variant_train_phase(torch, card, held())
     ff_variant_modules_phase(torch, card)
     _emit(dict(phase="ff_flowformer_variants", seconds=time.perf_counter() - t0))
+    torch.cuda.empty_cache()
+    # phase 16: training the FF-RAFT variants
+    t0 = time.perf_counter()
+    train_rows["raft_variant_train"] = raft_variant_train_rows(torch, dev)
+    checked = set()  # shapes a path held once, untimed: not held again
+    for path in _variant_train_specs():
+        drives[path], out, rows = variant_train_phase(torch, card, held() | checked, path,
+                                                      phase9)
+        checked |= {tuple(r["key"]) for r in out["new_shapes_held"]}
+        if rows:
+            train_rows[path] = rows
+    _emit(dict(phase="raft_variant_train", part="total", card=card,
+               seconds=time.perf_counter() - t0))
     kernels = _kernel_table(raft_kernels, ff_rows, pwc_rows, train_rows, variant_rows, drives,
                             card)
     # the fused kernel inside the profiled FF-RAFT forward, where its inputs

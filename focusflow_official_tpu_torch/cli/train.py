@@ -9,13 +9,15 @@
         --yaml <config> --multihost [--device-aug] ...
 
 The reference's training interface on the reference YAML schema, one
-trainer for the three families (FF-RAFT with plain RAFT and the fusion
-ablation, FF-PWCNet with the vanilla PWC-Net, FF-FlowFormer with vanilla
-FlowFormer), picked from the file's shape as `config.py::detect_family`
-picks it, every YAML under `configs/` among them. TRAIN picks the stage's dataset
-curriculum (`data/datasets.py::fetch_dataset`, with the host
-augmentation), the batch, the steps, the noise augmentation and the loss:
-the sequence loss for FF-RAFT and FF-FlowFormer, the multiscale loss
+trainer for the three families (FF-RAFT with plain RAFT, the fusion
+ablation and every variant: SMALL, ALT_CORR, the attention and conv front
+ends, MODEL.DROPOUT; FF-PWCNet with the vanilla PWC-Net, FF-FlowFormer with
+vanilla FlowFormer), picked from the file's shape as
+`config.py::detect_family` picks it, every YAML under `configs/` among
+them. TRAIN picks the stage's dataset curriculum
+(`data/datasets.py::fetch_dataset`, with the host augmentation), the
+batch, the steps, the noise augmentation and the loss: the sequence loss
+for FF-RAFT and FF-FlowFormer, the multiscale loss
 (`losses/multiscale.py`, sparse targets at the kitti stage) for PWC-Net.
 OPTIMIZER and SCHEDULER (FF-FlowFormer: TRAINER) give the AdamW step and
 its OneCycle schedule over NUM_STEPS + 100 steps; MODEL the weights to
@@ -41,7 +43,8 @@ load). The run directory `<log-dir>/<time>_<NAME>/` holds `metrics.jsonl`,
 `--device-aug` reads raw full-size frames (`fetch_dataset(no_aug=True)`)
 and augments them on the card inside each step (`data/device_aug.py`,
 from a generator of its own that checkpoints save); the host augmentation
-(`data/augment.py`, which needs cv2 and PIL) is the default.
+(`data/augment.py`, which needs cv2 and PIL) is the default. Dropout's
+keep masks come from a generator of their own, which checkpoints save too.
 `--multihost` trains data-parallel, one process a card under torchrun
 (`train/mesh.py`): the global batch (TRAIN.BATCH_SIZE rounded up to a
 multiple of the processes) split over the ranks by the loader, each step
@@ -74,7 +77,6 @@ from ..data.datasets import KITTI, FlyingChairs, MpiSintel, fetch_dataset
 from ..data.device_aug import DeviceFlowAugmentor
 from ..data.loader import Loader
 from ..losses import build_multiscale_loss, build_sequence_loss
-from ..models.config import FFRaftConfig
 from ..models.ff_raft import DTYPES
 from ..predict import for_inference, load_weights
 from ..train import evaluate as eval_mod
@@ -89,35 +91,14 @@ from .evaluate import DEFAULT_DATA_ROOT, mask_roots
 
 # raw batches (--device-aug) may lack `valid` and carry `sizes` and `recipe`
 _BATCH_KEYS = ("image1", "image2", "mask1", "mask2", "flow", "valid", "sizes", "recipe")
-# where ROADMAP.md queues the training of the FF-RAFT variants that serve
-_TRAIN_VARIANTS_ITEM = "ROADMAP.md queue 1, 'Training the FF-RAFT variants',"
-
-
-def _refuse_untrained(model_cfg) -> None:
-    """Raise for an FF-RAFT variant that the port serves but does not
-    train: the small model, ALT_CORR and the attention and conv front
-    ends."""
-    if not isinstance(model_cfg, FFRaftConfig):
-        return
-    for key, value, on in (("SMALL", True, model_cfg.small),
-                           ("ALT_CORR", True, model_cfg.alt_corr),
-                           ("FUSION", model_cfg.fusion,
-                            model_cfg.fusion in ("attention", "conv"))):
-        if on:
-            raise NotImplementedError(
-                f"{key}: {value!r} selects a variant the port serves but does not train "
-                f"yet; {_TRAIN_VARIANTS_ITEM} brings it")
-
-
 def build_model(cfg: ConfigNode, compute_dtype: str, mesh: Optional[Mesh] = None):
     """The YAML's model (f32 parameters) -> (its config, the model, its
     loss, its refinements a step: FF-RAFT's ITERS, FF-FlowFormer's
-    decoder_depth, None for PWC-Net, which has no refinement loop); the
-    FF-RAFT variants the port does not train yet are refused. Under
+    decoder_depth, None for PWC-Net, which has no refinement loop). Under
     `mesh` the loss's denominators are the global batch's
-    (`mesh.global_sum`) and the batch norms' statistics too."""
+    (`mesh.global_sum`) and the batch norms' statistics too (a conv front
+    end's among them)."""
     model_cfg = config_from_yaml(cfg, compute_dtype=compute_dtype)
-    _refuse_untrained(model_cfg)
     model, iters = model_from_config(model_cfg)
     reduce = {}
     if mesh is not None:
@@ -155,9 +136,9 @@ def load_initial_weights(cfg: ConfigNode, model: nn.Module) -> None:
 def param_labels(cfg: ConfigNode, model: nn.Module) -> tuple[Optional[Dict[str, str]], float]:
     """Each parameter's group and the 'encoder' group's learning-rate
     factor: 'frozen' (MODEL.FREEZE_MODULE) over 'encoder' (TRAIN.SEPARATE_LR:
-    `flow_net` at lr / 10; else FF-FlowFormer's TRAINER.twins_lr_factor: the
-    Twins towers at lr x that factor) over 'trainable'; None where none of
-    these is set."""
+    `flow_net` at lr / 10, a front end's `fusion_layer` at lr; else
+    FF-FlowFormer's TRAINER.twins_lr_factor: the Twins towers at lr x that
+    factor) over 'trainable'; None where none of these is set."""
     names = [n for n, _ in model.named_parameters()]
     freeze = bool(cfg.MODEL.get("FREEZE_MODULE", False))
     separate = bool(cfg.TRAIN.get("SEPARATE_LR", False))
@@ -265,23 +246,24 @@ def train(cfg: ConfigNode, dataset, *, validate: Callable[[nn.Module], Dict],
                              "device_recipes (fetch_dataset(no_aug=True))")
         augmentor = DeviceFlowAugmentor(tuple(cfg.TRAIN.IMAGE_SIZE), recipes=recipes)
         aug_gen = torch.Generator(device=device).manual_seed(seed + 1)
+    drop_gen = torch.Generator(device=device).manual_seed(seed + 2)  # dropout's masks
 
     ckpt = CheckpointManager(os.path.join(logger.log_dir, "checkpoints")) if main else None
     step = 0
     if cfg.TRAIN.get("RESTORE_CHECKPOINT"):
         step = CheckpointManager(cfg.TRAIN.RESTORE_CHECKPOINT).restore(
-            model, optimizer, scheduler, noise, aug_gen)
+            model, optimizer, scheduler, noise, aug_gen, drop_gen)
         log(f"restored checkpoint step {step} from {cfg.TRAIN.RESTORE_CHECKPOINT}")
     if mesh is not None:  # every rank starts from rank 0's weights
         mesh.broadcast_state(model)
 
     def train_mode():
         model.train()
-        if getattr(model_cfg, "freeze_bn", False):  # FF-RAFT past the chairs stage
+        if getattr(model_cfg, "freeze_bn", False):  # FF-RAFT's core past the chairs stage
             model.freeze_bn()
 
     def save():
-        ckpt.save(step, model, optimizer, scheduler, noise, aug_gen)
+        ckpt.save(step, model, optimizer, scheduler, noise, aug_gen, drop_gen)
 
     world, rank = (1, 0) if mesh is None else (mesh.world, mesh.rank)
     batch_size = round_batch(cfg.TRAIN.BATCH_SIZE, world)
@@ -303,7 +285,7 @@ def train(cfg: ConfigNode, dataset, *, validate: Callable[[nn.Module], Dict],
             prof.start()
         metrics = train_step(model, optimizer, scheduler, loss_fn, _to_device(batch, device),
                              iters=iters, dtype=dtype, clip=clip, noise=noise,
-                             augment=augmentor, aug_gen=aug_gen, mesh=mesh)
+                             augment=augmentor, aug_gen=aug_gen, mesh=mesh, dropout=drop_gen)
         metrics = {k: float(v) for k, v in metrics.items()}
         if main:
             logger.push(metrics)

@@ -11,12 +11,13 @@ how many refinements it runs.
 
 The port's configs hold only the fields the port has. A field that selects
 a variant the port lacks is read only to refuse it: any value other than
-the ported ones raises `NotImplementedError` with the reason (the
-`ROADMAP.md` item that brings it, or why no item does: the JAX package
-cannot run it either), so a file is never run as a different model; so
-does a dropout other than 0. The TPU layout knobs of the JAX package
-(`corr_impl`, the `FF_*` variables) are not read. PyYAML is imported when
-a file is read, not with this module.
+the ported ones raises `NotImplementedError` with the reason (why no
+`ROADMAP.md` item brings it: the JAX package cannot run it either, or
+reads it and never applies it), so a file is never run as a different
+model. FF-RAFT's MODEL.DROPOUT is read; FF-PWCNet's and FlowFormer's
+dropout is refused above 0, as the JAX package never applies it. The TPU
+layout knobs of the JAX package (`corr_impl`, the `FF_*` variables) are
+not read. PyYAML is imported when a file is read, not with this module.
 """
 
 from __future__ import annotations
@@ -29,10 +30,14 @@ from .models.config import FFPWCNetConfig, FFRaftConfig, FlowFormerConfig
 from .models.ff_raft import compute_dtype
 from .nn.fusion_units import FUSION_TYPES
 
-# why a value is refused: no variant of that name exists in either package,
-# or ROADMAP.md queues it
+# why a value is refused: no variant of that name exists in either package
 _UNKNOWN = "the JAX package has no such variant either"
-_DROPOUT_ITEM = "ROADMAP.md queue 1, 'Dropout', brings it"
+# FF-PWCNet's and FlowFormer's dropout keys: read by the JAX package and
+# never applied, so no value but 0 computes what a file asks for
+_PWC_DROPOUT = ("the JAX package reads the key and never applies it (JAX config.py:60 reads "
+                "it; neither JAX models/ff_pwcnet.py nor JAX nn/pwc.py uses it)")
+_FF_DROPOUT = ("the JAX package reads the key and never applies it (JAX "
+               "models/ff_flowformer.py:89 declares the field; :378 only splits the rng)")
 
 
 class ConfigNode(types.SimpleNamespace):
@@ -105,9 +110,9 @@ def model_config_from_yaml(cfg: ConfigNode, *,
     conv`, `FUSION_CHANNEL` wide), at full width or small (`SMALL`), with
     any CCE fusion type, the context encoder fused or not (`FUSE_CNET`),
     the fnet as it is or `ChannelProject` (`ABANDON_FNET`) and the
-    materialized volume or ALT_CORR; dropout is refused."""
+    materialized volume or ALT_CORR, with the encoders' train-mode
+    dropout at MODEL.DROPOUT."""
     model = cfg.MODEL
-    _refuse(model, "DROPOUT", 0.0, 0.0, _DROPOUT_ITEM)
     return FFRaftConfig(fusion=_refuse(model, "FUSION", ("parallel", None, "attention", "conv")),
                         fusion_type=_refuse(model, "FUSION_TYPE", FUSION_TYPES, "1x1conv"),
                         fusion_channel=int(model.get("FUSION_CHANNEL", 256)),
@@ -117,15 +122,16 @@ def model_config_from_yaml(cfg: ConfigNode, *,
                         iters=int(model.get("ITERS", 12)),
                         freeze_bn=cfg.TRAIN.get("STAGE", "chairs") != "chairs",
                         alt_corr=bool(model.get("ALT_CORR", False)),
+                        dropout=float(model.get("DROPOUT", 0.0)),
                         compute_dtype=compute_dtype, **_mask_fields(cfg.TRAIN))
 
 
 def pwcnet_config_from_yaml(cfg: ConfigNode, *,
                             compute_dtype: str = "float32") -> FFPWCNetConfig:
     """FF-PWCNet (`FUSION: parallel`) with any CCE fusion type, or the
-    vanilla PWC-Net (`FUSION: null`); dropout is refused."""
+    vanilla PWC-Net (`FUSION: null`); a dropout above 0 is refused."""
     model = cfg.MODEL
-    _refuse(model, "DROPOUT", 0.0, 0.0, _DROPOUT_ITEM)
+    _refuse(model, "DROPOUT", 0.0, 0.0, _PWC_DROPOUT)
     return FFPWCNetConfig(fusion=_refuse(model, "FUSION", ("parallel", None)),
                           fusion_type=_refuse(model, "FUSION_TYPE", FUSION_TYPES, "1x1conv"),
                           compute_dtype=compute_dtype, **_mask_fields(cfg.TRAIN))
@@ -151,12 +157,12 @@ def flowformer_config_from_yaml(cfg: ConfigNode, *,
     `latentcostformer` block that the JAX package runs (`gma`, `use_mlp`,
     `vertical_conv`, `only_global`, `patch_size` 4 or 8,
     `cost_encoder_res`, `add_flow_token`), read as JAX reads them; `pe`
-    other than 'linear', more than one cost head, `feat_cross_attn` and
-    dropout are refused."""
+    other than 'linear', more than one cost head, `feat_cross_attn` and a
+    dropout above 0 are refused."""
     m = cfg.MODEL
     for key, ported, default, reason in _FF_FIXED:
         _refuse(m, key, ported, default, reason)
-    _refuse(m, "dropout", 0.0, 0.0, _DROPOUT_ITEM)
+    _refuse(m, "dropout", 0.0, 0.0, _FF_DROPOUT)
     return FlowFormerConfig(
         fusion=_refuse(m, "FUSION", ("parallel", None)),
         patch_size=int(m.get("patch_size", 8)),

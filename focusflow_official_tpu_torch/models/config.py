@@ -3,7 +3,7 @@ inference and training paths read.
 
 - `FFRaftConfig`: the MODEL and TRAIN mask sections of FF-RAFT, of plain
   RAFT (`fusion=None`), of the attention and conv front ends and of the
-  small model, with ALT_CORR;
+  small model, with ALT_CORR and dropout;
 - `FFPWCNetConfig`: what FF-PWCNet reads of the same two sections;
 - `FlowFormerConfig`: the fields of the `latentcostformer` block of
   FF-FlowFormer and vanilla FlowFormer (`config/ff_chairs.yaml:41-76` in
@@ -34,9 +34,12 @@ class FFRaftConfig:
     # the cnet is the CCE too (with fusion='parallel'); else a BasicEncoder
     fuse_cnet: bool = False
     iters: int = 12
-    # training: keep the batch norms' running statistics (every stage but
-    # chairs, as the reference's `model.freeze_bn()`)
+    # training: keep the RAFT core's batch norms on their running statistics
+    # (every stage but chairs, as the reference's `model.freeze_bn()`)
     freeze_bn: bool = False
+    # MODEL.DROPOUT: train-mode channel dropout of the encoders' outputs
+    # (`nn/dropout.py`)
+    dropout: float = 0.0
 
     # TRAIN section (mask handling)
     mask_modal: str = "point"  # 'point'|'neighborE'|'neighborG'|'context'|'frame'

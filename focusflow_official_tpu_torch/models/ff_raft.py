@@ -27,17 +27,22 @@ With `fusion=None` (plain RAFT) the masks are not read. With
 turns each frame and its mask into a `fusion_channel`-channel feature
 image, and a plain RAFT with that many input channels runs on the two.
 
-Train mode is the module's `training` flag (`model.train()`); the cnet's
-batch norms then use the batch's statistics unless `freeze_bn()` put them
-back in eval mode. The module holds its parameters in f32; a bf16 forward
-takes its convolutions' weights in bf16 (`train/loop.py::compute_params`
-casts them at use for training, `FlowPredictor` casts the module once for
-inference).
+Train mode is the module's `training` flag (`model.train()`); the batch
+norms then use the batch's statistics unless `freeze_bn()` put the RAFT
+core's back in eval mode (a conv front end's stay in train mode, as in the
+JAX package), and with `dropout` above 0 the encoders drop whole channels
+of their outputs by the keep masks the caller drew (`dropout_sites` says
+which; `train/loop.py` draws them). With ALT_CORR the chunk walk is one
+autograd Function whose backward walks the chunks again
+(`ops/corr.py::alternate_corr_fold`). The module holds its parameters in
+f32; a bf16 forward takes its convolutions' weights in bf16
+(`train/loop.py::compute_params` casts them at use for training,
+`FlowPredictor` casts the module once for inference).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -73,7 +78,7 @@ class RAFT(nn.Module):
     def __init__(self, mask_channel: int = 3, fusion_type: str = "1x1conv",
                  fusion: Optional[str] = "parallel", fuse_cnet: bool = True,
                  abandon_fnet: bool = False, small: bool = False, in_channels: int = 3,
-                 alt_corr: bool = False, alt_corr_chunk: int = 2048):
+                 alt_corr: bool = False, alt_corr_chunk: int = 2048, dropout: float = 0.0):
         super().__init__()
         self.small, self.alt_corr, self.alt_corr_chunk = small, alt_corr, alt_corr_chunk
         self.hdim, cdim, self.corr_radius = (96, 64, 3) if small else (128, 128, 4)
@@ -83,15 +88,16 @@ class RAFT(nn.Module):
             self.channel_pjt = ChannelProject(in_channels, 128 if small else 256)
         elif parallel:
             self.fnet = BasicParallelFusionLayer(3, mask_channel, 256, "instance",
-                                                 fusion_type)
+                                                 fusion_type, dropout)
         else:
-            self.fnet = encoder(in_channels, 128 if small else 256, "instance")
+            self.fnet = encoder(in_channels, 128 if small else 256, "instance", dropout)
         cnet_norm = "none" if small else "batch"
         if parallel and fuse_cnet:
             self.cnet = BasicParallelFusionLayer(3, mask_channel, self.hdim + cdim, cnet_norm,
-                                                 fusion_type)
+                                                 fusion_type, dropout)
         else:
-            self.cnet = encoder(3 if parallel else in_channels, self.hdim + cdim, cnet_norm)
+            self.cnet = encoder(3 if parallel else in_channels, self.hdim + cdim, cnet_norm,
+                                dropout)
         self.update_block = (SmallUpdateBlock if small else BasicUpdateBlock)(
             self.corr_levels, self.corr_radius, self.hdim)
 
@@ -100,27 +106,42 @@ class RAFT(nn.Module):
         convex with the mask head's logits."""
         return upflow8(flow) if self.small else convex_upsample(flow, up_mask.float())
 
+    def dropout_sites(self) -> Dict[str, Tuple[int, int]]:
+        """The encoders whose outputs train-mode dropout drops channels of,
+        in the order they are drawn: name -> (frames, channels); the fnet
+        runs over both frames (none where it is `ChannelProject`), the cnet
+        over the first. Empty at a rate of 0."""
+        sites = {}
+        for name, frames in (("fnet", 2), ("cnet", 1)):
+            enc = getattr(self, name, None)
+            if enc is not None and enc.dropout > 0:
+                sites[name] = (frames, enc.conv2.out_channels)
+        return sites
+
     def forward(self, image1, image2, mask1=None, mask2=None, iters: int = 12,
                 dtype: torch.dtype = torch.float32,
-                flow_init: Optional[torch.Tensor] = None):
+                flow_init: Optional[torch.Tensor] = None,
+                dropout: Optional[Dict[str, torch.Tensor]] = None):
         """NHWC inputs scaled to [-1, 1] (masks: those the CCE encoders
         read, else None) -> (flow_lr (B, H/8, W/8, 2), flow_up
         (B, H, W, 2)), both f32; in train mode every step's upsampled
         flow, (iters, B, H, W, 2) f32. `flow_init` (B, H/8, W/8, 2), the
-        warm start, is added to the starting coordinates."""
+        warm start, is added to the starting coordinates. `dropout`: the
+        keep masks of each of `dropout_sites` (train mode, a rate above 0)."""
         if iters < 1:
             raise ValueError(f"iters must be >= 1, got {iters}")
         image1, image2 = image1.to(dtype), image2.to(dtype)
         if mask1 is not None:
             mask1, mask2 = mask1.to(dtype), mask2.to(dtype)
 
+        drop = dropout or {}
         images = torch.cat([image1, image2])
         if hasattr(self, "channel_pjt"):
             fmaps = self.channel_pjt(images)
         elif isinstance(self.fnet, BasicParallelFusionLayer):
-            fmaps = self.fnet(images, torch.cat([mask1, mask2]))
+            fmaps = self.fnet(images, torch.cat([mask1, mask2]), drop.get("fnet"))
         else:
-            fmaps = self.fnet(images)
+            fmaps = self.fnet(images, drop.get("fnet"))
         if self.alt_corr:
             corr = AltCorr(*fmaps.to(dtype).chunk(2), self.corr_levels, self.alt_corr_chunk)
         else:
@@ -128,9 +149,9 @@ class RAFT(nn.Module):
                                 dtype)
 
         if isinstance(self.cnet, BasicParallelFusionLayer):
-            cnet = self.cnet(image1, mask1)
+            cnet = self.cnet(image1, mask1, drop.get("cnet"))
         else:
-            cnet = self.cnet(image1)
+            cnet = self.cnet(image1, drop.get("cnet"))
         cnet = cnet.permute(0, 3, 1, 2)
         net = torch.tanh(cnet[:, :self.hdim])
         inp = torch.relu(cnet[:, self.hdim:])
@@ -173,13 +194,18 @@ class FFRaft(nn.Module):
         self.flow_net = RAFT(cfg.mask_channel, cfg.fusion_type,
                              None if front else cfg.fusion, cfg.fuse_cnet, cfg.abandon_fnet,
                              cfg.small, cfg.fusion_channel if front else 3, cfg.alt_corr,
-                             cfg.alt_corr_chunk)
+                             cfg.alt_corr_chunk, cfg.dropout)
+
+    def dropout_sites(self) -> Dict[str, Tuple[int, int]]:
+        """`RAFT.dropout_sites` of the RAFT core."""
+        return self.flow_net.dropout_sites()
 
     def forward(self, image1, image2, mask1, mask2,
-                iters: Optional[int] = None, flow_init: Optional[torch.Tensor] = None):
+                iters: Optional[int] = None, flow_init: Optional[torch.Tensor] = None,
+                dropout: Optional[Dict[str, torch.Tensor]] = None):
         """NHWC images (0..255) and raw 0/255 masks (plain RAFT ignores
         them) -> (flow_lr, flow_up), or in train mode the stacked flows;
-        `flow_init` as in `RAFT.forward`."""
+        `flow_init` and `dropout` as in `RAFT.forward`."""
         cfg = self.cfg
         if iters is None:
             iters = cfg.iters
@@ -199,13 +225,15 @@ class FFRaft(nn.Module):
             image2 = self.fusion_layer(image2.to(dtype), mask2.to(dtype))
             mask1 = mask2 = None
         return self.flow_net(image1, image2, mask1, mask2, iters=iters, dtype=dtype,
-                             flow_init=flow_init)
+                             flow_init=flow_init, dropout=dropout)
 
     def freeze_bn(self) -> "FFRaft":
-        """Put every batch norm in eval mode (the reference's `freeze_bn`):
-        a training forward then normalises with the running statistics and
-        leaves them as they are."""
-        for m in self.modules():
+        """Put the RAFT core's batch norms in eval mode (the reference's
+        `freeze_bn`): a training forward then normalises with their running
+        statistics and leaves them as they are. A conv front end's batch
+        norm stays in train mode, as the JAX package freezes `flow_net`
+        alone."""
+        for m in self.flow_net.modules():
             if isinstance(m, Norm) and m.kind == "batch":
                 m.eval()
         return self

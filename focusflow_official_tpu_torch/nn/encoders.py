@@ -12,6 +12,9 @@
   W/8, then a 1x1 `conv1`.
 
 Each takes NHWC (B, H, W, C) and returns NHWC (B, H/8, W/8, output_dim).
+`BasicEncoder` and `SmallEncoder` drop whole channels of `conv2`'s output
+in train mode at rate `dropout` (`nn/dropout.py`; `drop`: the keep masks
+the trainer drew), as the JAX encoders do.
 """
 
 from __future__ import annotations
@@ -21,30 +24,33 @@ from torch import nn
 
 from ..ops.coords import resize_bilinear
 from .blocks import SMALL_STAGES, STAGES, BottleneckBlock, add_stage, run_stage, stem
+from .dropout import maybe_apply
 from .norm import Norm
 
 
 class BasicEncoder(nn.Module):
     def __init__(self, in_channel: int = 3, output_dim: int = 128,
-                 norm_fn: str = "batch"):
+                 norm_fn: str = "batch", dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.conv1 = stem(in_channel)
         self.norm1 = Norm(norm_fn, 64, 8)
         for li in range(1, len(STAGES) + 1):
             add_stage(self, li, norm_fn)
         self.conv2 = nn.Conv2d(128, output_dim, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop: torch.Tensor | None = None) -> torch.Tensor:
         x = self.norm1(self.conv1(x.permute(0, 3, 1, 2)), relu=True)
         for li in range(1, len(STAGES) + 1):
             x = run_stage(self, li, x)
-        return self.conv2(x).permute(0, 2, 3, 1)
+        return maybe_apply(self, self.conv2(x), drop).permute(0, 2, 3, 1)
 
 
 class SmallEncoder(nn.Module):
     def __init__(self, in_channel: int = 3, output_dim: int = 128,
-                 norm_fn: str = "batch"):
+                 norm_fn: str = "batch", dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.conv1 = stem(in_channel, 32)
         self.norm1 = Norm(norm_fn, 32, 8)
         for li in range(1, len(SMALL_STAGES) + 1):

@@ -3,8 +3,9 @@
 `CheckpointManager` writes one `torch.save` file a step,
 `<dir>/<step>.pt`: the step, the model's state (parameters and running
 statistics), the optimizer's and the schedule's states and the states of
-the noise generator and of the on-card augmentation's generator, so a
-resumed run takes the same next step and the same augmentation. It keeps
+the noise generator, of the on-card augmentation's generator and of the
+dropout masks' generator, so a resumed run takes the same next step, the
+same augmentation and the same dropout. It keeps
 the newest five. Files are read back with `weights_only=True`. Under data
 parallelism only rank 0 writes them.
 
@@ -45,12 +46,14 @@ class CheckpointManager:
 
     def save(self, step: int, model: nn.Module, optimizer, scheduler,
              generator: Optional[torch.Generator] = None,
-             aug_generator: Optional[torch.Generator] = None) -> str:
+             aug_generator: Optional[torch.Generator] = None,
+             dropout_generator: Optional[torch.Generator] = None) -> str:
         path = os.path.join(self.directory, f"{step}.pt")
         state = lambda g: None if g is None else g.get_state()
         torch.save(dict(step=step, model=model.state_dict(), optimizer=optimizer.state_dict(),
                         scheduler=scheduler.state_dict(), generator=state(generator),
-                        aug_generator=state(aug_generator)),
+                        aug_generator=state(aug_generator),
+                        dropout_generator=state(dropout_generator)),
                    path + ".tmp")
         os.replace(path + ".tmp", path)
         for old in self.steps()[:-self.MAX_TO_KEEP]:
@@ -59,7 +62,8 @@ class CheckpointManager:
 
     def restore(self, model: nn.Module, optimizer, scheduler,
                 generator: Optional[torch.Generator] = None,
-                aug_generator: Optional[torch.Generator] = None) -> int:
+                aug_generator: Optional[torch.Generator] = None,
+                dropout_generator: Optional[torch.Generator] = None) -> int:
         """Load the latest checkpoint into the objects -> its step; 0 where
         there is none."""
         step = self.latest_step()
@@ -70,7 +74,8 @@ class CheckpointManager:
         model.load_state_dict(ckpt["model"], strict=True)
         optimizer.load_state_dict(ckpt["optimizer"])
         scheduler.load_state_dict(ckpt["scheduler"])
-        for gen, key in ((generator, "generator"), (aug_generator, "aug_generator")):
+        for gen, key in ((generator, "generator"), (aug_generator, "aug_generator"),
+                         (dropout_generator, "dropout_generator")):
             if gen is not None and ckpt.get(key) is not None:
                 gen.set_state(ckpt[key])
         return int(ckpt["step"])

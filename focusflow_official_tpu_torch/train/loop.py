@@ -4,19 +4,23 @@ steps.
 The step (`train_step`): the on-card augmentation of a raw batch where
 given (`data/device_aug.py`, from its own generator), noise on the frames
 (one std a step from U[0, 5), Gaussian noise, clamped to [0, 255], drawn
-from the caller's `torch.Generator` on the device), the train-mode forward
-(with the refinement count where the family has one), the loss (sequence
-or multiscale), the backward, a global-norm clip of every gradient, one
-AdamW step and one step of the schedule. It returns the loss's metrics and
-`grad_norm`, the norm before the clip, as 0-d tensors on the device.
+from the caller's `torch.Generator` on the device), the keep masks of the
+encoders' channel dropout where the model has a rate above 0 (FF-RAFT's
+MODEL.DROPOUT; `nn/dropout.py`, from a generator of their own), the
+train-mode forward (with the refinement count where the family has one),
+the loss (sequence or multiscale), the backward, a global-norm clip of
+every gradient, one AdamW step and one step of the schedule. It returns
+the loss's metrics and `grad_norm`, the norm before the clip, as 0-d
+tensors on the device.
 
 Under data parallelism (a `train/mesh.py::Mesh`) the step is the global
-batch's: the augmentation and the noise draw the global batch's random
-quantities on every rank and keep the rank's rows; a parameter the loss
-does not reach takes a zero gradient, then the gradients are summed over
-the ranks (the loss, built with `reduce=mesh.global_sum`, is the rank's
-share), then clipped by their global norm; the metrics are summed over the
-ranks, so every rank returns the global batch's.
+batch's: the augmentation, the noise and the dropout draw the global
+batch's random quantities on every rank and keep the rank's rows; a
+parameter the loss does not reach takes a zero gradient, then the
+gradients are summed over the ranks (the loss, built with
+`reduce=mesh.global_sum`, is the rank's share), then clipped by their
+global norm; the metrics are summed over the ranks, so every rank returns
+the global batch's.
 
 Precision: the model holds f32 parameters, gradients, optimizer state and
 running statistics. A bf16 step casts the convolutions' weights at use
@@ -39,6 +43,7 @@ from typing import Callable, Dict, Mapping, Optional
 import torch
 from torch import nn
 
+from ..nn import dropout as channel_dropout
 from ..predict import CAST_MODULES, _no_tf32
 
 # the labels of `train/surgery.py`
@@ -106,33 +111,55 @@ def _shard(mesh) -> dict:
     return dict(world=1, rank=0) if mesh is None else dict(world=mesh.world, rank=mesh.rank)
 
 
+def draw_dropout(model: nn.Module, gen: torch.Generator, batch: int, *, world: int = 1,
+                 rank: int = 0) -> Dict[str, torch.Tensor]:
+    """The keep masks of `model`'s train-mode channel dropout for a batch
+    of `batch` samples (the global batch's, the rank's rows kept, under
+    `world` > 1) -> {site: (frames x batch, channels) bool}; empty, and
+    nothing drawn, for a model in eval mode or without dropout."""
+    sites = model.dropout_sites() if hasattr(model, "dropout_sites") else {}
+    if not model.training or not sites:
+        return {}
+    return {name: channel_dropout.draw(gen, model.cfg.dropout, frames, batch, channels,
+                                       world=world, rank=rank)
+            for name, (frames, channels) in sites.items()}
+
+
 def forward_loss(model: nn.Module, loss_fn: Callable, batch: Mapping[str, torch.Tensor], *,
                  iters: Optional[int], dtype: torch.dtype = torch.float32,
-                 noise: Optional[torch.Generator] = None, mesh=None):
+                 noise: Optional[torch.Generator] = None, mesh=None,
+                 dropout: Optional[torch.Generator] = None):
     """The noise augmentation (with a generator; the global batch's under
-    `mesh`), the forward in the compute type (given `iters` refinements; a
-    model without a refinement loop, FF-PWCNet, takes None and is called
+    `mesh`), the dropout masks (`draw_dropout` from the generator
+    `dropout`), the forward in the compute type (given `iters` refinements;
+    a model without a refinement loop, FF-PWCNet, takes None and is called
     without it) and the loss -> (loss, metrics)."""
     img1, img2 = batch["image1"], batch["image2"]
     if noise is not None:
         std = torch.rand((), generator=noise, device=img1.device) * NOISE_MAX_STD
         img1 = add_noise(img1, std, noise, **_shard(mesh))
         img2 = add_noise(img2, std, noise, **_shard(mesh))
+    kwargs = {} if iters is None else {"iters": iters}
+    if dropout is not None:
+        masks = draw_dropout(model, dropout, img1.shape[0], **_shard(mesh))
+        if masks:
+            kwargs["dropout"] = masks
     flows = torch.func.functional_call(
-        model, compute_params(model, dtype),
-        (img1, img2, batch["mask1"], batch["mask2"]), {} if iters is None else {"iters": iters})
+        model, compute_params(model, dtype), (img1, img2, batch["mask1"], batch["mask2"]),
+        kwargs)
     return loss_fn(flows, batch["flow"], batch["valid"], batch["mask1"])
 
 
 def forward_backward(model: nn.Module, loss_fn: Callable, batch: Mapping[str, torch.Tensor], *,
                      iters: Optional[int], dtype: torch.dtype = torch.float32,
-                     noise: Optional[torch.Generator] = None, mesh=None):
+                     noise: Optional[torch.Generator] = None, mesh=None,
+                     dropout: Optional[torch.Generator] = None):
     """`forward_loss` and the loss's backward (the gradients add into each
     parameter's `.grad`) -> (loss, metrics). In f32 both run with TF32 off
     in matmuls and convolutions, and the caller's flags are put back."""
     with _no_tf32() if dtype == torch.float32 else contextlib.nullcontext():
         loss, metrics = forward_loss(model, loss_fn, batch, iters=iters, dtype=dtype,
-                                     noise=noise, mesh=mesh)
+                                     noise=noise, mesh=mesh, dropout=dropout)
         loss.backward()
     return loss, metrics
 
@@ -141,20 +168,22 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler,
                loss_fn: Callable, batch: Mapping[str, torch.Tensor], *, iters: Optional[int],
                dtype: torch.dtype = torch.float32, clip: float = 1.0,
                noise: Optional[torch.Generator] = None, augment: Optional[Callable] = None,
-               aug_gen: Optional[torch.Generator] = None, mesh=None) -> Dict[str, torch.Tensor]:
+               aug_gen: Optional[torch.Generator] = None, mesh=None,
+               dropout: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
     """One step on `batch` (NHWC f32 tensors on the model's device:
     image1, image2, mask1, mask2, flow, valid; raw frames with optional
     valid, sizes and recipe where `augment` is given). `noise`: the
     generator of the noise augmentation, None for none. `augment`: a
-    `DeviceFlowAugmentor`, drawing from `aug_gen`. `mesh`: this rank's
-    `train/mesh.py::Mesh` under data parallelism, else None. `model` is in
-    train mode (frozen batch norms in eval mode)."""
+    `DeviceFlowAugmentor`, drawing from `aug_gen`. `dropout`: the generator
+    of the dropout masks (needed where the model has a rate above 0).
+    `mesh`: this rank's `train/mesh.py::Mesh` under data parallelism, else
+    None. `model` is in train mode (frozen batch norms in eval mode)."""
     optimizer.zero_grad(set_to_none=True)
     if augment is not None:  # a profiler range of its own: its share of the step
         with torch.profiler.record_function("device_aug"):
             batch = augment(aug_gen, batch, **_shard(mesh))
     _, metrics = forward_backward(model, loss_fn, batch, iters=iters, dtype=dtype, noise=noise,
-                                  mesh=mesh)
+                                  mesh=mesh, dropout=dropout)
     params = [p for g in optimizer.param_groups for p in g["params"]]
     for p in params:  # a parameter the loss does not reach takes a zero gradient
         if p.grad is None:

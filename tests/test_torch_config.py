@@ -2,8 +2,8 @@
 under `configs/`: where the port has the variant a file selects, its
 config equals the JAX config on every field both have (exact: the same
 parsed values); where it does not, the reader raises NotImplementedError
-with its reason (the ROADMAP item that brings the variant, or that the JAX
-package cannot run it either). Every file under
+with its reason (that the JAX package cannot run the variant either, or
+reads the key and never applies it). Every file under
 `configs/` has its variant in the port."""
 
 import dataclasses
@@ -62,22 +62,22 @@ def test_yaml_reads_as_jax_or_is_refused(path):
     ("SMALL", True), ("ALT_CORR", True), ("FUSION", "attention"), ("FUSION", "conv"),
     ("DROPOUT", 0.1)])
 def test_raft_variants_are_refused(key, value):
-    """A dropout above 0 is refused by the reader; the small model, ALT_CORR
-    and the two front ends serve (`test_raft_variants_are_accepted`), and
-    the trainer refuses them, each naming the ROADMAP item that brings it."""
+    """None of FF-RAFT's variant fields is refused: the reader reads each as
+    JAX reads it (a dropout above 0 among them) and the trainer builds the
+    model (`test_torch_train_cli.py::test_trainer_trains_every_raft_variant`
+    trains each)."""
     from focusflow_official_tpu_torch.cli import train as cli_train
 
     cfg = tcfg.load_yaml_config(os.path.join(ROOT, "configs/smoke_chairs.yaml"))
     setattr(cfg.MODEL, key, value)
-    if key == "DROPOUT":
-        with pytest.raises(NotImplementedError, match=key) as e:
-            tcfg.config_from_yaml(cfg)
-        assert "ROADMAP.md queue 1, 'Dropout'" in str(e.value)
-        return
-    tcfg.config_from_yaml(cfg)
-    with pytest.raises(NotImplementedError, match=key) as e:
-        cli_train.build_model(cfg, "float32")
-    assert "ROADMAP.md queue 1, 'Training the FF-RAFT variants'" in str(e.value)
+    ours = tcfg.config_from_yaml(cfg)
+    theirs = jcfg.model_config_from_yaml(cfg)
+    field = {"SMALL": "small", "ALT_CORR": "alt_corr", "FUSION": "fusion",
+             "DROPOUT": "dropout"}[key]
+    assert getattr(ours, field) == getattr(theirs, field) == value
+    model_cfg, model, _, iters = cli_train.build_model(cfg, "float32")
+    assert getattr(model_cfg, field) == value and iters == model_cfg.iters
+    assert type(model).__name__ == "FFRaft"
 
 
 @pytest.mark.parametrize("key,value", [
@@ -103,6 +103,19 @@ def test_raft_variants_are_accepted(key, value):
     assert type(model).__name__ == "FFRaft" and iters == ours.iters
 
 
+def test_pwcnet_dropout_is_refused():
+    """FF-PWCNet's MODEL.DROPOUT above 0 is refused: the JAX package reads it
+    and never applies it; 0 reads."""
+    cfg = tcfg.load_yaml_config(os.path.join(ROOT, "configs/smoke_pwc.yaml"))
+    cfg.MODEL.DROPOUT = 0.1
+    with pytest.raises(NotImplementedError, match="DROPOUT") as e:
+        tcfg.config_from_yaml(cfg)
+    assert "reads the key and never applies it" in str(e.value)
+    assert "ROADMAP" not in str(e.value)
+    cfg.MODEL.DROPOUT = 0.0
+    assert isinstance(tcfg.config_from_yaml(cfg), FFPWCNetConfig)
+
+
 @pytest.mark.parametrize("key,value", [
     ("use_mlp", True), ("gma", False), ("vertical_conv", True), ("only_global", True),
     ("cost_heads_num", 2), ("patch_size", 4), ("pe", "exp"), ("cost_encoder_res", False),
@@ -116,7 +129,7 @@ def test_flowformer_variants_are_refused(key, value):
     setattr(cfg.MODEL, key, value)
     reasons = {"cost_heads_num": "JAX package cannot run it either",
                "pe": "never uses it", "feat_cross_attn": "JAX package raises on it",
-               "dropout": "ROADMAP.md queue 1, 'Dropout'"}
+               "dropout": "reads the key and never applies it"}
     if key in reasons:
         with pytest.raises(NotImplementedError, match=key) as e:
             tcfg.config_from_yaml(cfg)

@@ -280,6 +280,53 @@ def test_alt_corr_chunks_match_the_materialized_lookup(dev, dtype, h1, w1):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_alt_corr_backward_matches_its_plain_chunks(dev, dtype):
+    """ALT_CORR's Function (`alternate_corr_fold`, backward
+    `alternate_corr_vjp`) at the chairs crop's grid (46x62, B=2: chunks of
+    2048 and a tail of 804) against autograd through its plain chunks (the
+    chunk's product, `corr_pyramid`, `lookup_fold_plain`, one chunk after
+    another): the maps', the weight's and the bias's gradients within 1e-4
+    (f32) or 2e-2 (bf16, the plain chunks' gradients summed in bf16) of
+    each one's largest; the backward launches A once a chunk and no G."""
+    from focusflow_official_tpu_torch.ops.corr import AltCorr, alternate_corr_fold
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    b, h1, w1, c, chunk = 2, 46, 62, 256, 2048
+    q = h1 * w1
+    f1, f2 = (torch.randn((b, h1, w1, c), generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    w = (torch.randn((256, 324), generator=g, device=dev) / 18).to(dtype)
+    bias = (torch.randn(256, generator=g, device=dev) * 0.1).to(dtype)
+    coords = (torch.stack(torch.meshgrid(torch.arange(w1, device=dev),
+                                         torch.arange(h1, device=dev), indexing="xy"), -1)
+              .float()[None].repeat(b, 1, 1, 1)
+              + torch.randn((b, h1, w1, 2), generator=g, device=dev) * 4).contiguous()
+    cot = torch.randn((b, h1, w1, 256), generator=g, device=dev).to(dtype)
+
+    def plain(f1_, f2_, w_, b_):
+        a = (f1_.reshape(b, q, c).float() * c ** -0.5).to(dtype)
+        f2t = f2_.reshape(b, q, c).to(dtype).transpose(1, 2)
+        cq = coords.reshape(b, 1, q, 2)
+        outs = [klf.lookup_fold_plain(
+            corr_pyramid(torch.matmul(a[:, s:s + chunk], f2t).reshape(b, -1, h1, w1), 4, dtype),
+            cq[:, :, s:s + chunk].contiguous(), 4, w_, b_) for s in range(0, q, chunk)]
+        return torch.cat(outs, 2).reshape(b, h1, w1, -1)
+
+    leaves = [t.detach().requires_grad_(True) for t in (f1, f2, w, bias)]
+    out = alternate_corr_fold(AltCorr(leaves[0], leaves[1], 4, chunk), coords, 4, *leaves[2:])
+    assert out.grad_fn is not None
+    n_a, n_g = launch_counts["lookup"], launch_counts["lookup_fold"]
+    got = torch.autograd.grad(out, leaves, cot)
+    assert launch_counts["lookup"] == n_a + 2 and launch_counts["lookup_fold"] == n_g
+    ref = [t.detach().requires_grad_(True) for t in (f1, f2, w, bias)]
+    want = torch.autograd.grad(plain(*ref), ref, cot)
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype and torch.isfinite(a).all()
+        tol = (1e-4 if dtype == torch.float32 else 2e-2) * float(e.float().abs().max())
+        assert float((a.float() - e.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_lookup_fold_refusals(dev, dtype):
     """No plan for a radius the gather is not built for (3 and 4 are), for
     either type; a bf16 weight off a 16-byte boundary is refused. None

@@ -20,6 +20,8 @@ the one process through the identity, the ranks through the gloo sum):
   tenth of rank 0's);
 - `raft_aug`: the same on raw 80x112 frames with the on-card augmentation
   (in f32, as it ships; its output goes to the model in f64);
+- `raft_dropout`: `raft` at MODEL.DROPOUT 0.2, the keep masks drawn for
+  the global batch on every rank, each keeping its rows;
 - `pwc`: `configs/smoke_pwc.yaml` with TRAIN.STAGE kitti, so the
   multiscale MixLoss is the sparse form (valid counts, mask mass and the
   batch as denominators), on sparse flow.
@@ -68,7 +70,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "trained_smoke.npz")
-CASES = ("raft", "raft_aug", "pwc")
+CASES = ("raft", "raft_aug", "raft_dropout", "pwc")
 B, H, W, WORLD, LR = 4, 64, 96, 2, 4e-4
 ZERO = 1e-7  # a gradient this far under the model's largest is rounding
 DEADLINE_S = 240
@@ -83,6 +85,8 @@ def _cfg(case):
         cfg.TRAIN.STAGE = "kitti"
     else:
         cfg.MODEL.ITERS = 2
+    if case == "raft_dropout":
+        cfg.MODEL.DROPOUT = 0.2
     return cfg
 
 
@@ -138,7 +142,8 @@ def _step(case, mesh):
                        iters=iters, clip=1.0, noise=torch.Generator().manual_seed(5),
                        augment=(lambda gen, b, **kw: _f64(aug(gen, b, **kw)))
                        if case == "raft_aug" else None,
-                       aug_gen=torch.Generator().manual_seed(6), mesh=mesh)
+                       aug_gen=torch.Generator().manual_seed(6), mesh=mesh,
+                       dropout=torch.Generator().manual_seed(7))
     finally:
         ff_raft.DTYPES["float32"] = saved
     return dict(metrics={k: float(v) for k, v in m.items()},

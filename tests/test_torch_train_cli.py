@@ -13,10 +13,15 @@
 - `params_to_jax(params_from_jax(f))` is `f` on all three fixtures.
 - `fetch_dataset` and the `Loader` give the JAX package's first batches,
   bit for bit, for the same seed; mixed resolutions pad as JAX pads.
-- LOAD_MODULE: a bare RAFT checkpoint loads into `flow_net`; the trainer
+- LOAD_MODULE: a bare RAFT checkpoint loads into `flow_net` (the main
+  model's, RAFT-S's and a front end's); the trainer
   refuses an unknown stage and `device_aug` over samples without a recipe
   table, and builds the other families (FF-FlowFormer from
   `ff_chairs.yaml`).
+- Every FF-RAFT variant trains: `configs/smoke_chairs.yaml` with SMALL,
+  ALT_CORR, FUSION attention or conv, or DROPOUT set runs two f32 steps on
+  in-memory pairs, every metric finite, and exports JAX's variable names
+  and shapes for that configuration.
 - `device_aug` on raw in-memory frames: a run resumed from a checkpoint
   takes the same next step, the augmentation's generator restored with
   the noise's.
@@ -217,9 +222,34 @@ def test_loader_pads_mixed_resolutions_as_jax():
 def test_load_module_fills_flow_net(tmp_path):
     """MODEL.LOAD_MODULE: a bare RAFT `.pth` (the flow_net subtree's
     reference keys, `module.`-prefixed) loads into `flow_net`."""
+    sd = load_npz(os.path.join(FIXTURES, "trained_smoke.npz"))
+    model = FFRaft(FFRaftConfig(fusion="parallel", fuse_cnet=True))
+    _hold_load_module(sd, model, tmp_path)
+
+
+@pytest.mark.parametrize("kw", [dict(fusion=None, small=True),
+                                dict(fusion="conv", fusion_channel=16)],
+                         ids=["raft_s", "conv"])
+def test_load_module_fills_a_variants_flow_net(kw, tmp_path):
+    """LOAD_MODULE into RAFT-S's `flow_net` and into the RAFT behind the conv
+    front end: every `flow_net` tensor is the file's, `fusion_layer` keeps
+    its own."""
+    g = torch.Generator().manual_seed(0)
+    model = FFRaft(FFRaftConfig(**kw))
+    sd = {k: torch.randn(t.shape, generator=g) for k, t in model.state_dict().items()
+          if k.startswith("flow_net.")}
+    before = {k: t.clone() for k, t in model.state_dict().items()
+              if k.startswith("fusion_layer.")}
+    got = _hold_load_module(sd, model, tmp_path)
+    for k, t in before.items():
+        assert torch.equal(got[k], t), k
+
+
+def _hold_load_module(sd, model, tmp_path):
+    """`sd` (flow_net's tensors by port name) written as a bare RAFT `.pth`
+    and loaded with prefix 'flow_net.': every tensor lands -> the state."""
     from focusflow_official_tpu_torch.compat.torch_import import torch_key_for_path
 
-    sd = load_npz(os.path.join(FIXTURES, "trained_smoke.npz"))
     bare = {}
     for key, t in sd.items():
         *comps, leaf = key.split(".")
@@ -230,10 +260,48 @@ def test_load_module_fills_flow_net(tmp_path):
         bare["module." + ref[len("flow_net."):]] = t
     path = tmp_path / "raft.pth"
     torch.save(bare, path)
-    model = FFRaft(FFRaftConfig(fusion="parallel", fuse_cnet=True))
     got = load_torch_pretrained(str(path), model, prefix="flow_net.", strict=False)
     for k, t in sd.items():
         assert torch.equal(got[k], t), k
+    return got
+
+
+VARIANTS = {"SMALL": dict(SMALL=True), "ALT_CORR": dict(ALT_CORR=True),
+            "attention": dict(FUSION="attention", FUSION_CHANNEL=16),
+            "conv": dict(FUSION="conv", FUSION_CHANNEL=16, SEPARATE_LR=True),
+            "DROPOUT": dict(DROPOUT=0.2)}
+
+
+@pytest.mark.parametrize("name", sorted(VARIANTS))
+def test_trainer_trains_every_raft_variant(name, tmp_path):
+    """`cli/train.py::train` refuses no FF-RAFT variant: two f32 steps from
+    PyTorch's initialisation on in-memory pairs (the conv front end with
+    TRAIN.SEPARATE_LR), every metric finite, and the export's flat names
+    and shapes those of JAX's variables for the configuration."""
+    import jax
+
+    cfg = load_yaml_config(YAML)
+    cfg.TRAIN.NUM_STEPS = 2
+    cfg.MODEL.ITERS = 2
+    for k, v in VARIANTS[name].items():
+        setattr(cfg.TRAIN if k == "SEPARATE_LR" else cfg.MODEL, k, v)
+    torch.manual_seed(0)
+    out = cli_train.train(cfg, chairs_layout(2, n=2, h=64, w=96), validate=lambda m: {},
+                          log_dir=str(tmp_path), device="cpu", compute_dtype="float32")
+    assert out["step"] == 2 and all(np.isfinite(v) for v in out["metrics"].values())
+    with np.load(out["export"]) as raw:
+        got = {k: raw[k].shape for k in raw.files}
+    from focusflow_official_tpu_torch.config import config_from_yaml
+
+    mcfg = config_from_yaml(cfg)
+    jcfg = JConfig(**{f: getattr(mcfg, f) for f in (
+        "fusion", "fusion_type", "fusion_channel", "small", "fuse_cnet", "alt_corr",
+        "alt_corr_chunk", "dropout", "mask_channel")}, iters=2, corr_impl="xla")
+    x, m = jnp.zeros((1, 64, 96, 3)), jnp.zeros((1, 64, 96, 1))
+    tree = jax.eval_shape(lambda: JFFRaft(jcfg).init(jax.random.PRNGKey(0), x, x, m, m,
+                                                     iters=1, test_mode=True))
+    want = {k: v.shape for k, v in traverse_util.flatten_dict(tree, sep="/").items()}
+    assert got == want
 
 
 def test_refusals(tmp_path):
