@@ -7,9 +7,10 @@ FlowFormer) and fusion ablation (CA, SA, concat), training at scale
 (ALT_CORR up to 4K, the small model, the attention and conv front ends),
 FF-FlowFormer's variants (MLP-Mixer, ConvNext, no GMA, only-global,
 patch size 4, no encoder residual, no flow token; group attention and the
-position encodings as modules) and the training of every FF-RAFT variant
-(ALT_CORR with its chunked backward, RAFT-S, FF-RAFT-S, the front ends,
-FREEZE_BN, dropout).
+position encodings as modules; patch size 4 trained too), the training of
+every FF-RAFT variant (ALT_CORR with its chunked backward, RAFT-S,
+FF-RAFT-S, the front ends, FREEZE_BN, dropout) and FF-RAFT serving with
+the correlation volume's queries sharded over two ranks.
 
     python3 chip_smoke.py
 
@@ -257,7 +258,10 @@ Phases (any failure raises and exits non-zero; no result is printed):
     losses and gradient norms, every step's launches (A 12, B 24, E 21, F
     8), the f32 step (TF32 off) on two samples at 184x248 against the CPU's
     (1e-4, cosine 0.9999), no descent gate; ms a step, busy ms, peak
-    memory. Last, the modules no path runs, each once in bf16 against the
+    memory; then the same for patch size 4 alone (`FF_PATCH4_TRAIN`: phase
+    11's step but for the patch size; E 27 a step, one of them the input
+    layer's (17112, 8) x 192 that the phase's rows hold). Last, the
+    modules no path runs, each once in bf16 against the
     f32 CPU run: `GroupVerticalSelfAttentionLayer` with and without the
     context (within GROUP_LAYER_TOL of the output's scale) and the three
     position encodings (a bf16 ulp of each of their two roundings).
@@ -281,9 +285,9 @@ Phases (any failure raises and exits non-zero; no result is printed):
     4 B); RAFT-S (`raft_CTK.yaml`) and FF-RAFT-S (`ffraft_chairs_orb.yaml`)
     with SMALL, B=10; the attention and conv front ends
     (`ffraft_chairs_orb.yaml` with FUSION attention or conv,
-    FUSION_CHANNEL 256, SEPARATE_LR), the attention front end at the
-    largest batch up to 10 whose step fits (`_fitted_batch`: one step's
-    peak at B=1 and 2, FIT_SHARE of the card), the conv front end once
+    FUSION_CHANNEL 256, SEPARATE_LR), the attention front end at B=3
+    (ATTENTION_BATCH, the largest that fits: its step's peak held under
+    FIT_SHARE of the card), the conv front end once
     more past the chairs stage (FREEZE_BN on the RAFT core: its running
     statistics stay, the front end's move); FF-RAFT at DROPOUT 0.2 (the
     kept share of the drawn channels within 4 sigma of 0.8). Each path
@@ -298,8 +302,23 @@ Phases (any failure raises and exits non-zero; no result is printed):
     have no descent gate. Each prints ms a step, samples/s, busy ms and
     idle share of a profiled step, the forward / backward / optimizer
     split, peak memory and the launches, and the phase its seconds.
+17. Serving with the volume's queries sharded, after phase 16
+    (`sharded_kernel_row`, `sharded_phase`): G at a rank's block of the
+    1024x436 queries (Q = 3520 of 7040), held and timed as phase 2 holds
+    its rows; then two ranks over gloo on card 0 (NCCL refuses two ranks
+    on one device), this script run as `--shard-rank R STORE OUT`, each
+    a mesh of model extent 2 (`train/mesh.py::make_mesh`) under FF-RAFT's
+    bf16 `FlowPredictor(..., mesh=...)` on phase 3's pair, beside one
+    process without a mesh. Gates on each rank: phase 3's gates (finite,
+    the shift, the f32 CPU run) and its agreement bounds against the
+    one-process flow; G 12, C1 30 and C2 30 launches, G at Q = 3520; its
+    one volume product (1, 3520, 55, 128), the two blocks the 7040
+    queries. At 1920x1080, B=1: each rank's flow against the one
+    process's, its product 16200 of the 32400 rows, and its peak
+    allocated memory under the one process's by at least half the f32
+    level-0 volume. Prints each rank's ms a pair and peak memory.
 The `kernels` line gives each kernel's launches on every path,
-the training paths and phases 12's to 16's among them.
+the training paths and phases 12's to 17's among them.
 
 Outside the phases under default flags, f32 matmuls and convolutions run
 in full f32 here (TF32 off), so the f32 comparisons are not blurred by
@@ -1229,26 +1248,55 @@ def _category(name: str) -> str:
     return "elementwise, softmax, reductions"
 
 
+def _kernel_events(prof) -> list:
+    """The device kernels of a profile as (name, start us, end us), read
+    from the profiler's raw records: `prof.events()` would first build
+    every host op's event and their tree, seconds for one training step. A
+    `record_function` range (the optimizer's step, `device_aug`) also shows
+    on the device as an annotation spanning its first kernel to its last,
+    gaps included: it is not a kernel and is left out."""
+    from torch.autograd import DeviceType
+
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation()
+                or e.name().startswith("Activity Buffer")
+                or getattr(e, "is_hidden_event", lambda: False)()):
+            continue
+        out.append((e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3))
+    return out
+
+
+def _profile_table(prof, path: str, rows: int = 60) -> None:
+    """The profile's kernels by name, the most device time first: launches,
+    total and mean ms (`_kernel_events`), written to `path`."""
+    by_name = {}
+    for name, start, end in _kernel_events(prof):
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + end - start)
+    lines = [f"{'kernel':<100} {'launches':>9} {'total ms':>10} {'mean ms':>9}"]
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:rows]:
+        lines.append(f"{name[:100]:<100} {n:>9} {t / 1e3:>10.4f} {t / 1e3 / n:>9.4f}")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
 def _device_breakdown(torch, prof, wall_ms: float) -> dict:
     """Device time of one profiled forward by kernel category, the top
     kernels, and the share of the call's wall time the device was idle
-    (the union of kernel intervals against the host-clock window). A
-    `record_function` range (the optimizer's step, `device_aug`) also
-    shows on the device as an annotation spanning its first kernel to its
-    last, gaps included: it is not a kernel and is left out."""
-    from torch.autograd import DeviceType
-
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-            and not e.is_user_annotation and not e.name.startswith("Activity Buffer")]
+    (the union of kernel intervals against the host-clock window), from
+    `_kernel_events`."""
+    kern = _kernel_events(prof)
     by_cat, by_name, port = {}, {}, {}
     spans = []
-    for e in kern:
-        us = e.time_range.end - e.time_range.start
-        by_cat[_category(e.name)] = by_cat.get(_category(e.name), 0.0) + us
-        by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + us
-        spans.append((e.time_range.start, e.time_range.end))
+    for name, start, end in kern:
+        us = end - start
+        by_cat[_category(name)] = by_cat.get(_category(name), 0.0) + us
+        by_name[name[:90]] = by_name.get(name[:90], 0.0) + us
+        spans.append((start, end))
         for k in sorted(_PORT_KERNELS, key=len, reverse=True):  # the longest that matches
-            if k in e.name:
+            if k in name:
                 n, t = port.get(k, (0, 0.0))
                 port[k] = (n + 1, t + us)
                 break
@@ -1302,10 +1350,7 @@ def _drive(torch, p, inputs, want: dict, profile_name: str, timed: int = 10):
         p(*inputs)
         profiled_ms = (time.perf_counter() - t0) * 1e3
     breakdown = _device_breakdown(torch, prof, profiled_ms)
-    os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, f"{profile_name}.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_device_time_total",
-                                          row_limit=60))
+    _profile_table(prof, os.path.join(OUT_DIR, f"{profile_name}.txt"))
     return flow, (counts, shapes), float(np.median(times)), times, breakdown
 
 
@@ -1876,7 +1921,7 @@ def variants_phase(torch, card: str, held: set) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     flow, counts, ms, times, breakdown = _drive(torch, p, inputs, want,
-                                                "chip_smoke_profile_alt_corr_4k", timed=3)
+                                                "chip_smoke_profile_alt_corr_4k", timed=1)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     shape4 = (*FOUR_K, 2)
     if flow.shape != shape4 or not np.isfinite(flow).all():
@@ -1961,6 +2006,14 @@ FF_VARIANT_PATHS = {
     "ff_patch4": dict(patch_size=4),
 }
 FF_VARIANT_TRAIN = dict(use_mlp=True, vertical_conv=True, gma=False)
+FF_PATCH4_TRAIN = dict(patch_size=4)  # phase 11's step but for the patch size
+# patch 4's agreement steps at phase 11's agreement depth (encoder depth 1, 2
+# refinements), on weights drawn for it: at depth 3 and 12 refinements
+# (GMA on) the f32 gradient of these weights is chaotic, the CPU's f32
+# against its f64 at cosine 0.9899, and 1e-6 relative noise on the weights
+# moves it to 0.916 (184x248, two samples); at depth 1 and 2 refinements
+# 0.99999999 and 0.9999995
+FF_PATCH4_AGREE = dict(encoder_depth=1, decoder_depth=2)
 VARIANT_TRAIN_STEPS = 6  # step 1 warms up, 2-4 timed, 5 profiled
 GROUP_SHAPE = (10, 56, 133, 128)  # group attention's F: B*K = 10 at the 55x128 grid, padded
 # bf16 against f32 through LayerNorm, four products, GELU and F's bf16 softmax
@@ -2120,21 +2173,27 @@ def ff_variants_phase(torch, card: str) -> dict:
     return drives
 
 
-def ff_variant_train_phase(torch, card: str, held: set) -> tuple:
+def ff_variant_train_phase(torch, card: str, held: set, path: str = "ff_variant_train",
+                           form: dict = FF_VARIANT_TRAIN, agree_model=None) -> tuple:
     """Phase 15, training: the trainer's body (`cli/train.py::train`) on
-    `ff_chairs.yaml` with `FF_VARIANT_TRAIN` (MLP-Mixer, ConvNext, no GMA)
-    at full width and depth (B=6, 368x496, encoder depth 3, 12
-    refinements, MixLoss, noise, AdamW + OneCycle, bf16) from
-    `_ff_variant_weights`, NUM_STEPS cut to VARIANT_TRAIN_STEPS, on
-    phase 11's fixed batch. Gates: finite loss and gradient norm at every
-    step; every step's launches (`_ff_variant_launches`); on two samples at
-    184x248 without noise, the f32 step (TF32 off) within 1e-4 of the
-    port's f32 CPU step in loss and >= 0.9999 in gradient cosine (phase
-    11's bounds). No descent gate. Prints ms a step (steps 2-4, host
-    clock), busy ms and idle share of step 5 (profiled), peak memory.
-    Every (kernel, shape) launched that no row holds (`held`) is held once
-    against its plain version. -> ((counts, launches by shape key) of step
-    4, the phase's line)."""
+    `ff_chairs.yaml` with the MODEL fields of `form` set (FF_VARIANT_TRAIN:
+    MLP-Mixer, ConvNext, no GMA; FF_PATCH4_TRAIN: patch size 4 alone) at
+    full width and depth (B=6, 368x496, encoder depth 3, 12 refinements,
+    MixLoss, noise, AdamW + OneCycle, bf16) from `_ff_variant_weights`,
+    NUM_STEPS cut to VARIANT_TRAIN_STEPS, on phase 11's fixed batch. Gates:
+    finite loss and gradient norm at every step; every step's launches
+    (`_ff_variant_launches`); on two samples at 184x248 without noise, the
+    f32 step (TF32 off) within 1e-4 of the port's f32 CPU step in loss and
+    >= 0.9999 in gradient cosine (phase 11's bounds; with `agree_model`,
+    on the model with those MODEL fields set, from `_ff_variant_weights`
+    drawn for it, as phase 11 agrees at the fixture's depth). No descent
+    gate.
+    Prints ms a step (steps 2-4, host clock), busy ms and idle share of
+    step 5 (profiled), peak memory. Every (kernel, shape) launched that no
+    row holds (`held`) is held once against its plain version. ->
+    ((counts, launches by shape key) of step 4, the phase's line)."""
+    import copy
+
     from focusflow_official_tpu_torch.cli.train import train as run_trainer
     from focusflow_official_tpu_torch.config import config_from_yaml, load_yaml_config
     from focusflow_official_tpu_torch.data import synthetic as sy
@@ -2143,9 +2202,9 @@ def ff_variant_train_phase(torch, card: str, held: set) -> tuple:
     from torch.profiler import ProfilerActivity, profile
 
     t_phase = time.perf_counter()
-    path, dev = "ff_variant_train", torch.device("cuda", 0)
+    dev = torch.device("cuda", 0)
     cfg = load_yaml_config(FF_TRAIN_YAML)
-    for k, v in FF_VARIANT_TRAIN.items():
+    for k, v in form.items():
         setattr(cfg.MODEL, k, v)
     weights = os.path.join(OUT_DIR, f"{path}_weights.npz")
     made = _ff_variant_weights(torch, config_from_yaml(cfg), weights)
@@ -2193,23 +2252,31 @@ def ff_variant_train_phase(torch, card: str, held: set) -> tuple:
     ms = float(np.median(step_ms[:3]))  # steps 2-4
     breakdown = _device_breakdown(torch, st["prof"], st["profiled_ms"])
     breakdown["idle_share_of_unprofiled_step"] = max(0.0, 1 - breakdown["device_busy_ms"] / ms)
-    with open(os.path.join(OUT_DIR, "chip_smoke_profile_train_ff_variant.txt"), "w") as f:
-        f.write(st["prof"].key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    _profile_table(st["prof"], os.path.join(OUT_DIR, f"chip_smoke_profile_{path}.txt"))
     st["prof"] = None
 
     ch, cw = th // 2, tw // 2
     two = {k: torch.as_tensor(np.stack([data[i][k][:ch, :cw] for i in range(2)]))
            for k in ("image1", "image2", "mask1", "mask2", "flow", "valid")}
+    acfg, aweights = cfg, weights
+    if agree_model:
+        acfg = copy.deepcopy(cfg)
+        for k, v in agree_model.items():
+            setattr(acfg.MODEL, k, v)
+        aweights = os.path.join(OUT_DIR, f"{path}_agree_weights.npz")
+        _ff_variant_weights(torch, config_from_yaml(acfg), aweights)
+        acfg.MODEL.PRETRAIN = aweights
     t0 = time.perf_counter()
-    cpu_loss, cpu_grad = _two_sample_grads(torch, cfg, weights, two, "cpu", torch.float32)
+    cpu_loss, cpu_grad = _two_sample_grads(torch, acfg, aweights, two, "cpu", torch.float32)
     cpu_s = time.perf_counter() - t0
     reset_launch_counts()
-    f32_loss, f32_grad = _two_sample_grads(torch, cfg, weights, two, dev, torch.float32)
+    f32_loss, f32_grad = _two_sample_grads(torch, acfg, aweights, two, dev, torch.float32)
     for key, n in launch_shapes.items():
         st["seen"][key] = st["seen"].get(key, 0) + n
     agree = dict(cpu_f32_loss=cpu_loss, card_f32_loss=f32_loss,
                  f32_loss_rel=abs(f32_loss - cpu_loss) / abs(cpu_loss),
                  f32_grad_cosine=_cosine(torch, f32_grad, cpu_grad), crop=[ch, cw],
+                 model=agree_model or "the phase's",
                  cpu_f32_step_seconds=cpu_s, f32_card_flags="TF32 off for the script")
     if not (agree["f32_loss_rel"] <= 1e-4 and agree["f32_grad_cosine"] >= 0.9999):
         raise AssertionError(f"{path} training agreement: {agree}")
@@ -2219,7 +2286,7 @@ def ff_variant_train_phase(torch, card: str, held: set) -> tuple:
     new = sorted((k for k in st["seen"] if k not in held), key=str)
     new_rows = [dict(_hold_shape(torch, g, dev, k), launches=st["seen"][k]) for k in new]
     out = dict(phase="ff_variant_train", path=path, card=card,
-               yaml=os.path.relpath(FF_TRAIN_YAML, ROOT), set=FF_VARIANT_TRAIN, batch=b,
+               yaml=os.path.relpath(FF_TRAIN_YAML, ROOT), set=form, batch=b,
                crop=[th, tw], iters=int(cfg.MODEL.decoder_depth), dtype="bfloat16",
                steps=VARIANT_TRAIN_STEPS, ms_per_step=ms, step_ms=step_ms.tolist(),
                samples_per_s=b * 1e3 / ms, device_busy_ms=breakdown["device_busy_ms"],
@@ -2301,8 +2368,11 @@ def ff_variant_modules_phase(torch, card: str) -> dict:
 
 # ------------------------------------------------ phase 16: training the FF-RAFT variants
 VARIANT_STEPS = 6  # step 1 warms up, 2-4 timed, 4 counted, 5 profiled
-# the attention front end's batch: the YAML's B=10 where a step's reckoned
-# peak fits under this share of the card's memory, else the largest that does
+# the attention front end's batch: 3, the largest whose step fits under
+# FIT_SHARE of the card's memory (one step's peak at B=1 and 2, about 17 GiB
+# a sample, reckoned B=4 at 68.6 of 79.18 GiB: PERF.md); its step's
+# peak is held under that share
+ATTENTION_BATCH = 3
 FIT_SHARE = 0.85
 DROPOUT_P = 0.2
 AGREE_CROP = (184, 248)
@@ -2517,26 +2587,6 @@ def _alt_corr_gates(torch, path: str, cfg, weights: str, data, seen: dict) -> di
     return gates
 
 
-def _fitted_batch(torch, cfg, weights: str, data, seen: dict) -> dict:
-    """The largest batch up to the YAML's whose bf16 step fits: one step's
-    peak at B=1 and B=2, a line through them (fixed + per sample x B),
-    and the largest B whose reckoned peak is under FIT_SHARE of the card's
-    memory -> the reckoning."""
-    dev = torch.device("cuda", 0)
-    p1 = _one_step_peak(torch, cfg, weights, _fixed_batch(torch, data, dev, 1), seen)
-    p2 = _one_step_peak(torch, cfg, weights, _fixed_batch(torch, data, dev, 2), seen)
-    per = p2["peak_gib"] - p1["peak_gib"]
-    fixed = p1["peak_gib"] - per
-    total = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
-    fit = int((FIT_SHARE * total - fixed) // per) if per > 0 else TB
-    batch = min(TB, fit)
-    if batch < 1:
-        raise AssertionError(f"no batch fits: {p1}, {p2}, {total} GiB")
-    return dict(b1_peak_gib=p1["peak_gib"], b2_peak_gib=p2["peak_gib"], per_sample_gib=per,
-                fixed_gib=fixed, card_gib=total, share=FIT_SHARE, fits=fit, batch=batch,
-                reckoned_peak_gib=fixed + per * batch)
-
-
 def _variant_train_specs() -> dict:
     """path -> what phase 16 drives: the YAML and the MODEL and TRAIN keys
     it sets, the steps, the launches every step must make, the agreement
@@ -2589,8 +2639,8 @@ def _variant_train_specs() -> dict:
 def variant_train_phase(torch, card: str, held: set, path: str, phase9: dict) -> tuple:
     """Phase 16, one path: the trainer's body (`cli/train.py::train`) on the
     path's YAML and keys (`_variant_train_specs`) at full width, B=10 (the
-    attention front end: the largest batch up to 10 that fits,
-    `_fitted_batch`), 368x496, 12 refinements, noise, AdamW + OneCycle,
+    attention front end: ATTENTION_BATCH, its step's peak memory held
+    under FIT_SHARE of the card), 368x496, 12 refinements, noise, AdamW + OneCycle,
     bf16, on phase 9's fixed batch, from `_raft_variant_weights` (the main
     path's config: the fixture itself). Gates: finite loss and gradient
     norm at every step; every step's launches; but for dropout, on two
@@ -2607,8 +2657,8 @@ def variant_train_phase(torch, card: str, held: set, path: str, phase9: dict) ->
     step, the forward / backward / optimizer split and peak memory. Every
     (kernel, shape) launched that no row holds (`held`) is held once
     against its plain version. -> ((counts, launches by shape key) of the
-    counted step, the path's line, kernel rows of its own: phase 9's at a
-    fitted batch other than 10, else none)."""
+    counted step, the path's line, kernel rows of its own: phase 9's at
+    the attention front end's batch, else none)."""
     import copy
 
     from focusflow_official_tpu_torch.cli.train import train as run_trainer
@@ -2633,14 +2683,11 @@ def variant_train_phase(torch, card: str, held: set, path: str, phase9: dict) ->
     data = sy.chairs_layout(5, n=TB, h=TH, w=TW)
     rows = {}
     if spec["gates"] == "fit":
-        extra["batch_fit"] = _fitted_batch(torch, cfg, weights, data, seen)
-        _emit(dict(phase="raft_variant_train", path=path, card=card,
-                   batch_fit=extra["batch_fit"]))
-        cfg.TRAIN.BATCH_SIZE = extra["batch_fit"]["batch"]
-        data = sy.InMemoryDataset(data.samples[:cfg.TRAIN.BATCH_SIZE])
-        if cfg.TRAIN.BATCH_SIZE != TB:  # phase 9's rows at this batch
-            rows = train_kernel_rows(torch, dev, int(cfg.TRAIN.BATCH_SIZE), path)
-            held = held | {r["key"] for rs in rows.values() for r in rs}
+        cfg.TRAIN.BATCH_SIZE = ATTENTION_BATCH
+        data = sy.InMemoryDataset(data.samples[:ATTENTION_BATCH])
+        # phase 9's rows at this batch
+        rows = train_kernel_rows(torch, dev, ATTENTION_BATCH, path)
+        held = held | {r["key"] for rs in rows.values() for r in rs}
     batch = int(cfg.TRAIN.BATCH_SIZE)
     freeze = spec["gates"] == "freeze_bn"
     if spec["gates"] == "alt_corr":
@@ -2709,12 +2756,18 @@ def variant_train_phase(torch, card: str, held: set, path: str, phase9: dict) ->
                weights={k: dict(count=len(v), first=v[:2]) for k, v in made.items()}, **extra)
     breakdown = _device_breakdown(torch, st["prof"], st["profiled_ms"])
     breakdown["idle_share_of_unprofiled_step"] = max(0.0, 1 - breakdown["device_busy_ms"] / ms)
-    with open(os.path.join(OUT_DIR, f"chip_smoke_profile_{path}.txt"), "w") as f:
-        f.write(st["prof"].key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    _profile_table(st["prof"], os.path.join(OUT_DIR, f"chip_smoke_profile_{path}.txt"))
     st["prof"] = None
     out.update(device_busy_ms=breakdown["device_busy_ms"], idle_share=breakdown["idle_share"],
                profile=breakdown, split=_train_step_split(torch, cfg, weights, data, freeze))
 
+    if spec["gates"] == "fit":
+        card_gib = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+        out["batch_fit"] = dict(batch=batch, peak_gib=st["peak_gib"], card_gib=card_gib,
+                                share=FIT_SHARE)
+        if not st["peak_gib"] <= FIT_SHARE * card_gib:
+            raise AssertionError(f"{path}: B={batch} peaks at {st['peak_gib']} GiB, over "
+                                 f"{FIT_SHARE} of {card_gib}")
     if spec["gates"] == "alt_corr":
         out["descent"] = dict(_descent_gate(path, before, st["after"]),
                               phase9_ratio=phase9["descent"]["ratio"])
@@ -3579,8 +3632,7 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
     breakdown = _device_breakdown(torch, st["prof"], st["profiled_ms"])
     # the profiler slows the host: the busy share of an unprofiled step too
     breakdown["idle_share_of_unprofiled_step"] = max(0.0, 1 - breakdown["device_busy_ms"] / ms)
-    with open(os.path.join(OUT_DIR, spec["profile"]), "w") as f:
-        f.write(st["prof"].key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    _profile_table(st["prof"], os.path.join(OUT_DIR, spec["profile"]))
     st["prof"] = None
     split = _train_step_split(torch, cfg, weights, data)
 
@@ -4016,8 +4068,7 @@ def device_aug_phase(torch, card: str, phase9: dict) -> tuple:
                  and span.start <= e.time_range.start < span.end) / 1e3
     aug_host_range_ms = sum(e.device_time_total for e in events if e.name == "device_aug"
                             and e.device_type == DeviceType.CPU) / 1e3
-    with open(os.path.join(OUT_DIR, "chip_smoke_profile_train_aug.txt"), "w") as f:
-        f.write(st["prof"].key_averages().table(sort_by="self_device_time_total", row_limit=60))
+    _profile_table(st["prof"], os.path.join(OUT_DIR, "chip_smoke_profile_train_aug.txt"))
     st["prof"] = None
     out["train"] = dict(
         yaml=os.path.relpath(TRAIN_YAML, ROOT), batch=TB, raw=[384, 512], crop=[TH, TW],
@@ -4164,7 +4215,6 @@ def ddp_phase(torch, card: str, held: set, phase9: dict) -> tuple:
     import socket
 
     import torch.distributed as dist
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from focusflow_official_tpu_torch.cli.train import train as run_trainer
@@ -4266,8 +4316,7 @@ def ddp_phase(torch, card: str, held: set, phase9: dict) -> tuple:
     step_ms = np.diff(st["times"]) * 1e3  # step_ms[i] is step i + 2
     ms = float(np.median(step_ms[:-1]))  # steps 2 to NCCL_STEPS - 1
     bd = _device_breakdown(torch, st["prof"], float(step_ms[-1]))
-    nccl = [e for e in st["prof"].events() if e.device_type == DeviceType.CUDA
-            and "nccl" in e.name.lower()]
+    nccl = [e for e in _kernel_events(st["prof"]) if "nccl" in e[0].lower()]
     st["prof"] = None
     _emit(dict(phase="ddp", card=card, gloo_two_ranks=dict(
         backend="gloo", world=DDP_WORLD, device="cuda:0", batch=DDP_B, crop=list(DDP_CROP),
@@ -4282,13 +4331,230 @@ def ddp_phase(torch, card: str, held: set, phase9: dict) -> tuple:
                                             idle_share=bd["idle_share"],
                                             kernels=bd["kernel_count"],
                                             nccl_kernels=len(nccl),
-                                            nccl_ms=sum(e.time_range.end - e.time_range.start
-                                                        for e in nccl) / 1e3,
+                                            nccl_ms=sum(end - start for _, start, end in nccl)
+                                            / 1e3,
                                             ms_by_category=bd["ms_by_category"]),
                          phase9_busy_ms=phase9["profile"]["device_busy_ms"]),
         phase_seconds=time.perf_counter() - t_phase))
     torch.cuda.empty_cache()
     return st["counted"]
+
+
+# ------------------------------------------------ phase 17: the query-sharded volume
+SHARD_WORLD = 2  # two gloo ranks on card 0, model extent 2
+SHARD_DEADLINE_S = 300
+SHARD_TIMED = 5
+
+
+def sharded_kernel_row(torch, dev) -> dict:
+    """Phase 17's new (kernel, shape) key, held and timed as the kernel
+    phase holds its rows: G on a rank's block of the 1024x436 queries
+    (Q = 3520 of 7040: rank 0's rows of the 55x128 grid, coordinates
+    (1, 1, 3520, 2), levels (1, 3520, 55, 128) ... in bf16, the fixture's
+    convc1) -> {kernel: rows}."""
+    from focusflow_official_tpu_torch.compat.weights import load_npz
+    from focusflow_official_tpu_torch.ops.coords import coords_grid
+    from focusflow_official_tpu_torch.ops.corr import corr_pyramid
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    bf16 = torch.bfloat16
+    h1, w1 = _grid(H, W)
+    q = h1 * w1 // SHARD_WORLD
+    sd = load_npz(FIXTURE)
+    wc = sd["flow_net.update_block.encoder.convc1.weight"].reshape(256, 324).to(dev, bf16)
+    bc = sd["flow_net.update_block.encoder.convc1.bias"].to(dev, bf16)
+    c = coords_grid(1, h1, w1, device=dev).reshape(1, 1, -1, 2)[:, :, :q]
+    coords = (c + torch.randn(c.shape, generator=g, device=dev) * 8).contiguous()
+    levels = corr_pyramid(torch.randn((1, q, h1, w1), generator=g, device=dev), 4, bf16)
+    label = f"a rank's block of the queries, {q} of {h1 * w1}"
+    row = _lookup_fold_row(torch, levels, coords, 4, wc.contiguous(), bc, label)
+    row["shape"] = (f"{label}: levels {[tuple(lv.shape) for lv in levels]} bf16, "
+                    f"(256, 324) weight")
+    _emit(dict(phase="sharded_kernels", name="lookup_fold", **row))
+    del levels
+    torch.cuda.empty_cache()
+    return {"lookup_fold": [row]}
+
+
+def shard_rank_main(rank: int, store: str, out_path: str) -> int:
+    """One rank of phase 17 (`chip_smoke.py --shard-rank R STORE OUT`): gloo
+    on card 0 through a file store, a mesh of model extent SHARD_WORLD
+    (`train/mesh.py::make_mesh`), FF-RAFT's bf16 `FlowPredictor` on it
+    (the volume's queries sharded). The 1024x436 pair: a warm-up, one
+    counted forward, SHARD_TIMED timed ones; then one 1920x1080 forward with
+    the peak allocated memory reset just before. Each forward notes the
+    shape of every volume product the rank computed. Saved to OUT."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    import focusflow_official_tpu_torch.models.ff_raft as ff_raft
+    from focusflow_official_tpu_torch.kernels import (
+        launch_counts, launch_shapes, reset_launch_counts)
+    from focusflow_official_tpu_torch.predict import FlowPredictor
+    from focusflow_official_tpu_torch.train.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=SHARD_WORLD, timeout=datetime.timedelta(seconds=120))
+    dev = torch.device("cuda", 0)
+    products = []
+    corr_rows = ff_raft.corr_rows
+
+    def rows(f1, f2):
+        out = corr_rows(f1, f2)
+        products.append(list(out.shape))
+        return out
+
+    ff_raft.corr_rows = rows
+    try:
+        mesh = make_mesh(dev, model_axis=SHARD_WORLD)
+        p = FlowPredictor(_raft_cfg(), FIXTURE, dtype=torch.bfloat16, mesh=mesh)
+        inputs, _ = _shift_inputs(H, W)
+        p(*inputs)  # warm-up
+        torch.cuda.synchronize()
+        products.clear()
+        reset_launch_counts()
+        flow = p(*inputs)[0]
+        out = dict(rank=rank, axes=[mesh.data, mesh.data_rank, mesh.model, mesh.model_rank],
+                   flow=flow, counts=dict(launch_counts), shapes=dict(launch_shapes),
+                   products=list(products), peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        times = []
+        for _ in range(SHARD_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p(*inputs)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out.update(ms_all=times, ms_per_pair=float(np.median(times)))
+        hd, _ = _shift_inputs(*FULL_HD)
+        products.clear()
+        reset_launch_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        flow_hd = p(*hd)[0]
+        out["full_hd"] = dict(flow=flow_hd, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                              products=list(products), shapes=dict(launch_shapes))
+        torch.save(out, out_path)
+    finally:
+        ff_raft.corr_rows = corr_rows
+        dist.destroy_process_group()
+    return 0
+
+
+def sharded_phase(torch, card: str, held: set, cpu) -> tuple:
+    """Phase 17: FF-RAFT serving with the volume's queries sharded over a
+    model axis of extent 2 (`train/mesh.py::spatial_sharding`, through
+    `FlowPredictor(..., mesh=...)`): two ranks over gloo on card 0 (NCCL
+    refuses two ranks on one device), spawned as `--shard-rank` processes
+    with a file store and a 120 s timeout (`shard_rank_main`), beside one
+    process that runs the same predictor without a mesh meanwhile. Phase
+    3's pair (1024x436 padded to 1024x440, bf16, 12 refinements,
+    `trained_smoke.npz`, white noise and its (3, -2) px shift). Gates, on
+    each rank: phase 3's gates against the f32 CPU run `cpu` and the shift,
+    and phase 3's agreement bounds against the one-process bf16 flow; the
+    launches of the counted forward (G 12, at Q = 3520; C1 30, C2 30);
+    its one volume product 3520 rows of (55, 128), the two blocks together
+    the 7040 queries. At 1920x1080, B=1: each rank's flow against the
+    one process's (the agreement bounds), each rank's volume 16200 of the
+    32400 rows, and each rank's peak allocated memory under the one
+    process's by at least half the f32 level-0 volume (32400^2 x 4 B / 2).
+    Every (kernel, shape) the ranks launched that no row holds (`held`)
+    is held once against its plain version. -> (counts, launches by shape
+    key) of the two ranks' counted forwards, summed."""
+    import shutil
+
+    from focusflow_official_tpu_torch.predict import FlowPredictor
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    work = os.path.join(OUT_DIR, "sharded")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    procs = []
+    for r in range(SHARD_WORLD):
+        with open(os.path.join(work, f"rank{r}.log"), "wb") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--shard-rank", str(r),
+                 os.path.join(work, "store"), os.path.join(work, f"rank{r}.pt")],
+                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT))
+    try:  # one process, meanwhile
+        p = FlowPredictor(_raft_cfg(), FIXTURE, dtype=torch.bfloat16)
+        inputs, shift = _shift_inputs(H, W)
+        one = p(*inputs)[0]
+        hd, _ = _shift_inputs(*FULL_HD)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        one_hd = p(*hd)[0]
+        one_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del p
+        torch.cuda.empty_cache()
+        t_end = time.monotonic() + SHARD_DEADLINE_S
+        for proc in procs:
+            proc.wait(timeout=max(1.0, t_end - time.monotonic()))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for r, proc in enumerate(procs):
+        if proc.returncode != 0:
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                raise AssertionError(f"17 rank {r} exited {proc.returncode}: {f.read()[-3000:]}")
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(SHARD_WORLD)]
+    h1, w1 = _grid(H, W)
+    q = h1 * w1
+    hq = _grid(*FULL_HD)[0] * _grid(*FULL_HD)[1]
+    level0_gib = hq * hq * 4 / 2 ** 30
+    want = {"lookup_fold": ITERS, "in_stats": 30, "in_normalize": 30}
+    counts, shapes, seen, per_rank = {}, {}, {}, []
+    for r, out in enumerate(ranks):
+        got = {k: v for k, v in out["counts"].items() if v}
+        g_keys = {k: n for k, n in out["shapes"].items() if k[0] == "lookup_fold"}
+        block = len(torch.tensor_split(torch.arange(q), SHARD_WORLD)[r])
+        if got != want or [(k[2], n) for k, n in g_keys.items()] != [(block, ITERS)]:
+            raise AssertionError(f"17 rank {r}: launches {got}, G {g_keys}")
+        if out["products"] != [[1, block, h1, w1]]:
+            raise AssertionError(f"17 rank {r}: volume products {out['products']}")
+        hd_block = len(torch.tensor_split(torch.arange(hq), SHARD_WORLD)[r])
+        if out["full_hd"]["products"] != [[1, hd_block, *_grid(*FULL_HD)]]:
+            raise AssertionError(f"17 rank {r}: 1080p products {out['full_hd']['products']}")
+        gates = _gates(out["flow"], shift, cpu)
+        gates["vs_one_process"] = _agreement(out["flow"], one, f"17 rank {r} vs one process")
+        hd_gate = _agreement(out["full_hd"]["flow"], one_hd, f"17 rank {r} 1080p vs one process")
+        saved = one_peak - out["full_hd"]["peak_gib"]
+        if not saved >= level0_gib / 2:
+            raise AssertionError(f"17 rank {r}: 1080p peak {out['full_hd']['peak_gib']} GiB, "
+                                 f"one process {one_peak}: saved {saved} < {level0_gib / 2}")
+        per_rank.append(dict(rank=r, axes=out["axes"], ms_per_pair=out["ms_per_pair"],
+                             ms_all=out["ms_all"], peak_gib=out["peak_gib"],
+                             launches=out["counts"], g_shape=list(g_keys)[0][:3],
+                             volume_rows=out["products"][0], **gates,
+                             full_hd=dict(peak_gib=out["full_hd"]["peak_gib"],
+                                          one_process_peak_gib=one_peak, saved_gib=saved,
+                                          volume_rows=out["full_hd"]["products"][0],
+                                          vs_one_process=hd_gate)))
+        for k, v in out["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+        for key, n in out["shapes"].items():
+            shapes[key] = shapes.get(key, 0) + n
+        for run in (out["shapes"], out["full_hd"]["shapes"]):
+            for key, n in run.items():
+                seen[key] = seen.get(key, 0) + n
+    g = torch.Generator(device=dev).manual_seed(17)
+    new = [dict(_hold_shape(torch, g, dev, key), launches=seen[key])
+           for key in sorted(seen, key=str) if key not in held]
+    _emit(dict(phase="sharded", card=card, backend="gloo", world=SHARD_WORLD,
+               model_extent=SHARD_WORLD, device="cuda:0", shape=[1, H, W], iters=ITERS,
+               dtype="bfloat16", queries=q, ranks=per_rank,
+               full_hd=dict(shape=list(FULL_HD), f32_level0_gib=level0_gib,
+                            one_process_peak_gib=one_peak),
+               timing_note="two processes share card 0 and the host beside a third; "
+                           "ms a pair includes gloo's host copies",
+               new_shapes_held=new, phase_seconds=time.perf_counter() - t_phase))
+    torch.cuda.empty_cache()
+    return counts, shapes
 
 
 def _worst(rows: list) -> dict:
@@ -4397,8 +4663,8 @@ def _kernel_table(raft: list, ff_rows: dict, pwc_rows: list, train_rows: dict,
              "raft_concat", "flowformer", "ff_raft_alt_corr", "ff_raft_alt_corr_4k", "raft_s",
              "ff_raft_s", "raft_attention", "raft_conv", "ff_raft_train", "ff_pwcnet_train",
              "ff_flowformer_train", "raft_train", "flowformer_train", "ff_raft_train_aug",
-             "ff_raft_train_nccl1", *FF_VARIANT_PATHS, "ff_variant_train",
-             *_variant_train_specs())
+             "ff_raft_train_nccl1", *FF_VARIANT_PATHS, "ff_variant_train", "ff_patch4_train",
+             *_variant_train_specs(), "ff_raft_sharded")
     held = set()
     for kr in table:
         by_path = {path: drives[path][0].get(kr["name"], 0) for path in paths}
@@ -4498,6 +4764,8 @@ def main() -> int:
     variant_rows["ff_flowformer_variants"] = ff_variant_kernel_rows(torch, dev)
     drives.update(ff_variants_phase(torch, card))
     drives["ff_variant_train"], _ = ff_variant_train_phase(torch, card, held())
+    drives["ff_patch4_train"], _ = ff_variant_train_phase(torch, card, held(), "ff_patch4_train",
+                                                          FF_PATCH4_TRAIN, FF_PATCH4_AGREE)
     ff_variant_modules_phase(torch, card)
     _emit(dict(phase="ff_flowformer_variants", seconds=time.perf_counter() - t0))
     torch.cuda.empty_cache()
@@ -4513,6 +4781,12 @@ def main() -> int:
             train_rows[path] = rows
     _emit(dict(phase="raft_variant_train", part="total", card=card,
                seconds=time.perf_counter() - t0))
+    torch.cuda.empty_cache()
+    # phase 17: serving with the volume's queries sharded, two ranks on card 0
+    t0 = time.perf_counter()
+    variant_rows["ff_raft_sharded"] = sharded_kernel_row(torch, dev)
+    drives["ff_raft_sharded"] = sharded_phase(torch, card, held(), raft_cpu)
+    _emit(dict(phase="sharded", part="total", card=card, seconds=time.perf_counter() - t0))
     kernels = _kernel_table(raft_kernels, ff_rows, pwc_rows, train_rows, variant_rows, drives,
                             card)
     # the fused kernel inside the profiled FF-RAFT forward, where its inputs
@@ -4536,4 +4810,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-rank"]:  # one rank of phase 13b
         sys.exit(ddp_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--shard-rank"]:  # one rank of phase 17
+        sys.exit(shard_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

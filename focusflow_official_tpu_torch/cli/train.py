@@ -265,7 +265,7 @@ def train(cfg: ConfigNode, dataset, *, validate: Callable[[nn.Module], Dict],
     def save():
         ckpt.save(step, model, optimizer, scheduler, noise, aug_gen, drop_gen)
 
-    world, rank = (1, 0) if mesh is None else (mesh.world, mesh.rank)
+    world, rank = (1, 0) if mesh is None else (mesh.data, mesh.data_rank)
     batch_size = round_batch(cfg.TRAIN.BATCH_SIZE, world)
     if batch_size != int(cfg.TRAIN.BATCH_SIZE):
         log(f"batch size {cfg.TRAIN.BATCH_SIZE} -> {batch_size} (a multiple of {world} ranks)")

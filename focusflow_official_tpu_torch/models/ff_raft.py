@@ -9,7 +9,10 @@ whose motion encoder looks up the window and applies convc1 in one kernel
 (`kernels/lookup_fold.py`). With ALT_CORR (`alt_corr`) no volume is
 built: each step recomputes the volume's rows a chunk of queries at a time
 from the feature maps (`ops/corr.py::AltCorr`). The coordinates are
-detached at the start of every step, as the reference does. Test mode
+detached at the start of every step, as the reference does. Inside
+`train/mesh.py::spatial_sharding` with a model extent above 1, test mode
+builds only this rank's block of the volume's query rows
+(`ops/corr.py::ShardedCorr`); train mode refuses it. Test mode
 upsamples only the final low-resolution flow; train mode returns every
 step's upsampled flow, stacked. The full-width model upsamples convexly
 (the mask head runs where its output is used); the small model (`small`:
@@ -52,8 +55,9 @@ from ..nn.encoders import BasicEncoder, ChannelProject, SmallEncoder
 from ..nn.norm import Norm
 from ..nn.update import BasicUpdateBlock, SmallUpdateBlock
 from ..ops.coords import coords_grid, upflow8
-from ..ops.corr import AltCorr, all_pairs_corr, corr_pyramid
+from ..ops.corr import AltCorr, ShardedCorr, all_pairs_corr, corr_pyramid, corr_rows
 from ..ops.upsample import convex_upsample
+from ..train.mesh import query_block, shard_queries, sharded_mesh
 from .config import FFRaftConfig
 from .frontends import ConvFusionLayer, FusionLayer
 from .mask_modal import init_mask
@@ -118,6 +122,21 @@ class RAFT(nn.Module):
                 sites[name] = (frames, enc.conv2.out_channels)
         return sites
 
+    def _sharded_corr(self, fmaps: torch.Tensor, dtype: torch.dtype, mesh) -> ShardedCorr:
+        """Inside `spatial_sharding` (model extent above 1): this rank's
+        block of the level-0 queries' rows of the volume, fmap1's rows
+        times all of fmap2 in f32, and their pyramid in `dtype`; the full
+        volume is never built on a rank."""
+        if self.training:
+            raise NotImplementedError(
+                "query sharding of the correlation volume runs in test mode only: "
+                "training under it is ROADMAP's 'Query sharding in training'")
+        f1, f2 = fmaps.float().chunk(2)
+        b, h, w, c = f1.shape
+        rows = shard_queries(f1.reshape(b, h * w, c), axis=1)
+        return ShardedCorr(corr_pyramid(corr_rows(rows, f2), self.corr_levels, dtype),
+                           query_block(h * w, mesh), mesh.model_group)
+
     def forward(self, image1, image2, mask1=None, mask2=None, iters: int = 12,
                 dtype: torch.dtype = torch.float32,
                 flow_init: Optional[torch.Tensor] = None,
@@ -142,11 +161,14 @@ class RAFT(nn.Module):
             fmaps = self.fnet(images, torch.cat([mask1, mask2]), drop.get("fnet"))
         else:
             fmaps = self.fnet(images, drop.get("fnet"))
+        mesh = sharded_mesh()
         if self.alt_corr:
             corr = AltCorr(*fmaps.to(dtype).chunk(2), self.corr_levels, self.alt_corr_chunk)
-        else:
+        elif mesh is None:
             corr = corr_pyramid(all_pairs_corr(*fmaps.float().chunk(2)), self.corr_levels,
                                 dtype)
+        else:
+            corr = self._sharded_corr(fmaps, dtype, mesh)
 
         if isinstance(self.cnet, BasicParallelFusionLayer):
             cnet = self.cnet(image1, mask1, drop.get("cnet"))

@@ -12,7 +12,12 @@ never builds the volume.
   chunk's product and pyramid, whatever the frame size, in training too:
   the walk is one autograd Function that keeps only the feature maps, the
   coordinates and the weight, and whose backward walks the chunks again
-  (`alternate_corr_vjp`).
+  (`alternate_corr_vjp`);
+- `ShardedCorr` (serving under `train/mesh.py::spatial_sharding`): this
+  rank's contiguous block of the level-0 queries' rows of the volume and
+  their pyramid. Pooling runs over the key axes, so each rank pools its own
+  rows and no exchange is needed until the looked-up features are gathered
+  back into query order.
 
 The windowed lookup over the pyramid is `kernels/lookup.py` (kernel A) and,
 with convc1 applied in the same launch, `kernels/lookup_fold.py` (kernel
@@ -31,13 +36,18 @@ from ..kernels.lookup_fold import lookup_fold, lookup_fold_vjp
 from .pool import avg_pool2x2
 
 
+def corr_rows(f1: torch.Tensor, fmap2: torch.Tensor) -> torch.Tensor:
+    """Query rows f1 (B, n, C) against the NHWC map fmap2 (B, H, W, C) ->
+    the volume's rows (B, n, H, W) in their type."""
+    b, h, w, c = fmap2.shape
+    corr = torch.matmul(f1, fmap2.reshape(b, h * w, c).transpose(1, 2)) / math.sqrt(c)
+    return corr.reshape(b, f1.shape[1], h, w)
+
+
 def all_pairs_corr(fmap1: torch.Tensor, fmap2: torch.Tensor) -> torch.Tensor:
     """NHWC feature maps (B, H, W, C) -> (B, H*W, H, W) in their type."""
     b, h, w, c = fmap1.shape
-    f1 = fmap1.reshape(b, h * w, c)
-    f2 = fmap2.reshape(b, h * w, c)
-    corr = torch.matmul(f1, f2.transpose(1, 2)) / math.sqrt(c)
-    return corr.reshape(b, h * w, h, w)
+    return corr_rows(fmap1.reshape(b, h * w, c), fmap2)
 
 
 def corr_pyramid(corr: torch.Tensor, num_levels: int = 4,
@@ -49,6 +59,17 @@ def corr_pyramid(corr: torch.Tensor, num_levels: int = 4,
     for _ in range(num_levels - 1):
         pooled.append(avg_pool2x2(pooled[-1]))
     return [lv.to(dtype).contiguous() for lv in [corr] + pooled[1:]]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedCorr:
+    """A query-sharded volume: the pyramid (`corr_pyramid`) of this rank's
+    block `rows` of the level-0 queries, (B, n, H2/2^l, W2/2^l) a level,
+    and the process group of the ranks that hold the other blocks."""
+
+    levels: Sequence[torch.Tensor]
+    rows: slice
+    group: object
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,12 +204,33 @@ def alternate_corr_fold(corr: AltCorr, coords: torch.Tensor, radius: int,
                               corr.fmap1, corr.fmap2)
 
 
-def lookup_convc1(corr: Union[Sequence[torch.Tensor], AltCorr], coords: torch.Tensor,
-                  radius: int, conv: torch.nn.Conv2d) -> torch.Tensor:
+def sharded_lookup_fold(corr: ShardedCorr, coords: torch.Tensor, radius: int,
+                        weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """`lookup_fold` on a query-sharded volume: kernel G on this rank's
+    query rows and their coordinates ((B, 1, n, 2), contiguous at any B),
+    then the (B, n, O) results gathered over the model group into
+    (B, H, W, O) in query order (`train/mesh.py::gather_rows`), as
+    `coords_grid` orders the queries. Test mode only: the gather has no
+    backward."""
+    from ..train.mesh import gather_rows
+
+    b, h, w, _ = coords.shape
+    q, rows = h * w, corr.rows
+    cq = coords.reshape(b, 1, q, 2)[:, :, rows].contiguous()
+    part = lookup_fold(corr.levels, cq, radius, weight, bias)
+    return gather_rows(part.reshape(b, cq.shape[2], -1), q, rows, 1,
+                       corr.group).reshape(b, h, w, -1)
+
+
+def lookup_convc1(corr: Union[Sequence[torch.Tensor], AltCorr, ShardedCorr],
+                  coords: torch.Tensor, radius: int, conv: torch.nn.Conv2d) -> torch.Tensor:
     """The motion encoder's convc1 (a 1x1 conv over the L*(2r+1)^2 window
     channels) of the windows at `coords` (B, H, W, 2) f32 -> (B, H, W, O):
-    kernel G on the pyramid's levels, or ALT_CORR's chunks."""
+    kernel G on the pyramid's levels, on this rank's rows of a sharded one,
+    or on ALT_CORR's chunks."""
     wc = conv.weight.reshape(conv.weight.shape[0], -1)
     if isinstance(corr, AltCorr):
         return alternate_corr_fold(corr, coords, radius, wc, conv.bias)
+    if isinstance(corr, ShardedCorr):
+        return sharded_lookup_fold(corr, coords, radius, wc, conv.bias)
     return lookup_fold(corr, coords, radius, wc, conv.bias)

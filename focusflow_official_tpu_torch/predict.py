@@ -19,6 +19,12 @@ YAML path is read into one of them (`config.py`). Weights are an `.npz` of flat 
 package's `scripts/export_fixture.py` writes one from an orbax
 checkpoint) or a reference `.pth` / `.pth.tar` / `.pt`.
 
+With a `mesh` (`train/mesh.py`, one process a card under torchrun), each
+rank runs its rows of the batch (data_rank, data_rank + data, ..., the
+trainer's split) inside `spatial_sharding(mesh)`, so FF-RAFT's volume is
+query-sharded over the model axis, and every rank returns the whole
+batch's flow.
+
 Frames are padded (replicate) to a multiple of 8, run through the
 test-mode forward and unpadded; FF-PWCNet then resizes to a multiple of 64
 itself and resizes its flow back. Inputs are HWC or NHWC, uint8 or float
@@ -44,6 +50,7 @@ from .config import config_from_yaml, load_yaml_config, model_from_config
 from .models.ff_raft import DTYPES, compute_dtype
 from .ops.coords import forward_interpolate
 from .ops.padding import InputPadder
+from .train.mesh import Mesh, spatial_sharding
 
 _DTYPE_NAMES = {v: k for k, v in DTYPES.items()}
 _TORCH_SUFFIXES = (".pth", ".pth.tar", ".pt")
@@ -163,14 +170,17 @@ class FlowPredictor:
     refinements a pair (default the config's: FF-RAFT `iters`, FF-FlowFormer
     `decoder_depth`; FF-PWCNet has none). pad_to: an (H, W) that every
     input is edge-padded to first, so mixed sizes run at one shape. Runs
-    on `device` ("cuda" unless the caller asks for "cpu").
+    on `device` ("cuda" unless the caller asks for "cpu"), or on the
+    device of `mesh`, a `train/mesh.py::Mesh`: then the batch is split over
+    its data axis and the volume's queries over its model axis (module
+    docstring); every rank must call the predictor with the same inputs.
 
     An f32 predictor is full f32 on the card (`eval_forward`); bf16 runs in
     bf16 and leaves the TF32 flags as they are."""
 
     def __init__(self, cfg, weights: str, *, device="cuda",
                  dtype: Optional[torch.dtype] = None, iters: Optional[int] = None,
-                 pad_to: Optional[Tuple[int, int]] = None):
+                 pad_to: Optional[Tuple[int, int]] = None, mesh: Optional[Mesh] = None):
         if dtype is not None and dtype not in _DTYPE_NAMES:
             raise ValueError(f"dtype must be one of {list(_DTYPE_NAMES)}")
         if isinstance(cfg, (str, os.PathLike)):
@@ -179,7 +189,8 @@ class FlowPredictor:
         elif dtype is not None:
             cfg = dataclasses.replace(cfg, compute_dtype=_DTYPE_NAMES[dtype])
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(device)
         model, cfg_iters = model_from_config(cfg)
         self.iters = iters or cfg_iters
         self.pad_to = pad_to
@@ -205,8 +216,21 @@ class FlowPredictor:
         h, w = image1.shape[1:3]
         inputs = self._pad(image1, image2, mask1, mask2)
         padder = InputPadder(inputs[0].shape)
-        flow, flow_lr = eval_forward(self.model, *padder.pad(*inputs), iters=self.iters,
-                                     flow_init=flow_init)
+        inputs = padder.pad(*inputs)
+        mesh = self.mesh
+        if mesh is None:
+            flow, flow_lr = eval_forward(self.model, *inputs, iters=self.iters,
+                                         flow_init=flow_init)
+        else:
+            b = inputs[0].shape[0]
+            if b < mesh.data:
+                raise ValueError(f"a batch of {b} cannot split over {mesh.data} data ranks")
+            rows = slice(mesh.data_rank, None, mesh.data)
+            with spatial_sharding(mesh):
+                flow, flow_lr = eval_forward(
+                    self.model, *(t[rows] for t in inputs), iters=self.iters,
+                    flow_init=None if flow_init is None else flow_init[rows])
+            flow, flow_lr = mesh.gather_batch(flow, b), mesh.gather_batch(flow_lr, b)
         return padder.unpad(flow)[:, :h, :w], flow_lr
 
     def prepare(self, image1, image2, mask1=None, mask2=None):

@@ -108,7 +108,7 @@ def add_noise(image: torch.Tensor, std: torch.Tensor, gen: torch.Generator, *,
 
 
 def _shard(mesh) -> dict:
-    return dict(world=1, rank=0) if mesh is None else dict(world=mesh.world, rank=mesh.rank)
+    return dict(world=1, rank=0) if mesh is None else dict(world=mesh.data, rank=mesh.data_rank)
 
 
 def draw_dropout(model: nn.Module, gen: torch.Generator, batch: int, *, world: int = 1,

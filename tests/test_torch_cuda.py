@@ -280,6 +280,44 @@ def test_alt_corr_chunks_match_the_materialized_lookup(dev, dtype, h1, w1):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h1,w1,model", [
+    (55, 128, 2),  # 1024x436 over two ranks: blocks of 3520 queries
+    (9, 15, 4),    # 135 queries over four: blocks of 34, 34, 34 and 33
+])
+def test_lookup_fold_on_a_query_block(dev, dtype, h1, w1, model):
+    """G as a query-sharded volume launches it (`ops/corr.py::ShardedCorr`):
+    on each rank's block of the queries (`train/mesh.py::query_block`),
+    the levels the pyramid of the block's rows of the volume and the
+    coordinates (1, 1, n, 2), against its plain version and A then B
+    (`_check_lookup_fold`); and the blocks' outputs against the rows of G on
+    the whole pyramid: f32 within 1e-4 of the largest output, bf16 within
+    2e-2 (as `test_alt_corr_chunks_match_the_materialized_lookup`: the
+    block's product may take another cuBLAS kernel than the whole one)."""
+    from focusflow_official_tpu_torch.ops.corr import all_pairs_corr, corr_rows
+    from focusflow_official_tpu_torch.train.mesh import Mesh, query_block
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    c, q = 64, h1 * w1
+    f1, f2 = (torch.randn((1, h1, w1, c), generator=g, device=dev) for _ in range(2))
+    w = (torch.randn((256, 324), generator=g, device=dev) * 0.05).to(dtype)
+    bias = torch.randn((256,), generator=g, device=dev).to(dtype)
+    coords = _hard_coords(g, 1, h1, w1, w1, dev)
+    full = klf.lookup_fold(corr_pyramid(all_pairs_corr(f1, f2), 4, dtype), coords, 4, w,
+                           bias).reshape(1, q, -1)
+    tol = (1e-4 if dtype == torch.float32 else 2e-2) * float(full.float().abs().max())
+    sizes = []
+    for i in range(model):
+        rows = query_block(q, Mesh(i, model, torch.device("cpu"), model=model))
+        levels = corr_pyramid(corr_rows(f1.reshape(1, q, c)[:, rows], f2), 4, dtype)
+        cq = coords.reshape(1, 1, q, 2)[:, :, rows].contiguous()
+        _check_lookup_fold(levels, cq, 4, w, bias)
+        got = klf.lookup_fold(levels, cq, 4, w, bias).reshape(1, -1, 256)
+        torch.testing.assert_close(got.float(), full[:, rows].float(), rtol=0, atol=tol)
+        sizes.append(got.shape[1])
+    assert sizes == [len(p) for p in torch.tensor_split(torch.arange(q), model)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_alt_corr_backward_matches_its_plain_chunks(dev, dtype):
     """ALT_CORR's Function (`alternate_corr_fold`, backward
     `alternate_corr_vjp`) at the chairs crop's grid (46x62, B=2: chunks of

@@ -1,6 +1,8 @@
-"""One train step of FF-FlowFormer's combined variant form (MLP-Mixer
-latent layers, ConvNext vertical layers, no GMA) in the port against the
-JAX package's `train/loop.py::make_train_step`, in f32 on the CPU: two
+"""One train step of FF-FlowFormer's variant forms in the port against the
+JAX package's `train/loop.py::make_train_step`, in f32 on the CPU, for
+each of `TRAIN_FORMS`: the combined form (MLP-Mixer latent layers,
+ConvNext vertical layers, no GMA) and patch size 4 (`"patch4"` of
+`test_torch_ff_variants.py`, every other field at its default); two
 samples of the multi-pixel affine input (`data/synthetic.py`) at 64x64,
 encoder depth 1, 2 refinements, the sequence MixLoss of
 `configs/smoke_flowformer.yaml`, AdamW with global clip 1.0 under
@@ -35,17 +37,20 @@ from focusflow_official_tpu_torch.losses import build_sequence_loss
 from focusflow_official_tpu_torch.models import FFFlowFormer
 from focusflow_official_tpu_torch.train.loop import build_optimizer, train_step
 from focusflow_official_tpu_torch.train.schedule import one_cycle
-from test_torch_ff_variants import ITERS, _batch, _configs, _no_tpu_knobs, _seeded, _tree
+from test_torch_ff_variants import (
+    ITERS, VARIANTS, _batch, _configs, _no_tpu_knobs, _seeded, _tree)
 from test_torch_ff_variants import _two_threads  # noqa: F401  (autouse fixtures)
 
 LR, TOTAL, WD, EPS, CLIP = 4e-4, 103, 1e-5, 1e-8, 1.0
 LOSS = dict(kernel_size=1, sigma=0.01, lamda=1.0)  # configs/smoke_flowformer.yaml
-TRAIN_FORM = dict(use_mlp=True, vertical_conv=True, gma=False)
+TRAIN_FORMS = {"combined": dict(use_mlp=True, vertical_conv=True, gma=False),
+               "patch4": VARIANTS["patch4"]}
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def test_variant_train_step_matches_jax():
-    tcfg, jcfg = _configs(TRAIN_FORM)
+@pytest.mark.parametrize("form", list(TRAIN_FORMS))
+def test_variant_train_step_matches_jax(form):
+    tcfg, jcfg = _configs(TRAIN_FORMS[form])
     model = _seeded(FFFlowFormer(tcfg)).train()
     flat = params_to_jax(model.state_dict())
     v = _tree(flat)
@@ -70,7 +75,8 @@ def test_variant_train_step_matches_jax():
         assert abs(float(tm[k]) - jm[k]) <= 1e-5 * abs(jm[k]), (k, float(tm[k]), jm[k])
     tg = {n: p.grad.clone() for n, p in model.named_parameters()}
     assert set(tg) == set(jg)
-    assert not any(".att." in n or "aggregator" in n for n in tg)  # no GMA
+    if not TRAIN_FORMS[form].get("gma", True):
+        assert not any(".att." in n or "aggregator" in n for n in tg)
     flat_t = torch.cat([tg[n].flatten() for n in sorted(tg)]).double()
     flat_j = torch.cat([jg[n].flatten() for n in sorted(tg)]).double()
     assert float(torch.nn.functional.cosine_similarity(flat_t, flat_j, dim=0)) >= 0.9999
