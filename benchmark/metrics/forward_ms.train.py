@@ -1,0 +1,13 @@
+"""Model step (`train/loop.py::train_step`): device ms a step of the
+forward with its loss: the kernel time from the first kernel of
+`ff.step.forward` and the model's ranges inside it to the last
+(`harness/spans.py`), over the traced slice's steps."""
+
+from harness.spans import busy_us, step_phases
+
+
+def read(ctx):
+    steps = step_phases(ctx.trace) if ctx.mode == "train" else []
+    if not steps:
+        return None
+    return sum(busy_us(ctx.trace, *f) for f, _ in steps) / len(steps) / 1e3

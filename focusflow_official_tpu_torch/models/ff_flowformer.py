@@ -35,6 +35,11 @@ This port covers `fusion='parallel'` (`FFFlowFormer`) and None
 `FlowFormerConfig`, cost heads 1 (the JAX package runs no other); the
 eval-mode `forward` returns (flow_lr, flow_up) as the port's FF-RAFT does
 (the JAX model returns them the other way round).
+
+The stages are profiler ranges (`trace.py`): `ff.model.encode` over the
+masks and the context tower, and again over the memory's feature tower and
+its 1x1; `ff.model.cost` over the cost volume and the perceiver;
+`ff.model.refine` over the decoder.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from ..nn.twins import (LayerNorm, TwinsSVT2Stage, TwinsSVT2StageCCE, conv1x1_nh
                         gelu)
 from ..ops.coords import coords_grid
 from ..ops.upsample import convex_upsample
+from ..trace import span
 from .config import FlowFormerConfig
 from .ff_raft import compute_dtype
 from .mask_modal import init_mask
@@ -123,12 +129,14 @@ class MemoryEncoder(nn.Module):
     def forward(self, img1, img2, context, mask1=None, mask2=None):
         """-> (latent memory (B*Q, K, D), cost maps (B, Q, H1, W1)); the
         masks go to a CCE tower, which takes them."""
-        masks = () if mask1 is None else (torch.cat([mask1, mask2]),)
-        feats = self.feat_encoder_svt(torch.cat([img1, img2]), *masks)
-        feats = conv1x1_nhwc(self.channel_convertor, feats)
-        f1, f2 = feats.chunk(2)
-        cost_maps = cost_volume(f1, f2)
-        return self.cost_perceiver_encoder(cost_maps, context), cost_maps
+        with span("ff.model.encode"):
+            masks = () if mask1 is None else (torch.cat([mask1, mask2]),)
+            feats = self.feat_encoder_svt(torch.cat([img1, img2]), *masks)
+            feats = conv1x1_nhwc(self.channel_convertor, feats)
+        with span("ff.model.cost"):
+            f1, f2 = feats.chunk(2)
+            cost_maps = cost_volume(f1, f2)
+            return self.cost_perceiver_encoder(cost_maps, context), cost_maps
 
 
 class MemoryDecoder(nn.Module):
@@ -180,39 +188,40 @@ class MemoryDecoder(nn.Module):
         (B, H1, W1, 256) -> (flow_lr (B, H1, W1, 2), flow_up (B, 8H1, 8W1, 2))
         after `iters` refinements from `coords0 + flow_init`; in train mode
         every refinement's flow_up, stacked (iters, B, 8H1, 8W1, 2)."""
-        b, h1, w1, _ = context.shape
-        d = cost_maps.dtype
-        context = conv1x1_nhwc(self.proj, context)
-        net = torch.tanh(context[..., :128]).permute(0, 3, 1, 2)
-        inp = torch.relu(context[..., 128:])
-        attention = self.att(inp) if self.cfg.gma else None
-        inp = inp.permute(0, 3, 1, 2)
-        k_mem = self.decoder_layer_cross_attend_k(cost_memory)
-        v_mem = self.decoder_layer_cross_attend_v(cost_memory)
+        with span("ff.model.refine"):
+            b, h1, w1, _ = context.shape
+            d = cost_maps.dtype
+            context = conv1x1_nhwc(self.proj, context)
+            net = torch.tanh(context[..., :128]).permute(0, 3, 1, 2)
+            inp = torch.relu(context[..., 128:])
+            attention = self.att(inp) if self.cfg.gma else None
+            inp = inp.permute(0, 3, 1, 2)
+            k_mem = self.decoder_layer_cross_attend_k(cost_memory)
+            v_mem = self.decoder_layer_cross_attend_v(cost_memory)
 
-        coords0 = coords_grid(b, h1, w1, device=context.device)
-        coords1 = (coords0.contiguous() if flow_init is None
-                   else (coords0 + flow_init.float()).contiguous())
-        up_mask, flows = None, []
-        for it in range(iters):
-            if self.training:
-                coords1 = coords1.detach()
-            window = lookup([cost_maps], coords1, _RADIUS)  # (B, H1, W1, 81) in d
-            cost_global = self._cost_global(window.reshape(b * h1 * w1, -1),
-                                            coords1, k_mem, v_mem)
-            net, up_mask, delta = self.update_block(
-                net, inp, cost_global.reshape(b, h1, w1, -1),
-                None if self.cfg.only_global else window,
-                (coords1 - coords0).to(d), attention,
-                mask_needed=self.training or it == iters - 1)
-            coords1 = coords1 + delta.float()
-            if self.training:
-                flows.append(convex_upsample(coords1 - coords0, up_mask.float()))
+            coords0 = coords_grid(b, h1, w1, device=context.device)
+            coords1 = (coords0.contiguous() if flow_init is None
+                       else (coords0 + flow_init.float()).contiguous())
+            up_mask, flows = None, []
+            for it in range(iters):
+                if self.training:
+                    coords1 = coords1.detach()
+                window = lookup([cost_maps], coords1, _RADIUS)  # (B, H1, W1, 81) in d
+                cost_global = self._cost_global(window.reshape(b * h1 * w1, -1),
+                                                coords1, k_mem, v_mem)
+                net, up_mask, delta = self.update_block(
+                    net, inp, cost_global.reshape(b, h1, w1, -1),
+                    None if self.cfg.only_global else window,
+                    (coords1 - coords0).to(d), attention,
+                    mask_needed=self.training or it == iters - 1)
+                coords1 = coords1 + delta.float()
+                if self.training:
+                    flows.append(convex_upsample(coords1 - coords0, up_mask.float()))
 
-        if self.training:
-            return torch.stack(flows)
-        flow_lr = coords1 - coords0
-        return flow_lr, convex_upsample(flow_lr, up_mask.float())
+            if self.training:
+                return torch.stack(flows)
+            flow_lr = coords1 - coords0
+            return flow_lr, convex_upsample(flow_lr, up_mask.float())
 
 
 class FlowFormer(nn.Module):
@@ -250,9 +259,10 @@ class FlowFormer(nn.Module):
             raise ValueError(f"iters must be >= 1, got {iters}: the last "
                              "refinement makes the upsampling mask")
         d = compute_dtype(cfg)
-        masks = self._masks(image1, image2, mask1, mask2)
-        image1, image2 = ((2 * (t / 255.0) - 1.0).to(d) for t in (image1, image2))
-        context = self.context_encoder_svt(image1, *masks[:1])
+        with span("ff.model.encode"):
+            masks = self._masks(image1, image2, mask1, mask2)
+            image1, image2 = ((2 * (t / 255.0) - 1.0).to(d) for t in (image1, image2))
+            context = self.context_encoder_svt(image1, *masks[:1])
         memory, cost_maps = self.memory_encoder(image1, image2, context, *masks)
         return self.memory_decoder(memory, cost_maps, context, iters, flow_init)
 

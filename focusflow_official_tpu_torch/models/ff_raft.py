@@ -41,6 +41,11 @@ autograd Function whose backward walks the chunks again
 f32; a bf16 forward takes its convolutions' weights in bf16
 (`train/loop.py::compute_params` casts them at use for training,
 `FlowPredictor` casts the module once for inference).
+
+The stages are profiler ranges (`trace.py`): `ff.model.encode` over the
+masks and front end, then the fnet, and again over the cnet, which runs
+after the volume as in the reference; `ff.model.cost` over the volume and
+its pyramid; `ff.model.refine` over the refinements and the upsampling.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from ..nn.update import BasicUpdateBlock, SmallUpdateBlock
 from ..ops.coords import coords_grid, upflow8
 from ..ops.corr import AltCorr, ShardedCorr, all_pairs_corr, corr_pyramid, corr_rows
 from ..ops.upsample import convex_upsample
+from ..trace import span
 from ..train.mesh import query_block, shard_queries, sharded_mesh
 from .config import FFRaftConfig
 from .frontends import ConvFusionLayer, FusionLayer
@@ -149,53 +155,56 @@ class RAFT(nn.Module):
         keep masks of each of `dropout_sites` (train mode, a rate above 0)."""
         if iters < 1:
             raise ValueError(f"iters must be >= 1, got {iters}")
-        image1, image2 = image1.to(dtype), image2.to(dtype)
-        if mask1 is not None:
-            mask1, mask2 = mask1.to(dtype), mask2.to(dtype)
-
         drop = dropout or {}
-        images = torch.cat([image1, image2])
-        if hasattr(self, "channel_pjt"):
-            fmaps = self.channel_pjt(images)
-        elif isinstance(self.fnet, BasicParallelFusionLayer):
-            fmaps = self.fnet(images, torch.cat([mask1, mask2]), drop.get("fnet"))
-        else:
-            fmaps = self.fnet(images, drop.get("fnet"))
+        with span("ff.model.encode"):
+            image1, image2 = image1.to(dtype), image2.to(dtype)
+            if mask1 is not None:
+                mask1, mask2 = mask1.to(dtype), mask2.to(dtype)
+            images = torch.cat([image1, image2])
+            if hasattr(self, "channel_pjt"):
+                fmaps = self.channel_pjt(images)
+            elif isinstance(self.fnet, BasicParallelFusionLayer):
+                fmaps = self.fnet(images, torch.cat([mask1, mask2]), drop.get("fnet"))
+            else:
+                fmaps = self.fnet(images, drop.get("fnet"))
         mesh = sharded_mesh()
-        if self.alt_corr:
-            corr = AltCorr(*fmaps.to(dtype).chunk(2), self.corr_levels, self.alt_corr_chunk)
-        elif mesh is None:
-            corr = corr_pyramid(all_pairs_corr(*fmaps.float().chunk(2)), self.corr_levels,
-                                dtype)
-        else:
-            corr = self._sharded_corr(fmaps, dtype, mesh)
+        with span("ff.model.cost"):
+            if self.alt_corr:
+                corr = AltCorr(*fmaps.to(dtype).chunk(2), self.corr_levels, self.alt_corr_chunk)
+            elif mesh is None:
+                corr = corr_pyramid(all_pairs_corr(*fmaps.float().chunk(2)), self.corr_levels,
+                                    dtype)
+            else:
+                corr = self._sharded_corr(fmaps, dtype, mesh)
 
-        if isinstance(self.cnet, BasicParallelFusionLayer):
-            cnet = self.cnet(image1, mask1, drop.get("cnet"))
-        else:
-            cnet = self.cnet(image1, drop.get("cnet"))
-        cnet = cnet.permute(0, 3, 1, 2)
-        net = torch.tanh(cnet[:, :self.hdim])
-        inp = torch.relu(cnet[:, self.hdim:])
+        with span("ff.model.encode"):  # the cnet after the volume, as the reference orders it
+            if isinstance(self.cnet, BasicParallelFusionLayer):
+                cnet = self.cnet(image1, mask1, drop.get("cnet"))
+            else:
+                cnet = self.cnet(image1, drop.get("cnet"))
+            cnet = cnet.permute(0, 3, 1, 2)
+            net = torch.tanh(cnet[:, :self.hdim])
+            inp = torch.relu(cnet[:, self.hdim:])
 
-        b, h, w = fmaps.shape[0] // 2, *fmaps.shape[1:3]
-        coords0 = coords_grid(b, h, w, device=fmaps.device)
-        coords1 = coords0.clone() if flow_init is None else coords0 + flow_init.float()
-        up_mask, flows = None, []
-        for it in range(iters):
-            coords1 = coords1.detach()
-            flow = (coords1 - coords0).to(dtype)
-            net, up_mask, delta = self.update_block(
-                net, inp, corr, coords1.contiguous(), flow,
-                mask_needed=self.training or it == iters - 1)
-            coords1 = coords1 + delta.float()
+        with span("ff.model.refine"):
+            b, h, w = fmaps.shape[0] // 2, *fmaps.shape[1:3]
+            coords0 = coords_grid(b, h, w, device=fmaps.device)
+            coords1 = coords0.clone() if flow_init is None else coords0 + flow_init.float()
+            up_mask, flows = None, []
+            for it in range(iters):
+                coords1 = coords1.detach()
+                flow = (coords1 - coords0).to(dtype)
+                net, up_mask, delta = self.update_block(
+                    net, inp, corr, coords1.contiguous(), flow,
+                    mask_needed=self.training or it == iters - 1)
+                coords1 = coords1 + delta.float()
+                if self.training:
+                    flows.append(self.upsample(coords1 - coords0, up_mask))
+
             if self.training:
-                flows.append(self.upsample(coords1 - coords0, up_mask))
-
-        if self.training:
-            return torch.stack(flows)
-        flow_lr = coords1 - coords0
-        return flow_lr, self.upsample(flow_lr, up_mask)
+                return torch.stack(flows)
+            flow_lr = coords1 - coords0
+            return flow_lr, self.upsample(flow_lr, up_mask)
 
 
 class FFRaft(nn.Module):
@@ -233,19 +242,20 @@ class FFRaft(nn.Module):
             iters = cfg.iters
         dtype = compute_dtype(cfg)
         scale = lambda t: 2 * (t / 255.0) - 1.0
-        if cfg.fusion is None:
-            mask1 = mask2 = None
-        else:
-            mask1, mask2 = init_mask(
-                image1, image2, mask1, mask2, mask_modal=cfg.mask_modal,
-                mask_channel=cfg.mask_channel, mask_dilate=cfg.mask_dilate,
-                kernel_size=cfg.kernel_size, kernel_sigma=cfg.kernel_sigma)
-            mask1, mask2 = scale(mask1), scale(mask2)
-        image1, image2 = scale(image1), scale(image2)
-        if hasattr(self, "fusion_layer"):  # each frame with its mask, as the reference
-            image1 = self.fusion_layer(image1.to(dtype), mask1.to(dtype))
-            image2 = self.fusion_layer(image2.to(dtype), mask2.to(dtype))
-            mask1 = mask2 = None
+        with span("ff.model.encode"):
+            if cfg.fusion is None:
+                mask1 = mask2 = None
+            else:
+                mask1, mask2 = init_mask(
+                    image1, image2, mask1, mask2, mask_modal=cfg.mask_modal,
+                    mask_channel=cfg.mask_channel, mask_dilate=cfg.mask_dilate,
+                    kernel_size=cfg.kernel_size, kernel_sigma=cfg.kernel_sigma)
+                mask1, mask2 = scale(mask1), scale(mask2)
+            image1, image2 = scale(image1), scale(image2)
+            if hasattr(self, "fusion_layer"):  # each frame with its mask, as the reference
+                image1 = self.fusion_layer(image1.to(dtype), mask1.to(dtype))
+                image2 = self.fusion_layer(image2.to(dtype), mask2.to(dtype))
+                mask1 = mask2 = None
         return self.flow_net(image1, image2, mask1, mask2, iters=iters, dtype=dtype,
                              flow_init=flow_init, dropout=dropout)
 

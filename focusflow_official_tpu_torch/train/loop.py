@@ -11,7 +11,9 @@ train-mode forward (with the refinement count where the family has one),
 the loss (sequence or multiscale), the backward, a global-norm clip of
 every gradient, one AdamW step and one step of the schedule. It returns
 the loss's metrics and `grad_norm`, the norm before the clip, as 0-d
-tensors on the device.
+tensors on the device. The augmentation, the forward with its loss, the
+backward and the optimizer's part each run inside a profiler range
+(`trace.py`).
 
 Under data parallelism (a `train/mesh.py::Mesh`) the step is the global
 batch's: the augmentation, the noise and the dropout draw the global
@@ -45,6 +47,7 @@ from torch import nn
 
 from ..nn import dropout as channel_dropout
 from ..predict import CAST_MODULES, _no_tf32
+from ..trace import span
 
 # the labels of `train/surgery.py`
 LABELS = ("trainable", "encoder", "frozen")
@@ -158,9 +161,11 @@ def forward_backward(model: nn.Module, loss_fn: Callable, batch: Mapping[str, to
     parameter's `.grad`) -> (loss, metrics). In f32 both run with TF32 off
     in matmuls and convolutions, and the caller's flags are put back."""
     with _no_tf32() if dtype == torch.float32 else contextlib.nullcontext():
-        loss, metrics = forward_loss(model, loss_fn, batch, iters=iters, dtype=dtype,
-                                     noise=noise, mesh=mesh, dropout=dropout)
-        loss.backward()
+        with span("ff.step.forward"):
+            loss, metrics = forward_loss(model, loss_fn, batch, iters=iters, dtype=dtype,
+                                         noise=noise, mesh=mesh, dropout=dropout)
+        with span("ff.step.backward"):
+            loss.backward()
     return loss, metrics
 
 
@@ -179,20 +184,21 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler,
     `mesh`: this rank's `train/mesh.py::Mesh` under data parallelism, else
     None. `model` is in train mode (frozen batch norms in eval mode)."""
     optimizer.zero_grad(set_to_none=True)
-    if augment is not None:  # a profiler range of its own: its share of the step
-        with torch.profiler.record_function("device_aug"):
+    if augment is not None:
+        with span("device_aug"):
             batch = augment(aug_gen, batch, **_shard(mesh))
     _, metrics = forward_backward(model, loss_fn, batch, iters=iters, dtype=dtype, noise=noise,
                                   mesh=mesh, dropout=dropout)
-    params = [p for g in optimizer.param_groups for p in g["params"]]
-    for p in params:  # a parameter the loss does not reach takes a zero gradient
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    if mesh is not None:
-        mesh.all_reduce_grads([p.grad for p in params])
-        names = sorted(metrics)
-        metrics = dict(zip(names, mesh.global_sum(torch.stack([metrics[k] for k in names]))))
-    metrics["grad_norm"] = clip_by_global_norm([p.grad for p in params], clip)
-    optimizer.step()
-    scheduler.step()
+    with span("ff.step.optimizer"):
+        params = [p for g in optimizer.param_groups for p in g["params"]]
+        for p in params:  # a parameter the loss does not reach takes a zero gradient
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if mesh is not None:
+            mesh.all_reduce_grads([p.grad for p in params])
+            names = sorted(metrics)
+            metrics = dict(zip(names, mesh.global_sum(torch.stack([metrics[k] for k in names]))))
+        metrics["grad_norm"] = clip_by_global_norm([p.grad for p in params], clip)
+        optimizer.step()
+        scheduler.step()
     return metrics
