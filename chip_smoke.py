@@ -1215,6 +1215,127 @@ def ff_kernel_phase(torch, dev) -> dict:
     return rows
 
 
+# FF-FlowFormer's LayerNorm rows of a 4-pair 1024x436 request: the cost
+# patch embed's norm (4 x 7040 queries x 112 patches); Twins stage 1 over
+# both frames and the perceiver's latent tokens (28,160 queries x 8); Twins
+# stage 2 over both frames; the decoder's query tokens
+LN_SHAPES = ((3153920, 128), (225280, 128), (56320, 256), (28160, 64))
+LN_BATCH = 4
+
+
+def layer_norm_phase(torch, dev) -> dict:
+    """The LayerNorm kernel (`kernels/layer_norm.py`, which replaces no TPU
+    kernel) at `LN_SHAPES` in bf16, with the module's f32 weight and bias:
+    against the plain version (one bf16 ulp of the largest output), timed
+    beside it and beside `F.layer_norm` on the bf16 rows (the library's
+    yardstick, bf16 weight and bias), its bound the bytes (x read, y
+    written); the form that also writes the statistics, and the Function's
+    backward against autograd through the plain version. Then one served
+    forward of a `LN_BATCH`-pair 1024x436 request (the shipped depth 3, 12
+    refinements, fresh weights), each LayerNorm call's rows and width
+    noted by a forward hook: `_ff_launches`' 99 calls and launches; every distinct
+    (rows, C) timed, kernel and plain version, summed over the request's
+    calls -> the kernel's entry of the kernel table."""
+    import torch.nn.functional as F
+
+    from focusflow_official_tpu_torch.config import model_from_config
+    from focusflow_official_tpu_torch.kernels import launch_counts
+    from focusflow_official_tpu_torch.kernels import layer_norm as kln
+    from focusflow_official_tpu_torch.models import FlowFormerConfig
+    from focusflow_official_tpu_torch.nn.twins import LayerNorm
+    from focusflow_official_tpu_torch.ops.padding import InputPadder
+    from focusflow_official_tpu_torch.predict import eval_forward, for_inference
+
+    bf16, eps = torch.bfloat16, 1e-5
+    g = torch.Generator(device=dev).manual_seed(4)
+
+    def inputs(n, c):
+        x = (torch.randn((n, c), generator=g, device=dev) * 3 + 1).to(bf16)
+        return x, 1 + 0.1 * torch.randn(c, generator=g, device=dev), 0.1 * torch.randn(
+            c, generator=g, device=dev)
+
+    def bound(n, c):
+        return _bound_ms(2 * n * c * 2 + 2 * c * 4, 8.0 * n * c, PEAK_F32)
+
+    rows = []
+    for n, c in LN_SHAPES:
+        x, w, b = inputs(n, c)
+        y = kln.layer_norm(x, w, b, eps)
+        want = kln.layer_norm_plain(x, w, b, eps)
+        torch.cuda.synchronize()
+        err = float((y.float() - want.float()).abs().max())
+        tol = _bf16_ulp(float(want.float().abs().max()))
+        _check(f"layer_norm {n}x{c}", err, tol)
+        wb, bb = w.to(bf16), b.to(bf16)
+        row = dict(shape=[n, c], dtype="bfloat16", design=kln.design(x), max_abs_err=err,
+                   tol=tol, ms=_time_ms(torch, lambda: kln.layer_norm(x, w, b, eps)),
+                   stats_ms=_time_ms(torch, lambda: kln._rows(x, w, b, eps, stats=True)),
+                   plain_ms=_time_ms(torch, lambda: kln.layer_norm_plain(x, w, b, eps)),
+                   library_ms=_time_ms(torch, lambda: F.layer_norm(x, (c,), wb, bb, eps)),
+                   library="F.layer_norm on the bf16 rows, bf16 weight and bias")
+        row["bound_ms"], row["bound_by"] = bound(n, c)
+        gy = torch.randn((n, c), generator=g, device=dev).to(bf16)
+        _, mean, rstd = kln._rows(x, w, b, eps, stats=True)
+        row.update(_backward_check(
+            torch, lambda *t: kln.layer_norm(*t, eps), lambda *t: kln.layer_norm_plain(*t, eps),
+            [x, w, b], gy, lambda: kln.layer_norm_vjp(gy, x, mean, rstd, w, b),
+            f"layer_norm {n}x{c}"))
+        rows.append(row)
+        _emit(dict(kernel="layer_norm", path="ff_flowformer", **row))
+        del x, y, want, gy, mean, rstd
+    torch.cuda.empty_cache()
+
+    # one served request: every call's rows and width, and the launches
+    torch.manual_seed(0)
+    model, iters = model_from_config(FlowFormerConfig(compute_dtype="bfloat16"))
+    model = for_inference(model, bf16, dev)
+    calls = {}
+
+    def note(_m, args, _out):
+        key = (args[0].numel() // args[0].shape[-1], args[0].shape[-1])
+        calls[key] = calls.get(key, 0) + 1
+
+    hooks = [m.register_forward_hook(note) for m in model.modules() if isinstance(m, LayerNorm)]
+    frames = [torch.rand((LN_BATCH, H, W, 3), generator=g, device=dev) * 255 for _ in range(2)]
+    masks = [(torch.rand((LN_BATCH, H, W, 1), generator=g, device=dev) > 0.97).float() * 255
+             for _ in range(2)]
+    before = launch_counts["layer_norm"]
+    eval_forward(model, *InputPadder(frames[0].shape).pad(*frames, *masks), iters=iters)
+    launches = launch_counts["layer_norm"] - before
+    for h in hooks:
+        h.remove()
+    del model, frames, masks
+    torch.cuda.empty_cache()
+    want = _ff_launches(3, ITERS)["layer_norm"]
+    if launches != want or sum(calls.values()) != want:
+        raise AssertionError(f"layer_norm: {launches} launches, {sum(calls.values())} calls "
+                             f"in a served FF-FlowFormer forward, not {want}")
+    request = []
+    for (n, c), k in sorted(calls.items(), key=lambda kv: -kv[0][0] * kv[0][1]):
+        x, w, b = inputs(n, c)
+        request.append(dict(shape=[n, c], calls=k, ms=_time_ms(
+            torch, lambda: kln.layer_norm(x, w, b, eps)), plain_ms=_time_ms(
+            torch, lambda: kln.layer_norm_plain(x, w, b, eps)), bound_ms=bound(n, c)[0]))
+        del x
+    for row in rows:
+        row["launches"] = calls.get(tuple(row["shape"]), 0)
+    total = lambda key: sum(r_["calls"] * r_[key] for r_ in request)
+    out = dict(
+        name="layer_norm", route="cuda",
+        source="focusflow_official_tpu_torch/kernels/csrc/layer_norm.cu",
+        replaces="no TPU kernel: the port's cast, F.layer_norm in f32 and cast back",
+        **_worst(rows), ms=rows[0]["ms"], plain_ms=rows[0]["plain_ms"],
+        bound_ms=rows[0]["bound_ms"], bound_by=rows[0]["bound_by"],
+        library_ms=rows[0]["library_ms"], library=rows[0]["library"],
+        shape=f"{tuple(LN_SHAPES[0])} bf16", design=rows[0]["design"],
+        backward_ms=rows[0]["backward_ms"], plain_backward_ms=rows[0]["plain_backward_ms"],
+        per_shape=rows, served_request=dict(
+            pairs=LN_BATCH, launches=launches, calls_by_shape=request,
+            ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms")))
+    _emit(dict(phase="layer_norm", **{k: v for k, v in out.items() if k != "per_shape"}))
+    return out
+
+
 def _shift_inputs(h: int, w: int, seed: int = 0):
     """White-noise frame, its copy shifted by (3, -2), sparse masks."""
     rng = np.random.RandomState(seed)
@@ -1511,12 +1632,18 @@ def _ff_launches(encoder_depth: int, iters: int, fused: bool = True) -> dict:
     stages of the context's and the features' image and mask towers), the
     perceiver's input layer, each latent self-attention and vertical global
     layer and each decoder step; F in the 8 Twins LSAs and each vertical
-    local layer; A once and B twice a decoder step. Vanilla FlowFormer
+    local layer; A once and B twice a decoder step; the LayerNorm kernel
+    once a `nn/twins.py::LayerNorm` call: 6 a Twins stage (its patch
+    embed, two blocks of two, the GSA's keys), 3 around the perceiver's
+    input (the cost patch embed, the cross-attention's two), 8 an encoder
+    layer (two in the latent layer, four in the vertical blocks, the GSA's
+    keys and values) and 2 a decoder step. Vanilla FlowFormer
     (`fused=False`) has no mask towers: 4 GSAs and 4 LSAs."""
     towers = 8 if fused else 4
     return {"attention": towers + 1 + 2 * encoder_depth + iters,
             "window_attention": towers + encoder_depth,
-            "lookup": iters, "fold": 2 * iters}
+            "lookup": iters, "fold": 2 * iters,
+            "layer_norm": 6 * towers + 3 + 8 * encoder_depth + 2 * iters}
 
 
 def ff_end_to_end_phase(torch, card: str):
@@ -2025,12 +2152,16 @@ def _ff_variant_launches(cfg) -> dict:
     """`_ff_launches` for a variant: E loses the latent self-attention with
     `use_mlp` and the vertical global layer with `vertical_conv`, which
     also takes F's vertical local layer; B runs once a refinement (the
-    flow token alone) with `only_global`."""
+    flow token alone) with `only_global`. LayerNorm: the four ConvNext
+    blocks of a `vertical_conv` layer take two fewer than the vertical
+    blocks, a decoder step without `add_flow_token` one fewer."""
     d = cfg.encoder_depth
     want = _ff_launches(d, cfg.decoder_depth, fused=cfg.fusion is not None)
     want["attention"] -= d * (int(cfg.use_mlp) + int(cfg.vertical_conv))
     want["window_attention"] -= d * int(cfg.vertical_conv)
     want["fold"] -= cfg.decoder_depth * int(cfg.only_global)
+    want["layer_norm"] -= 2 * d * int(cfg.vertical_conv) + cfg.decoder_depth * int(
+        not cfg.add_flow_token)
     return want
 
 
@@ -4720,6 +4851,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     raft_kernels = kernel_phase(torch, dev)
     ff_rows = ff_kernel_phase(torch, dev)
+    ln_kernel = layer_norm_phase(torch, dev)
     pwc_rows = pwc_kernel_phase(torch, dev)
     torch.cuda.empty_cache()
     raft_counts, raft_profile, raft_cpu = end_to_end_phase(torch, card)
@@ -4799,6 +4931,12 @@ def main() -> int:
             raise AssertionError(f"{kr['name']}: no launch on any path")
     torch.cuda.empty_cache()
     eval_phase(torch, card, {row["key"] for kr in kernels for row in kr["per_shape"]})
+    # LayerNorm's launches have no shape key: its entry counts them by path
+    by_path = {path: counts.get("layer_norm", 0) for path, (counts, _) in drives.items()}
+    if not sum(by_path.values()):
+        raise AssertionError("layer_norm: no launch on any path")
+    kernels.append(dict(ln_kernel, card=card, launches=sum(by_path.values()),
+                        launches_by_path=by_path))
 
     _emit(dict(phase="total", seconds=time.perf_counter() - t_start))
     _emit({"kernels": kernels})

@@ -3,14 +3,15 @@
 A wrapper launches its kernel for CUDA tensors and takes the plain version
 only for CPU tensors; it calls `count_launch` once per launch, so a run can
 show which kernels carried it (`launch_counts[name]`) and at which shapes
-(`launch_shapes[(name, *shape)]`).
+(`launch_shapes[(name, *shape)]`). LayerNorm's wrapper counts its launches
+in `launch_counts` alone (`layer_norm.py`).
 """
 
 from __future__ import annotations
 
 launch_counts: dict[str, int] = {
     "lookup": 0, "fold": 0, "lookup_fold": 0, "in_stats": 0, "in_normalize": 0,
-    "local_corr": 0, "attention": 0, "window_attention": 0}
+    "local_corr": 0, "attention": 0, "window_attention": 0, "layer_norm": 0}
 # (name, *shape) -> launches; `shape` is what the wrapper passes: the sizes
 # that tell one call site's tensors from another's, and the element type
 launch_shapes: dict[tuple, int] = {}

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.attention import small_kv_attention
+from ..kernels.layer_norm import layer_norm
 from ..kernels.window_attention import window_attention
 from .fusion_units import FusionUnit
 
@@ -35,7 +36,8 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm over the last axis; statistics in f32, output in x's type."""
+    """LayerNorm over the last axis; statistics in f32, output in x's type
+    (`kernels/layer_norm.py`: one launch on the card)."""
 
     def __init__(self, features: int, eps: float = 1e-6):
         super().__init__()
@@ -44,9 +46,7 @@ class LayerNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), x.shape[-1:], self.weight.float(),
-                         self.bias.float(), self.eps)
-        return y.to(x.dtype)
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor, same: bool = False) -> torch.Tensor:

@@ -20,6 +20,7 @@ from focusflow_official_tpu_torch.kernels import attention as ka
 from focusflow_official_tpu_torch.kernels import fold as kf
 from focusflow_official_tpu_torch.kernels import instance_norm as kin
 from focusflow_official_tpu_torch.kernels import launch_counts, launch_shapes
+from focusflow_official_tpu_torch.kernels import layer_norm as kln
 from focusflow_official_tpu_torch.kernels import local_corr as klc
 from focusflow_official_tpu_torch.kernels import lookup as kl
 from focusflow_official_tpu_torch.kernels import lookup_fold as klf
@@ -1836,3 +1837,135 @@ def test_group_vertical_layer_on_card_matches_cpu(dev):
         got = layer.to(dev)(x.to(dev), (11, 13), ctx.to(dev)).cpu()
     assert launch_counts["window_attention"] == n + 1
     assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
+
+
+# FF-FlowFormer's LayerNorm rows in a 4-pair 1024x436 request: the cost
+# patch embed's norm (4 x 7040 queries x 112 patches); Twins stage 1 over
+# both frames, and the perceiver's latent tokens (28,160 queries x 8);
+# Twins stage 2; the decoder's query tokens; then a row count that no
+# block's rows divide
+LN_SHAPES = [(3153920, 128), (225280, 128), (56320, 256), (28160, 64), (225281, 128)]
+
+
+def _ln_inputs(rows, c, dtype, dev, wdtype=torch.float32, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((rows, c), generator=g, device=dev) * 3 + 1).to(dtype)
+    w = (1 + 0.1 * torch.randn(c, generator=g, device=dev)).to(wdtype)
+    b = (0.1 * torch.randn(c, generator=g, device=dev)).to(wdtype)
+    return x, w, b
+
+
+def _ln_tol(want: torch.Tensor) -> float:
+    """One bf16 ulp of the largest output (f32 statistics in another order
+    can move a rounding by one); in f32, 1e-6 of it."""
+    top = float(want.float().abs().max())
+    if want.dtype == torch.bfloat16:
+        return 2.0 ** (math.floor(math.log2(top)) - 7)
+    return 1e-6 * top
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,c", LN_SHAPES)
+def test_layer_norm_kernel(dev, dtype, rows, c):
+    """The vector entry at the main path's shapes against the plain version
+    (f32 statistics, the result cast to x's type); one launch, counted in
+    `launch_counts` and not in `launch_shapes`."""
+    x, w, b = _ln_inputs(rows, c, dtype, dev)
+    assert kln.design(x) == "vector"
+    n, shapes = launch_counts["layer_norm"], dict(launch_shapes)
+    got = kln.layer_norm(x, w, b, 1e-5)
+    assert launch_counts["layer_norm"] == n + 1 and launch_shapes == shapes
+    want = kln.layer_norm_plain(x, w, b, 1e-5)
+    assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=_ln_tol(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case,c,entries", [  # the entry in bf16, in f32
+    ("vector", 128, ("vector", "vector")),
+    ("idle lanes", 96, ("vector", "vector")),  # 12 vectors over 16 lanes; f32 24 over 32
+    ("three vectors a lane", 520, ("vector", "scalar")),  # bf16: 65 vectors; f32: 130
+    ("odd C", 37, ("scalar", "scalar")),
+    ("misaligned x", 64, ("scalar", "scalar")),
+    ("wide rows", 2048, ("scalar", "scalar")),  # past 128 vectors
+    ("bf16 weights", 256, ("vector", "vector")),
+])
+def test_layer_norm_each_entry(dev, dtype, case, c, entries):
+    rows = 1003
+    wdtype = torch.bfloat16 if case == "bf16 weights" else torch.float32
+    x, w, b = _ln_inputs(rows, c, dtype, dev, wdtype, seed=3)
+    if case == "misaligned x":  # a contiguous view one element past a 16-byte boundary
+        flat = torch.empty(rows * c + 8, dtype=dtype, device=dev)
+        x = flat[1:1 + rows * c].view(rows, c).copy_(x)
+    assert kln.design(x) == entries[dtype == torch.float32]
+    got = kln.layer_norm(x, w, b, 1e-6)
+    want = kln.layer_norm_plain(x, w, b, 1e-6)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=_ln_tol(want))
+
+
+def test_layer_norm_strided_input_and_refusals(dev):
+    """A strided x is read as its contiguous copy; weight, bias and x of
+    another type or device are refused before any launch."""
+    x, w, b = _ln_inputs(300, 128, torch.bfloat16, dev)
+    xt = x.reshape(150, 2, 128).transpose(0, 1)
+    torch.testing.assert_close(kln.layer_norm(xt, w, b, 1e-5).float(),
+                               kln.layer_norm_plain(xt, w, b, 1e-5).float(), rtol=0,
+                               atol=_ln_tol(kln.layer_norm_plain(xt, w, b, 1e-5)))
+    n = launch_counts["layer_norm"]
+    for args in ((x.half(), w, b), (x, w.cpu(), b), (x, w, b.bfloat16()), (x, w[:64], b[:64])):
+        with pytest.raises(ValueError):
+            kln.layer_norm(*args, 1e-5)
+    assert launch_counts["layer_norm"] == n
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,c", [(225280, 128), (28160, 64), (1003, 37)])
+def test_layer_norm_backward(dev, dtype, rows, c):
+    """The Function's gradients for x, weight and bias against autograd
+    through the plain version: within one bf16 ulp of the largest plain
+    gradient (2^-7 of it), f32 within 1e-5 of it; the saved statistics
+    within 1e-6 of the aten op's."""
+    x, w, b = _ln_inputs(rows, c, dtype, dev, seed=5)
+    g = torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(6),
+                    device=dev).to(dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    got = torch.autograd.grad(kln.layer_norm(*leaves, 1e-5), leaves, g)
+    ref = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    want = torch.autograd.grad(kln.layer_norm_plain(*ref, 1e-5), ref, g)
+    share = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    for a, e in zip(got, want):
+        assert a.dtype == e.dtype and torch.isfinite(a).all()
+        tol = share * float(e.float().abs().max())
+        torch.testing.assert_close(a.float(), e.float(), rtol=0, atol=tol)
+    _, mean, rstd = kln._rows(x, w, b, 1e-5, stats=True)
+    _, m_ref, r_ref = torch.ops.aten.native_layer_norm(x.float(), [c], w, b, 1e-5)
+    torch.testing.assert_close(mean, m_ref, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(rstd, r_ref, rtol=1e-6, atol=0)
+
+
+def test_serving_forwards_launch_layer_norm_once_a_call(dev):
+    """One FF-FlowFormer serving forward at 4 x 436 x 1024 (the benchmark's
+    request, padded to 440; encoder depth 3, 12 refinements) launches the
+    LayerNorm kernel 99 times; an FF-RAFT forward, which has no such norm,
+    none."""
+    from focusflow_official_tpu_torch.config import model_from_config
+    from focusflow_official_tpu_torch.models import FFRaftConfig, FlowFormerConfig
+    from focusflow_official_tpu_torch.ops.padding import InputPadder
+    from focusflow_official_tpu_torch.predict import eval_forward, for_inference
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    frames = [torch.rand((4, 436, 1024, 3), generator=g, device=dev) * 255 for _ in range(2)]
+    masks = [(torch.rand((4, 436, 1024, 1), generator=g, device=dev) > 0.97).float() * 255
+             for _ in range(2)]
+    inputs = InputPadder(frames[0].shape).pad(*frames, *masks)
+    for cfg, want in ((FlowFormerConfig(compute_dtype="bfloat16"), 99),
+                      (FFRaftConfig(fuse_cnet=True, compute_dtype="bfloat16"), 0)):
+        torch.manual_seed(0)
+        model, iters = model_from_config(cfg)
+        model = for_inference(model, torch.bfloat16, dev)
+        n, shapes = launch_counts["layer_norm"], dict(launch_shapes)
+        flow, _ = eval_forward(model, *inputs, iters=iters)
+        assert torch.isfinite(flow).all()
+        assert launch_counts["layer_norm"] - n == want
+        assert not [k for k in launch_shapes if k[0] == "layer_norm"]
+        del model, flow
