@@ -1,0 +1,14 @@
+"""ALT_CORR walk (`ops/corr.py::_AltCorrFold.forward`): device ms a request
+of the chunks' `corr_pyramid` (the f32 copy of a chunk's rows, the three
+2x2 means, the casts back), the kernel time inside the device spans of
+`ff.corr.pyramid` (one a chunk walked, 64 a refinement at 3840x2160) over
+the traced slice. A program without the span reads nothing."""
+
+from harness.sweep import kernel_seconds_within
+
+
+def read(ctx):
+    if ctx.mode != "serve":
+        return None
+    s = kernel_seconds_within(ctx.trace, "ff.corr.pyramid")
+    return 1e3 * s / ctx.slice_steps if s > 0 else None

@@ -4,7 +4,9 @@ A wrapper launches its kernel for CUDA tensors and takes the plain version
 only for CPU tensors; it calls `count_launch` once per launch, so a run can
 show which kernels carried it (`launch_counts[name]`) and at which shapes
 (`launch_shapes[(name, *shape)]`). LayerNorm's wrapper counts its launches
-in `launch_counts` alone (`layer_norm.py`).
+in `launch_counts` alone (`layer_norm.py`). `walk_counts` counts the chunks
+of ALT_CORR's forward walk and the queries in them
+(`ops/corr.py::_AltCorrFold`); it is no kernel's and has no shape key.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ launch_counts: dict[str, int] = {
 # (name, *shape) -> launches; `shape` is what the wrapper passes: the sizes
 # that tell one call site's tensors from another's, and the element type
 launch_shapes: dict[tuple, int] = {}
+walk_counts: dict[str, int] = {"chunks": 0, "queries": 0}
 
 
 def count_launch(name: str, *shape) -> None:
@@ -27,3 +30,5 @@ def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
     launch_shapes.clear()
+    for name in walk_counts:
+        walk_counts[name] = 0

@@ -12,7 +12,9 @@ never builds the volume.
   chunk's product and pyramid, whatever the frame size, in training too:
   the walk is one autograd Function that keeps only the feature maps, the
   coordinates and the weight, and whose backward walks the chunks again
-  (`alternate_corr_vjp`);
+  (`alternate_corr_vjp`). The forward walk opens a profiler range for each
+  chunk's product, pyramid and lookup (`trace.py`) and counts its chunks
+  and queries (`kernels.walk_counts`);
 - `ShardedCorr` (serving under `train/mesh.py::spatial_sharding`): this
   rank's contiguous block of the level-0 queries' rows of the volume and
   their pyramid. Pooling runs over the key axes, so each rank pools its own
@@ -32,7 +34,9 @@ from typing import Sequence, Union
 
 import torch
 
+from ..kernels import walk_counts
 from ..kernels.lookup_fold import lookup_fold, lookup_fold_vjp
+from ..trace import span
 from .pool import avg_pool2x2
 
 
@@ -93,11 +97,10 @@ def _alt_operands(fmap1: torch.Tensor, fmap2: torch.Tensor, dt: torch.dtype):
     return f1, f2t
 
 
-def _chunk_levels(f1, f2t, s: int, n: int, h2: int, w2: int, num_levels: int, dt):
-    """The pyramid of queries s..s+n: their rows of the volume (one product,
-    accumulated in f32) pooled by `corr_pyramid`."""
-    b = f1.shape[0]
-    return corr_pyramid(torch.matmul(f1[:, s:s + n], f2t).reshape(b, n, h2, w2), num_levels, dt)
+def _chunk_product(f1, f2t, s: int, n: int, h2: int, w2: int) -> torch.Tensor:
+    """The volume's rows of queries s..s+n, (B, n, H2, W2): one product,
+    accumulated in f32, in the operands' type."""
+    return torch.matmul(f1[:, s:s + n], f2t).reshape(f1.shape[0], n, h2, w2)
 
 
 def _unpool_add(g: torch.Tensor, finer: torch.Tensor) -> torch.Tensor:
@@ -136,7 +139,7 @@ def alternate_corr_vjp(corr: AltCorr, coords: torch.Tensor, radius: int,
     dbias = torch.zeros(weight.shape[:1], dtype=torch.float32, device=weight.device)
     for s in range(0, q, corr.chunk):
         n = min(corr.chunk, q - s)
-        levels = _chunk_levels(f1, f2t, s, n, h2, w2, corr.num_levels, dt)
+        levels = corr_pyramid(_chunk_product(f1, f2t, s, n, h2, w2), corr.num_levels, dt)
         dlevels, _, dw, db = lookup_fold_vjp(levels, cq[:, :, s:s + n].contiguous(), radius,
                                              weight, gq[:, :, s:s + n])
         del levels
@@ -167,9 +170,16 @@ class _AltCorrFold(torch.autograd.Function):
         outs = []
         for s in range(0, q, chunk):
             n = min(chunk, q - s)
-            levels = _chunk_levels(f1, f2t, s, n, h2, w2, num_levels, dt)
-            outs.append(lookup_fold(levels, cq[:, :, s:s + n].contiguous(), radius, weight,
-                                    bias))
+            walk_counts["chunks"] += 1
+            walk_counts["queries"] += n
+            with span("ff.corr.product"):
+                rows = _chunk_product(f1, f2t, s, n, h2, w2)
+            with span("ff.corr.pyramid"):
+                levels = corr_pyramid(rows, num_levels, dt)
+            del rows
+            with span("ff.corr.lookup"):
+                outs.append(lookup_fold(levels, cq[:, :, s:s + n].contiguous(), radius,
+                                        weight, bias))
             del levels
         return torch.cat(outs, dim=2).reshape(b, h, w, -1)
 

@@ -7,7 +7,12 @@ the range as a host event, and as a device span from its first kernel to
 its last. With no profiler it is one check that returns a shared null
 context, so an untraced step or request pays nothing for it. A span never
 synchronizes and never launches work; none opens inside a per-iteration
-loop or a kernel wrapper.
+loop or a kernel wrapper, with one exception: ALT_CORR's chunk walk
+(`ops/corr.py::_AltCorrFold.forward`) opens the three `ff.corr.*` spans in
+every chunk it walks. A chunk carries about 4 ms of device work at
+3840x2160 (64 chunks of 2048 queries, 12 refinements), and the walk's
+stages are invisible without them; untraced, the 2,304 checks of a 4K
+request cost about 1.6 ms of its 3.3 s.
 
 `SPANS`, where each opens:
 - `ff.step.forward`: the noise, the dropout draw, the weights' casts, the
@@ -21,10 +26,14 @@ loop or a kernel wrapper.
   fnet, the cnet; FF-FlowFormer: the masks and the context tower, the
   memory's feature tower), more than once a forward;
 - `ff.model.cost`: the volume and its pyramid, or the latent cost memory;
-- `ff.model.refine`: the refinements and the upsampling.
+- `ff.model.refine`: the refinements and the upsampling;
+- `ff.corr.product`, `ff.corr.pyramid`, `ff.corr.lookup`: in each chunk of
+  ALT_CORR's forward walk, the chunk's matrix product, its `corr_pyramid`
+  (the f32 copy, the 2x2 means and the casts) and kernel G on it. The
+  materialized volume opens none of them.
 
 The model spans nest in `ff.step.forward` in training and in the caller's
-range in serving.
+range in serving; the walk's nest in `ff.model.refine`.
 """
 
 from __future__ import annotations
@@ -34,7 +43,8 @@ import contextlib
 import torch
 
 SPANS = ("ff.step.forward", "ff.step.backward", "ff.step.optimizer", "device_aug",
-         "ff.model.encode", "ff.model.cost", "ff.model.refine")
+         "ff.model.encode", "ff.model.cost", "ff.model.refine",
+         "ff.corr.product", "ff.corr.pyramid", "ff.corr.lookup")
 
 _OFF = contextlib.nullcontext()
 

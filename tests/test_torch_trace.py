@@ -9,6 +9,10 @@ the CPU.
   twice, once a tower), the model's inside `ff.step.forward`, and the
   step's phases in their order.
 - `FlowPredictor` records the three model ranges inside its call.
+- ALT_CORR's forward walk records each of the three `ff.corr.*` ranges
+  once a chunk walked, inside `ff.model.refine`, and counts its chunks and
+  queries in `kernels.walk_counts`; the materialized volume records none
+  of them and counts nothing.
 - With no profiler a span is the shared null context and never enters
   `record_function`.
 - The loss, the parameters after the step and the served flows are
@@ -24,7 +28,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from focusflow_official_tpu_torch import trace
+from focusflow_official_tpu_torch import kernels, trace
 from focusflow_official_tpu_torch.compat.weights import load_npz
 from focusflow_official_tpu_torch.data.device_aug import DeviceFlowAugmentor
 from focusflow_official_tpu_torch.data.synthetic import chairs_layout
@@ -39,6 +43,7 @@ FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 B, RAW, CROP, ITERS = 2, (80, 112), (64, 96), 2
 KEYS = ("image1", "image2", "mask1", "mask2", "flow", "valid")
 MODEL_SPANS = ("ff.model.encode", "ff.model.cost", "ff.model.refine")
+WALK_SPANS = ("ff.corr.product", "ff.corr.pyramid", "ff.corr.lookup")
 FAMILIES = {
     "ff_raft": (lambda: FFRaftConfig(fusion="parallel", fuse_cnet=True, iters=ITERS),
                 FFRaft, "trained_smoke.npz", 3),
@@ -110,7 +115,8 @@ def test_a_train_step_records_each_span(family):
                               "ff.step.optimizer": 1, "device_aug": 1,
                               "ff.model.encode": FAMILIES[family][3], "ff.model.cost": 1,
                               "ff.model.refine": 1})
-    assert set(counts) == set(trace.SPANS)
+    # every range but ALT_CORR's walk, which the materialized volume never opens
+    assert set(counts) == set(trace.SPANS) - set(WALK_SPANS)
     phases = {r[0]: r for r in ours if r[0] not in MODEL_SPANS}
     order = ["device_aug", "ff.step.forward", "ff.step.backward", "ff.step.optimizer"]
     assert all(phases[a][2] <= phases[b][1] for a, b in zip(order, order[1:]))
@@ -165,3 +171,29 @@ def test_the_profiler_changes_no_value(family):
     untraced = p(*inputs)
     with profile(activities=[ProfilerActivity.CPU]):
         np.testing.assert_array_equal(p(*inputs), untraced)
+
+
+@pytest.mark.parametrize("alt_corr", [True, False])
+def test_the_alt_corr_walk_records_its_spans_once_a_chunk(alt_corr):
+    """A 64x96 pair has 8 x 12 = 96 queries: chunks of 40 walk 3 a
+    refinement (the last a tail of 16)."""
+    cfg = FFRaftConfig(fusion="parallel", fuse_cnet=True, iters=ITERS, alt_corr=alt_corr,
+                       alt_corr_chunk=40)
+    model = FFRaft(cfg)
+    model.load_state_dict(load_npz(os.path.join(FIXTURES, "trained_smoke.npz")), strict=True)
+    batch = _raw_batch()
+    inputs = [batch[k][:1, :64, :96] for k in KEYS[:4]]
+    kernels.reset_launch_counts()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        model.eval()(*inputs)
+    walked = 3 * ITERS if alt_corr else 0
+    assert kernels.walk_counts == {"chunks": walked, "queries": 96 * ITERS if alt_corr else 0}
+    found = _ranges(prof, _ours)
+    counts = Counter(n for n, _, _ in found)
+    assert {n: counts[n] for n in WALK_SPANS} == dict.fromkeys(WALK_SPANS, walked)
+    (refine,) = [r for r in found if r[0] == "ff.model.refine"]
+    assert all(_inside(r, refine) for r in found if r[0] in WALK_SPANS)
+    walk = [r[0] for r in found if r[0] in WALK_SPANS]
+    assert walk == list(WALK_SPANS) * walked
+    kernels.reset_launch_counts()
+    assert kernels.walk_counts == {"chunks": 0, "queries": 0}
