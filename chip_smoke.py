@@ -219,7 +219,9 @@ Phases (any failure raises and exits non-zero; no result is printed):
     ALT_CORR (the main path's config, `trained_smoke.npz`, phase 3's pair)
     at 1024x436: the shift gate, agreement with its f32 CPU run and with
     the card's materialized bf16 flow (phase 3's bounds, the margin
-    printed), G 12 a chunk of 2048 and 12 on the tail, peak memory beside
+    printed), G and the chunk pyramid 12 a chunk of 2048 and 12 on the tail,
+    the pyramid bit-equal to `corr_pyramid` at the 4K chunk and tail and
+    timed beside it (`pyramid_phase`, before phase 3), peak memory beside
     the materialized run's; at 1920x1080 ALT_CORR against the materialized
     bf16 flow on the same pair; at 3840x2160 (phase 3's white noise and
     shift): finite flow, the shift gate, peak allocated memory under
@@ -1336,6 +1338,56 @@ def layer_norm_phase(torch, dev) -> dict:
     return out
 
 
+def pyramid_phase(torch, dev) -> dict:
+    """The chunk pyramid kernel (`kernels/pyramid.py`, which replaces no TPU
+    kernel) at ALT_CORR's 3840x2160 chunk and tail: bf16 rows (1, n, 270,
+    480), four levels, every level equal to `corr_pyramid`'s on the same
+    rows to the bit (the plain version, timed beside it as `plain_ms`); its
+    bound the bytes (the rows read once, levels 1-3 written once). The
+    request's sum: 63 chunks and the tail, 12 refinements each."""
+    from focusflow_official_tpu_torch.kernels import pyramid as kp
+    from focusflow_official_tpu_torch.ops.corr import corr_pyramid
+
+    bf16, levels = torch.bfloat16, 4
+    gh, gw = _grid(*FOUR_K)
+    q = gh * gw
+    g = torch.Generator(device=dev).manual_seed(6)
+    rows = []
+    for n in _alt_chunks(q):
+        x = (torch.randn((1, n, gh, gw), generator=g, device=dev) * 4).to(bf16)
+        got, want = kp.pyramid(x, levels, bf16), corr_pyramid(x, levels, bf16)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a.view(torch.int16), e.view(torch.int16))
+                   for a, e in zip(got, want)):
+            raise AssertionError(f"pyramid (1, {n}, {gh}, {gw}): not corr_pyramid's bits")
+        del got, want
+        cells = sum((gh >> lv) * (gw >> lv) for lv in range(1, levels))
+        row = dict(shape=[1, n, gh, gw], dtype="bfloat16", levels=levels,
+                   design=kp.design(x, levels), bit_equal=True,
+                   chunks_a_request=ITERS * (q // n if n == ALT_CHUNK else 1),
+                   ms=_time_ms(torch, lambda: kp.pyramid(x, levels, bf16)),
+                   plain_ms=_time_ms(torch, lambda: corr_pyramid(x, levels, bf16), reps=5))
+        row["bound_ms"], row["bound_by"] = _bound_ms(n * (gh * gw + cells) * 2,
+                                                     4.0 * n * cells, PEAK_F32)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        _emit(dict(kernel="pyramid", path="ff_raft_alt_corr_4k", **row))
+        del x
+        torch.cuda.empty_cache()
+    total = lambda key: sum(r_["chunks_a_request"] * r_[key] for r_ in rows)
+    out = dict(
+        name="pyramid", route="cuda",
+        source="focusflow_official_tpu_torch/kernels/csrc/pyramid.cu",
+        replaces="no TPU kernel: corr_pyramid's f32 copy, three avg_pool2x2 and casts",
+        max_abs_err=0.0, tol=0.0, ms=rows[0]["ms"], plain_ms=rows[0]["plain_ms"],
+        bound_ms=rows[0]["bound_ms"], bound_by=rows[0]["bound_by"],
+        shape=f"{tuple(rows[0]['shape'])} bf16", design=rows[0]["design"], per_shape=rows,
+        request=dict(launches=sum(r_["chunks_a_request"] for r_ in rows), ms=total("ms"),
+                     plain_ms=total("plain_ms"), bound_ms=total("bound_ms")))
+    _emit(dict(phase="pyramid", **{k: v for k, v in out.items() if k != "per_shape"}))
+    return out
+
+
 def _shift_inputs(h: int, w: int, seed: int = 0):
     """White-noise frame, its copy shifted by (3, -2), sparse masks."""
     rng = np.random.RandomState(seed)
@@ -2010,7 +2062,8 @@ def variants_phase(torch, card: str, held: set) -> dict:
         *inputs)[0])
     mat_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     q = int(np.prod(_grid(H, W)))
-    want = {"lookup_fold": ITERS * -(-q // ALT_CHUNK), "in_stats": 30, "in_normalize": 30}
+    want = {"lookup_fold": ITERS * -(-q // ALT_CHUNK), "pyramid": ITERS * -(-q // ALT_CHUNK),
+            "in_stats": 30, "in_normalize": 30}
     p = FlowPredictor(alt, FIXTURE, device="cuda", dtype=bf16)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2043,7 +2096,8 @@ def variants_phase(torch, card: str, held: set) -> dict:
     hd_gates = _agreement(hd["alt_corr"], hd["materialized"], "ALT_CORR vs materialized, 1080p")
     inputs, shift = _shift_inputs(*FOUR_K)
     q4 = int(np.prod(_grid(*FOUR_K)))
-    want = {"lookup_fold": ITERS * -(-q4 // ALT_CHUNK), "in_stats": 30, "in_normalize": 30}
+    want = {"lookup_fold": ITERS * -(-q4 // ALT_CHUNK), "pyramid": ITERS * -(-q4 // ALT_CHUNK),
+            "in_stats": 30, "in_normalize": 30}
     p = FlowPredictor(alt, FIXTURE, device="cuda", dtype=bf16)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2728,8 +2782,8 @@ def _variant_train_specs() -> dict:
     return {
         "alt_corr_train": dict(
             yaml=TRAIN_YAML, model=dict(ALT_CORR=True), train={}, steps=TRAIN_STEPS,
-            want={"lookup_fold": 2 * ITERS, "lookup": 2 * ITERS, "in_stats": 30,
-                  "in_normalize": 30}, agree=AGREE_CROP, gates="alt_corr"),
+            want={"lookup_fold": 2 * ITERS, "lookup": 2 * ITERS, "pyramid": 4 * ITERS,
+                  "in_stats": 30, "in_normalize": 30}, agree=AGREE_CROP, gates="alt_corr"),
         "raft_s_train": dict(
             yaml=RAFT_CTK_YAML, model=dict(SMALL=True), train={}, steps=VARIANT_STEPS,
             want={"lookup_fold": ITERS, "lookup": ITERS, "in_stats": 21, "in_normalize": 21},
@@ -4852,6 +4906,7 @@ def main() -> int:
     raft_kernels = kernel_phase(torch, dev)
     ff_rows = ff_kernel_phase(torch, dev)
     ln_kernel = layer_norm_phase(torch, dev)
+    pyramid_kernel = pyramid_phase(torch, dev)
     pwc_rows = pwc_kernel_phase(torch, dev)
     torch.cuda.empty_cache()
     raft_counts, raft_profile, raft_cpu = end_to_end_phase(torch, card)
@@ -4936,6 +4991,12 @@ def main() -> int:
     if not sum(by_path.values()):
         raise AssertionError("layer_norm: no launch on any path")
     kernels.append(dict(ln_kernel, card=card, launches=sum(by_path.values()),
+                        launches_by_path=by_path))
+    # so do the chunk pyramid's: ALT_CORR's paths alone launch it
+    by_path = {path: counts.get("pyramid", 0) for path, (counts, _) in drives.items()}
+    if not sum(by_path.values()):
+        raise AssertionError("pyramid: no launch on any path")
+    kernels.append(dict(pyramid_kernel, card=card, launches=sum(by_path.values()),
                         launches_by_path=by_path))
 
     _emit(dict(phase="total", seconds=time.perf_counter() - t_start))

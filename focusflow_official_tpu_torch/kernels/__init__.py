@@ -3,8 +3,9 @@
 A wrapper launches its kernel for CUDA tensors and takes the plain version
 only for CPU tensors; it calls `count_launch` once per launch, so a run can
 show which kernels carried it (`launch_counts[name]`) and at which shapes
-(`launch_shapes[(name, *shape)]`). LayerNorm's wrapper counts its launches
-in `launch_counts` alone (`layer_norm.py`). `walk_counts` counts the chunks
+(`launch_shapes[(name, *shape)]`). LayerNorm's and the chunk pyramid's
+wrappers count their launches in `launch_counts` alone (`layer_norm.py`,
+`pyramid.py`). `walk_counts` counts the chunks
 of ALT_CORR's forward walk and the queries in them
 (`ops/corr.py::_AltCorrFold`); it is no kernel's and has no shape key.
 """
@@ -13,7 +14,8 @@ from __future__ import annotations
 
 launch_counts: dict[str, int] = {
     "lookup": 0, "fold": 0, "lookup_fold": 0, "in_stats": 0, "in_normalize": 0,
-    "local_corr": 0, "attention": 0, "window_attention": 0, "layer_norm": 0}
+    "local_corr": 0, "attention": 0, "window_attention": 0, "layer_norm": 0,
+    "pyramid": 0}
 # (name, *shape) -> launches; `shape` is what the wrapper passes: the sizes
 # that tell one call site's tensors from another's, and the element type
 launch_shapes: dict[tuple, int] = {}

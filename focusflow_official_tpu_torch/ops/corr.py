@@ -4,7 +4,9 @@ never builds the volume.
 - `all_pairs_corr`: corr[b, q, y, x] = <fmap1[b, q], fmap2[b, y, x]> / sqrt(C),
   one batched matrix product in f32;
 - `corr_pyramid`: 2x2 average pooling with floor semantics over the target
-  axes, computed in f32 and stored in the compute type;
+  axes, computed in f32 and stored in the compute type; `chunk_pyramid`,
+  ALT_CORR's: the same levels to the bit, from one launch of the pyramid
+  kernel on the card (`kernels/pyramid.py`);
 - `AltCorr` (MODEL.ALT_CORR): the two feature maps in the compute type in
   place of the pyramid. Each refinement, `alternate_corr_fold` walks the
   queries in chunks: the chunk's rows of the volume (one matrix product),
@@ -36,6 +38,7 @@ import torch
 
 from ..kernels import walk_counts
 from ..kernels.lookup_fold import lookup_fold, lookup_fold_vjp
+from ..kernels.pyramid import pyramid
 from ..trace import span
 from .pool import avg_pool2x2
 
@@ -63,6 +66,18 @@ def corr_pyramid(corr: torch.Tensor, num_levels: int = 4,
     for _ in range(num_levels - 1):
         pooled.append(avg_pool2x2(pooled[-1]))
     return [lv.to(dtype).contiguous() for lv in [corr] + pooled[1:]]
+
+
+def chunk_pyramid(rows: torch.Tensor, num_levels: int, dtype: torch.dtype) -> list[torch.Tensor]:
+    """ALT_CORR's pyramid of a chunk's rows (B, n, H2, W2) in the compute
+    type `dtype`: `corr_pyramid`'s levels, from one launch of the pyramid
+    kernel on the card (bit-equal, no f32 copy of the rows or levels in
+    device memory), `corr_pyramid` itself on the CPU. No autograd: the
+    walk calls it inside its Function, forward and backward alike, so both
+    look up the same levels."""
+    if rows.device.type == "cpu":
+        return corr_pyramid(rows, num_levels, dtype)
+    return pyramid(rows, num_levels, dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,7 +154,7 @@ def alternate_corr_vjp(corr: AltCorr, coords: torch.Tensor, radius: int,
     dbias = torch.zeros(weight.shape[:1], dtype=torch.float32, device=weight.device)
     for s in range(0, q, corr.chunk):
         n = min(corr.chunk, q - s)
-        levels = corr_pyramid(_chunk_product(f1, f2t, s, n, h2, w2), corr.num_levels, dt)
+        levels = chunk_pyramid(_chunk_product(f1, f2t, s, n, h2, w2), corr.num_levels, dt)
         dlevels, _, dw, db = lookup_fold_vjp(levels, cq[:, :, s:s + n].contiguous(), radius,
                                              weight, gq[:, :, s:s + n])
         del levels
@@ -175,7 +190,7 @@ class _AltCorrFold(torch.autograd.Function):
             with span("ff.corr.product"):
                 rows = _chunk_product(f1, f2t, s, n, h2, w2)
             with span("ff.corr.pyramid"):
-                levels = corr_pyramid(rows, num_levels, dt)
+                levels = chunk_pyramid(rows, num_levels, dt)
             del rows
             with span("ff.corr.lookup"):
                 outs.append(lookup_fold(levels, cq[:, :, s:s + n].contiguous(), radius,
@@ -195,7 +210,7 @@ def alternate_corr_fold(corr: AltCorr, coords: torch.Tensor, radius: int,
                         weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """convc1 of the looked-up windows without the all-pairs volume: for
     each chunk of queries, the chunk's (chunk, H2*W2) product with fmap2,
-    its `corr_pyramid`, and kernel G on those levels and the chunk's
+    its `chunk_pyramid`, and kernel G on those levels and the chunk's
     coordinates -> (B, H, W, O) in the weight's type, as
     `lookup_fold(corr_pyramid(all_pairs_corr(...)), ...)` gives.
 

@@ -1969,3 +1969,111 @@ def test_serving_forwards_launch_layer_norm_once_a_call(dev):
         assert launch_counts["layer_norm"] - n == want
         assert not [k for k in launch_shapes if k[0] == "layer_norm"]
         del model, flow
+
+
+def _pyramid_rows(seed, shape, dtype, dev):
+    """Chunk rows whose values span 2^-20 to 2^20 (so that any other order
+    of a cell's four additions rounds otherwise somewhere), with exact
+    zeros and a 2x2 cell of -0 in each map."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=dev)
+    x = x * torch.exp2(torch.randint(-20, 21, shape, generator=g, device=dev).float())
+    x[torch.rand(shape, generator=g, device=dev) < 0.01] = 0.0
+    x[..., :2, :2] = -0.0
+    return x.to(dtype)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _check_pyramid(rows, num_levels, dtype, entry):
+    """The kernel's levels against `corr_pyramid` on the same rows, bit for
+    bit (the sign of zero too); one launch counted, no shape key."""
+    from focusflow_official_tpu_torch.kernels import pyramid as kp
+
+    assert kp.design(rows, num_levels) == entry
+    n, shapes = launch_counts["pyramid"], dict(launch_shapes)
+    got = kp.pyramid(rows, num_levels, dtype)
+    assert launch_counts["pyramid"] == n + 1 and launch_shapes == shapes
+    want = corr_pyramid(rows, num_levels, dtype)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == num_levels
+    for lv, (a, e) in enumerate(zip(got, want)):
+        assert a.dtype == e.dtype == dtype and a.shape == e.shape and a.is_contiguous()
+        assert torch.equal(_bits(a), _bits(e)), f"level {lv}"
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,num_levels,entry", [
+    ((1, 2048, 270, 480), 4, "vector"),  # a 3840x2160 chunk
+    ((1, 576, 270, 480), 4, "vector"),   # its tail
+    ((1, 2048, 55, 128), 4, "vector"),   # a 1024x436 chunk
+    ((2, 804, 46, 62), 4, "scalar"),     # the chairs crop's training tail, B=2
+    ((2, 5, 9, 11), 4, "scalar"),        # tiny odd maps
+    ((2, 5, 7, 9), 3, "scalar"),
+    ((1, 3, 13, 5), 3, "scalar"),
+    ((3, 4, 15, 16), 4, "vector"),       # a band of 4 rows and one of 2
+    ((3, 4, 15, 17), 3, "scalar"),
+    ((1, 7, 6, 11), 2, "scalar"),
+])
+def test_pyramid_kernel_equals_corr_pyramid(dev, seed, dtype, shape, num_levels, entry):
+    _check_pyramid(_pyramid_rows(seed, shape, dtype, dev), num_levels, dtype, entry)
+
+
+def test_pyramid_misaligned_rows_take_the_scalar_entry(dev):
+    src = _pyramid_rows(4, (2, 96, 55, 128), torch.bfloat16, dev)
+    flat = torch.empty(src.numel() + 1, dtype=src.dtype, device=dev)
+    rows = flat[1:].view(src.shape)  # contiguous, 2 bytes past a 16-byte boundary
+    rows.copy_(src)
+    _check_pyramid(rows, 4, torch.bfloat16, "scalar")
+
+
+def test_pyramid_refusals(dev):
+    """A strided view, a type other than bf16 or f32, levels in another type
+    than the rows', a level of no cell and more levels than G looks up are
+    refused before any launch; one level launches nothing."""
+    from focusflow_official_tpu_torch.kernels import pyramid as kp
+
+    rows = _pyramid_rows(5, (1, 4, 16, 24), torch.bfloat16, dev)
+    n = launch_counts["pyramid"]
+    for args in ((rows.transpose(-1, -2), 4, torch.bfloat16), (rows.half(), 4, torch.float16),
+                 (rows, 4, torch.float16), (rows, 4, torch.float32),
+                 (rows[..., :7, :].contiguous(), 4, torch.bfloat16),
+                 (rows, 5, torch.bfloat16)):
+        with pytest.raises(ValueError, match="pyramid"):
+            kp.pyramid(*args)
+    (only,) = kp.pyramid(rows, 1, torch.bfloat16)
+    assert only is rows and launch_counts["pyramid"] == n
+
+
+def test_alt_corr_4k_walk_is_unchanged_and_launches_768(dev):
+    """One served FF-RAFT forward with ALT_CORR at 3840x2160 (B=1, bf16, 12
+    refinements, chunks of 2048, seeded weights): 768 pyramid launches (64
+    chunks x 12), as many chunks walked, and the flow equal, bit for bit, to
+    the same forward with `corr_pyramid` as the walk's pyramid."""
+    from unittest import mock
+
+    from focusflow_official_tpu_torch.config import model_from_config
+    from focusflow_official_tpu_torch.kernels import reset_launch_counts, walk_counts
+    from focusflow_official_tpu_torch.models import FFRaftConfig
+    from focusflow_official_tpu_torch.ops import corr as corr_ops
+    from focusflow_official_tpu_torch.predict import eval_forward, for_inference
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    frames = [torch.rand((1, 2160, 3840, 3), generator=g, device=dev) * 255 for _ in range(2)]
+    masks = [(torch.rand((1, 2160, 3840, 1), generator=g, device=dev) > 0.97).float() * 255
+             for _ in range(2)]
+    torch.manual_seed(0)
+    model, iters = model_from_config(FFRaftConfig(fuse_cnet=True, alt_corr=True,
+                                                  compute_dtype="bfloat16"))
+    model = for_inference(model, torch.bfloat16, dev)
+    reset_launch_counts()
+    flow, flow_lr = eval_forward(model, *frames, *masks, iters=iters)
+    assert launch_counts["pyramid"] == 768 and walk_counts["chunks"] == 768
+    assert torch.isfinite(flow).all()
+    with mock.patch.object(corr_ops, "chunk_pyramid", corr_pyramid):
+        want, want_lr = eval_forward(model, *frames, *masks, iters=iters)
+    assert launch_counts["pyramid"] == 768
+    assert torch.equal(flow, want) and torch.equal(flow_lr, want_lr)
