@@ -1,330 +1,124 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one NVIDIA card and check it: FF-RAFT,
-FF-FlowFormer and FF-PWCNet inference, the evaluation entry point, the
-training of all three, the paper's baselines (plain RAFT, vanilla
-FlowFormer) and fusion ablation (CA, SA, concat), training at scale
-(the on-card augmentation, data parallelism), the FF-RAFT variants
-(ALT_CORR up to 4K, the small model, the attention and conv front ends),
-FF-FlowFormer's variants (MLP-Mixer, ConvNext, no GMA, only-global,
-patch size 4, no encoder residual, no flow token; group attention and the
-position encodings as modules; patch size 4 trained too), the training of
-every FF-RAFT variant (ALT_CORR with its chunked backward, RAFT-S,
-FF-RAFT-S, the front ends, FREEZE_BN, dropout) and FF-RAFT serving with
-the correlation volume's queries sharded over two ranks.
+"""Check the PyTorch/CUDA port on one NVIDIA card and time its kernels alone.
 
     python3 chip_smoke.py
 
-Phases (any failure raises and exits non-zero; no result is printed):
+The script does two jobs. It holds each hand-written kernel at the shapes
+the port's paths give it against its plain PyTorch version and times it
+alone (the rows of `PERF.md` §6's kernel table). And it runs every path of
+the port on the card through its gates: the launches a forward or step
+makes, agreement with the port's f32 run on the CPU, descent, memory.
+Whole-path rates, latencies, busy time and idle shares are the
+benchmark's (`BENCHMARK.json`, `benchmark/`); this script measures none.
+Any failed check raises and exits non-zero. Needs one card.
 
-1. Print the card's name and power limit (nvidia-smi) and build the CUDA
-   kernels from `focusflow_official_tpu_torch/kernels/csrc/` (one nvcc per
-   source, in parallel), printing the build time.
-2. For each kernel, at the shapes the two paths give it: the largest
-   |kernel - plain PyTorch version| against a stated tolerance, the
-   kernel's median time over CUDA events, the plain version's time, the
-   time of one PyTorch yardstick call, and the least time the card could
-   take (bytes over 3.35 TB/s or operations over the type's peak; the
-   attentions' products at the bf16 tensor-core peak, and as a third term
-   their exponentials, one a score, on 16 special-function lanes a clock an
-   SM). One JSON line per kernel and shape: A-C2 and the fused lookup +
-   convc1 at the FF-RAFT shapes (A bit-equal to its plain version; the
-   fused kernel with the launch plan it ran, beside A then B, and once
-   more in f32, where it must equal them to the bit; B once more in f32),
-   then A (one level, bit-equal to its plain version), B (K = 81), E
-   (small-kv attention) and F
-   (7x7 window attention) at every distinct FF-FlowFormer shape (E: the
-   Twins GSAs at both stages and batch sizes, the vertical global layer,
-   the perceiver's input and self-attention, the decoder, and one shape in
-   f32; F: the Twins LSAs at both stages and batch sizes, the vertical
-   local layer), then D (local
-   correlation) at FF-PWCNet's five decoder levels in bf16 and at one of
-   them in f32, and in its fused form (the decoder's leaky ReLU in the
-   epilogue, which the path runs) at the five levels, each bit-equal to the
-   plain-form kernel then F.leaky_relu and timed beside those two launches
-   (`two_step_ms`). D's rows name the launch plan they ran
-   (`kernels/local_corr.py::plan`). E's, F's, B's and D's rows say which
-   entry of the kernel ran
-   (`design`: `mma` on the tensor cores, `fma` on the f32 units, and for
-   E `staged` and `tiled`): every bf16 path shape of B, D and F and every
-   N >= 64 one of E must say `mma`, E's N < 64 shapes `staged` (with its
-   launch plan), and the tensor-core entries of E and F and every bf16 row
-   of E are held at every output to their `bf16_bound`. C1's and C2's rows name their entry
-   (`vector`: 16-byte accesses); C1's time the whole one-launch call. C2
-   runs in its plain form and in its residual form (relu(r + y), the
-   ResidualBlock's shortcut) at each shape, each bit-equal to its plain
-   version, the residual form also to the plain-form kernel then
-   PyTorch's add and ReLU; its yardstick there is three calls
-   (F.instance_norm, add, ReLU).
-3. FF-RAFT end to end through `FlowPredictor`: a 1024x436 frame pair and
-   keypoint masks, B=1, 12 iterations, bf16, the trained fixture weights.
-   The flow must be finite, recover the known constant shift (interior
-   EPE < 6 px) and track the port's f32 run on the CPU on the same inputs
-   (mean |diff| < 0.05 max(mean |flow|, 1), median < 0.1 px). Every
-   kernel's launch count over one forward must match the path (the fused
-   lookup + convc1 12, instance-norm stats 30, normalize 30 of which 12
-   in the residual form, A and B 0), and the profiled forward must show
-   30 kernels of C1 and 30 of C2.
-   Prints ms per frame pair. The profile lists each port kernel's launches
-   and mean time inside the forward; the fused kernel's goes into its
-   table entry as `in_forward` (the kernel phase repeats one call's inputs
-   on a warm L2, the forward does not).
-   Then the same pair through an f32 `FlowPredictor` under PyTorch's
-   default TF32 flags (set for the phase, put back after): TF32 must be
-   off inside its forward and the flags as they were after it, and the
-   flow must pass the same gates against the same f32 CPU run.
-4. FF-FlowFormer end to end through `FlowPredictor`, the same way: a
-   textured 1024x436 frame and its (3, -2) px shift, B=1, 12 refinements,
-   bf16, the trained fixture (`trained_smoke_ff.npz`, encoder_depth 1), the
-   same three gates against a full-size f32 CPU run, and the launch counts
-   (lookup 12, fold 24, attention 23, window attention 9).
-5. FF-FlowFormer at the shipped depth (encoder_depth 3) on weights drawn
-   from a seeded `torch.Generator`: finite flow, attention 27 and window
-   attention 11 launches, ms per pair and device busy ms. Timing only.
-6. FF-PWCNet end to end through `FlowPredictor`: the same textured pair,
-   raw 0-255 inputs resized to 1024x448 inside, B=1, bf16, the trained
-   fixture (`trained_smoke_pwc.npz`). Finite flow that tracks the f32 CPU
-   run within the same bounds (the margin printed: mean |diff| over its
-   limit), and exactly 5 launches of D, all in the fused form, 5 in the
-   profile too (the kernel count and D's profile time printed). No shift gate:
-   this fixture predicts about the zero-flow baseline on any probe, so the
-   agreement with the f32 run carries correctness.
-7. A `{"kernels": [...]}` line, then the last line
-   `{"ok": true, "device": {...}}`. Each wrapper counts a launch under its
-   kernel's name and under a key of the call's shape; phase 2 notes the key
-   of every shape it holds, and the table reads each shape's launches from
-   the counted forwards of phases 3 to 6 and the counted training step of
-   phase 9 by that key, with launches x (ms - bound). A path that launched
-   a shape which phase 2 (or phase 9's rows) does not hold fails. (The line
-   is printed after phase 8, which is not one of its drives.)
-8. The evaluation entry point (`eval_phase`): the validation protocol of
-   `train/evaluate.py` on in-memory FlyingChairs (4 pairs, 384x512),
-   Sintel (one 5-frame scene at 436x1024, clean and a blurred, noisy
-   final) and KITTI (3 pairs at 375x1242, one at 370x1224, sparse valid)
-   layouts of a multi-pixel input: smoothed textured noise under exact
-   affine warps (`data/synthetic.py`). bf16: FF-RAFT through chairs (12
-   refinements), Sintel and KITTI (32), the warm-started Sintel sequence
-   and the KITTI submission writer; FF-FlowFormer and FF-PWCNet through
-   chairs. Each dataset's metrics beside the zero-flow baseline's, its
-   ms a pair (median of three runs) and the device breakdown of one more,
-   profiled run. Gates: finite metrics; the first pair
-   of each FF-RAFT layout and the second Sintel pair from the same
-   `flow_init` track the f32 CPU run (phase 3's bounds, and AEPE and
-   keypoint EPE within 0.05 max(AEPE, 1) px). Every (kernel, shape) the
-   phase launched that phase 2 does not hold is checked once against its
-   plain version, untimed, and listed.
+The build. Phase 1 prints the card's name and power limit (nvidia-smi)
+and builds the CUDA kernels from `focusflow_official_tpu_torch/kernels/csrc/`
+(one nvcc per source, in parallel), each kernel's registers and spills.
 
-9. FF-RAFT training (`train_kernel_rows`, `train_phase`), before the
-   kernels line: G, A, C1 and C2 at the training step's shapes (B=10 at
-   368x496, bf16; the fnet at B=20), held and timed as in phase 2, each
-   with its Function's backward: the gradients against autograd through
-   the plain version on the card and the backward's time beside
-   autograd's through the plain version. Then the trainer's body
-   (`cli/train.py::train`) on `ffraft_chairs_orb.yaml` at full width (B=10,
-   368x496 crops, 12 refinements, MixLoss, noise, the cnet's batch norm in
-   train mode, AdamW + OneCycle, bf16) from the trained fixture, NUM_STEPS
-   cut to 16, on one fixed batch of in-memory multi-pixel affine pairs
-   with 3% keypoint masks. Gates: finite loss and gradient norm at every
-   step; every step launches G 12, A 12 (in G's backward), C1 30 and C2 30
-   (12 residual); descent: the fixed batch's loss after the last step
-   under DESCENT_BOUND x its loss before the first, both taken in f32
-   with TF32 off, no noise and the train-mode batch statistics
-   (`_fixed_batch_loss`; the noisy bf16 losses of the steps swing too far
-   to gate on); the final `validate_chairs` finite; on two samples without noise, the f32
-   step (TF32 off) within 1e-4 of the port's f32 CPU step in loss and
-   >= 0.9999 in gradient cosine, and the bf16 step within 2% and >= 0.99 of
-   the f32 step. Step 4 is the counted step (every count 0 before it),
-   steps 4-13 are timed on the host clock, step 15 is profiled, and one
-   more step is profiled in its forward, backward and optimizer parts.
+The kernel rows. Each row holds one kernel at one shape: the largest
+|kernel - plain version| against a stated tolerance (bit-equal where the
+kernel rounds as the plain version does, one bf16 ulp of the largest
+output where it sums in another order, each output under `bf16_bound` for
+the attentions' tensor-core entries), the entry and launch plan that ran,
+the kernel's median device time over CUDA events (`_time_ms`), the plain
+version's, one library yardstick call's (F.grid_sample, F.linear,
+torch.var_mean, F.instance_norm, SDPA, F.layer_norm) and the least time
+the card could take (bytes over 3.35 TB/s, or operations over the type's
+peak; the attentions' exponentials on 16 special-function lanes a clock an
+SM). A training row adds its Function's gradients against autograd through
+the plain version and the backward's time beside autograd's. Rows come
+from phase 2 (A, B, G, C1, C2 at FF-RAFT's shapes; A, B, E, F at
+FF-FlowFormer's; D at FF-PWCNet's five levels, both forms; the LayerNorm
+kernel, whose row also counts the 99 launches of one served 4-pair
+FF-FlowFormer forward; the chunk pyramid kernel P) and from the `*_rows` of phases 9
+to 17 at their paths' own shapes. Each wrapper counts a launch under its
+kernel's name and under a key of the call's shape; a row notes the key it
+held (`_launch_key`), and a path that launches a shape no row holds has it
+held once, untimed (`_hold_shape`), or fails where it feeds the table.
 
-10. FF-PWCNet training (`train_phase` with `pwc_train_rows`), after
-    phase 9: the trainer on `ffpwc_chairs.yaml` at full width (B=8,
-    368x496 resized to 384x512 inside, MixLoss in 'pretrain' mode, noise,
-    bf16) from `trained_smoke_pwc.npz`, with phase 9's cuts and gates:
-    every step launches D 5 times, all in the leaky-ReLU form; the f32
-    agreement step runs under PyTorch's default TF32 flags, which the
-    step must turn off itself. Then D at the counted step's own launch
-    keys (the five levels of B=8) in both forms, each held and timed with
-    its Function's backward.
-11. FF-FlowFormer training (`train_phase` with `ff_train_rows`): the
-    trainer on `ff_chairs.yaml` at full width and depth (B=6, 368x496,
-    encoder depth 3, 12 refinements, MixLoss, noise, bf16) from
-    `trained_smoke_ff.npz` with its layer 0 copied into layers 1 and 2;
-    every step launches A 12, B 24, E 27 and F 11 times. Its agreement
-    gates run at the fixture's own depth (encoder depth 1, 2
-    refinements) at the full crop and its descent on JAX's own descent
-    test (fresh weights, constant lr 1e-4, no noise, 16 steps): the
-    fixture predicts about zero flow on this input. Then A, B, E and F at
-    every (kernel, shape) key of the counted step, each held and timed
-    with its Function's backward, beside SDPA's (E) or SDPA's with the
-    window partition and merge (F) through autograd.
-12. The baselines and the fusion ablation. Serving (`baseline_phase`,
-    after phase 6): plain RAFT (`raft_CTK.yaml`), FF-RAFT with the CA, SA
-    and concat units (`ablation/fusion/{CA,SA,conv}.yaml`) and vanilla
-    FlowFormer (`ff-flowformer/chairs.yaml`: encoder depth 3, 12
-    refinements) through `FlowPredictor`, 1024x436, B=1, bf16. RAFT
-    weights from `trained_smoke.npz` where names carry over, a concat
-    unit derived from the fixture's 1x1conv unit, the CA and SA units
-    seeded small (`_raft_variant_weights`); vanilla FlowFormer seeded, its
-    flow head scaled by 0.1 (`_vanilla_ff_weights`). Gates as phase 3's
-    without the shift: finite flow, agreement with the f32 CPU run on the
-    same weights, the launches a forward (G 12; C1 and C2 15 for a plain
-    fnet, 9 plain and 6 residual, else 30; FlowFormer A 12, B 24, E 23, F
-    7), each launched shape held by the kernel phase; ms a pair, busy ms,
-    idle share and kernel count (CA, SA and concat: one timed pass each,
-    the median of ten for the others). Training (`train_phase`, after
-    phase 11):
-    `raft_CTK.yaml` (plain RAFT, B=6, 368x496, EPELoss, frozen batch
-    norms; G, A, C1 and C2 rows of its own at B=6) and vanilla
-    FlowFormer's `chairs.yaml` (B=6, 368x496, depth 3), each from its
-    serving weights with phase 11's cuts and gates: the f32 and bf16
-    agreement steps at 184x248 (the f32 CPU step at full depth; plain
-    RAFT's on the recipe's fresh weights: on the fixture's image half its
-    saturated GRU puts its bf16 gradient 0.985 from the f32 one), descent
-    on JAX's fresh-weight recipe.
-13. Training at scale, after phase 12 (`device_aug_phase`, `ddp_phase`).
-    13a, the on-card augmentation (`data/device_aug.py`): on a raw chairs
-    batch (B=10, 384x512 -> 368x496, `ffraft_chairs_orb.yaml`'s recipe)
-    and a mixed kitti-stage batch (`ffraft_CTK.yaml`: two dense pairs at
-    436x1024 beside two sparse ones at 375x1242, zero-padded, with `sizes`
-    and `recipe`), every draw in its recipe's range and the card's `apply`
-    against the CPU's on the same draws (images and masks within 1e-3 on
-    the 0-255 scale, flow within 1e-4 of max(1, |flow|), valid and the
-    sparse counts exact); its median ms a batch (CUDA events), kernels and
-    busy ms. Then 16 steps of the trainer with `device_aug` on 20 raw
-    pairs (B=10, bf16, from the fixture): every step phase 9's launches,
-    finite losses, ms a step beside phase 9's in the same run, samples/s,
-    the profiled step's busy ms, idle share and the augmentation's device
-    ms. 13b, data parallelism on one card: two ranks over gloo on card 0
-    (NCCL refuses two ranks on one device; the same `train/mesh.py` runs
-    under both), this script run as `--ddp-rank R STORE OUT` with a file
-    store and a 120 s timeout, against one process on the global batch
-    (FF-RAFT chairs, fresh weights, the cnet's batch norm in train mode,
-    MixLoss, noise, f32 with TF32 off, B=4 at 184x248, keypoint sums that
-    differ between the ranks' rows): the loss within 1e-5, the gradient's
-    cosine >= 0.99999 and each tensor within 1e-4 of its largest plus 1e-4
-    of the model's largest gradient, the parameters after one AdamW step
-    and the running statistics within 1e-4 of each tensor's largest (2 x
-    lr more where the gradient is within its bound of 0). Then the trainer
-    over a world-size-1 NCCL group joined from torchrun's variables
-    (`train/mesh.py::init_from_env`, as `cli/train.py --multihost` joins
-    it): 6 steps at B=10, 368x496, bf16, ms a step (steps 2-5) beside
-    phase 9's, and step 6 profiled: busy ms, idle share, NCCL's kernels.
-14. The FF-RAFT variants, after phase 12's serving part
-    (`variant_kernel_rows`, `variants_phase`), each through `FlowPredictor`
-    at B=1, bf16, 12 refinements. First the phase's new (kernel, shape)
-    keys, held and timed as phase 2 holds its rows: G at radius 3 with N =
-    96 (Q = 7040), G at ALT_CORR's full chunk (2048 queries) and tail at
-    1024x436 and 3840x2160, C1 and C2 at RAFT-S's SmallEncoder shapes (32,
-    8, 16, 24, 64 and 96 channels) and at the CCE fnet's 4K shapes. Then:
-    ALT_CORR (the main path's config, `trained_smoke.npz`, phase 3's pair)
-    at 1024x436: the shift gate, agreement with its f32 CPU run and with
-    the card's materialized bf16 flow (phase 3's bounds, the margin
-    printed), G and the chunk pyramid 12 a chunk of 2048 and 12 on the tail,
-    the pyramid bit-equal to `corr_pyramid` at the 4K chunk and tail and
-    timed beside it (`pyramid_phase`, before phase 3), peak memory beside
-    the materialized run's; at 1920x1080 ALT_CORR against the materialized
-    bf16 flow on the same pair; at 3840x2160 (phase 3's white noise and
-    shift): finite flow, the shift gate, peak allocated memory under
-    ALT_PEAK_GIB, the materialized path's volume reckoned beside it (not
-    launched). RAFT-S (`raft_CTK.yaml`) and FF-RAFT-S
-    (`ffraft_chairs_orb.yaml`) with SMALL, and the attention and conv front
-    ends (`ffraft_chairs_orb.yaml` with FUSION attention or conv,
-    FUSION_CHANNEL 256) at 1024x436, on `_raft_variant_weights`: finite
-    flow, agreement with the f32 CPU run on the same weights (the
-    attention front end's on the pair's top left 224x512: its UNet is
-    about 30 TFLOP a pair in f32), the launches (G 12, at radius 3 and N =
-    96 for the small models; C1 and C2 21 for RAFT-S's fnet, 15 plain and 6
-    residual, 30 for a CCE fnet, 15 for a plain one). Each prints ms a
-    pair, busy ms, idle share and kernel count. The 1080p and cut runs are
-    checks, not paths: the shapes they launch that no row holds are held
-    once, untimed.
-15. FF-FlowFormer's variants, after phase 13 (`ff_variant_kernel_rows`,
-    `ff_variants_phase`, `ff_variant_train_phase`,
-    `ff_variant_modules_phase`). First the new (kernel, shape) keys, held
-    and timed as phase 2 holds its rows: E's staged entry at the patch-4 perceiver's input
-    layer, (7040, 8) x 448 keys and, in training, (17112, 8) x 192 with its
-    backward; F at group attention's (10, 56, 133, 128). Then three
-    configurations of `ff_chairs.yaml` through `FlowPredictor` at
-    1024x436, B=1, bf16, encoder depth 3, 12 refinements
-    (`FF_VARIANT_PATHS`: MLP-Mixer without GMA, encoder residual or flow
-    token; ConvNext and only-global; patch size 4) on the fixture's
-    weights at depth 3 where names carry over, the basic block's GRU and
-    the only-global convc1 derived from it, the rest seeded
-    (`_ff_variant_weights`): finite flow, agreement with the f32 CPU run
-    (phase 3's bounds, the margin printed), the launches a forward (A 12; B
-    24, 12 only-global; E 27 less the encoder depth for each of MLP-Mixer
-    and ConvNext; F 11 less it for ConvNext); ms a pair, busy ms, idle
-    share, kernel count, peak memory, and ConvNext's depthwise 7x7 (cuDNN)
-    timed alone. Training: the trainer on `ff_chairs.yaml` with MLP-Mixer,
-    ConvNext and no GMA (B=6, 368x496, depth 3, bf16), 6 steps: finite
-    losses and gradient norms, every step's launches (A 12, B 24, E 21, F
-    8), the f32 step (TF32 off) on two samples at 184x248 against the CPU's
-    (1e-4, cosine 0.9999), no descent gate; ms a step, busy ms, peak
-    memory; then the same for patch size 4 alone (`FF_PATCH4_TRAIN`: phase
-    11's step but for the patch size; E 27 a step, one of them the input
-    layer's (17112, 8) x 192 that the phase's rows hold). Last, the
-    modules no path runs, each once in bf16 against the
-    f32 CPU run: `GroupVerticalSelfAttentionLayer` with and without the
-    context (within GROUP_LAYER_TOL of the output's scale) and the three
-    position encodings (a bf16 ulp of each of their two roundings).
-16. Training the FF-RAFT variants, after phase 15
-    (`raft_variant_train_rows`, `variant_train_phase` for each path of
-    `_variant_train_specs`). First the new (kernel, shape) keys, held and
-    timed with their Functions' backwards as phase 9 holds its rows: G at
-    radius 3, N = 96 at B=10 (Q = 28,520); G and A at ALT_CORR's training
-    chunks at the chairs crop (2048 and a tail of 804 queries a sample
-    row); C1 and C2 (both forms) at RAFT-S's SmallEncoder B=10 training
-    shapes. Then the trainer's body on phase 9's fixed batch (368x496,
-    bf16, 12 refinements, noise, AdamW + OneCycle) for each path:
-    ALT_CORR (`ffraft_chairs_orb.yaml` with ALT_CORR, B=10, 16 steps, from
-    `trained_smoke.npz`; G 24 and A 24 a step: two chunks x 12; phase 9's
-    descent gate, its ratio beside phase 9's; its f32 step, TF32 off,
-    against the card's materialized f32 step on the same weights and
-    batch: loss within 1e-5, gradient cosine >= 0.99999, each tensor
-    within 1e-4 of its largest; one step's peak memory beside the
-    materialized step's at B=10, ALT_CORR's no higher, and at 1920x1080,
-    B=1, ALT_CORR's lower by at least the f32 level-0 volume, 32400^2 x
-    4 B); RAFT-S (`raft_CTK.yaml`) and FF-RAFT-S (`ffraft_chairs_orb.yaml`)
-    with SMALL, B=10; the attention and conv front ends
-    (`ffraft_chairs_orb.yaml` with FUSION attention or conv,
-    FUSION_CHANNEL 256, SEPARATE_LR), the attention front end at B=3
-    (ATTENTION_BATCH, the largest that fits: its step's peak held under
-    FIT_SHARE of the card), the conv front end once
-    more past the chairs stage (FREEZE_BN on the RAFT core: its running
-    statistics stay, the front end's move); FF-RAFT at DROPOUT 0.2 (the
-    kept share of the drawn channels within 4 sigma of 0.8). Each path
-    but dropout: 6 steps (ALT_CORR 16), finite losses and gradient norms,
-    every step's launches, the f32 step (TF32 off) on two samples at
-    184x248 (the attention front end's at 96x128: its UNet is about 30
-    TFLOP a pair at 1024x436 in f32) against the CPU's (1e-4, cosine
-    0.9999) and the bf16 step against the f32 step (2%, cosine 0.99; the
-    front ends' on fresh weights, the attention front end's cosine 0.9,
-    as the JAX package's own bf16 step sits there, `_variant_train_specs`). The
-    variants have no trained weights (`_raft_variant_weights`), so they
-    have no descent gate. Each prints ms a step, samples/s, busy ms and
-    idle share of a profiled step, the forward / backward / optimizer
-    split, peak memory and the launches, and the phase its seconds.
-17. Serving with the volume's queries sharded, after phase 16
-    (`sharded_kernel_row`, `sharded_phase`): G at a rank's block of the
-    1024x436 queries (Q = 3520 of 7040), held and timed as phase 2 holds
-    its rows; then two ranks over gloo on card 0 (NCCL refuses two ranks
-    on one device), this script run as `--shard-rank R STORE OUT`, each
-    a mesh of model extent 2 (`train/mesh.py::make_mesh`) under FF-RAFT's
-    bf16 `FlowPredictor(..., mesh=...)` on phase 3's pair, beside one
-    process without a mesh. Gates on each rank: phase 3's gates (finite,
-    the shift, the f32 CPU run) and its agreement bounds against the
-    one-process flow; G 12, C1 30 and C2 30 launches, G at Q = 3520; its
-    one volume product (1, 3520, 55, 128), the two blocks the 7040
-    queries. At 1920x1080, B=1: each rank's flow against the one
-    process's, its product 16200 of the 32400 rows, and its peak
-    allocated memory under the one process's by at least half the f32
-    level-0 volume. Prints each rank's ms a pair and peak memory.
-The `kernels` line gives each kernel's launches on every path,
-the training paths and phases 12's to 17's among them.
+The last lines are a `{"kernels": [...]}` line (phase 7: each kernel's
+rows with their launches read from the counted forwards and steps of the
+paths by that key, and launches x (ms - bound)), `{"phase": "total"}` and
+`{"ok": true, "device": {...}}`.
 
-Outside the phases under default flags, f32 matmuls and convolutions run
-in full f32 here (TF32 off), so the f32 comparisons are not blurred by
-TF32's 10-bit mantissa. Needs one card.
+Gates by phase (1024x436 frames, B=1, bf16, 12 refinements unless said;
+"the f32 CPU run" is the port's own f32 forward on the same inputs and
+weights, held to mean |diff| < 0.05 max(mean |flow|, 1) px and median <
+0.1 px; "the shift" is interior EPE < 6 px on a known (3, -2) px shift):
+
+3. FF-RAFT through `FlowPredictor` on the trained fixture: finite flow,
+   the shift, the f32 CPU run; launches G 12, C1 30, C2 30 (18 plain, 12
+   residual), A and B 0. Then an f32 predictor under PyTorch's default
+   TF32 flags: TF32 off inside its forward, the flags as they were after
+   it, the same launches and gates.
+4. FF-FlowFormer on `trained_smoke_ff.npz` (encoder depth 1): finite, the
+   shift, the f32 CPU run; A 12, B 24, E 23, F 9, LayerNorm 83.
+5. FF-FlowFormer at the shipped encoder depth 3 on seeded weights, one
+   counted forward at the end of phase 4: finite flow, E 27, F 11.
+6. FF-PWCNet on `trained_smoke_pwc.npz` (1024x448 inside): finite, the f32
+   CPU run; D 5, all in the leaky-ReLU form.
+8. The evaluation protocol (`train/evaluate.py`) on in-memory chairs,
+   Sintel (clean and final) and KITTI layouts: finite metrics beside the
+   zero-flow baseline's, each family's kernels launched; each FF-RAFT
+   layout's first pair and the warm-started second Sintel pair against the
+   f32 CPU run (and AEPE, keypoint EPE within 0.05 max(AEPE, 1) px); the
+   warm and cold sequences finite; the KITTI submission read back within
+   1/64 px (or the codec's ImportError without cv2).
+9. FF-RAFT training through `cli/train.py::train` on
+   `ffraft_chairs_orb.yaml` (B=10, 368x496, noise, AdamW + OneCycle, bf16)
+   from the fixture, 16 steps on one fixed batch: finite loss and gradient
+   norm every step; every step G 12, A 12, C1 30, C2 30 (12 residual);
+   descent: the fixed batch's f32 loss after the last step under
+   DESCENT_BOUND x the loss before the first (`_fixed_batch_loss`); the
+   final validation finite; on two samples without noise the f32 step
+   (TF32 off) within 1e-4 of the CPU's in loss and >= 0.9999 in gradient
+   cosine, the bf16 step within 2% and >= 0.99 of the f32 step.
+10. FF-PWCNet training (`ffpwc_chairs.yaml`, B=8): phase 9's gates, D 5 a
+    step in the leaky form, the f32 step under PyTorch's default flags.
+11. FF-FlowFormer training (`ff_chairs.yaml`, B=6, depth 3): A 12, B 24,
+    E 27, F 11 a step; agreement at the fixture's depth (1, 2
+    refinements), descent on JAX's fresh-weight recipe (`_descent_recipe`).
+12. The baselines and the fusion ablation: plain RAFT, FF-RAFT with CA, SA
+    and concat units and vanilla FlowFormer served (finite, the f32 CPU
+    run, the launches and forms a forward), then plain RAFT and vanilla
+    FlowFormer trained (B=6) with phase 11's gates.
+13. Training at scale. 13a: the on-card augmentation's draws within their
+    recipes' ranges and its `apply` against the CPU's on the same draws
+    (chairs and a mixed kitti-stage batch), then 16 trainer steps with
+    `device_aug` (phase 9's launches, finite losses). 13b: two gloo ranks
+    on card 0 (`--ddp-rank`) against one process on the global batch
+    (loss 1e-5, gradient cosine 0.99999, each gradient within 1e-4 of its
+    largest plus 1e-4 of the model's, the state after AdamW within 1e-4 of
+    its largest), then 6 trainer steps over a world-size-1 NCCL group from
+    torchrun's variables (phase 9's launches, finite losses).
+14. The FF-RAFT variants served: ALT_CORR at 1024x436 (the shift, the f32
+    CPU run, the materialized bf16 flow; G and P 12 a chunk), at 1920x1080
+    against the materialized flow and at 3840x2160 (the shift, peak
+    allocated memory under ALT_PEAK_GIB); RAFT-S, FF-RAFT-S and the
+    attention and conv front ends against their f32 CPU runs with their
+    launches and forms.
+15. FF-FlowFormer's variants: MLP-Mixer without GMA, ConvNext with
+    only-global and patch size 4 served (the f32 CPU run, launches, B's
+    widths); MLP-Mixer with ConvNext and patch size 4 trained 6 steps
+    (launches, the f32 step against the CPU's); group attention and the
+    position encodings against the f32 CPU run.
+16. Every FF-RAFT variant trained: ALT_CORR 16 steps (phase 9's descent
+    gate, its f32 step against the materialized one, its step's peak
+    memory no higher than the materialized one's at B=10 and lower by the
+    f32 level-0 volume at 1920x1080), RAFT-S, FF-RAFT-S, the front ends
+    (the attention front end at ATTENTION_BATCH under FIT_SHARE of the
+    card, the conv front end also under FREEZE_BN) and dropout (the kept
+    share within 4 sigma of 1 - p), each with its launches and agreement
+    steps.
+17. FF-RAFT served with the volume's queries sharded over two gloo ranks
+    on card 0 (`--shard-rank`): each rank against the f32 CPU run and the
+    one process's flow, G at its 3520 queries, its one volume product; at
+    1920x1080 each rank's peak allocated memory under the one process's by
+    half the f32 level-0 volume.
+
+Outside the phase under default flags, f32 matmuls and convolutions run in
+full f32 here (TF32 off), so the f32 comparisons are not blurred by TF32.
 """
 
 from __future__ import annotations
@@ -1399,106 +1193,10 @@ def _shift_inputs(h: int, w: int, seed: int = 0):
     return (i1, i2, m1, m2), (dx, dy)
 
 
-_PORT_KERNELS = ("lookup_kernel", "fold_kernel", "fold_mma", "lookup_fold_mma", "lookup_fold_fma",
-                 "in_stats<", "normalize<", "local_corr_kernel", "local_corr_mma",
-                 "attn_mma", "attn_tiled", "attn_staged", "attn_direct", "window_mma",
-                 "window_attn")
-
-
-def _category(name: str) -> str:
-    if any(k in name for k in _PORT_KERNELS):
-        return "port kernels (A-F, lookup_fold)"
-    if name.startswith("Memcpy") or name.startswith("Memset"):
-        return "host<->device copies"
-    if "fprop" in name or "conv" in name.lower():
-        return "convolutions (cuDNN)"
-    if "gemm" in name or "cutlass" in name or "nvjet" in name:
-        return "matmuls (cuBLAS, cuDNN gemm)"
-    if "layer_norm" in name:
-        return "layer norm"
-    if "copy" in name.lower():
-        return "copies and casts (contiguous, dtype, cat)"
-    return "elementwise, softmax, reductions"
-
-
-def _kernel_events(prof) -> list:
-    """The device kernels of a profile as (name, start us, end us), read
-    from the profiler's raw records: `prof.events()` would first build
-    every host op's event and their tree, seconds for one training step. A
-    `record_function` range (the optimizer's step, `device_aug`) also shows
-    on the device as an annotation spanning its first kernel to its last,
-    gaps included: it is not a kernel and is left out."""
-    from torch.autograd import DeviceType
-
-    out = []
-    for e in prof.profiler.kineto_results.events():
-        if (e.device_type() != DeviceType.CUDA or e.is_user_annotation()
-                or e.name().startswith("Activity Buffer")
-                or getattr(e, "is_hidden_event", lambda: False)()):
-            continue
-        out.append((e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3))
-    return out
-
-
-def _profile_table(prof, path: str, rows: int = 60) -> None:
-    """The profile's kernels by name, the most device time first: launches,
-    total and mean ms (`_kernel_events`), written to `path`."""
-    by_name = {}
-    for name, start, end in _kernel_events(prof):
-        n, t = by_name.get(name, (0, 0.0))
-        by_name[name] = (n + 1, t + end - start)
-    lines = [f"{'kernel':<100} {'launches':>9} {'total ms':>10} {'mean ms':>9}"]
-    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:rows]:
-        lines.append(f"{name[:100]:<100} {n:>9} {t / 1e3:>10.4f} {t / 1e3 / n:>9.4f}")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path, "w") as f:
-        f.write("\n".join(lines) + "\n")
-
-
-def _device_breakdown(torch, prof, wall_ms: float) -> dict:
-    """Device time of one profiled forward by kernel category, the top
-    kernels, and the share of the call's wall time the device was idle
-    (the union of kernel intervals against the host-clock window), from
-    `_kernel_events`."""
-    kern = _kernel_events(prof)
-    by_cat, by_name, port = {}, {}, {}
-    spans = []
-    for name, start, end in kern:
-        us = end - start
-        by_cat[_category(name)] = by_cat.get(_category(name), 0.0) + us
-        by_name[name[:90]] = by_name.get(name[:90], 0.0) + us
-        spans.append((start, end))
-        for k in sorted(_PORT_KERNELS, key=len, reverse=True):  # the longest that matches
-            if k in name:
-                n, t = port.get(k, (0, 0.0))
-                port[k] = (n + 1, t + us)
-                break
-    busy, end = 0.0, -float("inf")
-    for s, e in sorted(spans):
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    return dict(
-        kernel_count=len(kern),
-        device_busy_ms=busy / 1e3, wall_ms=wall_ms,
-        idle_share=max(0.0, 1.0 - busy / 1e3 / wall_ms),
-        ms_by_category={k: v / 1e3 for k, v in
-                        sorted(by_cat.items(), key=lambda kv: -kv[1])},
-        top_kernels_ms=[[k, v / 1e3] for k, v in
-                        sorted(by_name.items(), key=lambda kv: -kv[1])[:12]],
-        # the port's kernels in this forward: launches, total and mean ms
-        port_kernels=[[k, n, t / 1e3, t / 1e3 / n] for k, (n, t) in
-                      sorted(port.items(), key=lambda kv: -kv[1][1])])
-
-
-def _drive(torch, p, inputs, want: dict, profile_name: str, timed: int = 10):
+def _drive(torch, p, inputs, want: dict, label: str):
     """Warm up, then one forward of the path with every launch count set
-    to 0 just before and read just after (it must equal `want`), then
-    `timed` timed calls and one profiled call. Returns (flow (H, W, 2) of the
-    counted forward, (counts, the same launches split by shape key), median
-    ms, all ms, device breakdown)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    to 0 just before and read just after (it must equal `want`). Returns
+    (flow (H, W, 2), (counts, the same launches split by shape key))."""
     from focusflow_official_tpu_torch.kernels import (
         launch_counts, launch_shapes, reset_launch_counts)
 
@@ -1509,22 +1207,8 @@ def _drive(torch, p, inputs, want: dict, profile_name: str, timed: int = 10):
     counts, shapes = dict(launch_counts), dict(launch_shapes)
     want = {name: want.get(name, 0) for name in counts}
     if counts != want:
-        raise AssertionError(f"{profile_name}: launches per forward {counts} != {want}")
-
-    times = []
-    for _ in range(timed):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        p(*inputs)  # returns numpy: ends in a device sync
-        times.append((time.perf_counter() - t0) * 1e3)
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        p(*inputs)
-        profiled_ms = (time.perf_counter() - t0) * 1e3
-    breakdown = _device_breakdown(torch, prof, profiled_ms)
-    _profile_table(prof, os.path.join(OUT_DIR, f"{profile_name}.txt"))
-    return flow, (counts, shapes), float(np.median(times)), times, breakdown
+        raise AssertionError(f"{label}: launches per forward {counts} != {want}")
+    return flow, (counts, shapes)
 
 
 def _count_forms(shapes: dict, kernel: str) -> dict:
@@ -1537,16 +1221,12 @@ def _count_forms(shapes: dict, kernel: str) -> dict:
 
 
 def _cpu_flow(cfg, fixture: str, inputs):
-    """The port's f32 run on the CPU on the same inputs -> (flow (H, W, 2),
-    seconds)."""
+    """The port's f32 run on the CPU on the same inputs -> flow (H, W, 2)."""
     import torch
 
     from focusflow_official_tpu_torch.predict import FlowPredictor
 
-    p = FlowPredictor(cfg, fixture, device="cpu", dtype=torch.float32)
-    t0 = time.perf_counter()
-    flow = p(*inputs)[0]
-    return flow, time.perf_counter() - t0
+    return FlowPredictor(cfg, fixture, device="cpu", dtype=torch.float32)(*inputs)[0]
 
 
 def _gates(flow, shift, cpu, shape=(H, W, 2)) -> dict:
@@ -1562,11 +1242,10 @@ def _gates(flow, shift, cpu, shape=(H, W, 2)) -> dict:
                             .sum(-1)).mean())
         if not epe < 6.0:
             raise AssertionError(f"interior EPE {epe} >= 6 px")
-    flow_cpu, cpu_s = cpu
-    agree = _agreement(flow, flow_cpu, "card vs f32 CPU")
+    agree = _agreement(flow, cpu, "card vs f32 CPU")
     return dict(epe_interior=epe, mean_abs_flow=float(np.abs(flow).mean()),
                 **{f"vs_cpu_f32_{k}": v for k, v in agree.items() if k != "ref_mean_abs_flow"},
-                cpu_f32_mean_abs_flow=agree["ref_mean_abs_flow"], cpu_f32_seconds=cpu_s)
+                cpu_f32_mean_abs_flow=agree["ref_mean_abs_flow"])
 
 
 def _agreement(flow, ref, label: str) -> dict:
@@ -1591,21 +1270,15 @@ def _raft_cfg():
 
 
 def end_to_end_phase(torch, card: str):
-    """-> (launch counts of the counted forward, its profile, the f32 CPU
-    run on the phase's inputs)."""
+    """-> (launch counts of the counted forward, the f32 CPU run on the
+    phase's inputs)."""
     from focusflow_official_tpu_torch.predict import FlowPredictor
 
     cfg = _raft_cfg()
     inputs, shift = _shift_inputs(H, W)
     p = FlowPredictor(cfg, FIXTURE, device="cuda", dtype=torch.bfloat16)
     want = {"lookup_fold": ITERS, "in_stats": 30, "in_normalize": 30}
-    flow, counts, ms, times, breakdown = _drive(torch, p, inputs, want,
-                                                "chip_smoke_profile")
-    # C1 and C2 are one kernel a call: 30 each in the profiled forward
-    for name in ("in_stats<", "normalize<"):
-        got = [r_[1] for r_ in breakdown["port_kernels"] if r_[0] == name]
-        if got != [30]:
-            raise AssertionError(f"profiled forward: {name} launches {got} != [30]")
+    flow, counts = _drive(torch, p, inputs, want, "ff_raft")
     # the 12 ResidualBlocks of the fnet (image and mask branch, both frames
     # batched) take their shortcut add and ReLU in C2's residual form
     forms = _count_forms(counts[1], "in_normalize")
@@ -1614,10 +1287,8 @@ def end_to_end_phase(torch, card: str):
     cpu = _cpu_flow(cfg, FIXTURE, inputs)
     gates = _gates(flow, shift, cpu)
     _emit(dict(phase="end_to_end", model="ff_raft", card=card, shape=[1, H, W],
-               iters=ITERS, dtype="bfloat16", ms_per_pair=ms, pairs_per_s=1e3 / ms,
-               ms_all=times, profile=breakdown, launches=counts[0], **gates,
-               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
-    return counts, breakdown, cpu
+               iters=ITERS, dtype="bfloat16", launches=counts[0], **gates))
+    return counts, cpu
 
 
 def f32_default_flags_phase(torch, card: str, defaults: tuple, cpu) -> None:
@@ -1698,23 +1369,36 @@ def _ff_launches(encoder_depth: int, iters: int, fused: bool = True) -> dict:
             "layer_norm": 6 * towers + 3 + 8 * encoder_depth + 2 * iters}
 
 
-def ff_end_to_end_phase(torch, card: str):
+def ff_end_to_end_phase(torch, card: str) -> dict:
+    """FF-FlowFormer on the fixture (encoder depth 1) against its f32 CPU
+    run, then one counted forward at the shipped encoder depth 3 on seeded
+    weights (`_random_ff_weights`): finite flow and its launches (E 27, F
+    11) -> path -> (launch counts, launches by shape key)."""
     from focusflow_official_tpu_torch.models import FlowFormerConfig
     from focusflow_official_tpu_torch.predict import FlowPredictor
 
     cfg = FlowFormerConfig(encoder_depth=1, decoder_depth=ITERS)
     inputs, shift = _textured_inputs(H, W)
     p = FlowPredictor(cfg, FIXTURE_FF, device="cuda", dtype=torch.bfloat16)
-    flow, counts, ms, times, breakdown = _drive(
-        torch, p, inputs, _ff_launches(1, ITERS), "chip_smoke_profile_ff")
+    flow, counts = _drive(torch, p, inputs, _ff_launches(1, ITERS), "ff_flowformer")
     gates = _gates(flow, shift, _cpu_flow(cfg, FIXTURE_FF, inputs))
     _emit(dict(phase="end_to_end", model="ff_flowformer", card=card,
                shape=[1, H, W], encoder_depth=1, iters=ITERS, dtype="bfloat16",
-               ms_per_pair=ms, pairs_per_s=1e3 / ms, ms_all=times,
-               profile=breakdown, launches=counts[0], **gates,
-               cpu_f32_size="full frame",
-               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
-    return counts
+               launches=counts[0], **gates, cpu_f32_size="full frame"))
+    del p
+    path = os.path.join(OUT_DIR, "ff_random_depth3.npz")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    _random_ff_weights(torch, path, 3)
+    p = FlowPredictor(FlowFormerConfig(encoder_depth=3, decoder_depth=ITERS), path,
+                      device="cuda", dtype=torch.bfloat16)
+    flow3, counts3 = _drive(torch, p, inputs, _ff_launches(3, ITERS), "ff_flowformer depth 3")
+    if flow3.shape != (H, W, 2) or not np.isfinite(flow3).all():
+        raise AssertionError(f"depth-3 flow {flow3.shape} not finite")
+    _emit(dict(phase="end_to_end", model="ff_flowformer", card=card, shape=[1, H, W],
+               encoder_depth=3, iters=ITERS, dtype="bfloat16",
+               weights="seeded torch.Generator", launches=counts3[0],
+               mean_abs_flow=float(np.abs(flow3).mean())))
+    return {"ff_flowformer": counts, "ff_flowformer_depth3": counts3}
 
 
 def pwc_end_to_end_phase(torch, card: str):
@@ -1726,27 +1410,18 @@ def pwc_end_to_end_phase(torch, card: str):
     cfg = FFPWCNetConfig(fusion="parallel", fusion_type="1x1conv")
     inputs, _ = _textured_inputs(H, W)
     p = FlowPredictor(cfg, FIXTURE_PWC, device="cuda", dtype=torch.bfloat16)
-    flow, counts, ms, times, breakdown = _drive(
-        torch, p, inputs, {"local_corr": 5}, "chip_smoke_profile_pwc")
+    flow, counts = _drive(torch, p, inputs, {"local_corr": 5}, "ff_pwcnet")
     gates = _gates(flow, None, _cpu_flow(cfg, FIXTURE_PWC, inputs))
     # every launch of D is the fused form: no leaky ReLU runs on the volume
     forms = _count_forms(counts[1], "local_corr")
     if forms != {"leaky_relu": 5}:
         raise AssertionError(f"local_corr forms {forms} != 5 leaky_relu")
-    d_prof = [r_ for r_ in breakdown["port_kernels"] if r_[0].startswith("local_corr")]
-    if sum(r_[1] for r_ in d_prof) != 5:
-        raise AssertionError(f"profiled forward: local_corr launches {d_prof} != 5")
     limit = 0.05 * max(gates["cpu_f32_mean_abs_flow"], 1.0)
     _emit(dict(phase="end_to_end", model="ff_pwcnet", card=card, shape=[1, H, W],
-               dtype="bfloat16", ms_per_pair=ms, pairs_per_s=1e3 / ms,
-               kernel_count=breakdown["kernel_count"],
-               local_corr_in_profile=dict(launches=sum(r_[1] for r_ in d_prof),
-                                          total_ms=sum(r_[2] for r_ in d_prof)),
+               dtype="bfloat16",
                agreement_margin=dict(mean_abs=gates["vs_cpu_f32_mean_abs"], limit=limit,
                                      share=gates["vs_cpu_f32_mean_abs"] / limit),
-               ms_all=times, profile=breakdown, launches=counts[0], **gates,
-               cpu_f32_size="full frame",
-               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
+               launches=counts[0], **gates, cpu_f32_size="full frame"))
     return counts
 
 
@@ -1777,29 +1452,6 @@ def _random_ff_weights(torch, path: str, encoder_depth: int, seed: int = 0) -> N
             t = 0.1 * t
         flat[k] = t.numpy()
     np.savez(path, **flat)
-
-
-def ff_shipped_depth_phase(torch, card: str):
-    """The shipped encoder_depth 3 on seeded random weights: timing only."""
-    from focusflow_official_tpu_torch.models import FlowFormerConfig
-    from focusflow_official_tpu_torch.predict import FlowPredictor
-
-    os.makedirs(OUT_DIR, exist_ok=True)
-    path = os.path.join(OUT_DIR, "ff_random_depth3.npz")
-    _random_ff_weights(torch, path, 3)
-    inputs, _ = _textured_inputs(H, W)
-    p = FlowPredictor(FlowFormerConfig(encoder_depth=3, decoder_depth=ITERS), path,
-                      device="cuda", dtype=torch.bfloat16)
-    flow, counts, ms, times, breakdown = _drive(
-        torch, p, inputs, _ff_launches(3, ITERS), "chip_smoke_profile_ff_depth3")
-    if flow.shape != (H, W, 2) or not np.isfinite(flow).all():
-        raise AssertionError(f"depth-3 flow {flow.shape} not finite")
-    _emit(dict(phase="shipped_depth", model="ff_flowformer", card=card,
-               shape=[1, H, W], encoder_depth=3, iters=ITERS, dtype="bfloat16",
-               weights="seeded torch.Generator", ms_per_pair=ms,
-               pairs_per_s=1e3 / ms, ms_all=times, profile=breakdown,
-               launches=counts[0], mean_abs_flow=float(np.abs(flow).mean())))
-    return counts
 
 
 RAFT_CTK_YAML = os.path.join(ROOT, "configs", "ff-raft", "experiment", "raft_CTK.yaml")
@@ -1905,11 +1557,7 @@ def baseline_phase(torch, card: str) -> dict:
             forms = {"plain": 9, "residual": 6} if plain else {"plain": 18, "residual": 12}
             inputs, _ = _shift_inputs(H, W)
         p = FlowPredictor(cfg, weights, device="cuda", dtype=torch.bfloat16)
-        torch.cuda.reset_peak_memory_stats()
-        # the ablation's units: one timed pass each, to keep the phase short
-        flow, counts, ms, times, breakdown = _drive(
-            torch, p, inputs, want, f"chip_smoke_profile_{path}",
-            timed=1 if path in ("raft_ca", "raft_sa", "raft_concat") else 10)
+        flow, counts = _drive(torch, p, inputs, want, path)
         if forms is not None and _count_forms(counts[1], "in_normalize") != forms:
             raise AssertionError(f"{path}: in_normalize forms "
                                  f"{_count_forms(counts[1], 'in_normalize')} != {forms}")
@@ -1917,14 +1565,10 @@ def baseline_phase(torch, card: str) -> dict:
         del p
         _emit(dict(phase="baselines", model=path, yaml=os.path.relpath(yaml, ROOT), card=card,
                    shape=[1, H, W], iters=getattr(cfg, "iters", getattr(cfg, "decoder_depth", None)),
-                   dtype="bfloat16", ms_per_pair=ms, pairs_per_s=1e3 / ms,
-                   device_busy_ms=breakdown["device_busy_ms"],
-                   idle_share=breakdown["idle_share"], kernel_count=breakdown["kernel_count"],
-                   ms_all=times, profile=breakdown, launches=counts[0],
+                   dtype="bfloat16", launches=counts[0],
                    weights={k: (dict(count=len(v), first=v[:2]) if isinstance(v, list) else v)
                             for k, v in made.items()},
-                   **gates, cpu_f32_size="full frame",
-                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
+                   **gates, cpu_f32_size="full frame"))
         drives[path] = counts
         torch.cuda.empty_cache()
     return drives
@@ -2056,31 +1700,21 @@ def variants_phase(torch, card: str, held: set) -> dict:
     # ---- 14.1 ALT_CORR at 1024x436, beside the materialized path
     alt = dataclasses.replace(_raft_cfg(), alt_corr=True, alt_corr_chunk=ALT_CHUNK)
     inputs, shift = _shift_inputs(H, W)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     mat_flow = checks(lambda: FlowPredictor(_raft_cfg(), FIXTURE, device="cuda", dtype=bf16)(
         *inputs)[0])
-    mat_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     q = int(np.prod(_grid(H, W)))
     want = {"lookup_fold": ITERS * -(-q // ALT_CHUNK), "pyramid": ITERS * -(-q // ALT_CHUNK),
             "in_stats": 30, "in_normalize": 30}
     p = FlowPredictor(alt, FIXTURE, device="cuda", dtype=bf16)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    flow, counts, ms, times, breakdown = _drive(torch, p, inputs, want,
-                                                "chip_smoke_profile_alt_corr")
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    flow, counts = _drive(torch, p, inputs, want, "ff_raft_alt_corr")
     chunks = _chunk_launches(counts[1])
     if chunks != {c: ITERS * (q // c if c == ALT_CHUNK else 1) for c in _alt_chunks(q)}:
         raise AssertionError(f"ALT_CORR 1024x436: G launches by chunk {chunks}")
     gates = _gates(flow, shift, _cpu_flow(alt, FIXTURE, inputs))
     _emit(dict(phase="variants", model="ff_raft_alt_corr", card=card, shape=[1, H, W],
-               iters=ITERS, dtype="bfloat16", chunk=ALT_CHUNK, ms_per_pair=ms,
-               device_busy_ms=breakdown["device_busy_ms"], idle_share=breakdown["idle_share"],
-               kernel_count=breakdown["kernel_count"], ms_all=times, profile=breakdown,
-               launches=counts[0], g_launches_by_chunk=chunks, **gates,
-               vs_materialized_bf16=_agreement(flow, mat_flow, "ALT_CORR vs materialized"),
-               peak_mem_gib=peak, materialized_peak_mem_gib=mat_peak))
+               iters=ITERS, dtype="bfloat16", chunk=ALT_CHUNK, launches=counts[0],
+               g_launches_by_chunk=chunks, **gates,
+               vs_materialized_bf16=_agreement(flow, mat_flow, "ALT_CORR vs materialized")))
     drives["ff_raft_alt_corr"] = counts
     del p
 
@@ -2089,10 +1723,8 @@ def variants_phase(torch, card: str, held: set) -> dict:
     hd = {}
     for name, cfg in (("materialized", _raft_cfg()), ("alt_corr", alt)):
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
         hd[name] = checks(lambda: FlowPredictor(cfg, FIXTURE, device="cuda", dtype=bf16)(
             *inputs)[0])
-        hd[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     hd_gates = _agreement(hd["alt_corr"], hd["materialized"], "ALT_CORR vs materialized, 1080p")
     inputs, shift = _shift_inputs(*FOUR_K)
     q4 = int(np.prod(_grid(*FOUR_K)))
@@ -2101,8 +1733,7 @@ def variants_phase(torch, card: str, held: set) -> dict:
     p = FlowPredictor(alt, FIXTURE, device="cuda", dtype=bf16)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    flow, counts, ms, times, breakdown = _drive(torch, p, inputs, want,
-                                                "chip_smoke_profile_alt_corr_4k", timed=1)
+    flow, counts = _drive(torch, p, inputs, want, "ff_raft_alt_corr_4k")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     shape4 = (*FOUR_K, 2)
     if flow.shape != shape4 or not np.isfinite(flow).all():
@@ -2111,16 +1742,12 @@ def variants_phase(torch, card: str, held: set) -> dict:
     if not (epe < 6.0 and peak < ALT_PEAK_GIB):
         raise AssertionError(f"ALT_CORR 4K: interior EPE {epe}, peak {peak} GiB")
     _emit(dict(phase="variants", model="ff_raft_alt_corr_4k", card=card, shape=[1, *FOUR_K],
-               iters=ITERS, dtype="bfloat16", chunk=ALT_CHUNK, ms_per_pair=ms,
-               device_busy_ms=breakdown["device_busy_ms"], idle_share=breakdown["idle_share"],
-               kernel_count=breakdown["kernel_count"], ms_all=times, profile=breakdown,
-               launches=counts[0], g_launches_by_chunk=_chunk_launches(counts[1]),
-               epe_interior=epe, mean_abs_flow=float(np.abs(flow).mean()),
-               peak_mem_gib=peak, peak_bound_gib=ALT_PEAK_GIB,
+               iters=ITERS, dtype="bfloat16", chunk=ALT_CHUNK, launches=counts[0],
+               g_launches_by_chunk=_chunk_launches(counts[1]), epe_interior=epe,
+               mean_abs_flow=float(np.abs(flow).mean()), peak_mem_gib=peak,
+               peak_bound_gib=ALT_PEAK_GIB,
                materialized_bytes_reckoned=_materialized_bytes(*FOUR_K),
                full_hd=dict(shape=[1, *FULL_HD], vs_materialized_bf16=hd_gates,
-                            peak_mem_gib={k: hd[f"{k}_peak_gib"]
-                                          for k in ("materialized", "alt_corr")},
                             materialized_bytes_reckoned=_materialized_bytes(*FULL_HD))))
     drives["ff_raft_alt_corr_4k"] = counts
     del p, hd
@@ -2139,8 +1766,7 @@ def variants_phase(torch, card: str, held: set) -> dict:
         made = _raft_variant_weights(torch, cfg, weights)
         want = {"lookup_fold": cfg.iters, "in_stats": n_in, "in_normalize": n_in}
         p = FlowPredictor(cfg, weights, device="cuda", dtype=bf16)
-        flow, counts, ms, times, breakdown = _drive(torch, p, inputs, want,
-                                                    f"chip_smoke_profile_{path}")
+        flow, counts = _drive(torch, p, inputs, want, path)
         forms = _count_forms(counts[1], "in_normalize")
         g_keys = {key for key in counts[1] if key[0] == "lookup_fold"}
         radius, n_out = (3, 96) if cfg.small else (4, 256)
@@ -2160,13 +1786,10 @@ def variants_phase(torch, card: str, held: set) -> dict:
         del p
         _emit(dict(phase="variants", model=path, yaml=os.path.relpath(yaml, ROOT),
                    set=model, card=card, shape=[1, H, W], iters=cfg.iters, dtype="bfloat16",
-                   ms_per_pair=ms, device_busy_ms=breakdown["device_busy_ms"],
-                   idle_share=breakdown["idle_share"], kernel_count=breakdown["kernel_count"],
-                   ms_all=times, profile=breakdown, launches=counts[0],
-                   in_normalize_forms=forms, g_keys=sorted(map(list, g_keys)),
+                   launches=counts[0], in_normalize_forms=forms,
+                   g_keys=sorted(map(list, g_keys)),
                    weights={k: dict(count=len(v), first=v[:2]) for k, v in made.items()},
-                   **gates, cpu_f32_size=cpu_note,
-                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30))
+                   **gates, cpu_f32_size=cpu_note))
         drives[path] = counts
         torch.cuda.empty_cache()
 
@@ -2195,7 +1818,7 @@ FF_PATCH4_TRAIN = dict(patch_size=4)  # phase 11's step but for the patch size
 # moves it to 0.916 (184x248, two samples); at depth 1 and 2 refinements
 # 0.99999999 and 0.9999995
 FF_PATCH4_AGREE = dict(encoder_depth=1, decoder_depth=2)
-VARIANT_TRAIN_STEPS = 6  # step 1 warms up, 2-4 timed, 5 profiled
+VARIANT_TRAIN_STEPS = 6  # step 4 counted
 GROUP_SHAPE = (10, 56, 133, 128)  # group attention's F: B*K = 10 at the 55x128 grid, padded
 # bf16 against f32 through LayerNorm, four products, GELU and F's bf16 softmax
 # weights, the residual's input rounded to 8 significant bits: of the output's scale
@@ -2323,11 +1946,7 @@ def ff_variants_phase(torch, card: str) -> dict:
         made = _ff_variant_weights(torch, cfg, weights)
         want = _ff_variant_launches(cfg)
         p = FlowPredictor(cfg, weights, device="cuda", dtype=torch.bfloat16)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        flow, counts, ms, times, breakdown = _drive(torch, p, inputs, want,
-                                                    f"chip_smoke_profile_{path}")
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        flow, counts = _drive(torch, p, inputs, want, path)
         folds = sorted({key[3] for key in counts[1] if key[0] == "fold"})
         if folds != ([64] if cfg.only_global else [64, 256]):
             raise AssertionError(f"{path}: fold widths {folds}")
@@ -2336,22 +1955,17 @@ def ff_variants_phase(torch, card: str) -> dict:
             extra["convnext_dwconv"] = dict(
                 _dwconv_row(torch, torch.device("cuda", 0), 8, 55, 128, cfg.cost_latent_dim),
                 launches=4 * cfg.encoder_depth)
-        t0 = time.perf_counter()
         gates = _gates(flow, None, _cpu_flow(cfg, weights, inputs))
         limit = 0.05 * max(gates["cpu_f32_mean_abs_flow"], 1.0)
         del p
         _emit(dict(phase="ff_variants", model=path, yaml=os.path.relpath(FF_TRAIN_YAML, ROOT),
                    set=model, card=card, shape=[1, H, W], encoder_depth=cfg.encoder_depth,
-                   iters=cfg.decoder_depth, dtype="bfloat16", ms_per_pair=ms,
-                   device_busy_ms=breakdown["device_busy_ms"],
-                   idle_share=breakdown["idle_share"], kernel_count=breakdown["kernel_count"],
-                   peak_mem_gib=peak, launches=counts[0], want=want, fold_widths=folds,
+                   iters=cfg.decoder_depth, dtype="bfloat16", launches=counts[0], want=want,
+                   fold_widths=folds,
                    agreement_margin=dict(mean_abs=gates["vs_cpu_f32_mean_abs"], limit=limit,
                                          share=gates["vs_cpu_f32_mean_abs"] / limit),
-                   ms_all=times, profile=breakdown,
                    weights={k: dict(count=len(v), first=v[:2]) for k, v in made.items()},
-                   **extra, **gates, cpu_f32_size="full frame",
-                   cpu_check_seconds=time.perf_counter() - t0))
+                   **extra, **gates, cpu_f32_size="full frame"))
         drives[path] = counts
         torch.cuda.empty_cache()
     _emit(dict(phase="ff_variants", part="serving", seconds=time.perf_counter() - t_phase))
@@ -2372,11 +1986,9 @@ def ff_variant_train_phase(torch, card: str, held: set, path: str = "ff_variant_
     >= 0.9999 in gradient cosine (phase 11's bounds; with `agree_model`,
     on the model with those MODEL fields set, from `_ff_variant_weights`
     drawn for it, as phase 11 agrees at the fixture's depth). No descent
-    gate.
-    Prints ms a step (steps 2-4, host clock), busy ms and idle share of
-    step 5 (profiled), peak memory. Every (kernel, shape) launched that no
-    row holds (`held`) is held once against its plain version. ->
-    ((counts, launches by shape key) of step 4, the phase's line)."""
+    gate. Every (kernel, shape) launched that no row holds (`held`) is
+    held once against its plain version. -> ((counts, launches by shape
+    key) of step 4, the phase's line)."""
     import copy
 
     from focusflow_official_tpu_torch.cli.train import train as run_trainer
@@ -2384,7 +1996,6 @@ def ff_variant_train_phase(torch, card: str, held: set, path: str = "ff_variant_
     from focusflow_official_tpu_torch.data import synthetic as sy
     from focusflow_official_tpu_torch.kernels import (
         launch_counts, launch_shapes, reset_launch_counts)
-    from torch.profiler import ProfilerActivity, profile
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -2401,44 +2012,28 @@ def ff_variant_train_phase(torch, card: str, held: set, path: str = "ff_variant_
     b, (th, tw) = int(cfg.TRAIN.BATCH_SIZE), tuple(cfg.TRAIN.IMAGE_SIZE)
     want = _ff_variant_launches(config_from_yaml(cfg))
     data = sy.chairs_layout(5, n=b, h=th, w=tw)
-    st = dict(times=[], per_step=[], metrics=[], prof=None, seen={})
+    st = dict(per_step=[], metrics=[], seen={})
 
     def on_step(step, metrics):
-        torch.cuda.synchronize()
-        st["times"].append(time.perf_counter())
         st["per_step"].append({k: v for k, v in launch_counts.items() if v})
         st["metrics"].append(metrics)
         if not all(np.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"{path} step {step}: metrics {metrics} not finite")
         if step == 4:
             st["counted"] = (dict(launch_counts), dict(launch_shapes))
-        if step == 5:
-            st["prof"].stop()
-            st["profiled_ms"] = (st["times"][-1] - st["times"][-2]) * 1e3
         for key, n in launch_shapes.items():
             st["seen"][key] = st["seen"].get(key, 0) + n
         reset_launch_counts()
-        if step == 4:
-            st["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            st["prof"].start()
 
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     run_trainer(cfg, data, validate=lambda model: {},
                 log_dir=os.path.join(OUT_DIR, "train_runs"), device="cuda",
                 compute_dtype="bfloat16", val_freq=10 ** 9, on_step=on_step)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want_step = {k: v for k, v in want.items() if v}
     for i, c in enumerate(st["per_step"], start=1):
         if c != want_step:
             raise AssertionError(f"{path} step {i}: launches {c} != {want_step}")
-    step_ms = np.diff(st["times"]) * 1e3  # step_ms[i] is step i + 2
-    ms = float(np.median(step_ms[:3]))  # steps 2-4
-    breakdown = _device_breakdown(torch, st["prof"], st["profiled_ms"])
-    breakdown["idle_share_of_unprofiled_step"] = max(0.0, 1 - breakdown["device_busy_ms"] / ms)
-    _profile_table(st["prof"], os.path.join(OUT_DIR, f"chip_smoke_profile_{path}.txt"))
-    st["prof"] = None
 
     ch, cw = th // 2, tw // 2
     two = {k: torch.as_tensor(np.stack([data[i][k][:ch, :cw] for i in range(2)]))
@@ -2451,9 +2046,7 @@ def ff_variant_train_phase(torch, card: str, held: set, path: str = "ff_variant_
         aweights = os.path.join(OUT_DIR, f"{path}_agree_weights.npz")
         _ff_variant_weights(torch, config_from_yaml(acfg), aweights)
         acfg.MODEL.PRETRAIN = aweights
-    t0 = time.perf_counter()
     cpu_loss, cpu_grad = _two_sample_grads(torch, acfg, aweights, two, "cpu", torch.float32)
-    cpu_s = time.perf_counter() - t0
     reset_launch_counts()
     f32_loss, f32_grad = _two_sample_grads(torch, acfg, aweights, two, dev, torch.float32)
     for key, n in launch_shapes.items():
@@ -2461,8 +2054,7 @@ def ff_variant_train_phase(torch, card: str, held: set, path: str = "ff_variant_
     agree = dict(cpu_f32_loss=cpu_loss, card_f32_loss=f32_loss,
                  f32_loss_rel=abs(f32_loss - cpu_loss) / abs(cpu_loss),
                  f32_grad_cosine=_cosine(torch, f32_grad, cpu_grad), crop=[ch, cw],
-                 model=agree_model or "the phase's",
-                 cpu_f32_step_seconds=cpu_s, f32_card_flags="TF32 off for the script")
+                 model=agree_model or "the phase's", f32_card_flags="TF32 off for the script")
     if not (agree["f32_loss_rel"] <= 1e-4 and agree["f32_grad_cosine"] >= 0.9999):
         raise AssertionError(f"{path} training agreement: {agree}")
     del cpu_grad, f32_grad
@@ -2473,12 +2065,9 @@ def ff_variant_train_phase(torch, card: str, held: set, path: str = "ff_variant_
     out = dict(phase="ff_variant_train", path=path, card=card,
                yaml=os.path.relpath(FF_TRAIN_YAML, ROOT), set=form, batch=b,
                crop=[th, tw], iters=int(cfg.MODEL.decoder_depth), dtype="bfloat16",
-               steps=VARIANT_TRAIN_STEPS, ms_per_step=ms, step_ms=step_ms.tolist(),
-               samples_per_s=b * 1e3 / ms, device_busy_ms=breakdown["device_busy_ms"],
-               idle_share=breakdown["idle_share"], peak_mem_gib=peak,
-               losses=[m["loss"] for m in st["metrics"]],
+               steps=VARIANT_TRAIN_STEPS, losses=[m["loss"] for m in st["metrics"]],
                grad_norms=[m["grad_norm"] for m in st["metrics"]],
-               launches_per_step=want_step, profile=breakdown, agreement=agree,
+               launches_per_step=want_step, agreement=agree,
                weights={k: dict(count=len(v), first=v[:2]) for k, v in made.items()},
                new_shapes_held=new_rows, phase_seconds=time.perf_counter() - t_phase)
     _emit(out)
@@ -2552,7 +2141,7 @@ def ff_variant_modules_phase(torch, card: str) -> dict:
 
 
 # ------------------------------------------------ phase 16: training the FF-RAFT variants
-VARIANT_STEPS = 6  # step 1 warms up, 2-4 timed, 4 counted, 5 profiled
+VARIANT_STEPS = 6  # step 4 counted
 # the attention front end's batch: 3, the largest whose step fits under
 # FIT_SHARE of the card's memory (one step's peak at B=1 and 2, about 17 GiB
 # a sample, reckoned B=4 at 68.6 of 79.18 GiB: PERF.md); its step's
@@ -2837,10 +2426,7 @@ def variant_train_phase(torch, card: str, held: set, path: str, phase9: dict) ->
     moved, `flow_net`'s did not; dropout: the kept share of the drawn
     channels within 4 sigma of 1 - p). The variants have no trained
     weights, so they have no descent gate; ALT_CORR starts from the
-    fixture and has phase 9's. Prints ms a step (the median of steps 4-13,
-    or 2-4 for 6 steps), samples/s, busy ms and idle share of a profiled
-    step, the forward / backward / optimizer split and peak memory. Every
-    (kernel, shape) launched that no row holds (`held`) is held once
+    fixture and has phase 9's. Every (kernel, shape) launched that no row holds (`held`) is held once
     against its plain version. -> ((counts, launches by shape key) of the
     counted step, the path's line, kernel rows of its own: phase 9's at
     the attention front end's batch, else none)."""
@@ -2851,20 +2437,17 @@ def variant_train_phase(torch, card: str, held: set, path: str, phase9: dict) ->
     from focusflow_official_tpu_torch.kernels import (
         launch_counts, launch_shapes, reset_launch_counts)
     from focusflow_official_tpu_torch.train import loop
-    from torch.profiler import ProfilerActivity, profile
 
     t_phase = time.perf_counter()
     spec = _variant_train_specs()[path]
     dev = torch.device("cuda", 0)
-    # the steps' roles: (counted, profiled, the timed steps' first and last)
     steps = spec["steps"]
-    counted, profiled, first, last = {TRAIN_STEPS: (COUNTED_STEP, PROFILED_STEP, 4, 13),
-                                      VARIANT_STEPS: (4, 5, 2, 4), 3: (2, 3, 2, 2)}[steps]
+    counted = {TRAIN_STEPS: COUNTED_STEP, VARIANT_STEPS: 4, 3: 2}[steps]
     npz = os.path.join(OUT_DIR, f"{path}_weights.npz")
     cfg, weights, made = _variant_train_cfg(
         spec["yaml"], spec["model"], spec["train"], steps,
         lambda model_cfg: (npz, _raft_variant_weights(torch, model_cfg, npz)))
-    seen, extra = {}, {}
+    seen = {}
     data = sy.chairs_layout(5, n=TB, h=TH, w=TW)
     rows = {}
     if spec["gates"] == "fit":
@@ -2878,7 +2461,7 @@ def variant_train_phase(torch, card: str, held: set, path: str, phase9: dict) ->
     if spec["gates"] == "alt_corr":
         before = _fixed_batch_loss(torch, _trained_model(torch, cfg, weights, dev, "float32")[0],
                                    cfg, data)
-    st = dict(times=[], per_step=[], metrics=[], prof=None)
+    st = dict(per_step=[], metrics=[])
     drawn = []
     draw = loop.draw_dropout
 
@@ -2888,8 +2471,6 @@ def variant_train_phase(torch, card: str, held: set, path: str, phase9: dict) ->
         return masks
 
     def on_step(step, metrics):
-        torch.cuda.synchronize()
-        st["times"].append(time.perf_counter())
         st["per_step"].append({k: v for k, v in launch_counts.items() if v})
         st["metrics"].append(metrics)
         if not all(np.isfinite(v) for v in metrics.values()):
@@ -2897,15 +2478,9 @@ def variant_train_phase(torch, card: str, held: set, path: str, phase9: dict) ->
         if step == counted:
             st["counted"] = (dict(launch_counts), dict(launch_shapes))
             st["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        if step == profiled:
-            st["prof"].stop()
-            st["profiled_ms"] = (st["times"][-1] - st["times"][-2]) * 1e3
         for key, n in launch_shapes.items():
             seen[key] = seen.get(key, 0) + n
         reset_launch_counts()
-        if step == profiled - 1:
-            st["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            st["prof"].start()
 
     def validate(model):  # once, after the last step
         if spec["gates"] == "alt_corr":
@@ -2917,34 +2492,21 @@ def variant_train_phase(torch, card: str, held: set, path: str, phase9: dict) ->
     reset_launch_counts()
     loop.draw_dropout = record
     try:
-        t0 = time.perf_counter()
         result = run_trainer(cfg, data, validate=validate,
                              log_dir=os.path.join(OUT_DIR, "train_runs"), device="cuda",
                              compute_dtype="bfloat16", val_freq=10 ** 9, on_step=on_step)
-        train_s = time.perf_counter() - t0
     finally:
         loop.draw_dropout = draw
     want = {k: v for k, v in spec["want"].items() if v}
     for i, c in enumerate(st["per_step"], start=1):
         if c != want:
             raise AssertionError(f"{path} step {i}: launches {c} != {want}")
-    step_ms = np.diff(st["times"]) * 1e3  # step_ms[i] is step i + 2
-    timed = step_ms[first - 2:last - 1]
-    ms = float(np.median(timed))
     out = dict(phase="raft_variant_train", path=path, card=card,
                yaml=os.path.relpath(spec["yaml"], ROOT), model=spec["model"], train=spec["train"],
                batch=batch, crop=[TH, TW], iters=ITERS, dtype="bfloat16", steps=steps,
-               ms_per_step=ms, timed_steps=[first, last], step_ms=step_ms.tolist(),
-               samples_per_s=batch * 1e3 / ms,
-               peak_mem_gib=st["peak_gib"], losses=[m["loss"] for m in st["metrics"]],
+               losses=[m["loss"] for m in st["metrics"]],
                grad_norms=[m["grad_norm"] for m in st["metrics"]], launches_per_step=want,
-               weights={k: dict(count=len(v), first=v[:2]) for k, v in made.items()}, **extra)
-    breakdown = _device_breakdown(torch, st["prof"], st["profiled_ms"])
-    breakdown["idle_share_of_unprofiled_step"] = max(0.0, 1 - breakdown["device_busy_ms"] / ms)
-    _profile_table(st["prof"], os.path.join(OUT_DIR, f"chip_smoke_profile_{path}.txt"))
-    st["prof"] = None
-    out.update(device_busy_ms=breakdown["device_busy_ms"], idle_share=breakdown["idle_share"],
-               profile=breakdown, split=_train_step_split(torch, cfg, weights, data, freeze))
+               weights={k: dict(count=len(v), first=v[:2]) for k, v in made.items()})
 
     if spec["gates"] == "fit":
         card_gib = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
@@ -2987,10 +2549,8 @@ def variant_train_phase(torch, card: str, held: set, path: str, phase9: dict) ->
             torch.manual_seed(0)
             weights = os.path.join(OUT_DIR, f"{path}_fresh.npz")
             np.savez(weights, **params_to_jax(build_model(acfg, "float32")[1].state_dict()))
-        t0 = time.perf_counter()
         cpu_loss, cpu_grad = _two_sample_grads(torch, acfg, weights, two, "cpu", torch.float32,
                                                freeze_bn=True)
-        cpu_s = time.perf_counter() - t0
         reset_launch_counts()
         f32_loss, f32_grad = _two_sample_grads(torch, acfg, weights, two, dev, torch.float32,
                                                freeze_bn=True)
@@ -3003,7 +2563,7 @@ def variant_train_phase(torch, card: str, held: set, path: str, phase9: dict) ->
                      f32_grad_cosine=_cosine(torch, f32_grad, cpu_grad),
                      bf16_loss_rel=abs(bf_loss - f32_loss) / abs(f32_loss),
                      bf16_grad_cosine=_cosine(torch, bf_grad, f32_grad),
-                     cpu_f32_step_seconds=cpu_s, f32_card_flags="TF32 off for the script",
+                     f32_card_flags="TF32 off for the script",
                      crop=[ch, cw], weights=os.path.relpath(weights, ROOT))
         agree["bf16_grad_cosine_bound"] = spec.get("bf16_cosine", 0.99)
         out["agreement"] = agree
@@ -3017,7 +2577,7 @@ def variant_train_phase(torch, card: str, held: set, path: str, phase9: dict) ->
     g = torch.Generator(device=dev).manual_seed(17)
     new = sorted((k for k in seen if k not in held), key=str)
     out["new_shapes_held"] = [dict(_hold_shape(torch, g, dev, k), launches=seen[k]) for k in new]
-    out.update(trainer_seconds=train_s, phase_seconds=time.perf_counter() - t_phase)
+    out["phase_seconds"] = time.perf_counter() - t_phase
     _emit(out)
     torch.cuda.empty_cache()
     return st["counted"], out, rows
@@ -3179,8 +2739,7 @@ def eval_phase(torch, card: str, held: set) -> dict:
     max(AEPE, 1) px); each family launches its kernels. Every (kernel,
     shape) the phase launched that the kernel phase did not hold (`held`)
     is held here against its plain version (`_hold_shape`), untimed. The
-    phase is not one of the kernels line's drives. Each dataset runs twice:
-    once counted, once timed."""
+    phase is not one of the kernels line's drives."""
     from focusflow_official_tpu_torch.data import synthetic as sy
     from focusflow_official_tpu_torch.data.io import read_flow_kitti
     from focusflow_official_tpu_torch.kernels import (
@@ -3190,18 +2749,15 @@ def eval_phase(torch, card: str, held: set) -> dict:
     from focusflow_official_tpu_torch.predict import FlowPredictor
     from focusflow_official_tpu_torch.train import evaluate as tev
     from focusflow_official_tpu_torch.train.submission import create_kitti_submission
-    from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda", 0)
-    t0 = time.perf_counter()
     chairs = sy.chairs_layout(0)
     sintel, scene = sy.sintel_layout(1)
     kitti = sy.kitti_layout(2)
-    data_s = time.perf_counter() - t0
     bf16 = torch.bfloat16
     raft = FlowPredictor(_raft_cfg(), FIXTURE, device="cuda", dtype=bf16)
     raft_cpu = FlowPredictor(_raft_cfg(), FIXTURE, device="cpu", dtype=torch.float32)
-    shapes, out = {}, dict(data_seconds=data_s)
+    shapes, out = {}, {}
 
     class ZeroFlow(torch.nn.Module):
         def forward(self, image1, image2, mask1, mask2):
@@ -3211,61 +2767,36 @@ def eval_phase(torch, card: str, held: set) -> dict:
         for key, n in launch_shapes.items():
             shapes[key] = shapes.get(key, 0) + n
 
-    def drive(label, validate, model, n_pairs, kernels, **kw):
-        torch.cuda.synchronize()
+    def drive(label, validate, model, kernels, **kw):
         reset_launch_counts()
-        t = time.perf_counter()
-        first = validate(model, **kw)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t
+        metrics = validate(model, **kw)
         counts = {k: v for k, v in launch_counts.items() if v}
         note_shapes()
         if not all(counts.get(k, 0) > 0 for k in kernels):
             raise AssertionError(f"{label}: launches {counts}, expected each of {kernels}")
-        times = []
-        for _ in range(3):
-            t = time.perf_counter()
-            metrics = validate(model, **kw)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-        secs = float(np.median(times))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            validate(model, **kw)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-        breakdown = _device_breakdown(torch, prof, wall_ms)
         data = {k: v for k, v in kw.items() if k in ("dataset", "datasets")}
         zero = validate(ZeroFlow(), device=dev, **data)
-        if not np.isfinite(list(metrics.values()) + list(first.values())).all():
+        if not np.isfinite(list(metrics.values())).all():
             raise AssertionError(f"{label}: metrics {metrics} not finite")
-        out[label] = dict(metrics=metrics, zero_flow=zero, first_run_metrics=first,
-                          seconds=secs, seconds_all=times, first_run_seconds=first_s,
-                          pairs=n_pairs,
-                          ms_per_pair=secs * 1e3 / n_pairs, iters=kw.get("iters"),
-                          launches_counted_run=counts,
-                          busy_ms_per_pair=breakdown["device_busy_ms"] / n_pairs,
-                          profile=breakdown)
+        out[label] = dict(metrics=metrics, zero_flow=zero, iters=kw.get("iters"),
+                          launches=counts)
         _emit(dict(phase="eval", dataset=label, card=card, dtype="bfloat16", **out[label]))
 
     raft_kernels = ("lookup_fold", "in_stats", "in_normalize")
-    drive("ff_raft chairs", tev.validate_chairs, raft.model, len(chairs), raft_kernels,
-          dataset=chairs, iters=12)
-    drive("ff_raft sintel", tev.validate_sintel, raft.model, 2 * len(sintel["clean"]),
-          raft_kernels, datasets=sintel, iters=32)
-    drive("ff_raft kitti", tev.validate_kitti, raft.model, len(kitti), raft_kernels,
-          dataset=kitti, iters=32)
+    drive("ff_raft chairs", tev.validate_chairs, raft.model, raft_kernels, dataset=chairs,
+          iters=12)
+    drive("ff_raft sintel", tev.validate_sintel, raft.model, raft_kernels, datasets=sintel,
+          iters=32)
+    drive("ff_raft kitti", tev.validate_kitti, raft.model, raft_kernels, dataset=kitti, iters=32)
 
     # the first pair of each layout against the f32 CPU run on the same inputs
     agree = {}
     for label, sample, iters, pad in (("chairs", chairs[0], 12, None),
                                       ("sintel", sintel["clean"][0], 32, "sintel"),
                                       ("kitti", kitti[0], 32, "kitti")):
-        t = time.perf_counter()
         flow_cpu, m_cpu = _protocol_flow(torch, raft_cpu.model, sample, iters, pad, "cpu")
-        cpu_s = time.perf_counter() - t
         flow, m_card = _protocol_flow(torch, raft.model, sample, iters, pad, dev)
-        agree[label] = dict(_gates(flow, None, (flow_cpu, cpu_s), shape=flow_cpu.shape),
+        agree[label] = dict(_gates(flow, None, flow_cpu, shape=flow_cpu.shape),
                             epe=_epe_gate(m_card, m_cpu), iters=iters,
                             shape=list(sample["image1"].shape[:2]),
                             gt_mean_abs_flow=float(np.abs(sample["flow"]).mean()))
@@ -3278,30 +2809,21 @@ def eval_phase(torch, card: str, held: set) -> dict:
     runs = {}
     reset_launch_counts()
     for warm in (True, False):
-        seq.sequence(frames, masks, warm_start=warm)  # warm-up
-        torch.cuda.synchronize()
-        t = time.perf_counter()
         flows = seq.sequence(frames, masks, warm_start=warm)
-        secs = time.perf_counter() - t
         if flows.shape != (len(frames) - 1, *frames[0].shape[:2], 2) or not np.isfinite(
                 flows).all():
             raise AssertionError(f"sequence flows {flows.shape} not finite")
         epe = [float(np.sqrt(((f - g_) ** 2).sum(-1)).mean())
                for f, g_ in zip(flows, scene["flows"])]
-        runs["warm" if warm else "cold"] = dict(seconds=secs, ms_per_pair=secs * 1e3 / len(epe),
-                                                epe_per_pair=epe, flows=flows)
+        runs["warm" if warm else "cold"] = dict(epe_per_pair=epe, flows=flows)
     note_shapes()
     _, flow_lr = seq.forward(*seq.prepare(frames[0], frames[1], masks[0], masks[1]))
-    t = time.perf_counter()
     init = forward_interpolate(flow_lr[0].cpu().numpy())
-    runs["warm"]["splat_ms"] = (time.perf_counter() - t) * 1e3  # on the host, once
     pair2 = (frames[1], frames[2], masks[1], masks[2])
     flow2 = seq.forward(*seq.prepare(*pair2), flow_init=torch.from_numpy(init[None]).to(dev))[0]
-    t = time.perf_counter()
     flow2_cpu = seq_cpu.forward(*seq_cpu.prepare(*pair2), flow_init=torch.from_numpy(init[None]))[0]
-    cpu_s = time.perf_counter() - t
     flow2 = flow2[0].cpu().numpy()
-    warm2 = _gates(flow2, None, (flow2_cpu[0].numpy(), cpu_s), shape=flow2.shape)
+    warm2 = _gates(flow2, None, flow2_cpu[0].numpy(), shape=flow2.shape)
     warm2["init_mean_abs"] = float(np.abs(init).mean())
     warm2["vs_sequence_max_abs"] = float(np.abs(flow2 - runs["warm"]["flows"][1]).max())
     agree["sintel pair 2, warm start"] = warm2
@@ -3313,13 +2835,12 @@ def eval_phase(torch, card: str, held: set) -> dict:
 
     ff = FlowPredictor(FlowFormerConfig(encoder_depth=1, decoder_depth=ITERS), FIXTURE_FF,
                        device="cuda", dtype=bf16)
-    drive("ff_flowformer chairs", tev.validate_chairs, ff.model, len(chairs),
+    drive("ff_flowformer chairs", tev.validate_chairs, ff.model,
           ("attention", "window_attention", "lookup", "fold"), dataset=chairs, iters=ITERS)
     del ff
     pwc = FlowPredictor(FFPWCNetConfig(fusion="parallel", fusion_type="1x1conv"), FIXTURE_PWC,
                         device="cuda", dtype=bf16)
-    drive("ff_pwcnet chairs", tev.validate_chairs, pwc.model, len(chairs), ("local_corr",),
-          dataset=chairs)
+    drive("ff_pwcnet chairs", tev.validate_chairs, pwc.model, ("local_corr",), dataset=chairs)
     del pwc
 
     # the KITTI submission writer: PNGs where cv2 is installed, else the
@@ -3358,7 +2879,7 @@ def eval_phase(torch, card: str, held: set) -> dict:
 TRAIN_YAML = os.path.join(ROOT, "configs", "ff-raft", "experiment", "ffraft_chairs_orb.yaml")
 TB, TH, TW = 10, 368, 496  # the chairs stage's batch and crop
 TRAIN_STEPS = 16
-COUNTED_STEP, PROFILED_STEP = 4, 15  # steps 1-3 warm up; 4-13 timed
+COUNTED_STEP = 4  # steps 1-3 warm up
 # the descent gate: the fixed batch's f32 loss after the last step over the
 # loss before the first (`_descent_gate`)
 DESCENT_BOUND = 0.98
@@ -3613,18 +3134,17 @@ def _train_specs() -> dict:
         "ff_raft_train": dict(
             yaml=TRAIN_YAML, weights=FIXTURE, batch=TB, crop=(TH, TW),
             iters=ITERS, want=TRAIN_WANT, forms=("in_normalize", {"plain": 18, "residual": 12}),
-            profile="chip_smoke_profile_train.txt", flags=None, agree=None,
+            flags=None, agree=None,
             descent="trainer"),
         "ff_pwcnet_train": dict(
             yaml=PWC_TRAIN_YAML, weights=FIXTURE_PWC, batch=8,
             crop=(368, 496), iters=None, want={"local_corr": 5},
             forms=("local_corr", {"leaky_relu": 5}),
-            profile="chip_smoke_profile_train_pwc.txt", flags="defaults", agree=None,
+            flags="defaults", agree=None,
             descent="trainer"),
         "ff_flowformer_train": dict(
             yaml=FF_TRAIN_YAML, weights=None, batch=6,
-            crop=(368, 496), iters=12, want=_ff_launches(3, 12), forms=None,
-            profile="chip_smoke_profile_train_ff.txt", flags="defaults",
+            crop=(368, 496), iters=12, want=_ff_launches(3, 12), forms=None, flags="defaults",
             # the agreement gates at the fixture's own depth: past the 2
             # refinements it was trained at, its f32 gradient depends on
             # the order of f32 sums (JAX's and the port's f32 steps:
@@ -3649,16 +3169,14 @@ def _train_specs() -> dict:
             yaml=RAFT_CTK_YAML, batch=6, crop=(368, 496), iters=ITERS,
             weights=lambda torch: _baseline_weights(torch, "raft"),
             want={"lookup_fold": ITERS, "lookup": ITERS, "in_stats": 15, "in_normalize": 15},
-            forms=("in_normalize", {"plain": 9, "residual": 6}),
-            profile="chip_smoke_profile_train_raft.txt", flags="defaults",
+            forms=("in_normalize", {"plain": 9, "residual": 6}), flags="defaults",
             agree=dict(MODEL={}, crop=(184, 248),
                        weights=lambda torch: _fresh_weights(torch, RAFT_CTK_YAML, "raft")),
             descent="recipe"),
         "flowformer_train": dict(
             yaml=VANILLA_FF_YAML, batch=6, crop=(368, 496), iters=12,
             weights=lambda torch: _baseline_weights(torch, "flowformer"),
-            want=_ff_launches(3, 12, fused=False), forms=None,
-            profile="chip_smoke_profile_train_flowformer.txt", flags="defaults",
+            want=_ff_launches(3, 12, fused=False), forms=None, flags="defaults",
             agree=dict(MODEL={}, crop=(184, 248)), descent="recipe"),
     }
 
@@ -3726,12 +3244,8 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
     they are) at the full crop: past the 2 refinements it was trained at,
     its f32 gradient depends on the order of f32 sums (on the CPU at 64x96
     and 12 refinements, JAX's f32 step against the port's: cosine 0.9974;
-    the port's bf16 step against its f32 step: 0.16-0.45). Prints ms a step (host clock, the median of
-    steps 4-13), samples/s, the device breakdown of step 15 (profiled; its
-    idle share also against the unprofiled median) with the forward /
-    backward / optimizer split of one more step (each part profiled
-    alone), and the peak memory. `rows_for(launches by shape key of the
-    counted step)` -> {kernel: rows} builds the path's kernel rows from
+    the port's bf16 step against its f32 step: 0.16-0.45). `rows_for(launches
+    by shape key of the counted step)` -> {kernel: rows} builds the path's kernel rows from
     the step's own launch keys; every other (kernel, shape) launched that
     no row holds (`held`) is held once against its plain version.
     -> ((counts, launches by shape key) of step 4, the counted step; the
@@ -3744,10 +3258,9 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
         launch_counts, launch_shapes, reset_launch_counts)
     from focusflow_official_tpu_torch.predict import for_inference
     from focusflow_official_tpu_torch.train import evaluate as tev
-    from torch.profiler import ProfilerActivity, profile
 
     t_phase = time.perf_counter()
-    spec, cfg, weights, data, data_s = _train_setup(torch, path)
+    spec, cfg, weights, data = _train_setup(torch, path)
     batch, (th, tw), want = spec["batch"], spec["crop"], spec["want"]
     dev = torch.device("cuda", 0)
     bf16 = torch.bfloat16
@@ -3755,13 +3268,11 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
     before = (_fixed_batch_loss(torch, _trained_model(torch, cfg, weights, dev, "float32")[0],
                                 cfg, data) if spec["descent"] == "trainer" else None)
     shapes_seen: dict = {}
-    st = dict(times=[], metrics=[], per_step=[], counted=None, prof=None)
+    st = dict(metrics=[], per_step=[], counted=None)
 
     def on_step(step, metrics):
         """After each step: its launches (every count set to 0 after the
-        step before), its metrics, the profiler around step 15."""
-        torch.cuda.synchronize()
-        st["times"].append(time.perf_counter())
+        step before) and its metrics."""
         counts = dict(launch_counts)
         st["per_step"].append({k: v for k, v in counts.items() if v})
         st["metrics"].append(metrics)
@@ -3769,16 +3280,9 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
             raise AssertionError(f"{path} step {step}: metrics {metrics} not finite")
         if step == COUNTED_STEP:
             st["counted"] = (counts, dict(launch_shapes))
-            st["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        if step == PROFILED_STEP:
-            st["prof"].stop()
-            st["profiled_ms"] = (st["times"][-1] - st["times"][-2]) * 1e3
         for key, n in launch_shapes.items():
             shapes_seen[key] = shapes_seen.get(key, 0) + n
         reset_launch_counts()  # each step counted from 0
-        if step == PROFILED_STEP - 1:
-            st["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            st["prof"].start()
 
     def validate(model):  # once, after the last step
         if spec["descent"] == "trainer":
@@ -3786,13 +3290,10 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
         return tev.validate_chairs(for_inference(copy.deepcopy(model), bf16, dev), chairs)
 
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    t0 = time.perf_counter()
     result = run_trainer(cfg, data, validate=validate,
                          log_dir=os.path.join(OUT_DIR, "train_runs"), device="cuda",
                          compute_dtype="bfloat16", val_freq=10 ** 9, on_step=on_step)
-    train_s = time.perf_counter() - t0
     for key, n in launch_shapes.items():  # the final validation's launches
         shapes_seen[key] = shapes_seen.get(key, 0) + n
     for i, c in enumerate(st["per_step"], start=1):
@@ -3811,15 +3312,6 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
     final = result["final"]
     if not np.isfinite(list(final.values())).all():
         raise AssertionError(f"{path}: validation on the trained weights: {final}")
-    step_ms = np.diff(st["times"]) * 1e3  # step_ms[i] is step i + 2
-    timed = step_ms[COUNTED_STEP - 2:COUNTED_STEP + 8]  # steps 4-13
-    ms = float(np.median(timed))
-    breakdown = _device_breakdown(torch, st["prof"], st["profiled_ms"])
-    # the profiler slows the host: the busy share of an unprofiled step too
-    breakdown["idle_share_of_unprofiled_step"] = max(0.0, 1 - breakdown["device_busy_ms"] / ms)
-    _profile_table(st["prof"], os.path.join(OUT_DIR, spec["profile"]))
-    st["prof"] = None
-    split = _train_step_split(torch, cfg, weights, data)
 
     # f32 on the card against the CPU, then bf16 against f32
     ch, cw = (spec["agree"] or {}).get("crop", (th, tw))
@@ -3832,9 +3324,7 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
         aweights = aweights(torch) if callable(aweights) else aweights
         for k, v in spec["agree"]["MODEL"].items():
             setattr(acfg.MODEL, k, v)
-    t0 = time.perf_counter()
     cpu_loss, cpu_grad = _two_sample_grads(torch, acfg, aweights, two, "cpu", torch.float32)
-    cpu_s = time.perf_counter() - t0
     reset_launch_counts()
     f32_loss, f32_grad = _two_sample_grads(torch, acfg, aweights, two, dev, torch.float32, flags)
     bf_loss, bf_grad = _two_sample_grads(torch, acfg, aweights, two, dev, bf16)
@@ -3845,7 +3335,6 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
                  f32_grad_cosine=_cosine(torch, f32_grad, cpu_grad),
                  bf16_loss_rel=abs(bf_loss - f32_loss) / abs(f32_loss),
                  bf16_grad_cosine=_cosine(torch, bf_grad, f32_grad),
-                 cpu_f32_step_seconds=cpu_s,
                  f32_card_flags="PyTorch's defaults (matmul TF32 {}, cuDNN TF32 {})".format(
                      *flags) if flags else "TF32 off for the script",
                  model=spec["agree"]["MODEL"] if spec["agree"] else "the phase's",
@@ -3864,17 +3353,11 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
     new_rows = [dict(_hold_shape(torch, g, dev, k), launches=shapes_seen[k]) for k in new]
     out = dict(phase=path.replace("ff_raft_train", "train"), path=path, card=card,
                yaml=os.path.relpath(spec["yaml"], ROOT), batch=batch, crop=[th, tw],
-               iters=spec["iters"], dtype="bfloat16", steps=TRAIN_STEPS,
-               ms_per_step=ms, ms_steps_4_13=timed.tolist(), samples_per_s=batch * 1e3 / ms,
-               first_steps_ms=step_ms[:COUNTED_STEP - 2].tolist(), losses=losses,
-               descent=descent,
-               grad_norms=[m["grad_norm"] for m in st["metrics"]],
+               iters=spec["iters"], dtype="bfloat16", steps=TRAIN_STEPS, losses=losses,
+               descent=descent, grad_norms=[m["grad_norm"] for m in st["metrics"]],
                final_validation=final, launches_per_step=want,
                **({f"{spec['forms'][0]}_forms": forms} if forms else {}),
-               peak_mem_gib=st["peak_gib"],
-               peak_mem_gib_run=torch.cuda.max_memory_allocated() / 2 ** 30,
-               profile=breakdown, split=split, agreement=agree,
-               new_shapes_held=new_rows, data_seconds=data_s, trainer_seconds=train_s,
+               agreement=agree, new_shapes_held=new_rows,
                phase_seconds=time.perf_counter() - t_phase)
     _emit(out)
     torch.cuda.empty_cache()
@@ -3884,7 +3367,7 @@ def train_phase(torch, card: str, held: set, path: str = "ff_raft_train", defaul
 def _train_setup(torch, path: str) -> tuple:
     """A training path's spec (`_train_specs`), its YAML cut to
     TRAIN_STEPS steps from its weights, and its fixed batch -> (spec, cfg,
-    weights, data, seconds to make the data)."""
+    weights, data)."""
     from focusflow_official_tpu_torch.config import load_yaml_config
     from focusflow_official_tpu_torch.data import synthetic as sy
 
@@ -3902,9 +3385,7 @@ def _train_setup(torch, path: str) -> tuple:
     if (int(cfg.TRAIN.BATCH_SIZE), tuple(cfg.TRAIN.IMAGE_SIZE)) != (batch, (th, tw)):
         raise AssertionError(f"{spec['yaml']}: batch {cfg.TRAIN.BATCH_SIZE}, crop "
                              f"{cfg.TRAIN.IMAGE_SIZE}, not {batch} at {th}x{tw}")
-    t0 = time.perf_counter()
-    data = sy.chairs_layout(5, n=batch, h=th, w=tw)
-    return spec, cfg, weights, data, time.perf_counter() - t0
+    return spec, cfg, weights, sy.chairs_layout(5, n=batch, h=th, w=tw)
 
 
 def _fixed_batch_loss(torch, model, cfg, data) -> float:
@@ -3986,7 +3467,7 @@ def descent_run(torch, path: str) -> dict:
     summation forms)."""
     from focusflow_official_tpu_torch.cli.train import train as run_trainer
 
-    spec, cfg, weights, data, _ = _train_setup(torch, path)
+    spec, cfg, weights, data = _train_setup(torch, path)
     if spec["descent"] == "recipe":
         return _descent_recipe(torch, path, cfg, data)
     dev = torch.device("cuda", 0)
@@ -4003,60 +3484,12 @@ def descent_run(torch, path: str) -> dict:
     return _descent_gate(path, before, got["after"])
 
 
-def _train_step_split(torch, cfg, weights: str, data, freeze_bn: bool = False) -> dict:
-    """One more step on the fixed batch in three parts, each profiled on
-    its own and ended by a device sync: the forward with the loss, the
-    backward, the clip with AdamW -> each part's `_device_breakdown`.
-    `freeze_bn`: as `_trained_model`."""
-    from focusflow_official_tpu_torch.train.loop import (
-        build_optimizer, clip_by_global_norm, forward_loss)
-    from torch.profiler import ProfilerActivity, profile
-
-    dev = torch.device("cuda", 0)
-    model, loss_fn, iters = _trained_model(torch, cfg, weights, dev, "bfloat16", freeze_bn)
-    opt = build_optimizer(model, 1e-5)
-    batch = {k: torch.as_tensor(np.stack([data[i][k] for i in range(len(data))]), device=dev)
-             for k in ("image1", "image2", "mask1", "mask2", "flow", "valid")}
-    noise = torch.Generator(device=dev).manual_seed(0)
-    drop = torch.Generator(device=dev).manual_seed(1)  # draws only where the model has dropout
-    held = {}
-
-    def forward():
-        held["loss"], _ = forward_loss(model, loss_fn, batch, iters=iters,
-                                       dtype=torch.bfloat16, noise=noise, dropout=drop)
-
-    def backward():
-        opt.zero_grad(set_to_none=True)
-        held.pop("loss").backward()
-
-    def optimizer():
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        clip_by_global_norm(grads, 1.0)
-        opt.step()
-
-    parts = (("forward", forward), ("backward", backward), ("optimizer", optimizer))
-    for _, fn in parts:  # warm-up
-        fn()
-    torch.cuda.synchronize()
-    out = {}
-    for name, fn in parts:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        out[name] = _device_breakdown(torch, prof, wall_ms)
-    del model, opt, batch
-    torch.cuda.empty_cache()
-    return out
-
-
 # ------------------------------------------------ phase 13: training at scale
 CTK_YAML = os.path.join(ROOT, "configs", "ff-raft", "experiment", "ffraft_CTK.yaml")
 AUG_STEPS = 16
 DDP_WORLD, DDP_B, DDP_CROP = 2, 4, (184, 248)
 DDP_DEADLINE_S = 300
-NCCL_STEPS = 6  # steps 2-5 timed, step 6 profiled
+NCCL_STEPS = 6  # step 2 counted
 
 
 def _tagged(samples, recipe: int) -> list:
@@ -4145,20 +3578,15 @@ def _mixed_kitti_batch() -> dict:
     return Loader(samples, len(samples))._collate(samples)
 
 
-def device_aug_phase(torch, card: str, phase9: dict) -> tuple:
+def device_aug_phase(torch, card: str) -> tuple:
     """13a: the on-card augmentation. The augmentor alone on a raw chairs
     batch (B=10, 384x512 -> 368x496) and on a mixed kitti-stage batch
     (`_mixed_kitti_batch`, ffraft_CTK.yaml's recipes and crop): draws in
-    their recipes' ranges, the card's `apply` against the CPU's on the
-    same draws, its median ms a batch (CUDA events, draw included), its
-    kernel count and busy ms (one profiled call). Then the trainer
-    (`cli/train.py::train`, `device_aug=True`) on `ffraft_chairs_orb.yaml`
-    at B=10, bf16, from the fixture, over 20 raw pairs: 16 steps, each with
-    phase 9's launches (G 12, A 12, C1 30, C2 30), finite losses; ms a step
-    (median of steps 4-13) beside phase 9's from this run, samples/s, the
-    busy ms and idle share of profiled step 15 and the augmentation's
-    device ms in it (its `device_aug` range). -> (counts, launches by
-    shape key) of step 4."""
+    their recipes' ranges and the card's `apply` against the CPU's on the
+    same draws. Then the trainer (`cli/train.py::train`, `device_aug=True`)
+    on `ffraft_chairs_orb.yaml` at B=10, bf16, from the fixture, over 20
+    raw pairs: 16 steps, each with phase 9's launches (G 12, A 12, C1 30,
+    C2 30), finite losses. -> (counts, launches by shape key) of step 4."""
     from focusflow_official_tpu_torch.cli.train import train as run_trainer
     from focusflow_official_tpu_torch.config import load_yaml_config
     from focusflow_official_tpu_torch.data.device_aug import (
@@ -4166,15 +3594,12 @@ def device_aug_phase(torch, card: str, phase9: dict) -> tuple:
     from focusflow_official_tpu_torch.data.loader import Loader
     from focusflow_official_tpu_torch.kernels import (
         launch_counts, launch_shapes, reset_launch_counts)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(13)
     out = dict(phase="device_aug", card=card)
     raw = _raw_chairs(20, 31)
-    data_s = time.perf_counter() - t_phase
     chairs = DeviceFlowAugmentor((TH, TW), recipes=raw.device_recipes)
     ctk = load_yaml_config(CTK_YAML)
     kitti = DeviceFlowAugmentor(tuple(ctk.TRAIN.IMAGE_SIZE),
@@ -4185,22 +3610,10 @@ def device_aug_phase(torch, card: str, phase9: dict) -> tuple:
         on_card = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         b = on_card["image1"].shape[0]
         draws = aug.draw(gen, b, on_card["sizes"].long(), on_card["recipe"].long())
-        row = dict(raw_shape=list(batch["image1"].shape),
-                   shares=_check_draws(torch, aug, draws, on_card["sizes"], on_card["recipe"],
-                                       label),
-                   agreement=_aug_agreement(torch, aug, batch, draws, label, dev))
-        call = lambda: aug(gen, on_card)
-        row["ms"] = _time_ms(torch, call, reps=10)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            call()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        bd = _device_breakdown(torch, prof, wall)
-        row.update(kernels=bd["kernel_count"], busy_ms=bd["device_busy_ms"], wall_ms=wall,
-                   ms_by_category=bd["ms_by_category"])
-        out[label] = row
+        out[label] = dict(raw_shape=list(batch["image1"].shape),
+                          shares=_check_draws(torch, aug, draws, on_card["sizes"],
+                                              on_card["recipe"], label),
+                          agreement=_aug_agreement(torch, aug, batch, draws, label, dev))
         del on_card, draws
     torch.cuda.empty_cache()
 
@@ -4209,66 +3622,28 @@ def device_aug_phase(torch, card: str, phase9: dict) -> tuple:
     cfg.MODEL.PRETRAIN = FIXTURE
     cfg.MODEL.LOAD_MODULE = None
     cfg.GLOBAL.NUM_WORKERS = 2
-    st = dict(times=[], losses=[], per_step=[], counted=None, prof=None)
+    st = dict(losses=[], per_step=[], counted=None)
 
     def on_step(step, metrics):
-        torch.cuda.synchronize()
-        st["times"].append(time.perf_counter())
         st["per_step"].append({k: v for k, v in launch_counts.items() if v})
         st["losses"].append(metrics["loss"])
         if not all(np.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"device_aug step {step}: metrics {metrics} not finite")
         if step == COUNTED_STEP:
             st["counted"] = (dict(launch_counts), dict(launch_shapes))
-        if step == PROFILED_STEP:
-            st["prof"].stop()
-            st["profiled_ms"] = (st["times"][-1] - st["times"][-2]) * 1e3
         reset_launch_counts()
-        if step == PROFILED_STEP - 1:
-            st["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            st["prof"].start()
 
     reset_launch_counts()
-    t0 = time.perf_counter()
     run_trainer(cfg, raw, validate=lambda model: {}, log_dir=os.path.join(OUT_DIR, "train_runs"),
                 device="cuda", compute_dtype="bfloat16", val_freq=10 ** 9, on_step=on_step,
                 device_aug=True)
-    train_s = time.perf_counter() - t0
     for i, c in enumerate(st["per_step"], start=1):
         if c != TRAIN_WANT:
             raise AssertionError(f"device_aug step {i}: launches {c} != {TRAIN_WANT}")
-    step_ms = np.diff(st["times"]) * 1e3
-    timed = step_ms[COUNTED_STEP - 2:COUNTED_STEP + 8]
-    ms = float(np.median(timed))
-    bd = _device_breakdown(torch, st["prof"], st["profiled_ms"])
-    # the `device_aug` range of `train_step`: its device annotation spans
-    # its first kernel to its last, gaps included; the kernels inside that
-    # span are its own (one stream, and the step before ended in a sync).
-    # The host range's device time (its ops' kernels) is printed beside.
-    events = st["prof"].events()
-    (span,) = [e.time_range for e in events if e.name == "device_aug"
-               and e.device_type == DeviceType.CUDA]
-    aug_ms = sum(e.time_range.elapsed_us() for e in events
-                 if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-                 and span.start <= e.time_range.start < span.end) / 1e3
-    aug_host_range_ms = sum(e.device_time_total for e in events if e.name == "device_aug"
-                            and e.device_type == DeviceType.CPU) / 1e3
-    _profile_table(st["prof"], os.path.join(OUT_DIR, "chip_smoke_profile_train_aug.txt"))
-    st["prof"] = None
     out["train"] = dict(
         yaml=os.path.relpath(TRAIN_YAML, ROOT), batch=TB, raw=[384, 512], crop=[TH, TW],
-        dtype="bfloat16", steps=AUG_STEPS, ms_per_step=ms, ms_steps_4_13=timed.tolist(),
-        samples_per_s=TB * 1e3 / ms, losses=st["losses"], launches_per_step=TRAIN_WANT,
-        profiled_step=dict(busy_ms=bd["device_busy_ms"], wall_ms=bd["wall_ms"],
-                           idle_share=bd["idle_share"], kernels=bd["kernel_count"],
-                           device_aug_ms=aug_ms, device_aug_span_ms=span.elapsed_us() / 1e3,
-                           device_aug_host_range_device_ms=aug_host_range_ms,
-                           device_aug_share_of_busy=aug_ms / bd["device_busy_ms"]),
-        idle_share_of_unprofiled_step=max(0.0, 1 - bd["device_busy_ms"] / ms),
-        phase9_ms_per_step=phase9["ms_per_step"],
-        phase9_busy_ms=phase9["profile"]["device_busy_ms"],
-        over_phase9=ms / phase9["ms_per_step"], trainer_seconds=train_s)
-    out.update(data_seconds=data_s, phase_seconds=time.perf_counter() - t_phase)
+        dtype="bfloat16", steps=AUG_STEPS, losses=st["losses"], launches_per_step=TRAIN_WANT)
+    out["phase_seconds"] = time.perf_counter() - t_phase
     _emit(out)
     torch.cuda.empty_cache()
     return st["counted"]
@@ -4382,7 +3757,7 @@ def _ddp_gates(torch, got: dict, want: dict) -> dict:
     return out
 
 
-def ddp_phase(torch, card: str, held: set, phase9: dict) -> tuple:
+def ddp_phase(torch, card: str, held: set) -> tuple:
     """13b: data parallelism on one card. Two ranks over gloo on card 0
     (NCCL refuses two ranks on one device; the same `train/mesh.py` code
     runs under both), spawned as `--ddp-rank` processes with a file store
@@ -4392,15 +3767,12 @@ def ddp_phase(torch, card: str, held: set, phase9: dict) -> tuple:
     Then a world-size-1 NCCL group from torchrun's variables
     (`train/mesh.py::init_from_env`, as `cli/train.py --multihost` starts
     it) under the trainer on `ffraft_chairs_orb.yaml` at B=10, 368x496,
-    bf16 on phase 9's fixed batch: 6 steps with phase 9's launches, ms a
-    step (the median of steps 2-5) beside phase 9's, step 6 profiled (busy
-    ms, idle share, NCCL's kernels and their ms). -> (counts, launches
-    by shape key) of its step 2."""
+    bf16 on phase 9's fixed batch: 6 steps with phase 9's launches and
+    finite losses. -> (counts, launches by shape key) of its step 2."""
     import shutil
     import socket
 
     import torch.distributed as dist
-    from torch.profiler import ProfilerActivity, profile
 
     from focusflow_official_tpu_torch.cli.train import train as run_trainer
     from focusflow_official_tpu_torch.config import load_yaml_config
@@ -4447,7 +3819,6 @@ def ddp_phase(torch, card: str, held: set, phase9: dict) -> tuple:
     g = torch.Generator(device="cuda").manual_seed(5)
     new = [dict(_hold_shape(torch, g, torch.device("cuda", 0), key), launches=seen[key])
            for key in sorted(seen, key=str) if key not in held]
-    gloo_s = time.perf_counter() - t_phase
 
     # world size 1 over NCCL, as `cli/train.py --multihost` joins it
     with socket.socket() as sock:
@@ -4462,21 +3833,14 @@ def ddp_phase(torch, card: str, held: set, phase9: dict) -> tuple:
     cfg.MODEL.PRETRAIN = FIXTURE
     cfg.MODEL.LOAD_MODULE = None
     cfg.GLOBAL.NUM_WORKERS = 2
-    st = dict(times=[], per_step=[], losses=[], prof=None)
+    st = dict(per_step=[], losses=[])
 
     def on_step(step, metrics):
-        torch.cuda.synchronize()
-        st["times"].append(time.perf_counter())
         st["per_step"].append({k: v for k, v in launch_counts.items() if v})
         st["losses"].append(metrics["loss"])
         if step == 2:
             st["counted"] = (dict(launch_counts), dict(launch_shapes))
         reset_launch_counts()
-        if step == NCCL_STEPS:
-            st["prof"].stop()
-        if step == NCCL_STEPS - 1:
-            st["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            st["prof"].start()
 
     mesh = init_from_env("cuda")
     try:
@@ -4498,28 +3862,12 @@ def ddp_phase(torch, card: str, held: set, phase9: dict) -> tuple:
             raise AssertionError(f"13b NCCL step {i}: launches {c} != {TRAIN_WANT}")
     if not np.isfinite(st["losses"]).all():
         raise AssertionError(f"13b NCCL losses {st['losses']}")
-    step_ms = np.diff(st["times"]) * 1e3  # step_ms[i] is step i + 2
-    ms = float(np.median(step_ms[:-1]))  # steps 2 to NCCL_STEPS - 1
-    bd = _device_breakdown(torch, st["prof"], float(step_ms[-1]))
-    nccl = [e for e in _kernel_events(st["prof"]) if "nccl" in e[0].lower()]
-    st["prof"] = None
     _emit(dict(phase="ddp", card=card, gloo_two_ranks=dict(
         backend="gloo", world=DDP_WORLD, device="cuda:0", batch=DDP_B, crop=list(DDP_CROP),
         dtype="float32", tf32="off", weights="fresh (seed 0)", gates=gates,
-        new_shapes_held=new, seconds=gloo_s),
+        new_shapes_held=new),
         nccl_world1=dict(yaml=os.path.relpath(TRAIN_YAML, ROOT), batch=TB, crop=[TH, TW],
-                         dtype="bfloat16", steps=NCCL_STEPS, losses=st["losses"],
-                         ms_steps=step_ms.tolist(), ms_per_step=ms,
-                         phase9_ms_per_step=phase9["ms_per_step"],
-                         over_phase9=ms / phase9["ms_per_step"],
-                         profiled_step=dict(busy_ms=bd["device_busy_ms"], wall_ms=bd["wall_ms"],
-                                            idle_share=bd["idle_share"],
-                                            kernels=bd["kernel_count"],
-                                            nccl_kernels=len(nccl),
-                                            nccl_ms=sum(end - start for _, start, end in nccl)
-                                            / 1e3,
-                                            ms_by_category=bd["ms_by_category"]),
-                         phase9_busy_ms=phase9["profile"]["device_busy_ms"]),
+                         dtype="bfloat16", steps=NCCL_STEPS, losses=st["losses"]),
         phase_seconds=time.perf_counter() - t_phase))
     torch.cuda.empty_cache()
     return st["counted"]
@@ -4528,7 +3876,6 @@ def ddp_phase(torch, card: str, held: set, phase9: dict) -> tuple:
 # ------------------------------------------------ phase 17: the query-sharded volume
 SHARD_WORLD = 2  # two gloo ranks on card 0, model extent 2
 SHARD_DEADLINE_S = 300
-SHARD_TIMED = 5
 
 
 def sharded_kernel_row(torch, dev) -> dict:
@@ -4565,9 +3912,9 @@ def shard_rank_main(rank: int, store: str, out_path: str) -> int:
     """One rank of phase 17 (`chip_smoke.py --shard-rank R STORE OUT`): gloo
     on card 0 through a file store, a mesh of model extent SHARD_WORLD
     (`train/mesh.py::make_mesh`), FF-RAFT's bf16 `FlowPredictor` on it
-    (the volume's queries sharded). The 1024x436 pair: a warm-up, one
-    counted forward, SHARD_TIMED timed ones; then one 1920x1080 forward with
-    the peak allocated memory reset just before. Each forward notes the
+    (the volume's queries sharded). The 1024x436 pair: a warm-up and one
+    counted forward; then one 1920x1080 forward with the peak allocated
+    memory reset just before. Each forward notes the
     shape of every volume product the rank computed. Saved to OUT."""
     import datetime
 
@@ -4604,14 +3951,7 @@ def shard_rank_main(rank: int, store: str, out_path: str) -> int:
         flow = p(*inputs)[0]
         out = dict(rank=rank, axes=[mesh.data, mesh.data_rank, mesh.model, mesh.model_rank],
                    flow=flow, counts=dict(launch_counts), shapes=dict(launch_shapes),
-                   products=list(products), peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-        times = []
-        for _ in range(SHARD_TIMED):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            p(*inputs)
-            times.append((time.perf_counter() - t0) * 1e3)
-        out.update(ms_all=times, ms_per_pair=float(np.median(times)))
+                   products=list(products))
         hd, _ = _shift_inputs(*FULL_HD)
         products.clear()
         reset_launch_counts()
@@ -4712,9 +4052,7 @@ def sharded_phase(torch, card: str, held: set, cpu) -> tuple:
         if not saved >= level0_gib / 2:
             raise AssertionError(f"17 rank {r}: 1080p peak {out['full_hd']['peak_gib']} GiB, "
                                  f"one process {one_peak}: saved {saved} < {level0_gib / 2}")
-        per_rank.append(dict(rank=r, axes=out["axes"], ms_per_pair=out["ms_per_pair"],
-                             ms_all=out["ms_all"], peak_gib=out["peak_gib"],
-                             launches=out["counts"], g_shape=list(g_keys)[0][:3],
+        per_rank.append(dict(rank=r, axes=out["axes"], launches=out["counts"], g_shape=list(g_keys)[0][:3],
                              volume_rows=out["products"][0], **gates,
                              full_hd=dict(peak_gib=out["full_hd"]["peak_gib"],
                                           one_process_peak_gib=one_peak, saved_gib=saved,
@@ -4735,8 +4073,6 @@ def sharded_phase(torch, card: str, held: set, cpu) -> tuple:
                dtype="bfloat16", queries=q, ranks=per_rank,
                full_hd=dict(shape=list(FULL_HD), f32_level0_gib=level0_gib,
                             one_process_peak_gib=one_peak),
-               timing_note="two processes share card 0 and the host beside a third; "
-                           "ms a pair includes gloo's host copies",
                new_shapes_held=new, phase_seconds=time.perf_counter() - t_phase))
     torch.cuda.empty_cache()
     return counts, shapes
@@ -4909,11 +4245,9 @@ def main() -> int:
     pyramid_kernel = pyramid_phase(torch, dev)
     pwc_rows = pwc_kernel_phase(torch, dev)
     torch.cuda.empty_cache()
-    raft_counts, raft_profile, raft_cpu = end_to_end_phase(torch, card)
+    raft_counts, raft_cpu = end_to_end_phase(torch, card)
     f32_default_flags_phase(torch, card, defaults, raft_cpu)
-    drives = {"ff_raft": raft_counts,
-              "ff_flowformer": ff_end_to_end_phase(torch, card),
-              "ff_flowformer_depth3": ff_shipped_depth_phase(torch, card),
+    drives = {"ff_raft": raft_counts, **ff_end_to_end_phase(torch, card),
               "ff_pwcnet": pwc_end_to_end_phase(torch, card)}
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4941,8 +4275,8 @@ def main() -> int:
             defaults, rows_for and (lambda shapes, fn=rows_for: fn(torch, dev, shapes)))
     # phase 13: the on-card augmentation, then data parallelism on one card
     t0 = time.perf_counter()
-    drives["ff_raft_train_aug"] = device_aug_phase(torch, card, phase9)
-    drives["ff_raft_train_nccl1"] = ddp_phase(torch, card, held(), phase9)
+    drives["ff_raft_train_aug"] = device_aug_phase(torch, card)
+    drives["ff_raft_train_nccl1"] = ddp_phase(torch, card, held())
     _emit(dict(phase="training_at_scale", seconds=time.perf_counter() - t0))
     torch.cuda.empty_cache()
     # phase 15: the FF-FlowFormer variants (served, trained) and the modules
@@ -4976,11 +4310,6 @@ def main() -> int:
     _emit(dict(phase="sharded", part="total", card=card, seconds=time.perf_counter() - t0))
     kernels = _kernel_table(raft_kernels, ff_rows, pwc_rows, train_rows, variant_rows, drives,
                             card)
-    # the fused kernel inside the profiled FF-RAFT forward, where its inputs
-    # are not the same on every call as in the kernel phase
-    (g,) = [kr for kr in kernels if kr["name"] == "lookup_fold"]
-    (row,) = [r_ for r_ in raft_profile["port_kernels"] if r_[0] == "lookup_fold_mma"]
-    g["in_forward"] = dict(launches=row[1], total_ms=row[2], mean_ms=row[3])
     for kr in kernels:
         if kr["launches"] == 0:
             raise AssertionError(f"{kr['name']}: no launch on any path")

@@ -5,9 +5,7 @@ only for CPU tensors; it calls `count_launch` once per launch, so a run can
 show which kernels carried it (`launch_counts[name]`) and at which shapes
 (`launch_shapes[(name, *shape)]`). LayerNorm's and the chunk pyramid's
 wrappers count their launches in `launch_counts` alone (`layer_norm.py`,
-`pyramid.py`). `walk_counts` counts the chunks
-of ALT_CORR's forward walk and the queries in them
-(`ops/corr.py::_AltCorrFold`); it is no kernel's and has no shape key.
+`pyramid.py`).
 """
 
 from __future__ import annotations
@@ -19,7 +17,6 @@ launch_counts: dict[str, int] = {
 # (name, *shape) -> launches; `shape` is what the wrapper passes: the sizes
 # that tell one call site's tensors from another's, and the element type
 launch_shapes: dict[tuple, int] = {}
-walk_counts: dict[str, int] = {"chunks": 0, "queries": 0}
 
 
 def count_launch(name: str, *shape) -> None:
@@ -32,5 +29,3 @@ def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
     launch_shapes.clear()
-    for name in walk_counts:
-        walk_counts[name] = 0

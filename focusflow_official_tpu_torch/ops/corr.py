@@ -15,8 +15,7 @@ never builds the volume.
   the walk is one autograd Function that keeps only the feature maps, the
   coordinates and the weight, and whose backward walks the chunks again
   (`alternate_corr_vjp`). The forward walk opens a profiler range for each
-  chunk's product, pyramid and lookup (`trace.py`) and counts its chunks
-  and queries (`kernels.walk_counts`);
+  chunk's product, pyramid and lookup (`trace.py`);
 - `ShardedCorr` (serving under `train/mesh.py::spatial_sharding`): this
   rank's contiguous block of the level-0 queries' rows of the volume and
   their pyramid. Pooling runs over the key axes, so each rank pools its own
@@ -36,7 +35,6 @@ from typing import Sequence, Union
 
 import torch
 
-from ..kernels import walk_counts
 from ..kernels.lookup_fold import lookup_fold, lookup_fold_vjp
 from ..kernels.pyramid import pyramid
 from ..trace import span
@@ -185,8 +183,6 @@ class _AltCorrFold(torch.autograd.Function):
         outs = []
         for s in range(0, q, chunk):
             n = min(chunk, q - s)
-            walk_counts["chunks"] += 1
-            walk_counts["queries"] += n
             with span("ff.corr.product"):
                 rows = _chunk_product(f1, f2t, s, n, h2, w2)
             with span("ff.corr.pyramid"):

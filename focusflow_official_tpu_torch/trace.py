@@ -28,9 +28,9 @@ request cost about 1.6 ms of its 3.3 s.
 - `ff.model.cost`: the volume and its pyramid, or the latent cost memory;
 - `ff.model.refine`: the refinements and the upsampling;
 - `ff.corr.product`, `ff.corr.pyramid`, `ff.corr.lookup`: in each chunk of
-  ALT_CORR's forward walk, the chunk's matrix product, its `corr_pyramid`
-  (the f32 copy, the 2x2 means and the casts) and kernel G on it. The
-  materialized volume opens none of them.
+  ALT_CORR's forward walk, the chunk's matrix product, its pyramid (one
+  launch of the pyramid kernel, `ops/corr.py::chunk_pyramid`) and kernel G
+  on it. The materialized volume opens none of them.
 
 The model spans nest in `ff.step.forward` in training and in the caller's
 range in serving; the walk's nest in `ff.model.refine`.

@@ -156,16 +156,18 @@ def _count_calls(cfg) -> int:
 
 @pytest.mark.parametrize("fields", [
     dict(),  # the shipped model: 48 in the towers, 27 in the perceiver, 24 in the decoder
-    dict(fusion=None),
-    dict(use_mlp=True, gma=False),
-    dict(vertical_conv=True),
-    dict(add_flow_token=False, encoder_depth=1),
+    dict(fusion=None, decoder_depth=2),
+    dict(use_mlp=True, gma=False, decoder_depth=2),
+    dict(vertical_conv=True, decoder_depth=2),
+    dict(add_flow_token=False, encoder_depth=1, decoder_depth=2),
     dict(patch_size=4, encoder_depth=2, decoder_depth=3),
 ])
 def test_flowformer_layer_norm_calls_are_chip_smokes_count(fields):
     """Each LayerNorm call is one launch on the card: the calls of a
     forward equal the count `chip_smoke.py` holds every FF-FlowFormer path
-    to (99 for the shipped depth 3 and 12 refinements)."""
+    to (99 for the shipped depth 3 and 12 refinements). The variants run 2
+    or 3 refinements: the count's decoder term is linear in the depth, so
+    two depths besides the shipped one hold it."""
     cfg = FlowFormerConfig(**fields)
     want = chip_smoke._ff_variant_launches(cfg)["layer_norm"]
     if not fields:

@@ -11,6 +11,7 @@ import torch
 from focusflow_official_tpu_torch import kernels
 from focusflow_official_tpu_torch.kernels import pyramid as kp
 from focusflow_official_tpu_torch.kernels.lookup_fold import lookup_fold
+from focusflow_official_tpu_torch.ops import corr as corr_ops
 from focusflow_official_tpu_torch.ops.corr import (AltCorr, all_pairs_corr, alternate_corr_fold,
                                                    chunk_pyramid, corr_pyramid)
 
@@ -47,20 +48,24 @@ def test_chunk_pyramid_on_the_cpu_is_corr_pyramid(dtype, b, n, h, w):
     (2, 12, 16, 80),   # 2 chunks and a tail of 32
     (1, 9, 13, 50),    # an odd map: levels 4x6, 2x3, 1x1
 ])
-def test_alternate_corr_fold_matches_the_materialized_lookup(b, h1, w1, chunk):
-    """The walk (chunk products, `chunk_pyramid`, G's plain version) against
-    `lookup_fold(corr_pyramid(all_pairs_corr(...)))` in f32: within 1e-5
-    of the largest output (the products taken a chunk at a time)."""
+def test_alternate_corr_fold_matches_the_materialized_lookup(b, h1, w1, chunk, monkeypatch):
+    """The walk (chunk products, `chunk_pyramid` once a chunk, G's plain
+    version) against `lookup_fold(corr_pyramid(all_pairs_corr(...)))` in
+    f32: within 1e-5 of the largest output (the products taken a chunk at a
+    time)."""
     g = torch.Generator().manual_seed(3)
     f1, f2 = (torch.randn((b, h1, w1, 64), generator=g) for _ in range(2))
     w = torch.randn((96, 4 * 81), generator=g) * 0.05
     bias = torch.randn(96, generator=g)
     coords = (torch.stack(torch.meshgrid(torch.arange(w1), torch.arange(h1), indexing="xy"), -1)
               .float()[None].repeat(b, 1, 1, 1) + torch.randn((b, h1, w1, 2), generator=g) * 3)
+    walked = []
+    monkeypatch.setattr(corr_ops, "chunk_pyramid",
+                        lambda rows, *a: walked.append(rows.shape[1]) or chunk_pyramid(rows, *a))
     kernels.reset_launch_counts()
     got = alternate_corr_fold(AltCorr(f1, f2, 4, chunk), coords, 4, w, bias)
     want = lookup_fold(corr_pyramid(all_pairs_corr(f1, f2), 4), coords, 4, w, bias)
-    assert kernels.walk_counts["chunks"] == -(-h1 * w1 // chunk)
+    assert len(walked) == -(-h1 * w1 // chunk) and sum(walked) == h1 * w1
     assert kernels.launch_counts["pyramid"] == 0
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
 

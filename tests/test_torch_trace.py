@@ -10,9 +10,9 @@ the CPU.
   step's phases in their order.
 - `FlowPredictor` records the three model ranges inside its call.
 - ALT_CORR's forward walk records each of the three `ff.corr.*` ranges
-  once a chunk walked, inside `ff.model.refine`, and counts its chunks and
-  queries in `kernels.walk_counts`; the materialized volume records none
-  of them and counts nothing.
+  once a chunk walked (each chunk's `chunk_pyramid` call), inside
+  `ff.model.refine`; the materialized volume records none of them and
+  walks no chunk.
 - With no profiler a span is the shared null context and never enters
   `record_function`.
 - The loss, the parameters after the step and the served flows are
@@ -28,13 +28,15 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from focusflow_official_tpu_torch import kernels, trace
+from focusflow_official_tpu_torch import trace
 from focusflow_official_tpu_torch.compat.weights import load_npz
 from focusflow_official_tpu_torch.data.device_aug import DeviceFlowAugmentor
 from focusflow_official_tpu_torch.data.synthetic import chairs_layout
 from focusflow_official_tpu_torch.losses import build_sequence_loss
 from focusflow_official_tpu_torch.models import (FFFlowFormer, FFRaft, FFRaftConfig,
                                                   FlowFormerConfig)
+from focusflow_official_tpu_torch.ops import corr as corr_ops
+from focusflow_official_tpu_torch.ops.corr import chunk_pyramid
 from focusflow_official_tpu_torch.predict import FlowPredictor
 from focusflow_official_tpu_torch.train.loop import build_optimizer, train_step
 from focusflow_official_tpu_torch.train.schedule import one_cycle
@@ -174,20 +176,22 @@ def test_the_profiler_changes_no_value(family):
 
 
 @pytest.mark.parametrize("alt_corr", [True, False])
-def test_the_alt_corr_walk_records_its_spans_once_a_chunk(alt_corr):
+def test_the_alt_corr_walk_records_its_spans_once_a_chunk(alt_corr, monkeypatch):
     """A 64x96 pair has 8 x 12 = 96 queries: chunks of 40 walk 3 a
-    refinement (the last a tail of 16)."""
+    refinement (the last a tail of 16), one `chunk_pyramid` call each."""
     cfg = FFRaftConfig(fusion="parallel", fuse_cnet=True, iters=ITERS, alt_corr=alt_corr,
                        alt_corr_chunk=40)
     model = FFRaft(cfg)
     model.load_state_dict(load_npz(os.path.join(FIXTURES, "trained_smoke.npz")), strict=True)
     batch = _raw_batch()
     inputs = [batch[k][:1, :64, :96] for k in KEYS[:4]]
-    kernels.reset_launch_counts()
+    chunks = []
+    monkeypatch.setattr(corr_ops, "chunk_pyramid",
+                        lambda rows, *a: chunks.append(rows.shape[1]) or chunk_pyramid(rows, *a))
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]) as prof:
         model.eval()(*inputs)
     walked = 3 * ITERS if alt_corr else 0
-    assert kernels.walk_counts == {"chunks": walked, "queries": 96 * ITERS if alt_corr else 0}
+    assert len(chunks) == walked and sum(chunks) == (96 * ITERS if alt_corr else 0)
     found = _ranges(prof, _ours)
     counts = Counter(n for n, _, _ in found)
     assert {n: counts[n] for n in WALK_SPANS} == dict.fromkeys(WALK_SPANS, walked)
@@ -195,5 +199,3 @@ def test_the_alt_corr_walk_records_its_spans_once_a_chunk(alt_corr):
     assert all(_inside(r, refine) for r in found if r[0] in WALK_SPANS)
     walk = [r[0] for r in found if r[0] in WALK_SPANS]
     assert walk == list(WALK_SPANS) * walked
-    kernels.reset_launch_counts()
-    assert kernels.walk_counts == {"chunks": 0, "queries": 0}
