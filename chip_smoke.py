@@ -31,7 +31,8 @@ the plain version and the backward's time beside autograd's. Rows come
 from phase 2 (A, B, G, C1, C2 at FF-RAFT's shapes; A, B, E, F at
 FF-FlowFormer's; D at FF-PWCNet's five levels, both forms; the LayerNorm
 kernel, whose row also counts the 99 launches of one served 4-pair
-FF-FlowFormer forward; the chunk pyramid kernel P) and from the `*_rows` of phases 9
+FF-FlowFormer forward; the chunk pyramid kernel P at ALT_CORR's f32
+chairs walk; the chunk-levels kernel at its bf16 4K walk) and from the `*_rows` of phases 9
 to 17 at their paths' own shapes. Each wrapper counts a launch under its
 kernel's name and under a key of the call's shape; a row notes the key it
 held (`_launch_key`), and a path that launches a shape no row holds has it
@@ -93,7 +94,8 @@ weights, held to mean |diff| < 0.05 max(mean |flow|, 1) px and median <
     its largest), then 6 trainer steps over a world-size-1 NCCL group from
     torchrun's variables (phase 9's launches, finite losses).
 14. The FF-RAFT variants served: ALT_CORR at 1024x436 (the shift, the f32
-    CPU run, the materialized bf16 flow; G and P 12 a chunk), at 1920x1080
+    CPU run, the materialized bf16 flow; G and the chunk-levels kernel 12 a
+    chunk), at 1920x1080
     against the materialized flow and at 3840x2160 (the shift, peak
     allocated memory under ALT_PEAK_GIB); RAFT-S, FF-RAFT-S and the
     attention and conv front ends against their f32 CPU runs with their
@@ -104,7 +106,8 @@ weights, held to mean |diff| < 0.05 max(mean |flow|, 1) px and median <
     (launches, the f32 step against the CPU's); group attention and the
     position encodings against the f32 CPU run.
 16. Every FF-RAFT variant trained: ALT_CORR 16 steps (phase 9's descent
-    gate, its f32 step against the materialized one, its step's peak
+    gate, the chunk-levels kernel 4 x 12 a bf16 step, its f32 step against
+    the materialized one with P alone on its chunks, its step's peak
     memory no higher than the materialized one's at B=10 and lower by the
     f32 level-0 volume at 1920x1080), RAFT-S, FF-RAFT-S, the front ends
     (the attention front end at ATTENTION_BATCH under FIT_SHARE of the
@@ -1134,51 +1137,133 @@ def layer_norm_phase(torch, dev) -> dict:
 
 def pyramid_phase(torch, dev) -> dict:
     """The chunk pyramid kernel (`kernels/pyramid.py`, which replaces no TPU
-    kernel) at ALT_CORR's 3840x2160 chunk and tail: bf16 rows (1, n, 270,
-    480), four levels, every level equal to `corr_pyramid`'s on the same
-    rows to the bit (the plain version, timed beside it as `plain_ms`); its
-    bound the bytes (the rows read once, levels 1-3 written once). The
-    request's sum: 63 chunks and the tail, 12 refinements each."""
+    kernel) where the port launches it: ALT_CORR's f32 walk (the bf16 walk
+    takes the chunk-levels kernel), at the chairs step's B=TB, TH x TW (a
+    46x62 key map) and its chunks of 2048 queries and the tail. The rows
+    are the f32 product of the walk's operands (C = 256, TF32 off), four
+    levels, every level equal to `corr_pyramid`'s on the same rows to the
+    bit (the plain version, timed beside it as `plain_ms`); its bound the
+    bytes (the rows read once, levels 1-3 written once). Its launches are
+    counted in `_alt_corr_gates`' f32 step."""
     from focusflow_official_tpu_torch.kernels import pyramid as kp
     from focusflow_official_tpu_torch.ops.corr import corr_pyramid
 
-    bf16, levels = torch.bfloat16, 4
-    gh, gw = _grid(*FOUR_K)
+    f32, levels, c = torch.float32, 4, 256
+    gh, gw = _grid(TH, TW)
     q = gh * gw
     g = torch.Generator(device=dev).manual_seed(6)
+    f1 = torch.randn((TB, q, c), generator=g, device=dev) * c ** -0.5
+    f2t = torch.randn((TB, c, q), generator=g, device=dev)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
     rows = []
-    for n in _alt_chunks(q):
-        x = (torch.randn((1, n, gh, gw), generator=g, device=dev) * 4).to(bf16)
-        got, want = kp.pyramid(x, levels, bf16), corr_pyramid(x, levels, bf16)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a.view(torch.int16), e.view(torch.int16))
-                   for a, e in zip(got, want)):
-            raise AssertionError(f"pyramid (1, {n}, {gh}, {gw}): not corr_pyramid's bits")
-        del got, want
-        cells = sum((gh >> lv) * (gw >> lv) for lv in range(1, levels))
-        row = dict(shape=[1, n, gh, gw], dtype="bfloat16", levels=levels,
-                   design=kp.design(x, levels), bit_equal=True,
-                   chunks_a_request=ITERS * (q // n if n == ALT_CHUNK else 1),
-                   ms=_time_ms(torch, lambda: kp.pyramid(x, levels, bf16)),
-                   plain_ms=_time_ms(torch, lambda: corr_pyramid(x, levels, bf16), reps=5))
-        row["bound_ms"], row["bound_by"] = _bound_ms(n * (gh * gw + cells) * 2,
-                                                     4.0 * n * cells, PEAK_F32)
-        row["bound_share"] = row["bound_ms"] / row["ms"]
-        rows.append(row)
-        _emit(dict(kernel="pyramid", path="ff_raft_alt_corr_4k", **row))
-        del x
-        torch.cuda.empty_cache()
-    total = lambda key: sum(r_["chunks_a_request"] * r_[key] for r_ in rows)
+    try:
+        for n in _alt_chunks(q):
+            x = torch.matmul(f1[:, :n], f2t).reshape(TB, n, gh, gw)
+            got, want = kp.pyramid(x, levels, f32), corr_pyramid(x, levels, f32)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a.view(torch.int32), e.view(torch.int32))
+                       for a, e in zip(got, want)):
+                raise AssertionError(f"pyramid ({TB}, {n}, {gh}, {gw}) f32: not corr_pyramid's "
+                                     "bits")
+            del got, want
+            cells = sum((gh >> lv) * (gw >> lv) for lv in range(1, levels))
+            row = dict(shape=[TB, n, gh, gw], dtype="float32", levels=levels,
+                       design=kp.design(x, levels), bit_equal=True,
+                       ms=_time_ms(torch, lambda: kp.pyramid(x, levels, f32)),
+                       plain_ms=_time_ms(torch, lambda: corr_pyramid(x, levels, f32), reps=5))
+            row["bound_ms"], row["bound_by"] = _bound_ms(TB * n * (gh * gw + cells) * 4,
+                                                         4.0 * TB * n * cells, PEAK_F32)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            rows.append(row)
+            _emit(dict(kernel="pyramid", path="alt_corr_train_f32", **row))
+            del x
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    del f1, f2t
+    torch.cuda.empty_cache()
     out = dict(
         name="pyramid", route="cuda",
         source="focusflow_official_tpu_torch/kernels/csrc/pyramid.cu",
         replaces="no TPU kernel: corr_pyramid's f32 copy, three avg_pool2x2 and casts",
         max_abs_err=0.0, tol=0.0, ms=rows[0]["ms"], plain_ms=rows[0]["plain_ms"],
         bound_ms=rows[0]["bound_ms"], bound_by=rows[0]["bound_by"],
-        shape=f"{tuple(rows[0]['shape'])} bf16", design=rows[0]["design"], per_shape=rows,
-        request=dict(launches=sum(r_["chunks_a_request"] for r_ in rows), ms=total("ms"),
-                     plain_ms=total("plain_ms"), bound_ms=total("bound_ms")))
+        shape=f"{tuple(rows[0]['shape'])} f32", design=rows[0]["design"], per_shape=rows)
     _emit(dict(phase="pyramid", **{k: v for k, v in out.items() if k != "per_shape"}))
+    return out
+
+
+def corr_levels_phase(torch, dev) -> dict:
+    """The chunk-levels kernel (`kernels/corr_levels.py`, which replaces no
+    TPU kernel) at ALT_CORR's 3840x2160 chunk and tail: the walk's bf16
+    operands, f1 (1, Q, 256) scaled by 1/16 and the key map (1, 270 x 480,
+    256), four levels, each within one bf16 ulp (plus 2^-20 of the level's
+    largest: the f32 sums' order) of its plain version, `corr_pyramid` of
+    the f32 product (TF32 off), timed beside it as `plain_ms`. The library
+    yardstick is the path it replaces: cuBLAS's bf16 product, then the
+    pyramid kernel P. The bound: the levels written once, the key map and
+    the chunk's queries read once, at 3.35 TB/s (the products at the bf16
+    peak take less). The request's sum: 63 chunks and the tail, 12
+    refinements each."""
+    from focusflow_official_tpu_torch.kernels import corr_levels as kcl
+    from focusflow_official_tpu_torch.kernels import pyramid as kp
+    from focusflow_official_tpu_torch.ops.corr import corr_pyramid
+
+    bf16, levels, c = torch.bfloat16, 4, 256
+    gh, gw = _grid(*FOUR_K)
+    q = gh * gw
+    g = torch.Generator(device=dev).manual_seed(7)
+    f1 = (torch.randn((1, q, c), generator=g, device=dev) * c ** -0.5).to(bf16)
+    f2 = torch.randn((1, q, c), generator=g, device=dev).to(bf16)
+    f2t = f2.transpose(1, 2)
+    cells = sum((gh >> lv) * (gw >> lv) for lv in range(levels))
+    rows = []
+    for n in _alt_chunks(q):
+        s = 0 if n == ALT_CHUNK else q - n  # the tail ends the map's queries
+
+        def plain(s=s, n=n):
+            prod = torch.matmul(f1[:, s:s + n].float(), f2t.float())
+            return corr_pyramid(prod.reshape(1, n, gh, gw), levels, torch.float32)
+
+        got, want = kcl.corr_levels(f1, f2, s, n, gh, gw, levels), plain()
+        torch.cuda.synchronize()
+        worst = 0.0  # the largest |kernel - plain| over its bound, any level
+        for a, e in zip(got, want):
+            ulp = torch.ldexp(torch.ones_like(e), torch.frexp(e)[1] - 8)
+            bound = ulp + 2.0 ** -20 * float(e.abs().max())
+            worst = max(worst, float(((a.float() - e).abs() / bound).max()))
+        del got, want
+        _check(f"corr_levels (1, {n}, {gh}, {gw})", worst, 1.0)
+        row = dict(shape=[1, n, gh, gw], channels=c, dtype="bfloat16", levels=levels,
+                   plan=kcl.plan(1, n, gh, gw, _sms(torch)), worst_over_bound=worst,
+                   chunks_a_request=ITERS * (q // n if n == ALT_CHUNK else 1),
+                   ms=_time_ms(torch, lambda: kcl.corr_levels(f1, f2, s, n, gh, gw, levels)),
+                   plain_ms=_time_ms(torch, plain, reps=5),
+                   library_ms=_time_ms(torch, lambda: kp.pyramid(
+                       torch.matmul(f1[:, s:s + n], f2t).reshape(1, n, gh, gw), levels, bf16)),
+                   library="torch.matmul (cuBLAS, bf16) then the pyramid kernel P")
+        row["bound_ms"], row["bound_by"] = _bound_ms(n * cells * 2 + (q + n) * c * 2,
+                                                     2.0 * n * q * c, PEAK_BF16)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        _emit(dict(kernel="corr_levels", path="ff_raft_alt_corr_4k", **row))
+        torch.cuda.empty_cache()
+    del f1, f2, f2t
+    total = lambda key: sum(r_["chunks_a_request"] * r_[key] for r_ in rows)
+    out = dict(
+        name="corr_levels", route="cuda",
+        source="focusflow_official_tpu_torch/kernels/csrc/corr_levels.cu",
+        replaces="no TPU kernel: cuBLAS's chunk product, then the pyramid kernel P on its "
+                 "bf16 rows",
+        max_abs_err=max(r_["worst_over_bound"] for r_ in rows), tol=1.0,
+        ms=rows[0]["ms"], plain_ms=rows[0]["plain_ms"], library_ms=rows[0]["library_ms"],
+        library=rows[0]["library"], bound_ms=rows[0]["bound_ms"],
+        bound_by=rows[0]["bound_by"], shape=f"{tuple(rows[0]['shape'])} x {c} bf16",
+        per_shape=rows,
+        request=dict(launches=sum(r_["chunks_a_request"] for r_ in rows), ms=total("ms"),
+                     plain_ms=total("plain_ms"), library_ms=total("library_ms"),
+                     bound_ms=total("bound_ms")))
+    _emit(dict(phase="corr_levels", **{k: v for k, v in out.items() if k != "per_shape"}))
     return out
 
 
@@ -1703,7 +1788,8 @@ def variants_phase(torch, card: str, held: set) -> dict:
     mat_flow = checks(lambda: FlowPredictor(_raft_cfg(), FIXTURE, device="cuda", dtype=bf16)(
         *inputs)[0])
     q = int(np.prod(_grid(H, W)))
-    want = {"lookup_fold": ITERS * -(-q // ALT_CHUNK), "pyramid": ITERS * -(-q // ALT_CHUNK),
+    want = {"lookup_fold": ITERS * -(-q // ALT_CHUNK),
+            "corr_levels": ITERS * -(-q // ALT_CHUNK),
             "in_stats": 30, "in_normalize": 30}
     p = FlowPredictor(alt, FIXTURE, device="cuda", dtype=bf16)
     flow, counts = _drive(torch, p, inputs, want, "ff_raft_alt_corr")
@@ -1728,7 +1814,8 @@ def variants_phase(torch, card: str, held: set) -> dict:
     hd_gates = _agreement(hd["alt_corr"], hd["materialized"], "ALT_CORR vs materialized, 1080p")
     inputs, shift = _shift_inputs(*FOUR_K)
     q4 = int(np.prod(_grid(*FOUR_K)))
-    want = {"lookup_fold": ITERS * -(-q4 // ALT_CHUNK), "pyramid": ITERS * -(-q4 // ALT_CHUNK),
+    want = {"lookup_fold": ITERS * -(-q4 // ALT_CHUNK),
+            "corr_levels": ITERS * -(-q4 // ALT_CHUNK),
             "in_stats": 30, "in_normalize": 30}
     p = FlowPredictor(alt, FIXTURE, device="cuda", dtype=bf16)
     torch.cuda.empty_cache()
@@ -2313,11 +2400,17 @@ def _alt_corr_gates(torch, path: str, cfg, weights: str, data, seen: dict) -> di
 
     from focusflow_official_tpu_torch.data import synthetic as sy
 
+    from focusflow_official_tpu_torch.kernels import launch_counts, reset_launch_counts
+
     mat = copy.deepcopy(cfg)
     mat.MODEL.ALT_CORR = False
     dev = torch.device("cuda", 0)
     batch = _fixed_batch(torch, data, dev)
+    reset_launch_counts()
     alt_loss, alt_g = _param_grads(torch, cfg, weights, batch, torch.float32)
+    f32_walk = {k: launch_counts[k] for k in ("pyramid", "corr_levels")}
+    if not (f32_walk["pyramid"] > 0 and f32_walk["corr_levels"] == 0):
+        raise AssertionError(f"{path}: the f32 walk's chunks launched {f32_walk}, not P alone")
     mat_loss, mat_g = _param_grads(torch, mat, weights, batch, torch.float32)
     names = sorted(mat_g)
     flat_a = torch.cat([alt_g[n].flatten() for n in names])
@@ -2328,7 +2421,7 @@ def _alt_corr_gates(torch, path: str, cfg, weights: str, data, seen: dict) -> di
         own = float(mat_g[n].abs().max())
         bound = 1e-7 * top if own <= 1e-7 * top else 1e-4 * own
         worst = max(worst, float((alt_g[n] - mat_g[n]).abs().max()) / bound)
-    gates = dict(f32_loss=alt_loss, materialized_f32_loss=mat_loss,
+    gates = dict(f32_loss=alt_loss, materialized_f32_loss=mat_loss, f32_walk_launches=f32_walk,
                  f32_loss_rel=abs(alt_loss - mat_loss) / abs(mat_loss),
                  f32_grad_cosine=_cosine(torch, flat_a, flat_m),
                  worst_tensor_over_its_bound=worst)
@@ -2371,7 +2464,7 @@ def _variant_train_specs() -> dict:
     return {
         "alt_corr_train": dict(
             yaml=TRAIN_YAML, model=dict(ALT_CORR=True), train={}, steps=TRAIN_STEPS,
-            want={"lookup_fold": 2 * ITERS, "lookup": 2 * ITERS, "pyramid": 4 * ITERS,
+            want={"lookup_fold": 2 * ITERS, "lookup": 2 * ITERS, "corr_levels": 4 * ITERS,
                   "in_stats": 30, "in_normalize": 30}, agree=AGREE_CROP, gates="alt_corr"),
         "raft_s_train": dict(
             yaml=RAFT_CTK_YAML, model=dict(SMALL=True), train={}, steps=VARIANT_STEPS,
@@ -4243,6 +4336,7 @@ def main() -> int:
     ff_rows = ff_kernel_phase(torch, dev)
     ln_kernel = layer_norm_phase(torch, dev)
     pyramid_kernel = pyramid_phase(torch, dev)
+    levels_kernel = corr_levels_phase(torch, dev)
     pwc_rows = pwc_kernel_phase(torch, dev)
     torch.cuda.empty_cache()
     raft_counts, raft_cpu = end_to_end_phase(torch, card)
@@ -4294,10 +4388,13 @@ def main() -> int:
     t0 = time.perf_counter()
     train_rows["raft_variant_train"] = raft_variant_train_rows(torch, dev)
     checked = set()  # shapes a path held once, untimed: not held again
+    f32_walks = {}  # P's launches in ALT_CORR's f32 steps, the one path left to it
     for path in _variant_train_specs():
         drives[path], out, rows = variant_train_phase(torch, card, held() | checked, path,
                                                       phase9)
         checked |= {tuple(r["key"]) for r in out["new_shapes_held"]}
+        if "alt_corr" in out:
+            f32_walks[f"{path}_f32_step"] = out["alt_corr"]["f32_walk_launches"]["pyramid"]
         if rows:
             train_rows[path] = rows
     _emit(dict(phase="raft_variant_train", part="total", card=card,
@@ -4321,12 +4418,16 @@ def main() -> int:
         raise AssertionError("layer_norm: no launch on any path")
     kernels.append(dict(ln_kernel, card=card, launches=sum(by_path.values()),
                         launches_by_path=by_path))
-    # so do the chunk pyramid's: ALT_CORR's paths alone launch it
-    by_path = {path: counts.get("pyramid", 0) for path, (counts, _) in drives.items()}
-    if not sum(by_path.values()):
-        raise AssertionError("pyramid: no launch on any path")
-    kernels.append(dict(pyramid_kernel, card=card, launches=sum(by_path.values()),
-                        launches_by_path=by_path))
+    # so do the chunk kernels': ALT_CORR's paths alone launch them, the
+    # chunk-levels kernel in bf16, P in f32
+    for name, entry, extra in (("corr_levels", levels_kernel, {}),
+                               ("pyramid", pyramid_kernel, f32_walks)):
+        by_path = {path: counts.get(name, 0) for path, (counts, _) in drives.items()}
+        by_path.update(extra)
+        if not sum(by_path.values()):
+            raise AssertionError(f"{name}: no launch on any path")
+        kernels.append(dict(entry, card=card, launches=sum(by_path.values()),
+                            launches_by_path=by_path))
 
     _emit(dict(phase="total", seconds=time.perf_counter() - t_start))
     _emit({"kernels": kernels})

@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("lookup", "fold", "lookup_fold", "instance_norm", "local_corr",
-           "attention", "window_attention", "layer_norm", "pyramid")
+           "attention", "window_attention", "layer_norm", "pyramid", "corr_levels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

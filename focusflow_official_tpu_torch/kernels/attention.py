@@ -36,7 +36,7 @@ import functools
 
 import torch
 
-from . import _build, count_launch
+from . import _build, count_launch, sm_count
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
@@ -49,11 +49,6 @@ STAGED_STAGES = 2  # chunks in the ring
 STAGED_KEYS = 32  # the most keys a chunk
 STAGED_SMEM = 72 * 1024  # what a block's stages aim at (the registers allow two an SM)
 VJP_CHUNK_BYTES = 1 << 28  # f32 softmax weights the backward holds at a time, at most
-
-
-@functools.cache
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.cache
@@ -129,7 +124,7 @@ def staged_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int)
     plan = staged_plan(b, n, m, heads, d, dv, q.element_size())
     blocks = _staged_blocks(d, dv, q.dtype == torch.bfloat16, plan["heads_a_group"],
                             plan["queries_a_thread"], plan["units"], plan["keys_a_chunk"])
-    return dict(plan, blocks_per_sm=blocks, grid=staged_grid(plan, _sms(q.device), blocks))
+    return dict(plan, blocks_per_sm=blocks, grid=staged_grid(plan, sm_count(q.device), blocks))
 
 
 @functools.cache

@@ -31,7 +31,7 @@ import functools
 
 import torch
 
-from . import _build, count_launch
+from . import _build, count_launch, sm_count
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
@@ -49,11 +49,6 @@ def _lib():
     lib.ff_in_normalize.argtypes = [_c, _c, _c, _c, _c, _i, _i, _i, _i, _i, _i, _i, _c]
     lib.ff_in_normalize.restype = _i
     return lib
-
-
-@functools.cache
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # per (device, stream): the stats' per-sample tickets, zero between
@@ -191,7 +186,7 @@ def _stats_launch(x: torch.Tensor, eps: float):
     _check_x(x, "instance_norm_stats")
     b, h, w, c = x.shape
     hw = h * w
-    splits = plan(hw, b, _sms(x.device))
+    splits = plan(hw, b, sm_count(x.device))
     entry = design(x)
     partial = torch.empty((b, splits, 2, c), dtype=torch.float32, device=x.device)
     mean = torch.empty((b, c), dtype=torch.float32, device=x.device)
@@ -237,7 +232,7 @@ def instance_norm_apply(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
         x.data_ptr(), mean.data_ptr(), inv.data_ptr(),
         0 if residual is None else residual.data_ptr(), y.data_ptr(), b, h * w, c,
         int(relu), int(x.dtype == torch.bfloat16), int(entry == "vector"),
-        NORMALIZE_BLOCKS_PER_SM * _sms(x.device),
+        NORMALIZE_BLOCKS_PER_SM * sm_count(x.device),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ff_in_normalize")
     count_launch("in_normalize", b, h, w, c, str(x.dtype), entry,

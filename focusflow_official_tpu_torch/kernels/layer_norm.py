@@ -34,7 +34,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from . import _build, launch_counts
+from . import _build, launch_counts, sm_count
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
@@ -48,11 +48,6 @@ def _lib():
                                   ctypes.c_float, _i, _i, _i, _i, _c]
     lib.ff_layer_norm.restype = _i
     return lib
-
-
-@functools.cache
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def design(x: torch.Tensor) -> str:
@@ -123,7 +118,7 @@ def _rows(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float,
         0 if mean is None else mean.data_ptr(), 0 if rstd is None else rstd.data_ptr(),
         x.numel() // max(c, 1), c, eps, int(x.dtype == torch.bfloat16),
         int(weight.dtype == torch.bfloat16),
-        int(design(x) == "vector"), _sms(x.device),
+        int(design(x) == "vector"), sm_count(x.device),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ff_layer_norm")
     launch_counts["layer_norm"] += 1

@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from . import _build, count_launch
+from . import _build, count_launch, sm_count
 
 _c = ctypes.c_void_p
 _i = ctypes.c_int
@@ -204,8 +204,7 @@ def _launch(fmap1: torch.Tensor, fmap2: torch.Tensor, radius: int,
                 f"{fmap1.dtype} tensors on {fmap1.device}, got "
                 f"{tuple(t.shape)} {t.dtype} on {t.device}, strides {t.stride()}")
     b, h, w, c = fmap1.shape
-    sms = torch.cuda.get_device_properties(fmap1.device).multi_processor_count
-    p = plan(b, h, w, c, radius, fmap1.dtype, sms)
+    p = plan(b, h, w, c, radius, fmap1.dtype, sm_count(fmap1.device))
     out = torch.empty((b, h, w, (2 * radius + 1) ** 2), dtype=fmap1.dtype,
                       device=fmap1.device)
     err = _lib().ff_local_corr(

@@ -28,7 +28,7 @@ from typing import Sequence
 
 import torch
 
-from . import _build, count_launch
+from . import _build, count_launch, sm_count
 from .fold import fold_plain, fold_vjp
 from .lookup import RADII, lookup_plain, lookup_vjp
 from .lookup import _launch as _lookup_launch
@@ -176,8 +176,7 @@ def _launch(levels: Sequence[torch.Tensor], coords: torch.Tensor, radius: int,
                 f"{coords.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
     if dt == torch.bfloat16 and weight.data_ptr() % 16:
         raise ValueError("lookup_fold: a bf16 weight must be 16-byte aligned")
-    sms = torch.cuda.get_device_properties(coords.device).multi_processor_count
-    p = plan(b * q, n, radius, dt, sms, **layout())
+    p = plan(b * q, n, radius, dt, sm_count(coords.device), **layout())
     out = torch.empty((b, h1, w1, n), dtype=dt, device=coords.device)
     ptrs = [lv.data_ptr() for lv in levels] + [0] * (4 - nl)
     dims += [0] * (8 - len(dims))

@@ -31,7 +31,7 @@ import functools
 
 import torch
 
-from . import _build, launch_counts
+from . import _build, launch_counts, sm_count
 
 MAX_LEVELS = 4  # what kernel G looks up
 
@@ -46,11 +46,6 @@ def _lib():
                                _i, _c]
     lib.ff_pyramid.restype = _i
     return lib
-
-
-@functools.cache
-def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _bands(n: int, k: int) -> list[tuple[int, int, int]]:
@@ -130,7 +125,7 @@ def pyramid(rows: torch.Tensor, num_levels: int, dtype: torch.dtype) -> list[tor
     err = _lib().ff_pyramid(
         rows.data_ptr(), *ptrs, maps, h, w, num_levels, ctypes.addressof(table), len(cut),
         int(dtype == torch.bfloat16), int(design(rows, num_levels) == "vector"),
-        _sms(rows.device), torch.cuda.current_stream(rows.device).cuda_stream)
+        sm_count(rows.device), torch.cuda.current_stream(rows.device).cuda_stream)
     _build.check(err, "ff_pyramid")
     launch_counts["pyramid"] += 1
     return levels

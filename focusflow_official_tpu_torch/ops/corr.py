@@ -4,18 +4,19 @@ never builds the volume.
 - `all_pairs_corr`: corr[b, q, y, x] = <fmap1[b, q], fmap2[b, y, x]> / sqrt(C),
   one batched matrix product in f32;
 - `corr_pyramid`: 2x2 average pooling with floor semantics over the target
-  axes, computed in f32 and stored in the compute type; `chunk_pyramid`,
-  ALT_CORR's: the same levels to the bit, from one launch of the pyramid
-  kernel on the card (`kernels/pyramid.py`);
+  axes, computed in f32 and stored in the compute type;
+- `chunk_levels`, ALT_CORR's chunk: its rows of the volume and their
+  pyramid, `corr_pyramid` of the f32 product; in bf16 on the card one launch
+  of the chunk-levels kernel (`kernels/corr_levels.py`), in f32 there the
+  product then the pyramid kernel (`kernels/pyramid.py`);
 - `AltCorr` (MODEL.ALT_CORR): the two feature maps in the compute type in
   place of the pyramid. Each refinement, `alternate_corr_fold` walks the
-  queries in chunks: the chunk's rows of the volume (one matrix product),
-  their pyramid, and the lookup with convc1 on it. Its extra memory is one
-  chunk's product and pyramid, whatever the frame size, in training too:
-  the walk is one autograd Function that keeps only the feature maps, the
-  coordinates and the weight, and whose backward walks the chunks again
-  (`alternate_corr_vjp`). The forward walk opens a profiler range for each
-  chunk's product, pyramid and lookup (`trace.py`);
+  queries in chunks: the chunk's levels (`chunk_levels`) and the lookup
+  with convc1 on them. Its extra memory is one chunk's levels, whatever the
+  frame size, in training too: the walk is one autograd Function that
+  keeps only the feature maps, the coordinates and the weight, and whose
+  backward walks the chunks again (`alternate_corr_vjp`). The forward walk
+  opens a profiler range for each chunk's levels and lookup (`trace.py`);
 - `ShardedCorr` (serving under `train/mesh.py::spatial_sharding`): this
   rank's contiguous block of the level-0 queries' rows of the volume and
   their pyramid. Pooling runs over the key axes, so each rank pools its own
@@ -35,6 +36,7 @@ from typing import Sequence, Union
 
 import torch
 
+from ..kernels.corr_levels import corr_levels
 from ..kernels.lookup_fold import lookup_fold, lookup_fold_vjp
 from ..kernels.pyramid import pyramid
 from ..trace import span
@@ -64,18 +66,6 @@ def corr_pyramid(corr: torch.Tensor, num_levels: int = 4,
     for _ in range(num_levels - 1):
         pooled.append(avg_pool2x2(pooled[-1]))
     return [lv.to(dtype).contiguous() for lv in [corr] + pooled[1:]]
-
-
-def chunk_pyramid(rows: torch.Tensor, num_levels: int, dtype: torch.dtype) -> list[torch.Tensor]:
-    """ALT_CORR's pyramid of a chunk's rows (B, n, H2, W2) in the compute
-    type `dtype`: `corr_pyramid`'s levels, from one launch of the pyramid
-    kernel on the card (bit-equal, no f32 copy of the rows or levels in
-    device memory), `corr_pyramid` itself on the CPU. No autograd: the
-    walk calls it inside its Function, forward and backward alike, so both
-    look up the same levels."""
-    if rows.device.type == "cpu":
-        return corr_pyramid(rows, num_levels, dtype)
-    return pyramid(rows, num_levels, dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +106,25 @@ def _chunk_product(f1, f2t, s: int, n: int, h2: int, w2: int) -> torch.Tensor:
     return torch.matmul(f1[:, s:s + n], f2t).reshape(f1.shape[0], n, h2, w2)
 
 
+def chunk_levels(f1: torch.Tensor, f2t: torch.Tensor, s: int, n: int, h2: int, w2: int,
+                 num_levels: int, dtype: torch.dtype) -> list[torch.Tensor]:
+    """ALT_CORR's chunk: the levels (B, n, H2 >> l, W2 >> l) in the compute
+    type `dtype` of queries s..s+n of the operands (`_alt_operands`), as
+    `corr_pyramid` of their f32 product gives them. On the CPU that is the
+    plain version; in bf16 on the card one launch of the chunk-levels
+    kernel (products on the tensor cores, every level from the f32 sums,
+    level 0 never read back); in f32 on the card the product, in full f32,
+    then the pyramid kernel (bit-equal to `corr_pyramid`). No autograd: the
+    walk calls it inside its Function, forward and backward alike, so both
+    look up the same levels."""
+    if f1.device.type == "cpu":
+        rows = torch.matmul(f1[:, s:s + n].float(), f2t.float())
+        return corr_pyramid(rows.reshape(f1.shape[0], n, h2, w2), num_levels, dtype)
+    if dtype == torch.bfloat16:
+        return corr_levels(f1, f2t.transpose(1, 2), s, n, h2, w2, num_levels)
+    return pyramid(_chunk_product(f1, f2t, s, n, h2, w2), num_levels, dtype)
+
+
 def _unpool_add(g: torch.Tensor, finer: torch.Tensor) -> torch.Tensor:
     """The VJP of `avg_pool2x2` from (..., h, w) onto (..., H, W), added to
     `finer`'s gradient: each 2x2 mean's gradient g / 4 on its four cells,
@@ -130,8 +139,8 @@ def alternate_corr_vjp(corr: AltCorr, coords: torch.Tensor, radius: int,
                        weight: torch.Tensor, g: torch.Tensor):
     """The VJP of `alternate_corr_fold`: g (B, H, W, O) -> (dfmap1, dfmap2
     in the maps' type, dweight in the weight's type, dbias f32). The
-    chunks are walked again; for each: its product and pyramid
-    recomputed, `lookup_fold_vjp` (kernel A rebuilds the window on the
+    chunks are walked again; for each: its levels recomputed
+    (`chunk_levels`), `lookup_fold_vjp` (kernel A rebuilds the window on the
     card) for the levels' gradients, those sent back through the 2x2 means
     into the level-0 rows (f32), then through the product: the chunk's
     rows of dfmap1 = dcorr · fmap2 · C^-1/2, and dfmap2 += dcorrᵀ ·
@@ -152,7 +161,7 @@ def alternate_corr_vjp(corr: AltCorr, coords: torch.Tensor, radius: int,
     dbias = torch.zeros(weight.shape[:1], dtype=torch.float32, device=weight.device)
     for s in range(0, q, corr.chunk):
         n = min(corr.chunk, q - s)
-        levels = chunk_pyramid(_chunk_product(f1, f2t, s, n, h2, w2), corr.num_levels, dt)
+        levels = chunk_levels(f1, f2t, s, n, h2, w2, corr.num_levels, dt)
         dlevels, _, dw, db = lookup_fold_vjp(levels, cq[:, :, s:s + n].contiguous(), radius,
                                              weight, gq[:, :, s:s + n])
         del levels
@@ -184,10 +193,7 @@ class _AltCorrFold(torch.autograd.Function):
         for s in range(0, q, chunk):
             n = min(chunk, q - s)
             with span("ff.corr.product"):
-                rows = _chunk_product(f1, f2t, s, n, h2, w2)
-            with span("ff.corr.pyramid"):
-                levels = chunk_pyramid(rows, num_levels, dt)
-            del rows
+                levels = chunk_levels(f1, f2t, s, n, h2, w2, num_levels, dt)
             with span("ff.corr.lookup"):
                 outs.append(lookup_fold(levels, cq[:, :, s:s + n].contiguous(), radius,
                                         weight, bias))
@@ -205,16 +211,16 @@ class _AltCorrFold(torch.autograd.Function):
 def alternate_corr_fold(corr: AltCorr, coords: torch.Tensor, radius: int,
                         weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """convc1 of the looked-up windows without the all-pairs volume: for
-    each chunk of queries, the chunk's (chunk, H2*W2) product with fmap2,
-    its `chunk_pyramid`, and kernel G on those levels and the chunk's
-    coordinates -> (B, H, W, O) in the weight's type, as
+    each chunk of queries, the levels of the chunk's (chunk, H2*W2) product
+    with fmap2 (`chunk_levels`), and kernel G on those levels and the
+    chunk's coordinates -> (B, H, W, O) in the weight's type, as
     `lookup_fold(corr_pyramid(all_pairs_corr(...)), ...)` gives.
 
     The product's operands are in the compute type and it accumulates in
-    f32. The 1/sqrt(C) scale goes onto the fmap1 operand (in f32, before
-    its cast), so a bf16 product is rounded once, after the scale; for C =
-    256 the scale is a power of two and the operand's cast is the same as
-    without it. A chunk's coordinates go to G as (B, 1, chunk, 2), which is
+    f32; every level is pooled from the f32 sums and rounded once. The
+    1/sqrt(C) scale goes onto the fmap1 operand (in f32, before its cast);
+    for C = 256 the scale is a power of two and the operand's cast is the
+    same as without it. A chunk's coordinates go to G as (B, 1, chunk, 2), which is
     contiguous at any B.
 
     Differentiable in the feature maps, the weight and the bias through one

@@ -8,11 +8,11 @@ its last. With no profiler it is one check that returns a shared null
 context, so an untraced step or request pays nothing for it. A span never
 synchronizes and never launches work; none opens inside a per-iteration
 loop or a kernel wrapper, with one exception: ALT_CORR's chunk walk
-(`ops/corr.py::_AltCorrFold.forward`) opens the three `ff.corr.*` spans in
-every chunk it walks. A chunk carries about 4 ms of device work at
-3840x2160 (64 chunks of 2048 queries, 12 refinements), and the walk's
-stages are invisible without them; untraced, the 2,304 checks of a 4K
-request cost about 1.6 ms of its 3.3 s.
+(`ops/corr.py::_AltCorrFold.forward`) opens the two `ff.corr.*` spans in
+every chunk it walks. A chunk carries under a millisecond of device work
+at 3840x2160 (64 chunks of 2048 queries, 12 refinements), and the walk's
+stages are invisible without them; untraced, the 1,536 checks of a 4K
+request cost about 1 ms of it.
 
 `SPANS`, where each opens:
 - `ff.step.forward`: the noise, the dropout draw, the weights' casts, the
@@ -27,10 +27,10 @@ request cost about 1.6 ms of its 3.3 s.
   memory's feature tower), more than once a forward;
 - `ff.model.cost`: the volume and its pyramid, or the latent cost memory;
 - `ff.model.refine`: the refinements and the upsampling;
-- `ff.corr.product`, `ff.corr.pyramid`, `ff.corr.lookup`: in each chunk of
-  ALT_CORR's forward walk, the chunk's matrix product, its pyramid (one
-  launch of the pyramid kernel, `ops/corr.py::chunk_pyramid`) and kernel G
-  on it. The materialized volume opens none of them.
+- `ff.corr.product`, `ff.corr.lookup`: in each chunk of ALT_CORR's forward
+  walk, the chunk's levels (`ops/corr.py::chunk_levels`: the matrix product
+  and its pooling, one launch of the chunk-levels kernel in bf16) and
+  kernel G on them. The materialized volume opens none of them.
 
 The model spans nest in `ff.step.forward` in training and in the caller's
 range in serving; the walk's nest in `ff.model.refine`.
@@ -44,7 +44,7 @@ import torch
 
 SPANS = ("ff.step.forward", "ff.step.backward", "ff.step.optimizer", "device_aug",
          "ff.model.encode", "ff.model.cost", "ff.model.refine",
-         "ff.corr.product", "ff.corr.pyramid", "ff.corr.lookup")
+         "ff.corr.product", "ff.corr.lookup")
 
 _OFF = contextlib.nullcontext()
 

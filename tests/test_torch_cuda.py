@@ -252,9 +252,11 @@ def test_alt_corr_chunks_match_the_materialized_lookup(dev, dtype, h1, w1):
     the full chunk's and the tail's shapes, against G on the materialized
     pyramid of the same feature maps (bf16 values in both types). f32:
     1e-4 of the largest output (the same sums, the product taken a chunk
-    at a time). bf16: 2e-2, as `test_lookup_fold_kernel` (the chunk's
-    levels 1-3 pooled from its bf16 level 0, the materialized ones from
-    the f32 product)."""
+    at a time); the chunks' levels from the product and the pyramid kernel
+    P, one P launch a chunk. bf16: 2e-2, as `test_lookup_fold_kernel` (G's
+    products in bf16; the chunks' levels from the chunk-levels kernel, one
+    launch a chunk and no P, each level rounded once from f32 sums taken in
+    another order than the materialized volume's)."""
     from focusflow_official_tpu_torch.ops.corr import AltCorr, all_pairs_corr, \
         alternate_corr_fold
 
@@ -267,9 +269,12 @@ def test_alt_corr_chunks_match_the_materialized_lookup(dev, dtype, h1, w1):
     q, chunk = h1 * w1, 2048
     before = dict(launch_shapes)
     n = launch_counts["lookup_fold"]
+    n_p, n_cl = launch_counts["pyramid"], launch_counts["corr_levels"]
     got = alternate_corr_fold(AltCorr(f1.to(dtype), f2.to(dtype), 4, chunk), coords, 4, w,
                               bias)
     assert launch_counts["lookup_fold"] == n + -(-q // chunk)
+    walked = (launch_counts["pyramid"] - n_p, launch_counts["corr_levels"] - n_cl)
+    assert walked == ((-(-q // chunk), 0) if dtype == torch.float32 else (0, -(-q // chunk)))
     new = {key: c - before.get(key, 0) for key, c in launch_shapes.items()
            if c != before.get(key, 0)}
     assert {key[2]: c for key, c in new.items()} == {chunk: q // chunk, q % chunk: 1}
@@ -327,7 +332,9 @@ def test_alt_corr_backward_matches_its_plain_chunks(dev, dtype):
     chunk's product, `corr_pyramid`, `lookup_fold_plain`, one chunk after
     another): the maps', the weight's and the bias's gradients within 1e-4
     (f32) or 2e-2 (bf16, the plain chunks' gradients summed in bf16) of
-    each one's largest; the backward launches A once a chunk and no G."""
+    each one's largest; the backward launches A once a chunk and no G.
+    The plain chunk is the walk's function: `corr_pyramid` of the f32
+    product, in the compute type."""
     from focusflow_official_tpu_torch.ops.corr import AltCorr, alternate_corr_fold
 
     g = torch.Generator(device=dev).manual_seed(41)
@@ -348,7 +355,8 @@ def test_alt_corr_backward_matches_its_plain_chunks(dev, dtype):
         f2t = f2_.reshape(b, q, c).to(dtype).transpose(1, 2)
         cq = coords.reshape(b, 1, q, 2)
         outs = [klf.lookup_fold_plain(
-            corr_pyramid(torch.matmul(a[:, s:s + chunk], f2t).reshape(b, -1, h1, w1), 4, dtype),
+            corr_pyramid(torch.matmul(a[:, s:s + chunk].float(), f2t.float())
+                         .reshape(b, -1, h1, w1), 4, dtype),
             cq[:, :, s:s + chunk].contiguous(), 4, w_, b_) for s in range(0, q, chunk)]
         return torch.cat(outs, 2).reshape(b, h1, w1, -1)
 
@@ -2057,11 +2065,131 @@ def test_pyramid_refusals(dev):
     assert only is rows and launch_counts["pyramid"] == n
 
 
+def _bf16_ulp(x):
+    """One bf16 ulp at each value's magnitude (8 significant bits)."""
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 8)
+
+
+def _check_corr_levels(dev, b, n, h, w, c, num_levels, seed):
+    """The chunk-levels kernel on queries s..s+n of random operands (s = 37
+    for a tail, whose last tile reads past Q; 0 for a full chunk, with 100
+    queries past it that must not be stored) against its plain version on
+    the card: `corr_pyramid` of the f32 product (TF32 off). Every level
+    within one bf16 ulp of the plain level plus 2^-20 of the level's
+    largest: the kernel's f32 sums run in another order than cuBLAS's (a
+    few f32 ulps of the terms, which only a near-cancelling cell sees
+    beside its own bf16 ulp), and each level is rounded once from them.
+    One launch counted, no shape key."""
+    from focusflow_official_tpu_torch.kernels import corr_levels as kcl
+
+    tail = n % 2048 != 0
+    s = 37 if tail else 0
+    q = s + n + (0 if tail else 100)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f1 = (torch.randn((b, q, c), generator=g, device=dev) * c ** -0.5).bfloat16()
+    f2 = torch.randn((b, h * w, c), generator=g, device=dev).bfloat16()
+    before, shapes = launch_counts["corr_levels"], dict(launch_shapes)
+    got = kcl.corr_levels(f1, f2, s, n, h, w, num_levels)
+    assert launch_counts["corr_levels"] == before + 1 and launch_shapes == shapes
+    want = corr_pyramid(torch.matmul(f1[:, s:s + n].float(), f2.float().transpose(1, 2))
+                        .reshape(b, n, h, w), num_levels, torch.float32)
+    torch.cuda.synchronize()
+    assert len(got) == num_levels
+    for lv, (a, e) in enumerate(zip(got, want)):
+        assert a.dtype == torch.bfloat16 and a.shape == e.shape and a.is_contiguous()
+        err = (a.float() - e).abs()
+        tol = _bf16_ulp(e) + 2.0 ** -20 * float(e.abs().max())
+        worst = float((err - tol).max())
+        assert worst <= 0, f"level {lv}: {worst} past the bound"
+    del got, want
+
+
+@pytest.mark.parametrize("c", [256, 128])
+@pytest.mark.parametrize("b,n,h,w", [
+    (1, 2048, 270, 480),  # a 3840x2160 chunk
+    (1, 576, 270, 480),   # its tail
+    (1, 2048, 55, 128),   # a 1024x436 chunk
+    (1, 896, 55, 128),    # its tail
+    (10, 2048, 46, 62),   # the chairs crop at B=10: rows not 16-byte aligned
+    (10, 804, 46, 62),
+])
+def test_corr_levels_kernel_matches_its_plain_version(dev, c, b, n, h, w):
+    _check_corr_levels(dev, b, n, h, w, c, 4, seed=n + c)
+
+
+@pytest.mark.parametrize("b,n,h,w,c,num_levels", [
+    (2, 100, 7, 9, 64, 3),    # one patch past both edges
+    (3, 65, 13, 5, 72, 3),    # C past the last 64-channel slice
+    (1, 64, 6, 11, 8, 2),
+    (2, 5, 9, 40, 256, 1),
+    (1, 130, 15, 33, 192, 4),
+    (2, 2048, 17, 250, 256, 4),
+])
+def test_corr_levels_kernel_small_maps(dev, b, n, h, w, c, num_levels):
+    """The same check on small and odd maps, any C a multiple of 8 up to
+    256, one to four levels."""
+    _check_corr_levels(dev, b, n, h, w, c, num_levels, seed=h * w)
+
+
+def test_corr_levels_refusals(dev):
+    """f32 operands, a C the kernel does not take, queries past Q and a
+    level of no cell are refused before any launch."""
+    from focusflow_official_tpu_torch.kernels import corr_levels as kcl
+
+    f1 = torch.zeros((1, 64, 256), device=dev, dtype=torch.bfloat16)
+    f2 = torch.zeros((1, 8 * 16, 256), device=dev, dtype=torch.bfloat16)
+    n = launch_counts["corr_levels"]
+    for args in ((f1.float(), f2.float(), 0, 64, 8, 16, 4), (f1[..., :12], f2[..., :12], 0, 64,
+                 8, 16, 4), (f1, f2, 1, 64, 8, 16, 4), (f1, f2[:, :7 * 16], 0, 64, 7, 16, 4)):
+        with pytest.raises(ValueError, match="corr_levels"):
+            kcl.corr_levels(*args)
+    assert launch_counts["corr_levels"] == n
+
+
+
+def test_corr_levels_launcher_refuses_a_short_scratch(dev):
+    """The launcher checks the levels-2-3 scratch against its own plan: a
+    buffer one cell short of batch x patches x n x 24 is refused before
+    any launch, one of that size is taken."""
+    from focusflow_official_tpu_torch.kernels import corr_levels as kcl
+
+    b, n, h, w, c = 1, 64, 8, 32, 64  # one patch
+    f1 = torch.randn((b, n, c), device=dev).bfloat16()
+    f2 = torch.randn((b, h * w, c), device=dev).bfloat16()
+    levels = [torch.empty((b, n, h >> lv, w >> lv), dtype=torch.bfloat16, device=dev)
+              for lv in range(4)]
+    p = kcl.plan(b, n, h, w, 132)
+    cells = b * p["py"] * p["px"] * n * 24
+    coarse = torch.empty(cells, dtype=torch.bfloat16, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for have, ok in ((cells - 1, False), (cells, True)):
+        err = kcl._lib().ff_corr_levels_launch(
+            f1.data_ptr(), f2.data_ptr(), *[lv.data_ptr() for lv in levels],
+            coarse.data_ptr(), have, b, n, 0, n, h, w, c, 4, p["per"], p["grid"], stream)
+        assert (err == 0) == ok, (have, err)
+    torch.cuda.synchronize()
+
+# the 4K walk's flow against its plain chunks': the largest gap over the
+# largest flow (at least 1 px). Three seeds read 0.0014-0.0020 (flow) and
+# 0.0030-0.0039 (flow_lr) on an H100: a bf16 ulp at the odd cell (the f32
+# sums' order) that the bf16 refinements carry on. 6e-3 is 1.5 x the largest.
+ALT_4K_FLOW_TOL = 6e-3
+# the share of a level's cells off the plain level rounded to bf16: the
+# kernel misses only where the f32 sums' order flips a rounding (about 1e-4
+# of the cells); levels pooled from the bf16-rounded product miss on about
+# 40% of the cells of levels 1-3
+ALT_4K_MISS_SHARE = 1e-2
+
+
 def test_alt_corr_4k_walk_is_unchanged_and_launches_768(dev):
     """One served FF-RAFT forward with ALT_CORR at 3840x2160 (B=1, bf16, 12
-    refinements, chunks of 2048, seeded weights): 768 pyramid launches (64
-    chunks x 12, one a chunk walked), and the flow equal, bit for bit, to
-    the same forward with `corr_pyramid` as the walk's pyramid."""
+    refinements, chunks of 2048, seeded weights): 768 chunk-levels launches
+    (64 chunks x 12, one a chunk walked) and no pyramid kernel; the first
+    chunk's levels, as the forward walked them, within one bf16 ulp (plus
+    2^-20 of the level's largest) of `corr_pyramid` of the f32 product, and
+    off its bf16 rounding on at most ALT_4K_MISS_SHARE of the cells, so
+    pooled from the f32 sums; the flow within ALT_4K_FLOW_TOL of the same
+    forward with that plain chunk as the walk's levels."""
     from unittest import mock
 
     from focusflow_official_tpu_torch.config import model_from_config
@@ -2078,11 +2206,37 @@ def test_alt_corr_4k_walk_is_unchanged_and_launches_768(dev):
     model, iters = model_from_config(FFRaftConfig(fuse_cnet=True, alt_corr=True,
                                                   compute_dtype="bfloat16"))
     model = for_inference(model, torch.bfloat16, dev)
+
+    def plain(f1, f2t, s, n, h2, w2, num_levels, dtype):
+        rows = torch.matmul(f1[:, s:s + n].float(), f2t.float()).reshape(-1, n, h2, w2)
+        return corr_pyramid(rows, num_levels, dtype)
+
+    walked = corr_ops.chunk_levels
+    first = []
+
+    def record(*args):
+        levels = walked(*args)
+        if not first:
+            first.append((levels, plain(*args[:-1], torch.float32)))
+        return levels
+
     reset_launch_counts()
-    flow, flow_lr = eval_forward(model, *frames, *masks, iters=iters)
-    assert launch_counts["pyramid"] == 768
+    with mock.patch.object(corr_ops, "chunk_levels", record):
+        flow, flow_lr = eval_forward(model, *frames, *masks, iters=iters)
+    assert launch_counts["corr_levels"] == 768 and launch_counts["pyramid"] == 0
     assert torch.isfinite(flow).all()
-    with mock.patch.object(corr_ops, "chunk_pyramid", corr_pyramid):
+    for lv, (a, e) in enumerate(zip(*first[0])):
+        assert a.dtype == torch.bfloat16 and a.shape == e.shape
+        tol = _bf16_ulp(e) + 2.0 ** -20 * float(e.abs().max())
+        worst = float(((a.float() - e).abs() - tol).max())
+        assert worst <= 0, f"level {lv}: {worst} past the bound"
+        miss = float((a != e.bfloat16()).float().mean())
+        assert miss <= ALT_4K_MISS_SHARE, f"level {lv}: {miss} of the cells off"
+    del first
+
+    with mock.patch.object(corr_ops, "chunk_levels", plain):
         want, want_lr = eval_forward(model, *frames, *masks, iters=iters)
-    assert launch_counts["pyramid"] == 768
-    assert torch.equal(flow, want) and torch.equal(flow_lr, want_lr)
+    assert launch_counts["corr_levels"] == 768 and launch_counts["pyramid"] == 0
+    for a, e in ((flow, want), (flow_lr, want_lr)):
+        gap = float((a - e).abs().max()) / max(1.0, float(e.abs().max()))
+        assert gap <= ALT_4K_FLOW_TOL, gap

@@ -1,19 +1,25 @@
-"""ALT_CORR's chunk pyramid (`ops/corr.py::chunk_pyramid`, the kernel
-`kernels/pyramid.py`) on the CPU: the walk's pyramid is `corr_pyramid`'s
-to the bit here, the walk still matches the materialized lookup, the
-launch counter, and the kernel's plan (the regions it cuts a map into,
-the entry it takes). The kernel itself runs on the card only
+"""ALT_CORR's chunk levels (`ops/corr.py::chunk_levels`: the chunk-levels
+kernel `kernels/corr_levels.py` in bf16 on the card, the pyramid kernel
+`kernels/pyramid.py` after the product in f32 there) on the CPU: the
+walk's levels are `corr_pyramid` of the f32 product here, and in f32
+today's product-then-pyramid path to the bit; the walk still matches the
+materialized lookup; the launch counters; the kernels' plans (the units
+of patches and query tiles the chunk-levels kernel walks, the regions the
+pyramid kernel cuts a map into, the entry it takes) and what the
+launchers refuse. The kernels themselves run on the card only
 (`tests/test_torch_cuda.py`)."""
 
 import pytest
 import torch
 
 from focusflow_official_tpu_torch import kernels
+from focusflow_official_tpu_torch.kernels import corr_levels as kcl
 from focusflow_official_tpu_torch.kernels import pyramid as kp
 from focusflow_official_tpu_torch.kernels.lookup_fold import lookup_fold
 from focusflow_official_tpu_torch.ops import corr as corr_ops
-from focusflow_official_tpu_torch.ops.corr import (AltCorr, all_pairs_corr, alternate_corr_fold,
-                                                   chunk_pyramid, corr_pyramid)
+from focusflow_official_tpu_torch.ops.corr import (AltCorr, _chunk_product, all_pairs_corr,
+                                                   alternate_corr_fold, chunk_levels,
+                                                   corr_pyramid)
 
 DTYPES = [torch.bfloat16, torch.float32]
 
@@ -23,24 +29,50 @@ def _rows(shape, dtype, seed=0):
     return (torch.randn(shape, generator=g) * 4).to(dtype)
 
 
+def _operands(b, q, h, w, c, dtype, seed=0):
+    """The walk's operands (`_alt_operands`): f1 (B, Q, C) and f2t
+    (B, C, H*W), a transposed contiguous (B, H*W, C), in `dtype`."""
+    g = torch.Generator().manual_seed(seed)
+    f1 = (torch.randn((b, q, c), generator=g) * c ** -0.5).to(dtype)
+    f2 = torch.randn((b, h * w, c), generator=g).to(dtype)
+    return f1, f2.transpose(1, 2)
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each value's magnitude (8 significant bits)."""
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 8)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,n,h,w", [
     (1, 6, 270, 480),    # 3840x2160's level 0, a few queries
     (2, 3, 270, 480),
     (1, 2048, 55, 128),  # 1024x436: a full chunk
     (2, 896, 55, 128),   # its tail
+    (2, 804, 46, 62),    # the chairs crop's training tail
     (2, 5, 7, 9),        # small odd maps: level 3 empty
     (1, 3, 13, 5),
 ])
 def test_chunk_pyramid_on_the_cpu_is_corr_pyramid(dtype, b, n, h, w):
-    rows = _rows((b, n, h, w), dtype)
-    got = chunk_pyramid(rows, 4, dtype)
-    want = corr_pyramid(rows, 4, dtype)
-    assert got[0] is rows
-    assert len(got) == len(want) == 4
-    for a, e in zip(got, want):
-        assert a.dtype == e.dtype == dtype and a.shape == e.shape
-        assert torch.equal(a, e)
+    """`chunk_levels` on the CPU (queries 3..3+n of the operands) is
+    `corr_pyramid` of the f32 product: in f32 today's product then pyramid
+    to the bit; in bf16 every level within one bf16 ulp of the same
+    pyramid taken in f64 (plus 1e-6 of the level's largest, the f32 sums'
+    own error), so pooled from the f32 sums and rounded once, not from a
+    rounded level 0."""
+    f1, f2t = _operands(b, n + 5, h, w, 64, dtype, seed=n)
+    got = chunk_levels(f1, f2t, 3, n, h, w, 4, dtype)
+    exact = corr_pyramid(torch.matmul(f1[:, 3:3 + n].double(), f2t.double())
+                         .reshape(b, n, h, w), 4, torch.float64)
+    assert len(got) == len(exact) == 4
+    if dtype == torch.float32:
+        today = corr_pyramid(_chunk_product(f1, f2t, 3, n, h, w), 4, dtype)
+        assert all(torch.equal(a, e) for a, e in zip(got, today))
+    for a, e in zip(got, exact):
+        assert a.dtype == dtype and a.shape == e.shape and a.is_contiguous()
+        if e.numel():
+            err = (a.double() - e).abs()
+            assert bool((err <= _bf16_ulp(e) + 1e-6 * e.abs().max()).all())
 
 
 @pytest.mark.parametrize("b,h1,w1,chunk", [
@@ -49,7 +81,7 @@ def test_chunk_pyramid_on_the_cpu_is_corr_pyramid(dtype, b, n, h, w):
     (1, 9, 13, 50),    # an odd map: levels 4x6, 2x3, 1x1
 ])
 def test_alternate_corr_fold_matches_the_materialized_lookup(b, h1, w1, chunk, monkeypatch):
-    """The walk (chunk products, `chunk_pyramid` once a chunk, G's plain
+    """The walk (`chunk_levels` once a chunk, G's plain
     version) against `lookup_fold(corr_pyramid(all_pairs_corr(...)))` in
     f32: within 1e-5 of the largest output (the products taken a chunk at a
     time)."""
@@ -60,24 +92,110 @@ def test_alternate_corr_fold_matches_the_materialized_lookup(b, h1, w1, chunk, m
     coords = (torch.stack(torch.meshgrid(torch.arange(w1), torch.arange(h1), indexing="xy"), -1)
               .float()[None].repeat(b, 1, 1, 1) + torch.randn((b, h1, w1, 2), generator=g) * 3)
     walked = []
-    monkeypatch.setattr(corr_ops, "chunk_pyramid",
-                        lambda rows, *a: walked.append(rows.shape[1]) or chunk_pyramid(rows, *a))
+    monkeypatch.setattr(corr_ops, "chunk_levels",
+                        lambda *a: walked.append(a[3]) or chunk_levels(*a))
     kernels.reset_launch_counts()
     got = alternate_corr_fold(AltCorr(f1, f2, 4, chunk), coords, 4, w, bias)
     want = lookup_fold(corr_pyramid(all_pairs_corr(f1, f2), 4), coords, 4, w, bias)
     assert len(walked) == -(-h1 * w1 // chunk) and sum(walked) == h1 * w1
-    assert kernels.launch_counts["pyramid"] == 0
+    assert kernels.launch_counts["pyramid"] == kernels.launch_counts["corr_levels"] == 0
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
 
 
 def test_launch_counter_has_the_key_and_no_shapes():
-    assert "pyramid" in kernels.launch_counts
-    kernels.launch_counts["pyramid"] = 5
+    """The pyramid kernel and the chunk-levels kernel count their launches
+    in `launch_counts` alone; the CPU walk launches neither."""
+    for name in ("pyramid", "corr_levels"):
+        assert name in kernels.launch_counts
+        kernels.launch_counts[name] = 5
     kernels.reset_launch_counts()
-    assert kernels.launch_counts["pyramid"] == 0
-    chunk_pyramid(_rows((1, 4, 55, 128), torch.bfloat16), 4, torch.bfloat16)  # no launch
-    assert kernels.launch_counts["pyramid"] == 0
-    assert not any(k[0] == "pyramid" for k in kernels.launch_shapes)
+    f1, f2t = _operands(1, 4, 55, 128, 64, torch.bfloat16)
+    chunk_levels(f1, f2t, 0, 4, 55, 128, 4, torch.bfloat16)  # no launch
+    for name in ("pyramid", "corr_levels"):
+        assert kernels.launch_counts[name] == 0
+        assert not any(k[0] == name for k in kernels.launch_shapes)
+
+
+@pytest.mark.parametrize("b,n,h,w,sms", [
+    (1, 70, 270, 480, 132),   # 3840x2160: 34 x 15 patches, one group
+    (1, 576, 270, 480, 132),  # its tail: 9 tiles
+    (1, 2048, 55, 128, 132),  # 1024x436: 28 patches, 4 groups of 8 tiles
+    (1, 896, 55, 128, 132),
+    (10, 804, 46, 62, 132),   # the chairs crop at B=10: 120 patches
+    (2, 804, 46, 62, 8),
+    (2, 2048, 46, 62, 132),
+    (3, 77, 7, 9, 132),       # one patch a map past both edges
+    (1, 1, 7, 9, 132),
+])
+def test_corr_levels_plan_covers_every_cell_once(b, n, h, w, sms):
+    """The units of the chunk-levels kernel's plan (`unit`, as the kernel
+    decodes them) cover every cell of levels 0..3 of every query exactly
+    once: each unit writes its tiles' queries (64 a tile, those below n)
+    and its patch's cells of each level (8 x 32 at level 0, 4 x 16, 2 x 8,
+    1 x 4) inside the level's map. At most one block an SM, each with a
+    unit."""
+    p = kcl.plan(b, n, h, w, sms)
+    assert p["grid"] == min(p["units"], sms) and p["units"] == p["groups"] * b * p["py"] * p["px"]
+    assert (p["groups"] - 1) * p["per"] < p["tiles"] <= p["groups"] * p["per"]
+    seen = [torch.zeros((b, n, h >> lv, w >> lv), dtype=torch.int16) for lv in range(4)]
+    for u in range(p["units"]):
+        m, py, px, tiles = kcl.unit(p, u, b)
+        assert len(tiles) >= 1
+        qs = slice(tiles.start * kcl.TILE_Q, min(tiles.stop * kcl.TILE_Q, n))
+        for lv, s in enumerate(seen):
+            ys = slice(py * kcl.PATCH_Y >> lv, (py + 1) * kcl.PATCH_Y >> lv)
+            xs = slice(px * kcl.PATCH_X >> lv, (px + 1) * kcl.PATCH_X >> lv)
+            s[m, qs, ys, xs] += 1
+    assert all(bool((s == 1).all()) for s in seen)
+
+
+@pytest.mark.parametrize("case", ["f32 f1", "f16 f2", "strided f1", "misaligned f1", "c 12",
+                                  "c 320", "keys", "past q", "no query", "five levels",
+                                  "no level", "level 3 of 7 rows", "batches"])
+def test_corr_levels_refusals(case):
+    """What the chunk-levels launcher refuses, before any launch: operands
+    other than bf16, a strided or misaligned operand, C not a multiple of 8
+    or past 256, a key map of another size, queries past Q, a level of no
+    cell, more levels than G looks up, maps of another batch."""
+    f1, f2t = _operands(2, 40, 16, 24, 64, torch.bfloat16)
+    f2 = f2t.transpose(1, 2)
+    s, n, h, w, levels = 0, 40, 16, 24, 4
+    if case == "f32 f1":
+        f1 = f1.float()
+    elif case == "f16 f2":
+        f2 = f2.half()
+    elif case == "strided f1":
+        f1 = f1.transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "misaligned f1":
+        f1 = torch.cat([f1.reshape(-1), f1.new_zeros(1)])[1:].view(f1.shape)
+    elif case == "c 12":
+        f1, f2 = f1[..., :12].contiguous(), f2[..., :12].contiguous()
+    elif case == "c 320":
+        f1, f2 = f1.repeat(1, 1, 5), f2.repeat(1, 1, 5)
+    elif case == "keys":
+        h = 15
+    elif case == "past q":
+        s = 1
+    elif case == "no query":
+        n = 0
+    elif case == "five levels":
+        levels = 5
+    elif case == "no level":
+        levels = 0
+    elif case == "level 3 of 7 rows":
+        f2, h = f2[:, :7 * 24].contiguous(), 7
+    else:
+        f2 = f2[:1].contiguous()
+    with pytest.raises(ValueError, match="corr_levels"):
+        kcl._check(f1, f2, s, n, h, w, levels)
+
+
+def test_corr_levels_on_other_devices_raises():
+    f1, f2t = _operands(1, 8, 8, 8, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="unsupported devices"):
+        kcl.corr_levels(f1, f2t.transpose(1, 2), 0, 8, 8, 8, 4)
+    with pytest.raises(ValueError, match="unsupported devices"):
+        kcl.corr_levels(f1.to("meta"), f2t.transpose(1, 2).to("meta"), 0, 8, 8, 8, 4)
 
 
 @pytest.mark.parametrize("n,k,bands", [

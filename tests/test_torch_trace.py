@@ -9,8 +9,8 @@ the CPU.
   twice, once a tower), the model's inside `ff.step.forward`, and the
   step's phases in their order.
 - `FlowPredictor` records the three model ranges inside its call.
-- ALT_CORR's forward walk records each of the three `ff.corr.*` ranges
-  once a chunk walked (each chunk's `chunk_pyramid` call), inside
+- ALT_CORR's forward walk records each of the two `ff.corr.*` ranges
+  once a chunk walked (each chunk's `chunk_levels` call), inside
   `ff.model.refine`; the materialized volume records none of them and
   walks no chunk.
 - With no profiler a span is the shared null context and never enters
@@ -36,7 +36,7 @@ from focusflow_official_tpu_torch.losses import build_sequence_loss
 from focusflow_official_tpu_torch.models import (FFFlowFormer, FFRaft, FFRaftConfig,
                                                   FlowFormerConfig)
 from focusflow_official_tpu_torch.ops import corr as corr_ops
-from focusflow_official_tpu_torch.ops.corr import chunk_pyramid
+from focusflow_official_tpu_torch.ops.corr import chunk_levels
 from focusflow_official_tpu_torch.predict import FlowPredictor
 from focusflow_official_tpu_torch.train.loop import build_optimizer, train_step
 from focusflow_official_tpu_torch.train.schedule import one_cycle
@@ -45,7 +45,7 @@ FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 B, RAW, CROP, ITERS = 2, (80, 112), (64, 96), 2
 KEYS = ("image1", "image2", "mask1", "mask2", "flow", "valid")
 MODEL_SPANS = ("ff.model.encode", "ff.model.cost", "ff.model.refine")
-WALK_SPANS = ("ff.corr.product", "ff.corr.pyramid", "ff.corr.lookup")
+WALK_SPANS = ("ff.corr.product", "ff.corr.lookup")
 FAMILIES = {
     "ff_raft": (lambda: FFRaftConfig(fusion="parallel", fuse_cnet=True, iters=ITERS),
                 FFRaft, "trained_smoke.npz", 3),
@@ -178,7 +178,7 @@ def test_the_profiler_changes_no_value(family):
 @pytest.mark.parametrize("alt_corr", [True, False])
 def test_the_alt_corr_walk_records_its_spans_once_a_chunk(alt_corr, monkeypatch):
     """A 64x96 pair has 8 x 12 = 96 queries: chunks of 40 walk 3 a
-    refinement (the last a tail of 16), one `chunk_pyramid` call each."""
+    refinement (the last a tail of 16), one `chunk_levels` call each."""
     cfg = FFRaftConfig(fusion="parallel", fuse_cnet=True, iters=ITERS, alt_corr=alt_corr,
                        alt_corr_chunk=40)
     model = FFRaft(cfg)
@@ -186,8 +186,8 @@ def test_the_alt_corr_walk_records_its_spans_once_a_chunk(alt_corr, monkeypatch)
     batch = _raw_batch()
     inputs = [batch[k][:1, :64, :96] for k in KEYS[:4]]
     chunks = []
-    monkeypatch.setattr(corr_ops, "chunk_pyramid",
-                        lambda rows, *a: chunks.append(rows.shape[1]) or chunk_pyramid(rows, *a))
+    monkeypatch.setattr(corr_ops, "chunk_levels",
+                        lambda *a: chunks.append(a[3]) or chunk_levels(*a))
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]) as prof:
         model.eval()(*inputs)
     walked = 3 * ITERS if alt_corr else 0
