@@ -1,0 +1,13 @@
+"""PWC decoders (`nn/pwc.py::PWCRefiner`, inside `ff.model.refine`): device
+ms a request of the dilated refiner on the level-2 features, the kernel
+time inside the device spans of `ff.pwc.context` (one a pair) over the
+traced slice. A program without the span reads nothing."""
+
+from harness.sweep import kernel_seconds_within
+
+
+def read(ctx):
+    if ctx.mode != "serve":
+        return None
+    s = kernel_seconds_within(ctx.trace, "ff.pwc.context")
+    return 1e3 * s / ctx.slice_steps if s > 0 else None

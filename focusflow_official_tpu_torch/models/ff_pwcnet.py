@@ -23,6 +23,7 @@ from torch import nn
 
 from ..nn.pwc import PWCDecoder, PWCExtractor, PWCFusionExtractor, PWCRefiner
 from ..ops.coords import resize_bilinear
+from ..trace import span
 from .config import FFPWCNetConfig
 from .ff_raft import compute_dtype
 from .mask_modal import init_mask
@@ -47,16 +48,26 @@ class _PWCBase(nn.Module):
         nh, nw = new_hw
         prev = None
         flows = []
-        for idx, name in ((5, "netSix"), (4, "netFiv"), (3, "netFou"),
-                          (2, "netThr"), (1, "netTwo")):
-            prev = getattr(self, name)(feats1[idx], feats2[idx], prev)
-            flows.insert(0, prev[0])
-        flows[0] = flows[0] + self.netRefiner(prev[1])
-        flows = [f.permute(0, 2, 3, 1).float() for f in flows]
-        if self.training:
-            return flows
-        out = resize_bilinear(flows[0], (h, w))
-        out = out * torch.tensor([w / nw, h / nh], device=out.device)
+        with span("ff.model.refine"):
+            # the resize back's scale, made on the card (a host copy would
+            # wait on it) and first, for the benchmark's serving readers:
+            # they take a range's device span from its own first kernel to
+            # its last, not over the ranges it holds, so without a kernel
+            # of its own here the range would open after the decoders'.
+            # Once those readers take `harness/spans.py::extents`, as the
+            # training readers do, the order no longer matters
+            scale = torch.full((2,), w / nw, device=feats1[0].device)
+            scale[1] = h / nh
+            for idx, name in ((5, "netSix"), (4, "netFiv"), (3, "netFou"),
+                              (2, "netThr"), (1, "netTwo")):
+                prev = getattr(self, name)(feats1[idx], feats2[idx], prev)
+                flows.insert(0, prev[0])
+            with span("ff.pwc.context"):
+                flows[0] = flows[0] + self.netRefiner(prev[1])
+            flows = [f.permute(0, 2, 3, 1).float() for f in flows]
+            if self.training:
+                return flows
+            out = resize_bilinear(flows[0], (h, w)) * scale
         return out, flows
 
 
@@ -74,10 +85,11 @@ class PWCNet(_PWCBase):
         are called alike, and ignored."""
         _, h, w, _ = image1.shape
         new_hw = _padded_size(h, w)
-        ten_one = resize_bilinear(image1, new_hw).to(self.dtype)
-        ten_two = resize_bilinear(image2, new_hw).to(self.dtype)
-        return self._decode(self.netExtractor(ten_one), self.netExtractor(ten_two),
-                            (h, w), new_hw)
+        with span("ff.model.encode"):
+            ten_one = resize_bilinear(image1, new_hw).to(self.dtype)
+            ten_two = resize_bilinear(image2, new_hw).to(self.dtype)
+            feats1, feats2 = self.netExtractor(ten_one), self.netExtractor(ten_two)
+        return self._decode(feats1, feats2, (h, w), new_hw)
 
 
 class FFPWCNet(_PWCBase):
@@ -98,14 +110,15 @@ class FFPWCNet(_PWCBase):
         d = compute_dtype(cfg)
         _, h, w, _ = image1.shape
         new_hw = _padded_size(h, w)
-        ten_one = resize_bilinear(image1, new_hw)
-        ten_two = resize_bilinear(image2, new_hw)
-        mask1 = resize_bilinear(mask1, new_hw)
-        mask2 = resize_bilinear(mask2, new_hw)
-        mask1, mask2 = init_mask(
-            ten_one, ten_two, mask1, mask2, mask_modal=cfg.mask_modal,
-            mask_channel=cfg.mask_channel, mask_dilate=cfg.mask_dilate,
-            kernel_size=cfg.kernel_size, kernel_sigma=cfg.kernel_sigma)
-        feats1 = self.netExtractor(ten_one.to(d), mask1.to(d))
-        feats2 = self.netExtractor(ten_two.to(d), mask2.to(d))
+        with span("ff.model.encode"):
+            ten_one = resize_bilinear(image1, new_hw)
+            ten_two = resize_bilinear(image2, new_hw)
+            mask1 = resize_bilinear(mask1, new_hw)
+            mask2 = resize_bilinear(mask2, new_hw)
+            mask1, mask2 = init_mask(
+                ten_one, ten_two, mask1, mask2, mask_modal=cfg.mask_modal,
+                mask_channel=cfg.mask_channel, mask_dilate=cfg.mask_dilate,
+                kernel_size=cfg.kernel_size, kernel_sigma=cfg.kernel_sigma)
+            feats1 = self.netExtractor(ten_one.to(d), mask1.to(d))
+            feats2 = self.netExtractor(ten_two.to(d), mask2.to(d))
         return self._decode(feats1, feats2, (h, w), new_hw)

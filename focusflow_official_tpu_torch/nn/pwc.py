@@ -8,7 +8,9 @@ refiner. Module names are the flax ones (`netOne_0`, `mask_netOne_0`,
 
 Public inputs and outputs are NHWC. Inside, convolutions see NCHW-indexed
 views (`channels_last` on the card), so a feature map permuted back to
-NHWC is contiguous, which is what kernel D takes.
+NHWC is contiguous, which is what kernel D takes. A decoder opens the
+`ff.pwc.warp`, `ff.pwc.corr` and `ff.pwc.dense` spans (`trace.py`) around
+its stages; the model opens `ff.pwc.context` around the refiner.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from torch import nn
 
 from ..ops.local_corr import local_corr
 from ..ops.warp import backwarp
+from ..trace import span
 from .fusion_units import FusionUnit
 
 _LEVEL_DIMS = (16, 32, 64, 96, 128, 196)
@@ -137,19 +140,22 @@ class PWCDecoder(nn.Module):
         NCHW-indexed, or None at the coarsest level.
         Returns (flow (B, 2, h, w), feat (B, feat_dim, h, w)), NCHW-indexed."""
         d = ten_one.dtype
-        if prev is None:
-            feat = _nchw(local_corr(ten_one, ten_two, 4, negative_slope=_SLOPE))
-        else:
-            prev_flow, prev_feat = prev
-            flow = self.netUpflow(prev_flow)
-            feat_up = self.netUpfeat(prev_feat)
-            warped = backwarp(ten_two, _nhwc(flow).float() * _BACKWARP_SCALE[self.level])
-            volume = _nchw(local_corr(ten_one, warped.to(d), 4, negative_slope=_SLOPE))
-            feat = torch.cat([volume, _nchw(ten_one), flow, feat_up], dim=1)
-        for name, _ in _DENSE:
-            y = lrelu(getattr(self, f"{name}_0")(feat))
-            feat = torch.cat([y, feat], dim=1)  # new channels first
-        return self.netSix_0(feat), feat
+        if prev is not None:
+            with span("ff.pwc.warp"):
+                prev_flow, prev_feat = prev
+                flow = self.netUpflow(prev_flow)
+                feat_up = self.netUpfeat(prev_feat)
+                scale = _BACKWARP_SCALE[self.level]
+                ten_two = backwarp(ten_two, _nhwc(flow).float() * scale).to(d)
+        with span("ff.pwc.corr"):
+            volume = _nchw(local_corr(ten_one, ten_two, 4, negative_slope=_SLOPE))
+        with span("ff.pwc.dense"):
+            feat = (volume if prev is None
+                    else torch.cat([volume, _nchw(ten_one), flow, feat_up], dim=1))
+            for name, _ in _DENSE:
+                y = lrelu(getattr(self, f"{name}_0")(feat))
+                feat = torch.cat([y, feat], dim=1)  # new channels first
+            return self.netSix_0(feat), feat
 
 
 class PWCRefiner(nn.Module):

@@ -24,16 +24,25 @@ request cost about 1 ms of it.
 - `device_aug`: the on-card augmentation (same);
 - `ff.model.encode`: the encoders (FF-RAFT: the masks and a front end, the
   fnet, the cnet; FF-FlowFormer: the masks and the context tower, the
-  memory's feature tower), more than once a forward;
+  memory's feature tower; PWC-Net: the resize to a multiple of 64, the
+  masks and both frames' extractor passes), one or more a forward;
 - `ff.model.cost`: the volume and its pyramid, or the latent cost memory;
-- `ff.model.refine`: the refinements and the upsampling;
+- `ff.model.refine`: the refinements and the upsampling (PWC-Net: the five
+  decoders, the refiner and the resize back);
 - `ff.corr.product`, `ff.corr.lookup`: in each chunk of ALT_CORR's forward
   walk, the chunk's levels (`ops/corr.py::chunk_levels`: the matrix product
   and its pooling, one launch of the chunk-levels kernel in bf16) and
-  kernel G on them. The materialized volume opens none of them.
+  kernel G on them. The materialized volume opens none of them;
+- `ff.pwc.warp`, `ff.pwc.corr`, `ff.pwc.dense`, `ff.pwc.context`: in
+  PWC-Net's coarse-to-fine decoding (`nn/pwc.py`), each decoder below
+  level 6's up-sampled flow and features and the backward warp (4 a
+  forward); each level's local correlation, kernel D with its leaky ReLU
+  (5); each level's DenseNet stack with its concatenations and the flow
+  conv (5); the refiner (1). FF-RAFT and FF-FlowFormer open none of them.
 
 The model spans nest in `ff.step.forward` in training and in the caller's
-range in serving; the walk's nest in `ff.model.refine`.
+range in serving; the walk's and PWC-Net's decoders' nest in
+`ff.model.refine`.
 """
 
 from __future__ import annotations
@@ -44,7 +53,8 @@ import torch
 
 SPANS = ("ff.step.forward", "ff.step.backward", "ff.step.optimizer", "device_aug",
          "ff.model.encode", "ff.model.cost", "ff.model.refine",
-         "ff.corr.product", "ff.corr.lookup")
+         "ff.corr.product", "ff.corr.lookup",
+         "ff.pwc.warp", "ff.pwc.corr", "ff.pwc.dense", "ff.pwc.context")
 
 _OFF = contextlib.nullcontext()
 

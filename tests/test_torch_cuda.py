@@ -417,6 +417,12 @@ LOCAL_CORR_SHAPES = [
     ((2, 30, 50, 24), 3),    # B = 2, W not a multiple of 16, 8-byte copies
     ((1, 9, 40, 300), 4),    # three channel chunks through the ring
     ((1, 33, 70, 40), 2),    # radius 2, a last band of one row
+    # FF-PWCNet's levels 6 to 2 at 3840x2176 (a 3840x2160 frame resized)
+    ((1, 34, 60, 196), 4),
+    ((1, 68, 120, 128), 4),
+    ((1, 136, 240, 96), 4),
+    ((1, 272, 480, 64), 4),
+    ((1, 544, 960, 32), 4),  # 4,080 blocks of 8 rows
 ]
 
 

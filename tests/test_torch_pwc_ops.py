@@ -92,6 +92,25 @@ def test_backwarp_matches_jax():
     assert np.all(out == 0.0)  # x + W >= W for every x: outside
 
 
+def test_backwarp_in_bf16_masks_as_f32_does():
+    """The ones channel is sampled and thresholded in f32 whatever the
+    image's type: a bf16 image's warp is the f32 warp of the same values
+    cast to bf16, bit for bit. Thresholded in bf16 (0.999 rounds to 1, the
+    warped ones to 1 or at most 0.99609375) every pixel would be zeroed. The
+    flows here push the last column past the edge by 0.0015-0.0096 px, whose
+    ones channel (0.9904-0.9985) bf16 rounds to 0.99609375 or to 1."""
+    h, w = 12, 18
+    img = torch.from_numpy(RNG.randn(2, h, w, 5).astype(np.float32)).to(torch.bfloat16)
+    flow = (RNG.randn(2, h, w, 2) * 2).astype(np.float32)
+    flow[:, :, -1, 0] = np.linspace(0.0015, 0.0096, h)[None] * (w - 1) / w
+    flow[:, :, -1, 1] = 0.0
+    got = backwarp(img, _t(flow))
+    want = backwarp(img.float(), _t(flow)).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert bool((got != 0).any()) and bool((got[:, :, -1] == 0).all())
+
+
 @pytest.mark.parametrize("cin,cout", [(2, 2), (7, 2)])
 def test_conv_transpose_layer_matches_flax(cin, cout):
     """flax stores this kernel (kh, kw, O, I) (`transpose_kernel=True`); the

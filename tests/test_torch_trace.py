@@ -9,14 +9,21 @@ the CPU.
   twice, once a tower), the model's inside `ff.step.forward`, and the
   step's phases in their order.
 - `FlowPredictor` records the three model ranges inside its call.
+- FF-PWCNet's predictor records one `ff.model.encode` and one
+  `ff.model.refine` a call, and inside the refinement four `ff.pwc.warp`
+  (one a decoder below level 6), five `ff.pwc.corr` and five
+  `ff.pwc.dense` (one a level) and one `ff.pwc.context`, in the decoders'
+  order; kernel D is called once a level, at five shapes (on the CPU its
+  wrapper takes the plain version and counts no launch, so the calls are
+  counted).
 - ALT_CORR's forward walk records each of the two `ff.corr.*` ranges
   once a chunk walked (each chunk's `chunk_levels` call), inside
   `ff.model.refine`; the materialized volume records none of them and
   walks no chunk.
 - With no profiler a span is the shared null context and never enters
   `record_function`.
-- The loss, the parameters after the step and the served flows are
-  bit-equal with and without the profiler.
+- The loss, the parameters after the step and the served flows (FF-PWCNet's
+  too) are bit-equal with and without the profiler.
 """
 
 import copy
@@ -33,10 +40,12 @@ from focusflow_official_tpu_torch.compat.weights import load_npz
 from focusflow_official_tpu_torch.data.device_aug import DeviceFlowAugmentor
 from focusflow_official_tpu_torch.data.synthetic import chairs_layout
 from focusflow_official_tpu_torch.losses import build_sequence_loss
-from focusflow_official_tpu_torch.models import (FFFlowFormer, FFRaft, FFRaftConfig,
-                                                  FlowFormerConfig)
+from focusflow_official_tpu_torch.models import (FFFlowFormer, FFPWCNetConfig, FFRaft,
+                                                  FFRaftConfig, FlowFormerConfig)
+from focusflow_official_tpu_torch.nn import pwc as pwc_nn
 from focusflow_official_tpu_torch.ops import corr as corr_ops
 from focusflow_official_tpu_torch.ops.corr import chunk_levels
+from focusflow_official_tpu_torch.ops.local_corr import local_corr
 from focusflow_official_tpu_torch.predict import FlowPredictor
 from focusflow_official_tpu_torch.train.loop import build_optimizer, train_step
 from focusflow_official_tpu_torch.train.schedule import one_cycle
@@ -46,6 +55,7 @@ B, RAW, CROP, ITERS = 2, (80, 112), (64, 96), 2
 KEYS = ("image1", "image2", "mask1", "mask2", "flow", "valid")
 MODEL_SPANS = ("ff.model.encode", "ff.model.cost", "ff.model.refine")
 WALK_SPANS = ("ff.corr.product", "ff.corr.lookup")
+PWC_SPANS = ("ff.pwc.warp", "ff.pwc.corr", "ff.pwc.dense", "ff.pwc.context")
 FAMILIES = {
     "ff_raft": (lambda: FFRaftConfig(fusion="parallel", fuse_cnet=True, iters=ITERS),
                 FFRaft, "trained_smoke.npz", 3),
@@ -117,8 +127,9 @@ def test_a_train_step_records_each_span(family):
                               "ff.step.optimizer": 1, "device_aug": 1,
                               "ff.model.encode": FAMILIES[family][3], "ff.model.cost": 1,
                               "ff.model.refine": 1})
-    # every range but ALT_CORR's walk, which the materialized volume never opens
-    assert set(counts) == set(trace.SPANS) - set(WALK_SPANS)
+    # every range but ALT_CORR's walk, which the materialized volume never
+    # opens, and PWC-Net's decoders', which FF-RAFT and FF-FlowFormer have not
+    assert set(counts) == set(trace.SPANS) - set(WALK_SPANS) - set(PWC_SPANS)
     phases = {r[0]: r for r in ours if r[0] not in MODEL_SPANS}
     order = ["device_aug", "ff.step.forward", "ff.step.backward", "ff.step.optimizer"]
     assert all(phases[a][2] <= phases[b][1] for a, b in zip(order, order[1:]))
@@ -199,3 +210,40 @@ def test_the_alt_corr_walk_records_its_spans_once_a_chunk(alt_corr, monkeypatch)
     assert all(_inside(r, refine) for r in found if r[0] in WALK_SPANS)
     walk = [r[0] for r in found if r[0] in WALK_SPANS]
     assert walk == list(WALK_SPANS) * walked
+
+
+def test_the_pwc_predictor_records_its_spans(monkeypatch):
+    """A 64x96 pair (resized to 64x128 inside): levels 6 to 2 at 1x2 ...
+    16x32; D called once a level, the decoders' spans in their order."""
+    p = FlowPredictor(FFPWCNetConfig(), os.path.join(FIXTURES, "trained_smoke_pwc.npz"),
+                      device="cpu")
+    batch = _raw_batch()
+    inputs = [batch[k][:1, :64, :96].numpy() for k in KEYS[:4]]
+    untraced = p(*inputs)
+    calls = []
+
+    def counted(f1, *args, **kwargs):
+        calls.append(tuple(f1.shape))
+        return local_corr(f1, *args, **kwargs)
+
+    monkeypatch.setattr(pwc_nn, "local_corr", counted)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("call"):
+            traced = p(*inputs)
+    np.testing.assert_array_equal(traced, untraced)
+    (call,) = _ranges(prof, lambda name: name == "call")
+    found = _ranges(prof, _ours)
+    assert Counter(n for n, _, _ in found) == Counter(
+        {"ff.model.encode": 1, "ff.model.refine": 1, "ff.pwc.warp": 4, "ff.pwc.corr": 5,
+         "ff.pwc.dense": 5, "ff.pwc.context": 1})
+    assert all(_inside(r, call) for r in found)
+    (refine,) = [r for r in found if r[0] == "ff.model.refine"]
+    (encode,) = [r for r in found if r[0] == "ff.model.encode"]
+    assert encode[2] <= refine[1]
+    inner = [r for r in found if r[0] in PWC_SPANS]
+    assert all(_inside(r, refine) for r in inner)
+    assert [r[0] for r in inner] == (["ff.pwc.corr", "ff.pwc.dense"]
+                                     + ["ff.pwc.warp", "ff.pwc.corr", "ff.pwc.dense"] * 4
+                                     + ["ff.pwc.context"])
+    assert calls == [(1, 64 >> lvl, 128 >> lvl, c)
+                     for lvl, c in ((6, 196), (5, 128), (4, 96), (3, 64), (2, 32))]
